@@ -1,0 +1,233 @@
+"""Incremental bound-pod aggregation for churn-scale featurization.
+
+Featurizing a snapshot walks every BOUND pod to build additive node-space
+aggregates (requested-resource sums, inter-pod-affinity domain counts,
+topology-spread selector counts).  Under churn replay that walk is the
+scaling wall: the bound population reaches 10k+ while only ~200 pods
+change per scheduling pass, so re-aggregating from scratch costs
+O(bound) Python work per pass (measured 0.6s/pass at 11k bound pods —
+more than the TPU compute it feeds).
+
+This module lets a persistent ``Featurizer`` maintain those aggregates
+across passes:
+
+- ``NodeSlots`` pins each node NAME to a stable position on the node
+  axis so that node churn does not shift every other node's index
+  (deletion swap-removes: the last slot's node moves into the freed
+  slot, so exactly two slots change).  For a fresh instance the order is
+  first-seen order, i.e. identical to the caller's list.
+- ``sync_family`` maintains one aggregate: per-pod contribution records
+  applied additively (+1 on arrival, -1 on departure), with per-slot
+  repair when a slot's node changed (drained node, replaced object) and
+  a full rebuild whenever the family's validity token changes (vocab
+  growth, unit rescale, axis resize).
+
+Correctness contract: ``apply(arrays, rec, +1)`` followed by
+``apply(arrays, rec, -1)`` must be a no-op, and ``record_of(pod)`` must
+be a pure function of (pod content, the family token, current node
+slots).  The equivalence tests (tests/test_boundagg.py) replay random
+mutation sequences and assert a persistent featurizer's engine-visible
+outputs match a fresh featurizer's.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+from ksim_tpu_torch.state.resources import JSON, name_of
+
+__all__ = ["NodeSlots", "sync_family"]
+
+
+class NodeSlots:
+    """Persistent node-name -> axis-slot assignment with swap-remove."""
+
+    def __init__(self) -> None:
+        self.slot_of: dict[str, int] = {}
+        self._names: list[str] = []
+        # The node OBJECT last seen per slot (a strong ref, compared by
+        # identity): comparing bare id() values would miss a replacement
+        # whose new dict recycled the old dict's address.
+        self._objs: list[JSON] = []
+
+    def seed(self, names: Sequence[str]) -> None:
+        """Install a recorded name order VERBATIM (checkpoint restore,
+        ksim_tpu/jobs/manager.py).  Slot order is scheduling-visible —
+        selectHost breaks score ties by lowest slot index, and the
+        evolved swap-remove order diverges from first-seen order — so a
+        resumed run must start from the order the interrupted run had,
+        not rediscover it from the caller's list.  Per-slot object refs
+        reset to fresh sentinels: the next ``sync`` sees an identity
+        mismatch on every slot and marks them all changed, so the
+        additive families repair/rebuild against real objects (a fresh
+        featurizer rebuilds from scratch anyway — the seed trades one
+        full repair for the exact ORDER)."""
+        self.slot_of = {nm: i for i, nm in enumerate(names)}
+        self._names = list(names)
+        self._objs = [{} for _ in names]
+
+    def sync(self, nodes: Sequence[JSON]) -> tuple[list[JSON], set[int]]:
+        """Update the assignment for the current node set.
+
+        Returns (nodes reordered to slot order, slots whose occupant
+        changed since the previous call — by name or by object).
+        """
+        by_name = {name_of(n): n for n in nodes}
+        changed: set[int] = set()
+
+        # Deletions: swap-remove, highest slot first so the swap source
+        # is never itself a pending deletion's stale position.
+        gone = [s for nm, s in self.slot_of.items() if nm not in by_name]
+        for s in sorted(gone, reverse=True):
+            nm = self._names[s]
+            last = len(self._names) - 1
+            del self.slot_of[nm]
+            if s != last:
+                moved = self._names[last]
+                self._names[s] = moved
+                self._objs[s] = self._objs[last]
+                self.slot_of[moved] = s
+                changed.add(s)
+            self._names.pop()
+            self._objs.pop()
+            changed.discard(last)
+            changed.add(last)  # slot vanished (or shrank away)
+
+        # Additions + object changes.
+        for nm, n in by_name.items():
+            s = self.slot_of.get(nm)
+            if s is None:
+                s = len(self._names)
+                self.slot_of[nm] = s
+                self._names.append(nm)
+                self._objs.append(n)
+                changed.add(s)
+            elif self._objs[s] is not n:
+                self._objs[s] = n
+                changed.add(s)
+
+        ordered = [by_name[nm] for nm in self._names]
+        # Slots past the current end stay in ``changed``: records pinned
+        # to a vanished slot index must still be repaired.
+        return ordered, changed
+
+
+def sync_family(
+    state: dict,
+    name: str,
+    token: Any,
+    bound_map: dict[int, JSON],
+    changed_slots: set[int],
+    *,
+    make_arrays: Callable[[], Any],
+    record_of: Callable[[JSON], "tuple[int, Any] | None"],
+    apply: Callable[[Any, Any, int], None],
+) -> Any:
+    """Maintain one additive aggregate over the bound-pod population.
+
+    ``bound_map``: id(pod) -> pod for the CURRENT bound set (caller
+    builds it once per pass and shares it across families).
+    ``record_of``: pod -> (slot, contribution) or None (no contribution;
+    e.g. the pod's node does not exist).
+    ``apply``: apply a contribution to the arrays with sign +1/-1.
+
+    Returns the family's arrays (the live master — callers must treat
+    them as read-only and copy before handing them to the engine).
+    """
+    diff = state.get("__diff__")
+    fam = state.get(name)
+    if fam is not None and fam["token"] != token:
+        fam = None
+    if fam is None:
+        arrays = make_arrays()
+        records: dict[int, tuple[JSON, Any]] = {}
+        by_slot: dict[int, set[int]] = {}
+        nones: set[int] = set()
+        for pid, p in bound_map.items():
+            rec = record_of(p)
+            records[pid] = (p, rec)
+            if rec is None:
+                nones.add(pid)
+            else:
+                apply(arrays, rec, +1)
+                by_slot.setdefault(rec[0], set()).add(pid)
+        state[name] = {
+            "token": token,
+            "records": records,
+            "by_slot": by_slot,
+            "nones": nones,
+            "arrays": arrays,
+            "gen": diff["gen"] if diff else None,
+        }
+        return arrays
+
+    records = fam["records"]
+    by_slot = fam["by_slot"]
+    nones = fam["nones"]
+    arrays = fam["arrays"]
+
+    def _drop(pid: int) -> None:
+        _p, rec = records.pop(pid)
+        if rec is None:
+            nones.discard(pid)
+        else:
+            apply(arrays, rec, -1)
+            peers = by_slot.get(rec[0])
+            if peers is not None:
+                peers.discard(pid)
+                if not peers:
+                    del by_slot[rec[0]]
+
+    def _add(pid: int, p: JSON) -> None:
+        rec = record_of(p)
+        records[pid] = (p, rec)
+        if rec is None:
+            nones.add(pid)
+        else:
+            apply(arrays, rec, +1)
+            by_slot.setdefault(rec[0], set()).add(pid)
+
+    # 1+3. Departures and arrivals.  When the caller published a shared
+    # per-pass diff ("__diff__" in the state dict, written once by the
+    # featurizer) and this family was synced on the immediately preceding
+    # pass, consume the diff directly — O(changed) instead of two
+    # O(bound) scans per family per pass (the dict-walk cost dominated
+    # saturated churn-replay host time).  Any gap in the family's sync
+    # history (fresh family, skipped pass) falls back to the full scans.
+    if (
+        diff is not None
+        and fam.get("gen") is not None
+        and fam["gen"] == diff["gen"] - 1
+    ):
+        departures = [pid for pid in diff["removed"] if pid in records]
+        arrivals = [(pid, bound_map[pid]) for pid in diff["added"]]
+    else:
+        departures = [pid for pid in records if pid not in bound_map]
+        arrivals = None
+    for pid in departures:
+        _drop(pid)
+    # 2. Slot repairs: pods whose node changed (or vanished/moved), plus
+    #    previously node-less pods whenever any slot changed (their node
+    #    may just have appeared).
+    if changed_slots:
+        repair = set()
+        for s in changed_slots:
+            repair |= by_slot.get(s, set())
+        repair |= nones
+        for pid in repair:
+            if pid in bound_map:
+                p = records[pid][0]
+                _drop(pid)
+                _add(pid, p)
+    # 3. Arrivals.
+    if arrivals is not None:
+        for pid, p in arrivals:
+            if pid not in records:
+                _add(pid, p)
+    else:
+        for pid, p in bound_map.items():
+            if pid not in records:
+                _add(pid, p)
+    if diff is not None:
+        fam["gen"] = diff["gen"]
+    return arrays

@@ -1,0 +1,812 @@
+"""Vocabulary encodings: labels/selector terms and taints as tensors.
+
+SURVEY.md hard part 5 — "expressing label/taint/affinity matching as
+tensors".  The split that keeps semantics exact AND the device path dense:
+
+- **Host side** (here, numpy + exact string matching): build vocabularies
+  of distinct selector *requirements* (key, operator, values) and *terms*
+  (conjunctions of requirements) across the pod set, evaluate every
+  requirement against every node's labels once (Q x N boolean matrix),
+  and evaluate each pod's tolerations against the cluster's distinct
+  taints (P x W boolean matrix).  All In/NotIn/Exists/DoesNotExist/Gt/Lt
+  and toleration operator semantics run in Python — bit-exact by
+  construction (state/selectors.py, state/resources.py).
+- **Device side** (plugins/nodeaffinity.py, plugins/tainttoleration.py):
+  term matching reduces to an integer matmul — a node matches term t iff
+  its satisfied-requirement count over the term's requirement set equals
+  the term size — and taint filtering/scoring to masked reductions.
+
+Everything here keys into ``FeaturizedSnapshot.aux`` and rides into the
+jitted programs as traced inputs (never baked constants).
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import numpy as np
+
+from ksim_tpu_torch.state.resources import (
+    JSON,
+    labels_of,
+    name_of,
+    pod_tolerations,
+    toleration_tolerates,
+)
+from ksim_tpu_torch.state.selectors import match_node_selector_requirement
+
+FORBIDDING_EFFECTS = ("NoSchedule", "NoExecute")
+
+
+# -- node-affinity / node-selector encoding ---------------------------------
+
+
+def _vpad(n: int, minimum: int = 8) -> int:
+    from ksim_tpu_torch.state.featurizer import vocab_pad
+
+    return vocab_pad(n, minimum)
+
+
+def _canon(obj: Any) -> str:
+    return json.dumps(obj, sort_keys=True, separators=(",", ":"))
+
+
+@dataclass
+class AffinityTensors:
+    """Term-algebra arrays for NodeAffinity + pod.spec.nodeSelector."""
+
+    # Leading-axis kind per field, consumed by engine/sharding.shard_aux
+    # ("node" -> tp, "pod" -> dp, None -> replicated).
+    AXES = {
+        "node_req_match": "node",
+        "term_req": None,
+        "term_size": None,
+        "selector_term": "pod",
+        "has_required": "pod",
+        "required_terms": "pod",
+        "preferred_weights": "pod",
+        "added_terms": None,
+        "has_added": None,
+        "added_pref": None,
+    }
+
+    node_req_match: np.ndarray  # bool [N(padded), Q]
+    term_req: np.ndarray  # bool [T, Q]
+    term_size: np.ndarray  # int32 [T] (-1 for empty terms: match nothing)
+    selector_term: np.ndarray  # int32 [P(padded)] index into T, -1 = none
+    has_required: np.ndarray  # bool [P]
+    required_terms: np.ndarray  # bool [P, T]
+    preferred_weights: np.ndarray  # int32 [P, T]
+    # NodeAffinityArgs.addedAffinity (profile-level, upstream
+    # node_affinity.go addedNodeSelector/addedPrefSchedTerms): required
+    # terms ANDed into every pod's filter, preferred weights added to
+    # every pod's score.
+    added_terms: np.ndarray  # bool [T]
+    has_added: np.ndarray  # bool [1]
+    added_pref: np.ndarray  # int32 [T]
+
+    @property
+    def n_terms(self) -> int:
+        return self.term_req.shape[0]
+
+
+class _TermVocab:
+    def __init__(self) -> None:
+        self.reqs: dict[str, int] = {}
+        self.req_list: list[JSON] = []
+        self.terms: dict[str, int] = {}
+        self.term_list: list[list[int]] = []
+
+    def req_id(self, req: JSON) -> int:
+        return self.req_id_by_key(_canon(req), req)
+
+    def req_id_by_key(self, k: str, req: JSON) -> int:
+        if k not in self.reqs:
+            self.reqs[k] = len(self.req_list)
+            self.req_list.append(req)
+        return self.reqs[k]
+
+    def term_id(self, reqs: Sequence[JSON]) -> int:
+        return self._term_of_ids(sorted(self.req_id(r) for r in reqs))
+
+    def term_id_by_keys(self, pairs: Sequence[tuple[JSON, str]]) -> int:
+        """Term id from (req, canonical-key) pairs — skips re-canoning."""
+        return self._term_of_ids(sorted(self.req_id_by_key(k, r) for r, k in pairs))
+
+    def _term_of_ids(self, ids: list[int]) -> int:
+        k = _canon(ids)
+        if k not in self.terms:
+            self.terms[k] = len(self.term_list)
+            self.term_list.append(ids)
+        return self.terms[k]
+
+
+def _term_reqs_from_selector_term(term: JSON) -> list[JSON] | None:
+    """NodeSelectorTerm -> requirement list; None for terms that match
+    nothing: the empty term, or a matchFields key other than metadata.name
+    (the only supported field — upstream nodeaffinity.go)."""
+    reqs = []
+    for e in term.get("matchExpressions") or []:
+        reqs.append(dict(e))
+    for f in term.get("matchFields") or []:
+        if f.get("key") != "metadata.name":
+            return None
+        reqs.append({**f, "_field": True})
+    return reqs or None
+
+
+def _parsed_node_affinity(pod: JSON) -> dict:
+    """Vocab-independent nodeSelector/nodeAffinity parse with canonical
+    requirement keys, memoized per pod object.  Pairs are (req, canon)."""
+    from ksim_tpu_torch.state import objcache
+
+    def build() -> dict:
+        spec = pod.get("spec", {})
+        out: dict = {"sel": None, "req": None, "pref": []}
+        ns = spec.get("nodeSelector")
+        if ns:
+            reqs = [
+                {"key": k, "operator": "In", "values": [v]} for k, v in sorted(ns.items())
+            ]
+            out["sel"] = [(r, _canon(r)) for r in reqs]
+        aff = (spec.get("affinity") or {}).get("nodeAffinity") or {}
+        required = aff.get("requiredDuringSchedulingIgnoredDuringExecution")
+        if required is not None:
+            terms = []
+            for t in required.get("nodeSelectorTerms") or []:
+                reqs = _term_reqs_from_selector_term(t)
+                terms.append(None if reqs is None else [(r, _canon(r)) for r in reqs])
+            out["req"] = terms
+        for pt in aff.get("preferredDuringSchedulingIgnoredDuringExecution") or []:
+            reqs = _term_reqs_from_selector_term(pt.get("preference") or {})
+            out["pref"].append(
+                (
+                    None if reqs is None else [(r, _canon(r)) for r in reqs],
+                    int(pt.get("weight", 0)),
+                )
+            )
+        return out
+
+    return objcache.cached("affpod", pod, build)
+
+
+def encode_affinity(
+    nodes: Sequence[JSON],
+    pods: Sequence[JSON],
+    n_padded: int,
+    p_padded: int,
+    added_affinity: JSON | None = None,
+) -> AffinityTensors:
+    from ksim_tpu_torch.state import objcache
+
+    vocab = _TermVocab()
+
+    def term_of_pairs(pairs: list[tuple[JSON, str]]) -> int:
+        return vocab.term_id_by_keys(pairs)
+
+    sel_term = np.full(p_padded, -1, dtype=np.int32)
+    has_req = np.zeros(p_padded, dtype=bool)
+    req_terms: list[list[int]] = [[] for _ in range(p_padded)]
+    pref: list[dict[int, int]] = [{} for _ in range(p_padded)]
+
+    # Profile-level addedAffinity terms register in the same vocabulary
+    # (upstream NodeAffinityArgs.addedAffinity, node_affinity.go New).
+    added_req_ids: list[int] = []
+    has_added = False
+    added_pref_ids: dict[int, int] = {}
+    if added_affinity:
+        required = added_affinity.get("requiredDuringSchedulingIgnoredDuringExecution")
+        if required is not None:
+            has_added = True
+            for t in required.get("nodeSelectorTerms") or []:
+                reqs = _term_reqs_from_selector_term(t)
+                if reqs is not None:
+                    added_req_ids.append(vocab.term_id(reqs))
+        for pt in added_affinity.get("preferredDuringSchedulingIgnoredDuringExecution") or []:
+            reqs = _term_reqs_from_selector_term(pt.get("preference") or {})
+            if reqs is not None:
+                tid = vocab.term_id(reqs)
+                added_pref_ids[tid] = added_pref_ids.get(tid, 0) + int(pt.get("weight", 0))
+
+    for j, pod in enumerate(pods):
+        parsed = _parsed_node_affinity(pod)
+        if parsed["sel"] is not None:
+            sel_term[j] = term_of_pairs(parsed["sel"])
+        if parsed["req"] is not None:
+            has_req[j] = True
+            for pairs in parsed["req"]:
+                # Match-nothing terms contribute nothing to the OR.
+                if pairs is not None:
+                    req_terms[j].append(term_of_pairs(pairs))
+        for pairs, w in parsed["pref"]:
+            if pairs is not None:
+                tid = term_of_pairs(pairs)
+                pref[j][tid] = pref[j].get(tid, 0) + w
+
+    Q = _vpad(len(vocab.req_list))
+    T = _vpad(len(vocab.term_list))
+    Q0 = len(vocab.req_list)
+    reqs_token = tuple(vocab.reqs)
+    reqs_tok = objcache.intern_token(reqs_token)
+
+    def node_row(node: JSON) -> np.ndarray:
+        key = ("affnode", objcache.ref_id(node), reqs_tok)
+        hit = objcache.get(key)
+        if hit is not objcache.MISS:
+            return hit
+        lbls = dict(labels_of(node))
+        field_lbls = {"metadata.name": name_of(node)}
+        row = np.zeros(Q0, dtype=bool)
+        for qi, req in enumerate(vocab.req_list):
+            if req.get("_field"):
+                r = {k: v for k, v in req.items() if k != "_field"}
+                row[qi] = match_node_selector_requirement(r, field_lbls)
+            else:
+                row[qi] = match_node_selector_requirement(req, lbls)
+        return objcache.put(key, row)
+
+    def build_node_matrix() -> np.ndarray:
+        m = np.zeros((n_padded, max(Q, 1)), dtype=bool)
+        for ni, node in enumerate(nodes):
+            m[ni, :Q0] = node_row(node)
+        return m
+
+    # Family-cached on (exact node objects, requirement vocab): the
+    # assembled matrix is identical whenever neither changed — every
+    # churn pass without a node event once the term vocab stabilizes.
+    node_req_match = objcache.cached_seq(
+        "enc_aff_nodes", nodes, build_node_matrix, reqs_tok, n_padded
+    )
+
+    term_req = np.zeros((max(T, 1), max(Q, 1)), dtype=bool)
+    term_size = np.full(max(T, 1), -1, dtype=np.int32)
+    for ti, ids in enumerate(vocab.term_list):
+        for qi in ids:
+            term_req[ti, qi] = True
+        term_size[ti] = len(ids)
+
+    required_terms = np.zeros((p_padded, max(T, 1)), dtype=bool)
+    preferred_weights = np.zeros((p_padded, max(T, 1)), dtype=np.int32)
+    for j in range(p_padded):
+        for tid in req_terms[j]:
+            required_terms[j, tid] = True
+        for tid, w in pref[j].items():
+            preferred_weights[j, tid] = w
+
+    added_terms = np.zeros(max(T, 1), dtype=bool)
+    for tid in added_req_ids:
+        added_terms[tid] = True
+    added_pref = np.zeros(max(T, 1), dtype=np.int32)
+    for tid, w in added_pref_ids.items():
+        added_pref[tid] = w
+
+    return AffinityTensors(
+        node_req_match=node_req_match,
+        term_req=term_req,
+        term_size=term_size,
+        selector_term=sel_term,
+        has_required=has_req,
+        required_terms=required_terms,
+        preferred_weights=preferred_weights,
+        added_terms=added_terms,
+        has_added=np.array([has_added]),
+        added_pref=added_pref,
+    )
+
+
+# -- taint / toleration encoding --------------------------------------------
+
+
+@dataclass
+class TaintTensors:
+    """Distinct-taint vocabulary arrays."""
+
+    AXES = {
+        "node_taint_order": "node",
+        "forbidding": None,
+        "prefer": None,
+        "pod_tolerated": "pod",
+        "pod_tolerated_prefer": "pod",
+    }
+
+    taints: list[JSON]  # W distinct taints (key, value, effect)
+    node_taint_order: np.ndarray  # int32 [N(padded), W], position+1, 0=absent
+    forbidding: np.ndarray  # bool [W] effect in (NoSchedule, NoExecute)
+    prefer: np.ndarray  # bool [W] effect == PreferNoSchedule
+    pod_tolerated: np.ndarray  # bool [P(padded), W] (all tolerations)
+    pod_tolerated_prefer: np.ndarray  # bool [P, W] (effect ""|PreferNoSchedule tolerations only)
+
+    @property
+    def n_taints(self) -> int:
+        return len(self.taints)
+
+
+def encode_taints(
+    nodes: Sequence[JSON], pods: Sequence[JSON], n_padded: int, p_padded: int
+) -> TaintTensors:
+    from ksim_tpu_torch.state import objcache
+
+    def build_node_side():
+        """The taint vocabulary and every node-derived array — a pure
+        function of the node list (+ n_padded), cached as a family on
+        the exact node objects (objcache.cached_seq): under churn the
+        node list is identical most passes, and this loop over every
+        node was a top featurize cost."""
+        vocab: dict[str, int] = {}
+        taints: list[JSON] = []
+
+        def tid(key: str, t: JSON) -> int:
+            if key not in vocab:
+                vocab[key] = len(taints)
+                taints.append(
+                    {"key": t.get("key", ""), "value": t.get("value", ""), "effect": t.get("effect", "")}
+                )
+            return vocab[key]
+
+        def node_taints(node: JSON) -> list[tuple[str, JSON]]:
+            """[(canonical key, taint)] per node, memoized per object."""
+
+            def build() -> list[tuple[str, JSON]]:
+                return [
+                    (
+                        _canon({"key": t.get("key", ""), "value": t.get("value", ""), "effect": t.get("effect", "")}),
+                        t,
+                    )
+                    for t in node.get("spec", {}).get("taints") or []
+                ]
+
+            return objcache.cached("nodetaints", node, build)
+
+        per_node: list[list[int]] = []
+        for node in nodes:
+            per_node.append([tid(k, t) for k, t in node_taints(node)])
+
+        W = _vpad(len(taints))
+        order = np.zeros((n_padded, W), dtype=np.int32)
+        for ni, ids in enumerate(per_node):
+            for pos, w in enumerate(ids):
+                if order[ni, w] == 0:
+                    order[ni, w] = pos + 1
+        forbidding = np.zeros(W, dtype=bool)
+        prefer = np.zeros(W, dtype=bool)
+        for w, t in enumerate(taints):
+            forbidding[w] = t["effect"] in FORBIDDING_EFFECTS
+            prefer[w] = t["effect"] == "PreferNoSchedule"
+        return taints, order, forbidding, prefer, tuple(vocab), W
+
+    taints, order, forbidding, prefer, taints_token, W = objcache.cached_seq(
+        "enc_taints_nodes", nodes, build_node_side, n_padded
+    )
+    W0 = len(taints)
+    taints_tok = objcache.intern_token(taints_token)
+
+    def tol_rows(pod: JSON) -> tuple[np.ndarray, np.ndarray]:
+        """(tolerated, tolerated_prefer) rows over the taint vocab,
+        memoized per (pod object, vocab)."""
+        key = ("taintrow", objcache.ref_id(pod), taints_tok)
+        hit = objcache.get(key)
+        if hit is not objcache.MISS:
+            return hit
+        tols = pod_tolerations(pod)
+        prefer_tols = [t for t in tols if (t.get("effect") or "") in ("", "PreferNoSchedule")]
+        row = np.fromiter(
+            (any(toleration_tolerates(tl, t) for tl in tols) for t in taints),
+            dtype=bool,
+            count=W0,
+        )
+        prow = np.fromiter(
+            (any(toleration_tolerates(tl, t) for tl in prefer_tols) for t in taints),
+            dtype=bool,
+            count=W0,
+        )
+        return objcache.put(key, (row, prow))
+
+    tolerated = np.zeros((p_padded, W), dtype=bool)
+    tolerated_prefer = np.zeros((p_padded, W), dtype=bool)
+    for j, pod in enumerate(pods):
+        row, prow = tol_rows(pod)
+        tolerated[j, :W0] = row
+        tolerated_prefer[j, :W0] = prow
+
+    return TaintTensors(
+        taints=taints,
+        node_taint_order=order,
+        forbidding=forbidding,
+        prefer=prefer,
+        pod_tolerated=tolerated,
+        pod_tolerated_prefer=tolerated_prefer,
+    )
+
+
+# -- pod-topology-spread encoding -------------------------------------------
+
+
+@dataclass
+class SpreadTensors:
+    """PodTopologySpread constraint tables and per-node selector counts.
+
+    S = distinct selector contexts (namespace, effective labelSelector —
+    matchLabelKeys merged in); TK = distinct topology keys; Dom = distinct
+    (key, value) domains; MC = max constraints per pod.
+    """
+
+    AXES = {
+        "node_dom": "node",
+        "node_ldom": "node",
+        "init_counts": "node",
+        "pod_sel_match": "pod",
+        "con_valid": "pod",
+        "con_mode": "pod",
+        "con_sel": "pod",
+        "con_tk": "pod",
+        "con_max_skew": "pod",
+        "con_min_domains": "pod",
+        "con_self": "pod",
+        "con_honor_aff": "pod",
+        "con_honor_taints": "pod",
+        "has_score_con": "pod",
+    }
+
+    n_domains: int  # static Dom size (for segment ops)
+    tk_sizes: tuple  # static per-key local-domain counts (>=1 each)
+    tk_singleton: tuple  # static per-key: every domain holds <=1 node
+    node_dom: np.ndarray  # int32 [N, TK], domain id or -1
+    node_ldom: np.ndarray  # int32 [N, TK], per-key LOCAL domain id or -1
+    init_counts: np.ndarray  # int32 [N, S] matching bound pods per node
+    pod_sel_match: np.ndarray  # bool [P, S] queue pod matches context
+    con_valid: np.ndarray  # bool [P, MC]
+    con_mode: np.ndarray  # int32 [P, MC] 0=DoNotSchedule 1=ScheduleAnyway
+    con_sel: np.ndarray  # int32 [P, MC] selector-context id
+    con_tk: np.ndarray  # int32 [P, MC] topology-key id
+    con_max_skew: np.ndarray  # int32 [P, MC]
+    con_min_domains: np.ndarray  # int32 [P, MC] 0 = unset
+    con_self: np.ndarray  # bool [P, MC] pod matches own selector
+    con_honor_aff: np.ndarray  # bool [P, MC] nodeAffinityPolicy Honor
+    con_honor_taints: np.ndarray  # bool [P, MC] nodeTaintsPolicy Honor
+    has_score_con: np.ndarray  # bool [P]
+
+
+# Upstream pkg/scheduler/apis/config/v1/defaults.go systemDefaultConstraints
+# (defaultingType: System — the reference's exported default config carries
+# it, simulator/snapshot/snapshot_test.go:1415).
+SYSTEM_DEFAULT_CONSTRAINTS: tuple = (
+    {
+        "topologyKey": "topology.kubernetes.io/zone",
+        "whenUnsatisfiable": "ScheduleAnyway",
+        "maxSkew": 3,
+    },
+    {
+        "topologyKey": "kubernetes.io/hostname",
+        "whenUnsatisfiable": "ScheduleAnyway",
+        "maxSkew": 5,
+    },
+)
+
+
+def default_spread_selector(
+    pod: JSON,
+    services: Sequence[JSON] = (),
+    replication_controllers: Sequence[JSON] = (),
+    replica_sets: Sequence[JSON] = (),
+    stateful_sets: Sequence[JSON] = (),
+) -> JSON | None:
+    """Upstream helper.DefaultSelector (plugins/helper/spread.go): merge
+    the selectors of the services selecting the pod and the pod's
+    controller (RC/RS/StatefulSet).  Returns None when the merged
+    selector is EMPTY — buildDefaultConstraints then applies NO default
+    constraints (pod_topology_spread/common.go ``if selector.Empty()``).
+
+    The snapshot model carries none of these kinds (reference
+    simulator/snapshot/snapshot.go:33-42 — pods, nodes, pvs, pvcs,
+    storageClasses, priorityClasses, schedulerConfig), so in both the
+    reference and here the selector is always empty and
+    defaultConstraints/System defaulting are inert: the same blind spot,
+    by construction.  The parameters exist so the behavior stays
+    upstream-shaped if the snapshot model ever grows these kinds."""
+    from ksim_tpu_torch.state.resources import namespace_of
+
+    ns = namespace_of(pod) or "default"
+    pod_labels = dict(labels_of(pod))
+    merged: dict[str, str] = {}
+    for svc in services:
+        if (namespace_of(svc) or "default") != ns:
+            continue
+        sel = (svc.get("spec") or {}).get("selector") or {}
+        if sel and all(pod_labels.get(k) == v for k, v in sel.items()):
+            merged.update(sel)
+    exprs: list[JSON] = []
+    owner = next(
+        (
+            o
+            for o in (pod.get("metadata", {}).get("ownerReferences") or [])
+            if o.get("controller")
+        ),
+        None,
+    )
+    if owner:
+        kind = owner.get("kind")
+        o_name = owner.get("name")
+        pool = {
+            "ReplicationController": replication_controllers,
+            "ReplicaSet": replica_sets,
+            "StatefulSet": stateful_sets,
+        }.get(kind, ())
+        for obj in pool:
+            if name_of(obj) != o_name or (namespace_of(obj) or "default") != ns:
+                continue
+            sel = (obj.get("spec") or {}).get("selector") or {}
+            if kind == "ReplicationController":
+                merged.update(sel)
+            else:
+                merged.update(sel.get("matchLabels") or {})
+                exprs.extend(sel.get("matchExpressions") or [])
+    if not merged and not exprs:
+        return None
+    out: JSON = {}
+    if merged:
+        out["matchLabels"] = merged
+    if exprs:
+        out["matchExpressions"] = exprs
+    return out
+
+
+def _effective_selector(con: JSON, pod: JSON) -> JSON:
+    """labelSelector with matchLabelKeys folded in as In-requirements on
+    the pod's own label values (upstream MatchLabelKeysInPodTopologySpread,
+    beta/on in v1.30)."""
+    sel = dict(con.get("labelSelector") or {})
+    keys = con.get("matchLabelKeys") or []
+    if keys:
+        pod_labels = labels_of(pod)
+        exprs = list(sel.get("matchExpressions") or [])
+        for k in keys:
+            if k in pod_labels:
+                exprs.append({"key": k, "operator": "In", "values": [pod_labels[k]]})
+        sel["matchExpressions"] = exprs
+    return sel
+
+
+def encode_topology_spread(
+    nodes: Sequence[JSON],
+    pods: Sequence[JSON],
+    bound_pods: Sequence[JSON],
+    n_padded: int,
+    p_padded: int,
+    *,
+    agg: dict | None = None,
+    bound_map: "dict[int, JSON] | None" = None,
+    changed_slots: "set[int] | None" = None,
+    slot_of: "dict[str, int] | None" = None,
+    default_constraints: tuple | None = None,
+) -> SpreadTensors:
+    """``agg``/``bound_map``/``changed_slots``/``slot_of`` come from a
+    persistent Featurizer (state/boundagg.py): the selector vocabulary
+    then persists append-only across calls and the per-node
+    selector-match counts over BOUND pods update by delta.  Without
+    ``agg`` every call is a one-shot rebuild (same code path, throwaway
+    state)."""
+    from ksim_tpu_torch.state.resources import namespace_of
+    from ksim_tpu_torch.state.selectors import match_label_selector
+
+    agg = agg if agg is not None else {}
+    if bound_map is None:
+        bound_map = {id(p): p for p in bound_pods}
+    changed_slots = changed_slots if changed_slots is not None else set()
+
+    tk_vocab: dict[str, int] = {}
+    dom_vocab: dict[tuple[int, str], int] = {}
+    sels = agg.setdefault("spread_sels", {"vocab": {}, "list": []})
+    if len(sels["list"]) > 4096:
+        # Reset valve (same pattern as the interpod vocabularies): an
+        # adversarial stream of distinct selectors must not grow the
+        # vocabulary — and the (N x S) count arrays — without bound.
+        agg.pop("spread_sels", None)
+        agg.pop("spread_init", None)
+        sels = agg.setdefault("spread_sels", {"vocab": {}, "list": []})
+    sel_vocab: dict[str, int] = sels["vocab"]
+    sel_list: list[tuple[str, JSON]] = sels["list"]  # (namespace, selector)
+
+    def tk_id(k: str) -> int:
+        if k not in tk_vocab:
+            tk_vocab[k] = len(tk_vocab)
+        return tk_vocab[k]
+
+    def sel_id_by_key(key: str, ns: str, sel: JSON) -> int:
+        if key not in sel_vocab:
+            sel_vocab[key] = len(sel_list)
+            sel_list.append((ns, sel))
+        return sel_vocab[key]
+
+    from ksim_tpu_torch.state import objcache
+
+    defaults_token = _canon(list(default_constraints)) if default_constraints else ""
+
+    def parsed_cons(pod: JSON) -> list[dict]:
+        """Vocab-independent constraint parse, memoized per pod object
+        (the effective selector and its canonical key are the expensive
+        parts; vocab ids are assigned per call).  Pods without their own
+        constraints fall back to the profile's defaultConstraints
+        (PodTopologySpreadArgs; upstream pod_topology_spread/common.go
+        buildDefaultConstraints) — whose selector comes from
+        default_spread_selector and is empty in the snapshot model, so
+        the fallback yields no constraints (documented there)."""
+
+        def build() -> list[dict]:
+            ns = namespace_of(pod) or "default"
+            out = []
+            own = pod.get("spec", {}).get("topologySpreadConstraints") or []
+            cons_src = own
+            if not own and default_constraints:
+                sel = default_spread_selector(pod)
+                if sel is not None:
+                    cons_src = [
+                        dict(c, labelSelector=sel) for c in default_constraints
+                    ]
+            for con in cons_src:
+                sel = _effective_selector(con, pod)
+                out.append(
+                    {
+                        "tk_str": con.get("topologyKey", ""),
+                        "ns": ns,
+                        "sel_obj": sel,
+                        "sel_key": _canon({"ns": ns, "sel": sel}),
+                        "mode": 0 if con.get("whenUnsatisfiable", "DoNotSchedule") == "DoNotSchedule" else 1,
+                        "max_skew": int(con.get("maxSkew", 1)),
+                        "min_domains": int(con.get("minDomains") or 0),
+                        "self": match_label_selector(sel, labels_of(pod)),
+                        "honor_aff": (con.get("nodeAffinityPolicy") or "Honor") == "Honor",
+                        "honor_taints": (con.get("nodeTaintsPolicy") or "Ignore") == "Honor",
+                    }
+                )
+            return out
+
+        return objcache.cached("spreadcons", pod, build, defaults_token)
+
+    # Pass 1: constraint tables.
+    per_pod_cons: list[list[dict]] = []
+    for pod in pods:
+        cons = []
+        for c in parsed_cons(pod):
+            cons.append(
+                dict(c, tk=tk_id(c["tk_str"]), sel=sel_id_by_key(c["sel_key"], c["ns"], c["sel_obj"]))
+            )
+        per_pod_cons.append(cons)
+
+    TK = max(len(tk_vocab), 1)
+
+    def build_node_domains():
+        """Node-domain tables — a pure function of (node list, topology
+        -key vocab); ``dom_vocab`` is call-local here (unlike interpod's
+        persistent one), so the whole output is cacheable as a family on
+        the exact node objects + key token."""
+        node_dom = np.full((n_padded, TK), -1, dtype=np.int32)
+        node_ldom = np.full((n_padded, TK), -1, dtype=np.int32)
+        tk_sizes = [1] * TK
+        tk_singleton = [True] * TK
+        per_key_loc: list[dict[str, int]] = [{} for _ in range(TK)]
+        per_key_cnt: list[dict[int, int]] = [{} for _ in range(TK)]
+        for ni, node in enumerate(nodes):
+            lbls = labels_of(node)
+            for k, ki in tk_vocab.items():
+                if k in lbls:
+                    dk = (ki, lbls[k])
+                    if dk not in dom_vocab:
+                        dom_vocab[dk] = len(dom_vocab)
+                    node_dom[ni, ki] = dom_vocab[dk]
+                    li = per_key_loc[ki].setdefault(lbls[k], len(per_key_loc[ki]))
+                    node_ldom[ni, ki] = li
+                    per_key_cnt[ki][li] = per_key_cnt[ki].get(li, 0) + 1
+        for ki in range(TK):
+            tk_sizes[ki] = max(len(per_key_loc[ki]), 1)
+            tk_singleton[ki] = all(c <= 1 for c in per_key_cnt[ki].values())
+        return node_dom, node_ldom, tk_sizes, tk_singleton, max(len(dom_vocab), 1)
+
+    node_dom, node_ldom, tk_sizes, tk_singleton, n_domains = objcache.cached_seq(
+        "enc_spread_nodes", nodes, build_node_domains, tuple(tk_vocab), n_padded
+    )
+
+    S = _vpad(len(sel_list))
+    S0 = len(sel_list)
+    # Per-pod selector-match rows, memoized on (pod object, selector
+    # vocab) — the vocab stabilizes under churn, so unchanged pods cost
+    # one lookup per pass.
+    sels_token = tuple(sel_vocab)
+    sels_tok = objcache.intern_token(sels_token)
+
+    def sel_row(pod: JSON) -> np.ndarray:
+        key = ("spreadrow", objcache.ref_id(pod), sels_tok)
+        hit = objcache.get(key)
+        if hit is not objcache.MISS:
+            return hit
+        pod_ns = namespace_of(pod) or "default"
+        pod_labels = labels_of(pod)
+        row = np.fromiter(
+            (pod_ns == ns and match_label_selector(sel, pod_labels) for ns, sel in sel_list),
+            dtype=bool,
+            count=S0,
+        )
+        return objcache.put(key, row)
+
+    from ksim_tpu_torch.state.boundagg import sync_family
+
+    node_index = slot_of if slot_of is not None else {
+        name_of(n): i for i, n in enumerate(nodes)
+    }
+    N0 = len(nodes)
+
+    def _init_record(bp: JSON):
+        ni = node_index.get(bp.get("spec", {}).get("nodeName", ""))
+        if ni is None or ni >= N0:
+            return None
+        return (ni, sel_row(bp))
+
+    def _init_apply(arr, rec, sign: int) -> None:
+        ni, row = rec
+        if sign > 0:
+            arr[ni, : row.shape[0]] += row
+        else:
+            arr[ni, : row.shape[0]] -= row
+
+    init_counts = sync_family(
+        agg,
+        "spread_init",
+        (sels_tok, S, S0, n_padded),
+        bound_map,
+        changed_slots,
+        make_arrays=lambda: np.zeros((n_padded, S), dtype=np.int32),
+        record_of=_init_record,
+        apply=_init_apply,
+    ).copy()
+
+    pod_sel_match = np.zeros((p_padded, S), dtype=bool)
+    for j, pod in enumerate(pods):
+        pod_sel_match[j, :S0] = sel_row(pod)
+
+    MC = max((len(c) for c in per_pod_cons), default=0)
+    MC = _vpad(MC, minimum=2)
+    shape = (p_padded, MC)
+    con_valid = np.zeros(shape, dtype=bool)
+    con_mode = np.zeros(shape, dtype=np.int32)
+    con_sel = np.zeros(shape, dtype=np.int32)
+    con_tk = np.zeros(shape, dtype=np.int32)
+    con_max_skew = np.ones(shape, dtype=np.int32)
+    con_min_domains = np.zeros(shape, dtype=np.int32)
+    con_self = np.zeros(shape, dtype=bool)
+    con_honor_aff = np.ones(shape, dtype=bool)
+    con_honor_taints = np.zeros(shape, dtype=bool)
+    has_score = np.zeros(p_padded, dtype=bool)
+    for j, cons in enumerate(per_pod_cons):
+        for ci, c in enumerate(cons):
+            con_valid[j, ci] = True
+            con_mode[j, ci] = c["mode"]
+            con_sel[j, ci] = c["sel"]
+            con_tk[j, ci] = c["tk"]
+            con_max_skew[j, ci] = c["max_skew"]
+            con_min_domains[j, ci] = c["min_domains"]
+            con_self[j, ci] = c["self"]
+            con_honor_aff[j, ci] = c["honor_aff"]
+            con_honor_taints[j, ci] = c["honor_taints"]
+            if c["mode"] == 1:
+                has_score[j] = True
+
+    return SpreadTensors(
+        n_domains=n_domains,
+        tk_sizes=tuple(tk_sizes),
+        tk_singleton=tuple(tk_singleton),
+        node_dom=node_dom,
+        node_ldom=node_ldom,
+        init_counts=init_counts,
+        pod_sel_match=pod_sel_match,
+        con_valid=con_valid,
+        con_mode=con_mode,
+        con_sel=con_sel,
+        con_tk=con_tk,
+        con_max_skew=con_max_skew,
+        con_min_domains=con_min_domains,
+        con_self=con_self,
+        con_honor_aff=con_honor_aff,
+        con_honor_taints=con_honor_taints,
+        has_score_con=has_score,
+    )

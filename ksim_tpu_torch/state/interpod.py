@@ -1,0 +1,518 @@
+"""InterPodAffinity tensor encoding.
+
+SURVEY.md hard part 3 — the O(P x N x existing-pods) pairwise pod-pod term
+matching of InterPodAffinity (the capability the reference exercises through
+its wrapped plugin calls, reference simulator/scheduler/plugin/
+wrappedplugin.go:420-548; semantics re-derived from upstream kube-scheduler
+v1.30 plugins/interpodaffinity/{filtering,scoring}.go).
+
+The same host/device split as the other affinity-family encoders
+(state/encoding.py):
+
+- **Host side** (here): build vocabularies of distinct *match contexts*
+  (namespaces + namespaceSelector + labelSelector — the part of an affinity
+  term that matches *pods*) and *terms* (context x topologyKey).  Evaluate
+  every bound and queue pod against every context once in exact Python.
+- **Device side** (plugins/interpodaffinity.py): per-node domain-count
+  tensors are the scan carry itself, so every per-pod check is a
+  ``[N,T] x [T]`` matvec — vmapped over pods these become ``[P,T] x [T,N]``
+  MXU matmuls.
+
+Scan-carried state (so later queue pods see earlier placements) is kept in
+NODE space with the domain aggregation PRE-APPLIED: ``cnt_node`` [N,T]
+(pods matching term t's context anywhere in node n's t-domain),
+``ecnt_node`` [N,T] (pods with required anti-affinity term t in n's
+t-domain), ``ew_node`` [N,T] (signed score weight of existing pods' terms
+in n's t-domain: required-affinity terms count HardPodAffinityWeight each,
+preferred affinity +w, preferred anti-affinity -w — upstream scoring.go
+processExistingPod), ``total`` [T] (cluster-wide matches on key-carrying
+nodes, the first-pod-escape check).  Committing a pod to node b updates
+all nodes sharing b's domain with an elementwise same-domain mask — no
+gather, scatter, or segment reduction anywhere in the scan step (TPU
+gathers cost ~50us inside a compiled loop; elementwise [N,T] ops are
+effectively free).  The domain-space tables built here exist only to
+initialize those carries host-side.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import numpy as np
+
+from ksim_tpu_torch.state.resources import JSON, labels_of, name_of, namespace_of
+from ksim_tpu_torch.state.selectors import match_label_selector
+
+# Upstream interpodaffinity default args (scheduler.config defaults).
+DEFAULT_HARD_POD_AFFINITY_WEIGHT = 1
+
+
+def _canon(obj: Any) -> str:
+    return json.dumps(obj, sort_keys=True, separators=(",", ":"))
+
+
+@dataclass
+class InterPodTensors:
+    """Vocab arrays for the InterPodAffinity kernels.
+
+    Axes: N nodes (padded), P queue pods (padded), U distinct match
+    contexts, T distinct (context, topologyKey) terms, TK distinct topology
+    keys, Dom distinct (key, value) domains.
+    """
+
+    AXES = {
+        "node_dom": "node",
+        "dom_t": "node",
+        "cnt_node": "node",
+        "ecnt_node": "node",
+        "ew_node": "node",
+        "total": None,
+        "term_u": None,
+        "term_tk": None,
+        "pod_ctx_match": "pod",
+        "pod_term_match": "pod",
+        "req_aff": "pod",
+        "req_anti": "pod",
+        "self_aff": "pod",
+        "pref_w": "pod",
+        "pod_vw": "pod",
+        "pod_eat": "pod",
+    }
+
+    n_domains: int  # static Dom size
+    hard_weight: int  # HardPodAffinityWeight folded into ew/pod_vw
+    node_dom: np.ndarray  # i32 [N, TK] domain id or -1 (key absent)
+    dom_t: np.ndarray  # i32 [N, T] == node_dom[:, term_tk] (per-term view)
+    cnt_node: np.ndarray  # i32 [N, T] initial t-domain ctx matches per node
+    ecnt_node: np.ndarray  # i32 [N, T] initial t-domain required-anti counts
+    ew_node: np.ndarray  # i32 [N, T] initial t-domain signed score weight
+    total: np.ndarray  # i32 [T] initial cluster-wide matches (escape check)
+    term_u: np.ndarray  # i32 [T] term -> context id
+    term_tk: np.ndarray  # i32 [T] term -> topology-key id
+    pod_ctx_match: np.ndarray  # bool [P, U] queue pod matches ctx u
+    pod_term_match: np.ndarray  # bool [P, T] == pod_ctx_match[:, term_u]
+    req_aff: np.ndarray  # bool [P, T] pod's required affinity terms
+    req_anti: np.ndarray  # bool [P, T] pod's required anti-affinity terms
+    self_aff: np.ndarray  # bool [P] pod matches ALL its own required aff terms
+    pref_w: np.ndarray  # i32 [P, T] incoming preferred weights (signed)
+    pod_vw: np.ndarray  # i32 [P, T] pod's ew contribution when committed
+    pod_eat: np.ndarray  # i32 [P, T] pod's ranti contribution when committed
+
+
+class _Vocab:
+    """Context and term id assignment with exact canonical keys."""
+
+    def __init__(self) -> None:
+        self.ctx_ids: dict[str, int] = {}
+        self.ctxs: list[dict] = []
+        self.term_ids: dict[tuple[int, int], int] = {}
+        self.terms: list[tuple[int, int]] = []
+        self.tk_ids: dict[str, int] = {}
+
+    def ctx_id(self, ctx: dict) -> int:
+        return self.ctx_id_by_key(
+            _canon({"ns": ctx["namespaces"], "nsSel": ctx["ns_sel"], "sel": ctx["sel"]}),
+            ctx,
+        )
+
+    def ctx_id_by_key(self, k: str, ctx: dict) -> int:
+        if k not in self.ctx_ids:
+            self.ctx_ids[k] = len(self.ctxs)
+            self.ctxs.append(ctx)
+        return self.ctx_ids[k]
+
+    def tk_id(self, k: str) -> int:
+        if k not in self.tk_ids:
+            self.tk_ids[k] = len(self.tk_ids)
+        return self.tk_ids[k]
+
+    def term_id(self, u: int, tk: int) -> int:
+        key = (u, tk)
+        if key not in self.term_ids:
+            self.term_ids[key] = len(self.terms)
+            self.terms.append(key)
+        return self.term_ids[key]
+
+
+def term_context(term: JSON, owner_ns: str) -> dict:
+    """An affinity term's pod-matching part (upstream framework
+    AffinityTerm): explicit namespaces default to the DEFINING pod's
+    namespace iff both namespaces and namespaceSelector are unset; a nil
+    labelSelector matches NOTHING (metav1.LabelSelectorAsSelector(nil))
+    while an empty one matches everything.  Memoized per term object so
+    the returned dict is identity-stable across featurizations."""
+    from ksim_tpu_torch.state import objcache
+
+    return objcache.cached("ipctx", term, lambda: _term_context(term, owner_ns), owner_ns)
+
+
+def _term_context(term: JSON, owner_ns: str) -> dict:
+    namespaces = sorted(term.get("namespaces") or [])
+    ns_sel = term.get("namespaceSelector")
+    if not namespaces and ns_sel is None:
+        namespaces = [owner_ns]
+    return {
+        "namespaces": namespaces,
+        "ns_sel": ns_sel,
+        "sel": term.get("labelSelector"),
+    }
+
+
+def context_matches(ctx: dict, pod: JSON, ns_labels: dict[str, dict]) -> bool:
+    """AffinityTerm.Matches(pod, nsLabels): namespace gate then selector."""
+    ns = namespace_of(pod) or "default"
+    in_ns = ns in ctx["namespaces"] or (
+        ctx["ns_sel"] is not None
+        and match_label_selector(ctx["ns_sel"], ns_labels.get(ns, {}))
+    )
+    if not in_ns:
+        return False
+    if ctx["sel"] is None:
+        return False
+    return match_label_selector(ctx["sel"], labels_of(pod))
+
+
+def _pod_terms(pod: JSON) -> dict[str, list]:
+    """Extract the four term families from a pod spec (memoized)."""
+    from ksim_tpu_torch.state import objcache
+
+    def build() -> dict[str, list]:
+        aff = (pod.get("spec", {}).get("affinity") or {})
+        pa = aff.get("podAffinity") or {}
+        paa = aff.get("podAntiAffinity") or {}
+        return {
+            "req_aff": list(pa.get("requiredDuringSchedulingIgnoredDuringExecution") or []),
+            "req_anti": list(paa.get("requiredDuringSchedulingIgnoredDuringExecution") or []),
+            "pref_aff": list(pa.get("preferredDuringSchedulingIgnoredDuringExecution") or []),
+            "pref_anti": list(paa.get("preferredDuringSchedulingIgnoredDuringExecution") or []),
+        }
+
+    return objcache.cached("ipterms", pod, build)
+
+
+def parsed_terms(pod: JSON) -> dict[str, list[tuple[dict, str, str, int]]]:
+    """family -> [(ctx, canon_key, topologyKey, weight)] — everything
+    about a pod's affinity terms that is independent of the per-call
+    vocab, memoized per pod object so replay passes skip the JSON walk
+    AND the canonical-key dumps."""
+    from ksim_tpu_torch.state import objcache
+
+    def build() -> dict[str, list[tuple[dict, str, str, int]]]:
+        owner_ns = namespace_of(pod) or "default"
+        fams = _pod_terms(pod)
+        out: dict[str, list[tuple[dict, str, str, int]]] = {}
+        for fam in ("req_aff", "req_anti"):
+            items = []
+            for term in fams[fam]:
+                ctx = term_context(term, owner_ns)
+                ck = _canon({"ns": ctx["namespaces"], "nsSel": ctx["ns_sel"], "sel": ctx["sel"]})
+                items.append((ctx, ck, term.get("topologyKey", ""), 1))
+            out[fam] = items
+        for fam in ("pref_aff", "pref_anti"):
+            items = []
+            for wt in fams[fam]:
+                term = wt.get("podAffinityTerm") or {}
+                ctx = objcache.cached(
+                    "ipctx", wt, lambda t=term, ns=owner_ns: _term_context(t, ns), owner_ns
+                )
+                ck = _canon({"ns": ctx["namespaces"], "nsSel": ctx["ns_sel"], "sel": ctx["sel"]})
+                items.append((ctx, ck, term.get("topologyKey", ""), int(wt.get("weight", 0))))
+            out[fam] = items
+        return out
+
+    return objcache.cached("ipparsed", pod, build)
+
+
+def has_any_affinity(pod: JSON) -> bool:
+    """NodeInfo.PodsWithAffinity membership: any pod(Anti)Affinity stanza."""
+    t = _pod_terms(pod)
+    return any(t.values())
+
+
+def encode_inter_pod(
+    nodes: Sequence[JSON],
+    pods: Sequence[JSON],
+    bound_pods: Sequence[JSON],
+    namespaces: Sequence[JSON],
+    n_padded: int,
+    p_padded: int,
+    *,
+    hard_weight: int = DEFAULT_HARD_POD_AFFINITY_WEIGHT,
+    agg: dict | None = None,
+    bound_map: "dict[int, JSON] | None" = None,
+    changed_slots: "set[int] | None" = None,
+    slot_of: "dict[str, int] | None" = None,
+) -> InterPodTensors:
+    """With ``agg`` (a persistent Featurizer's state, state/boundagg.py)
+    the context/term/domain vocabularies persist append-only across
+    calls — ids stay stable — and the existing-pod domain aggregates
+    (match counts, required-anti counts, signed score weights) update by
+    delta over the bound population.  The match aggregate rebuilds when
+    the context vocabulary or namespace labels change (a new context can
+    match pods that did not themselves change); the term aggregates only
+    depend on each pod's own terms, so they survive vocabulary growth.
+    Without ``agg``, one-shot rebuild with throwaway state (identical
+    results)."""
+    from ksim_tpu_torch.state.boundagg import sync_family
+    from ksim_tpu_torch.state.featurizer import vocab_pad
+
+    agg = agg if agg is not None else {}
+    if bound_map is None:
+        bound_map = {id(p): p for p in bound_pods}
+    changed_slots = changed_slots if changed_slots is not None else set()
+
+    # Persistent vocabularies, with a reset valve: adversarial streams
+    # could grow them without bound (every reset is just one full
+    # rebuild).
+    vocab: _Vocab = agg.setdefault("ip_vocab", _Vocab())
+    dom_vocab: dict[tuple[int, str], int] = agg.setdefault("ip_doms", {})
+    if len(vocab.ctxs) > 4096 or len(vocab.terms) > 4096 or len(dom_vocab) > (1 << 17):
+        for k in ("ip_vocab", "ip_doms", "ip_seen", "ip_match", "ip_terms"):
+            agg.pop(k, None)
+        vocab = agg.setdefault("ip_vocab", _Vocab())
+        dom_vocab = agg.setdefault("ip_doms", {})
+        # New vocabulary lineage: keys derived from dom_vocab content
+        # (the cached node-domain tables below) must not alias entries
+        # from the pre-reset lineage.
+        agg["ip_doms_gen"] = agg.get("ip_doms_gen", 0) + 1
+
+    ns_labels = {name_of(ns): dict(labels_of(ns)) for ns in namespaces}
+
+    def terms_of(pod: JSON) -> dict[str, list[tuple[int, int, int]]]:
+        """family -> [(term_id, ctx_id, weight)]"""
+        out: dict[str, list[tuple[int, int, int]]] = {}
+        for fam, items in parsed_terms(pod).items():
+            mapped = []
+            for ctx, ck, tk, w in items:
+                u = vocab.ctx_id_by_key(ck, ctx)
+                t = vocab.term_id(u, vocab.tk_id(tk))
+                mapped.append((t, u, w))
+            out[fam] = mapped
+        return out
+
+    # Registration pre-pass: every CURRENT pod's contexts/terms must be
+    # in the vocab before any vocab-derived token or array is built.
+    # Queue pods register every call (cheap, the queue is bounded);
+    # bound pods register once (persistent ``ip_seen``).
+    queue_terms = [terms_of(p) for p in pods]
+    seen: set[int] = agg.setdefault("ip_seen", set())
+    # In-place: ``seen &= dict.keys()`` would REBIND the local to a new
+    # set and orphan the persisted one.
+    seen.intersection_update(bound_map.keys())
+    for pid, p in bound_map.items():
+        if pid not in seen:
+            terms_of(p)
+            seen.add(pid)
+
+    # Padded terms are inert: term_u/term_tk 0 with all-zero pod columns.
+    U = vocab_pad(len(vocab.ctxs))
+    T = vocab_pad(len(vocab.terms))
+    TK = max(len(vocab.tk_ids), 1)
+
+    term_u = np.zeros(T, dtype=np.int32)
+    term_tk = np.zeros(T, dtype=np.int32)
+    for ti, (u, tk) in enumerate(vocab.terms):
+        term_u[ti] = u
+        term_tk[ti] = tk
+
+    # Topology domains from node labels (domain ids persist append-only,
+    # so bound-pod contribution records stay valid across passes).
+    from ksim_tpu_torch.state import objcache
+
+    def build_node_domains():
+        node_dom = np.full((n_padded, TK), -1, dtype=np.int32)
+        for ni, node in enumerate(nodes):
+            lbls = labels_of(node)
+            for k, ki in vocab.tk_ids.items():
+                if k in lbls:
+                    dk = (ki, lbls[k])
+                    if dk not in dom_vocab:
+                        dom_vocab[dk] = len(dom_vocab)
+                    node_dom[ni, ki] = dom_vocab[dk]
+        n_domains = max(len(dom_vocab), 1)
+        D = vocab_pad(n_domains + 1)  # +1 keeps a write-only junk row
+        dom_tk = np.full(D, -1, dtype=np.int32)
+        for (ki, _val), d in dom_vocab.items():
+            dom_tk[d] = ki
+        return node_dom, n_domains, D, dom_tk
+
+    # Family-cached on the exact node objects + tk vocab.  ``dom_vocab``
+    # is persistent and append-only within a lineage (ip_doms_gen bumps
+    # at the reset valve), so (lineage, size) pins its exact content: a
+    # hit guarantees the same ids and dom_tk as at build time, and that
+    # the build would register nothing new for these nodes.
+    node_dom, n_domains, D, dom_tk = objcache.cached_seq(
+        "enc_ip_nodes",
+        nodes,
+        build_node_domains,
+        tuple(vocab.tk_ids),
+        agg.get("ip_doms_gen", 0),
+        len(dom_vocab),
+        n_padded,
+    )
+
+    node_index = slot_of if slot_of is not None else {
+        name_of(n): i for i, n in enumerate(nodes)
+    }
+    N0 = len(nodes)
+
+    # Per-pod context-match rows, memoized on (pod object, final ctx
+    # vocab, namespace labels): with a persistent vocab the token is
+    # stable, so steady state is one dict lookup per pod.
+    U0 = len(vocab.ctxs)
+    vocab_token = objcache.intern_token(tuple(vocab.ctx_ids))
+    ns_token = objcache.intern_token(_canon(ns_labels))
+
+    def match_row(pod: JSON) -> np.ndarray:
+        key = ("iprow", objcache.ref_id(pod), vocab_token, ns_token)
+        hit = objcache.get(key)
+        if hit is not objcache.MISS:
+            return hit
+        row = np.fromiter(
+            (context_matches(ctx, pod, ns_labels) for ctx in vocab.ctxs),
+            dtype=bool,
+            count=U0,
+        )
+        return objcache.put(key, row)
+
+    # Existing-pod state (the carry init), accumulated in domain space: a
+    # bound pod on node ni contributes to ni's domain for EVERY topology
+    # key (match counts) / for its term's topology key (term counts); a
+    # node missing the key contributes nowhere (no topologyPair exists —
+    # upstream filtering.go only counts nodes that carry the key).
+
+    def _match_record(bp: JSON):
+        ni = node_index.get(bp.get("spec", {}).get("nodeName", ""))
+        if ni is None or ni >= N0:
+            return None
+        doms = [int(d) for d in node_dom[ni] if d >= 0]
+        row = match_row(bp)
+        uis = [int(ui) for ui in np.nonzero(row)[0]]
+        if not doms or not uis:
+            return (ni, ())
+        return (ni, tuple((d, ui) for ui in uis for d in doms))
+
+    def _match_apply(arr, rec, sign: int) -> None:
+        for d, ui in rec[1]:
+            arr[d, ui] += sign
+
+    match_dom = sync_family(
+        agg,
+        "ip_match",
+        (D, U, U0, len(vocab.tk_ids), ns_token, n_padded),
+        bound_map,
+        changed_slots,
+        make_arrays=lambda: np.zeros((D, U), dtype=np.int32),
+        record_of=_match_record,
+        apply=_match_apply,
+    )
+
+    def _terms_record(bp: JSON):
+        ni = node_index.get(bp.get("spec", {}).get("nodeName", ""))
+        if ni is None or ni >= N0:
+            return None
+        terms = terms_of(bp)
+        doms = node_dom[ni]
+        entries = []  # (d, t, ranti_delta, ew_delta)
+        for t, _u, _w in terms["req_anti"]:
+            d = doms[term_tk[t]]
+            if d >= 0:
+                entries.append((int(d), t, 1, 0))
+        for t, _u, _w in terms["req_aff"]:
+            d = doms[term_tk[t]]
+            if d >= 0:
+                entries.append((int(d), t, 0, hard_weight))
+        for t, _u, w in terms["pref_aff"]:
+            d = doms[term_tk[t]]
+            if d >= 0:
+                entries.append((int(d), t, 0, w))
+        for t, _u, w in terms["pref_anti"]:
+            d = doms[term_tk[t]]
+            if d >= 0:
+                entries.append((int(d), t, 0, -w))
+        return (ni, tuple(entries))
+
+    def _terms_apply(arrays, rec, sign: int) -> None:
+        ranti, ew = arrays
+        for d, t, dr, dw in rec[1]:
+            if dr:
+                ranti[d, t] += sign * dr
+            if dw:
+                ew[d, t] += sign * dw
+
+    ranti_dom, ew_dom = sync_family(
+        agg,
+        "ip_terms",
+        (D, T, hard_weight, n_padded),
+        bound_map,
+        changed_slots,
+        make_arrays=lambda: (
+            np.zeros((D, T), dtype=np.int32),
+            np.zeros((D, T), dtype=np.int32),
+        ),
+        record_of=_terms_record,
+        apply=_terms_apply,
+    )
+
+    # Queue-pod tables.
+    pod_ctx_match = np.zeros((p_padded, U), dtype=bool)
+    req_aff = np.zeros((p_padded, T), dtype=bool)
+    req_anti = np.zeros((p_padded, T), dtype=bool)
+    self_aff = np.zeros(p_padded, dtype=bool)
+    pref_w = np.zeros((p_padded, T), dtype=np.int32)
+    pod_vw = np.zeros((p_padded, T), dtype=np.int32)
+    pod_eat = np.zeros((p_padded, T), dtype=np.int32)
+    for j, (pod, terms) in enumerate(zip(pods, queue_terms)):
+        row = match_row(pod)
+        pod_ctx_match[j, :U0] = row
+        self_ok = True
+        for t, u, _w in terms["req_aff"]:
+            req_aff[j, t] = True
+            pod_vw[j, t] += hard_weight
+            self_ok = self_ok and bool(row[u])
+        self_aff[j] = self_ok and bool(terms["req_aff"])
+        for t, _u, _w in terms["req_anti"]:
+            req_anti[j, t] = True
+            pod_eat[j, t] += 1
+        for t, _u, w in terms["pref_aff"]:
+            pref_w[j, t] += w
+            pod_vw[j, t] += w
+        for t, _u, w in terms["pref_anti"]:
+            pref_w[j, t] -= w
+            pod_vw[j, t] -= w
+
+    # Node-space carry initialization: pre-apply the domain aggregation so
+    # the device never has to (see module docstring).
+    dom_t = node_dom[:, term_tk]  # [N, T]
+    safe = np.maximum(dom_t, 0)
+    t_cols = np.arange(T)[None, :]
+    cnt_node = np.where(dom_t >= 0, match_dom[safe, term_u[None, :]], 0).astype(np.int32)
+    ecnt_node = np.where(dom_t >= 0, ranti_dom[safe, t_cols], 0).astype(np.int32)
+    ew_node = np.where(dom_t >= 0, ew_dom[safe, t_cols], 0).astype(np.int32)
+    total = np.array(
+        [match_dom[dom_tk == term_tk[t], term_u[t]].sum() for t in range(T)],
+        dtype=np.int32,
+    )
+
+    return InterPodTensors(
+        n_domains=n_domains,
+        hard_weight=hard_weight,
+        node_dom=node_dom,
+        dom_t=dom_t,
+        cnt_node=cnt_node,
+        ecnt_node=ecnt_node,
+        ew_node=ew_node,
+        total=total,
+        term_u=term_u,
+        term_tk=term_tk,
+        pod_ctx_match=pod_ctx_match,
+        pod_term_match=pod_ctx_match[:, term_u],
+        req_aff=req_aff,
+        req_anti=req_anti,
+        self_aff=self_aff,
+        pref_w=pref_w,
+        pod_vw=pod_vw,
+        pod_eat=pod_eat,
+    )

@@ -1,0 +1,212 @@
+"""Typed accessors over Kubernetes resource JSON objects.
+
+Resources are held as plain dicts in the exact JSON shape the Kubernetes API
+(and the reference's snapshot format, simulator/snapshot/snapshot.go:33-42)
+uses, so snapshot import/export round-trips byte-compatibly.  This module
+provides the semantic accessors the scheduler needs, reproducing upstream
+kube-scheduler lowering rules:
+
+- pod resource requests: max(sum of containers, each init container) +
+  overhead (upstream k8s.io/component-helpers resourcehelper.PodRequests)
+- the scheduler's "non-zero" request defaulting used by scoring plugins:
+  missing cpu => 100m, missing memory => 200MB decimal
+  (upstream pkg/scheduler/util DefaultMilliCPURequest/DefaultMemoryRequest)
+- CPU lowered to milli-units, everything else to integer units
+  (upstream pkg/scheduler/framework/types.go Resource.Add)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterable
+
+from ksim_tpu_torch.state.quantity import parse_quantity
+
+JSON = dict[str, Any]
+
+# Upstream scheduler defaults for scoring "non-zero" requests
+# (k8s.io/kubernetes/pkg/scheduler/util/pod_resources.go).
+DEFAULT_MILLI_CPU_REQUEST = 100  # 0.1 core
+DEFAULT_MEMORY_REQUEST = 200 * 1024 * 1024  # 200MB
+
+CPU = "cpu"
+MEMORY = "memory"
+EPHEMERAL_STORAGE = "ephemeral-storage"
+PODS = "pods"
+
+# Always-checked resources in the Fit filter (upstream fit.go fitsRequest);
+# the single definition shared by featurizer, kernels, and oracle.
+BASE_RESOURCES = (CPU, MEMORY, EPHEMERAL_STORAGE)
+
+# Well-known taint applied by cordoning (v1.TaintNodeUnschedulable).
+UNSCHEDULABLE_TAINT = {
+    "key": "node.kubernetes.io/unschedulable",
+    "effect": "NoSchedule",
+}
+
+
+def name_of(obj: JSON) -> str:
+    return obj.get("metadata", {}).get("name", "")
+
+
+def namespace_of(obj: JSON) -> str:
+    return obj.get("metadata", {}).get("namespace", "")
+
+
+def labels_of(obj: JSON) -> dict[str, str]:
+    return obj.get("metadata", {}).get("labels") or {}
+
+
+def annotations_of(obj: JSON) -> dict[str, str]:
+    return obj.get("metadata", {}).get("annotations") or {}
+
+
+def namespaced_key(obj: JSON) -> str:
+    ns = namespace_of(obj)
+    return f"{ns}/{name_of(obj)}" if ns else name_of(obj)
+
+
+def _lower(resource: str, qty_str: Any) -> int:
+    """Lower one quantity to scheduler integer units (cpu -> milli)."""
+    q = parse_quantity(qty_str)
+    return q.milli_value if resource == CPU else q.value
+
+
+def _resource_list(d: JSON | None) -> dict[str, int]:
+    if not d:
+        return {}
+    return {r: _lower(r, v) for r, v in d.items()}
+
+
+def _add_into(acc: dict[str, int], other: dict[str, int]) -> None:
+    for r, v in other.items():
+        acc[r] = acc.get(r, 0) + v
+
+
+def _max_into(acc: dict[str, int], other: dict[str, int]) -> None:
+    for r, v in other.items():
+        if v > acc.get(r, 0):
+            acc[r] = v
+
+
+def pod_requests(pod: JSON, *, non_zero: bool = False) -> dict[str, int]:
+    """Total scheduler-visible resource requests of a pod (memoized per
+    object — callers must treat the returned dict as frozen).
+
+    Mirrors upstream resourcehelper.PodRequests (k8s.io/component-helpers,
+    v1.30 with sidecar support): sum of app containers, PLUS restartable
+    (restartPolicy: Always) init containers which add to the running total;
+    each non-restartable init container's requirement is its own requests
+    plus the sidecars declared before it, and the element-wise max of those
+    is taken against the running total; plus pod overhead.
+    With ``non_zero=True``, applies the scoring-path defaulting for
+    containers missing cpu/memory requests (NonMissingContainerRequests in
+    upstream noderesources/resource_allocation.go calculatePodResourceRequest).
+    """
+    from ksim_tpu_torch.state import objcache
+
+    key = ("preq", objcache.ref_id(pod), non_zero)
+    hit = objcache.get(key)
+    if hit is not objcache.MISS:
+        return hit
+    return objcache.put(key, _pod_requests(pod, non_zero))
+
+
+def _pod_requests(pod: JSON, non_zero: bool) -> dict[str, int]:
+    spec = pod.get("spec", {})
+
+    def container_req(c: JSON) -> dict[str, int]:
+        req = _resource_list((c.get("resources") or {}).get("requests"))
+        if non_zero:
+            req.setdefault(CPU, DEFAULT_MILLI_CPU_REQUEST)
+            req.setdefault(MEMORY, DEFAULT_MEMORY_REQUEST)
+        return req
+
+    total: dict[str, int] = {}
+    for c in spec.get("containers") or []:
+        _add_into(total, container_req(c))
+    restartable_sum: dict[str, int] = {}
+    init_max: dict[str, int] = {}
+    for c in spec.get("initContainers") or []:
+        req = container_req(c)
+        if c.get("restartPolicy") == "Always":
+            _add_into(total, req)
+            _add_into(restartable_sum, req)
+        else:
+            tmp = dict(req)
+            _add_into(tmp, restartable_sum)
+            _max_into(init_max, tmp)
+    _max_into(total, init_max)
+    overhead = _resource_list(spec.get("overhead"))
+    _add_into(total, overhead)
+    return total
+
+
+def node_allocatable(node: JSON) -> dict[str, int]:
+    """Node allocatable in scheduler units; falls back to capacity.
+    Memoized per node object (returned dict is frozen) so the
+    featurizer's lower() rows can memoize on the dict's identity."""
+    from ksim_tpu_torch.state import objcache
+
+    def build() -> dict[str, int]:
+        status = node.get("status", {})
+        alloc = status.get("allocatable") or status.get("capacity") or {}
+        return _resource_list(alloc)
+
+    return objcache.cached("nodealloc", node, build)
+
+
+def node_unschedulable(node: JSON) -> bool:
+    return bool(node.get("spec", {}).get("unschedulable", False))
+
+
+def node_taints(node: JSON) -> list[JSON]:
+    return node.get("spec", {}).get("taints") or []
+
+
+def pod_tolerations(pod: JSON) -> list[JSON]:
+    return pod.get("spec", {}).get("tolerations") or []
+
+
+def pod_node_name(pod: JSON) -> str:
+    return pod.get("spec", {}).get("nodeName", "") or ""
+
+
+def pod_is_scheduled(pod: JSON) -> bool:
+    return bool(pod_node_name(pod))
+
+
+def pod_priority(pod: JSON) -> int:
+    return int(pod.get("spec", {}).get("priority") or 0)
+
+
+def toleration_tolerates(tol: JSON, taint: JSON) -> bool:
+    """Upstream v1.Toleration.ToleratesTaint semantics."""
+    if tol.get("effect") and tol.get("effect") != taint.get("effect"):
+        return False
+    if tol.get("key") and tol.get("key") != taint.get("key"):
+        return False
+    op = tol.get("operator") or "Equal"
+    if op == "Exists":
+        return True
+    if op == "Equal":
+        return (tol.get("value") or "") == (taint.get("value") or "")
+    return False
+
+
+def tolerations_tolerate_taint(tolerations: Iterable[JSON], taint: JSON) -> bool:
+    return any(toleration_tolerates(t, taint) for t in tolerations)
+
+
+def untolerated_taint(
+    taints: Iterable[JSON],
+    tolerations: Iterable[JSON],
+    effects: tuple[str, ...] = ("NoSchedule", "NoExecute"),
+) -> JSON | None:
+    """First taint with an effect in ``effects`` that no toleration matches."""
+    tolerations = list(tolerations)
+    for taint in taints:
+        if taint.get("effect") not in effects:
+            continue
+        if not tolerations_tolerate_taint(tolerations, taint):
+            return taint
+    return None

@@ -6,9 +6,11 @@
 // every pod of a chunk against the FIXED node state, with no commit.
 //
 // Design: one block of 256 threads per pod (grid = the pod chunk).  The
-// block runs the same chain as kernel A (plugin_chain.cuh) with the same
-// in-block reductions and records, then writes the pod's selection.  The
-// pods are independent, so the grid fills every SM.
+// block runs the same chain as kernel A (plugin_chain.cuh eval_pod) against
+// the carries as they stand, with the same in-block reductions and
+// records, then writes the pod's selection.  The pods are independent, so
+// the grid fills every SM; each block has its own slice of the
+// per-domain scratch (shared memory, or a global buffer for large keys).
 //
 // What bounds it: P x N pairs of integer / float64 operations, a few
 // hundred per pair for this profile; the inputs (node state, vocab rows)
@@ -21,9 +23,9 @@ namespace ksim {
 
 __global__ void __launch_bounds__(256) batch_eval_kernel(const ChainParams P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s = carve(smem_raw, P.N, P.I);
+  Smem s = carve(smem_raw, P);
   const long long p = blockIdx.x;
-  const int best = eval_pod(P, p, s);
+  const int best = eval_pod<false>(P, p, s);
   if (threadIdx.x == 0) P.selected[p] = best;
 }
 
@@ -31,7 +33,7 @@ __global__ void __launch_bounds__(256) batch_eval_kernel(const ChainParams P) {
 
 extern "C" int ksim_batch_eval(const ksim::ChainParams* params, void* stream) {
   if (params->Pc == 0) return 0;
-  const long long smem = ksim::smem_bytes(params->N, params->I);
+  const long long smem = ksim::smem_bytes(*params);
   cudaError_t err = cudaFuncSetAttribute(
       ksim::batch_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -3,23 +3,25 @@
 // Replaces ksim_tpu/engine/core.py _Program._schedule_fn (core.py:788-816):
 // a lax.scan over the pod queue that runs the plugin chain for each pod,
 // selects a node, and commits the pod into the node state
-// (plugins/base.py NodeStateView.commit) and NodePorts' carry.
+// (plugins/base.py NodeStateView.commit) and the plugins' carries
+// (NodePorts, NodeVolumeLimits, VolumeRestrictions, PodTopologySpread,
+// InterPodAffinity).
 //
 // Design: ONE persistent block of 1024 threads loops over the pods of its
-// chunk inside the kernel, so the carried state (requested,
-// nonzero_requested, pod_count, NodePorts' [N, V] counts) never leaves
-// the device between pods and no pod costs a launch.  Thread t owns nodes
-// t, t + 1024, ...; it alone reads and writes those nodes' carried state,
-// so the commit of the chosen node is one thread's plain stores, seen by
-// that same thread at the next pod.  Per pod: the chain over the nodes,
-// one block max-reduction for the two normalizing plugins, one block
-// argmax over (total, -index), the commit, in order.
+// chunk inside the kernel, so the carried state never leaves the device
+// between pods and no pod costs a launch.  Thread t owns nodes t, t + 1024,
+// ...; it alone reads and writes those nodes' carried rows, so the commit
+// of the chosen node is its owner's plain stores, seen by that same thread
+// at the next pod (InterPodAffinity's domain-wide commit is each thread's
+// own nodes; the cluster-wide term total is thread 0's and is published
+// by the next pod's first barrier).  Per pod: the phases of
+// plugin_chain.cuh eval_pod, then the commit.
 //
 // What bounds it: the work is P x N pod-node pairs of integer (and, in
-// exact mode, float64) operations — a few hundred per pair for this
-// profile — against bytes that are read once per pod from L2: the
-// per-node state and vocab rows.  The scan is sequential across pods, so
-// one block on one SM carries all of it: the card's bound (all SMs) is
+// exact mode, float64) operations — a few hundred per pair for the
+// default profile — against bytes that are read once per pod from L2:
+// the per-node state and vocab rows.  The scan is sequential across pods,
+// so one block on one SM carries all of it: the card's bound (all SMs) is
 // far below what one SM reaches.  Spreading a pod's node axis over a
 // thread-block cluster with DSMEM reductions is the next step.
 
@@ -29,28 +31,14 @@ namespace ksim {
 
 __global__ void __launch_bounds__(1024, 1) schedule_scan_kernel(const ChainParams P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s = carve(smem_raw, P.N, P.I);
-  for (long long p = 0; p < P.Pc; ++p) {
-    const int best = eval_pod(P, p, s);
-    if (threadIdx.x == 0) P.selected[p] = best;
-    // Commit by the thread that owns the chosen node.
-    if (best >= 0 && best % blockDim.x == threadIdx.x) {
-      const long long j = P.pindex[p];
-      for (long long r = 0; r < P.R; ++r) {
-        P.requested[best * P.R + r] += P.preq[p * P.R + r];
-        P.nz_requested[best * P.R + r] += P.pnz[p * P.R + r];
-      }
-      P.pod_count[best] += 1;
-      if (P.port_counts != nullptr)
-        for (long long v = 0; v < P.V; ++v) P.port_counts[best * P.V + v] += P.pod_adds[j * P.V + v];
-    }
-  }
+  Smem s = carve(smem_raw, P);
+  scan_pods<false>(P, s);
 }
 
 }  // namespace ksim
 
 extern "C" int ksim_schedule_scan(const ksim::ChainParams* params, void* stream) {
-  const long long smem = ksim::smem_bytes(params->N, params->I);
+  const long long smem = ksim::smem_bytes(*params);
   cudaError_t err = cudaFuncSetAttribute(
       ksim::schedule_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -6,14 +6,18 @@ The port of ``ksim_tpu/engine/core.py``, with its two entry points:
   runs every filter and score, is placed on the max-total feasible node
   (ties to the lowest node index; -1 when none is feasible) and is
   committed into the node state, so later pods see earlier placements.
+  With ``Engine(sampling_k=k)`` it emulates percentageOfNodesToScore:
+  each pod visits nodes from a rotating start, stops after k feasible
+  ones, and scores, normalizes and selects over that sample only.
 - ``evaluate_batch`` / ``evaluate_batch_fused`` — every pod against the
   FIXED snapshot, with no commit.
 
-On a CUDA device both run in hand-written kernels (kernels/schedule_scan,
-kernels/batch_eval); on the CPU they run the kernels' plain PyTorch
-versions.  ``record`` bounds what is kept per pod: "selection" keeps the
-chosen node, "final" adds the weighted normalized scores and their total,
-"full" adds the filter reason codes and the raw scores.
+On a CUDA device they run in hand-written kernels (kernels/schedule_scan,
+kernels/schedule_sampled, kernels/batch_eval); on the CPU they run the
+kernels' plain PyTorch versions.  ``record`` bounds what is kept per pod:
+"selection" keeps the chosen node, "final" adds the weighted normalized
+scores and their total, "full" adds the filter reason codes and the raw
+scores (and, under sampling, the visited nodes).
 
 ``exact`` stands in for the reference's ``jax_enable_x64``: True computes
 BalancedAllocation in int64 and ImageLocality in float64 (bit-exact with
@@ -32,13 +36,17 @@ import torch
 
 from ksim_tpu_torch.kernels.batch_eval import batch_eval
 from ksim_tpu_torch.kernels.chain import check_chain
+from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan
 from ksim_tpu_torch.plugins.base import NodeStateView, PodBatch, PodView
 from ksim_tpu_torch.plugins.nodeaffinity import term_matches
+from ksim_tpu_torch.plugins.podtopologyspread import log_weights
 from ksim_tpu_torch.state.featurizer import FeaturizedSnapshot
 
-# The aux families the ported plugins read (the rest stay on the host).
-AUX_KEYS = ("affinity", "taints", "nodename", "nodeports", "imagelocality")
+# The aux families the plugins read.
+AUX_KEYS = (
+    "affinity", "taints", "nodename", "nodeports", "imagelocality", "spread", "interpod", "volumes",
+)
 
 _INT32_MIN = torch.iinfo(torch.int32).min
 
@@ -76,6 +84,11 @@ class EngineResult:
     total: np.ndarray | None  # i32 [P, N] summed final scores
     feasible: np.ndarray  # bool [P]
     selected: np.ndarray  # i32 [P]
+    # percentageOfNodesToScore emulation (Engine(sampling_k=...)): the
+    # per-pod visited-node mask (record="full" only) and the rotating
+    # start index after this pass (feeds the next pass).
+    visited: np.ndarray | None = None  # bool [P, N]
+    sampling_next_start: int | None = None
 
 
 def _pull_tree_to_host(tree: dict) -> dict:
@@ -122,6 +135,12 @@ class _Program:
     def eval_block(self, state: NodeStateView, pods: PodView, aux: dict, carries: dict):
         """B pods against all N nodes through every plugin: (feasible
         [B, N], reason codes, raw scores, finals, total [B, N])."""
+        ok, bits = self.eval_filters(state, pods, aux, carries)
+        raw_scores, final_scores, total = self.eval_scores(state, pods, aux, carries, ok)
+        return ok, bits, raw_scores, final_scores, total
+
+    def eval_filters(self, state: NodeStateView, pods: PodView, aux: dict, carries: dict):
+        """(feasible [B, N], reason codes per filter plugin)."""
         B, N = pods.index.shape[0], state.valid.shape[0]
         ok = state.valid[None, :].expand(B, N)
         bits = []
@@ -130,16 +149,28 @@ class _Program:
             out = sp.plugin.filter(state, pods, aux, **kw)
             bits.append(out.reason_bits)
             ok = ok & out.ok
+        return ok, bits
+
+    def eval_scores(self, state: NodeStateView, pods: PodView, aux: dict, carries: dict, ok):
+        """(raw scores, finals, total [B, N]) with ``ok`` as the mask the
+        scores and normalizes run over: the feasible set, or under
+        sampling the sampled feasible set (upstream normalizes over the
+        nodes it scored)."""
         raw_scores, final_scores = [], []
-        total = torch.zeros((B, N), dtype=torch.int32, device=ok.device)
+        total = torch.zeros(ok.shape, dtype=torch.int32, device=ok.device)
         for sp in self.scores:
-            raw = sp.plugin.score(state, pods, aux, ok, exact=self.exact)
-            norm = sp.plugin.normalize(raw, ok) if hasattr(sp.plugin, "normalize") else raw
+            p = sp.plugin
+            kw = {"carry": carries[p.name]} if p.name in carries else {}
+            raw = p.score(state, pods, aux, ok, exact=self.exact, **kw)
+            if hasattr(p, "normalize"):
+                norm = p.normalize(raw, ok, pods=pods, aux=aux, exact=self.exact)
+            else:
+                norm = raw
             final = norm * sp.weight
             raw_scores.append(raw)
             final_scores.append(final)
             total = total + final.to(torch.int32)
-        return ok, bits, raw_scores, final_scores, total
+        return raw_scores, final_scores, total
 
     def select(self, ok: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
         """selectHost per pod: the max-total feasible node, the lowest
@@ -184,7 +215,7 @@ class _Program:
             raw_dtype = torch.promote_types(raw_dtype, sp.plugin.raw_dtype(self.exact))
         return bits_dtype, final_dtype, raw_dtype
 
-    def pod_outputs(self, valid, best, bits, raw, final, total) -> dict:
+    def pod_outputs(self, valid, best, bits, raw, final, total, visited=None) -> dict:
         """The recorded tensors of ``self.record`` for a block of pods."""
         B, N = total.shape
         dev = total.device
@@ -202,6 +233,8 @@ class _Program:
         if self.record == "full":
             out["bits"] = stack(bits, bits_dtype)
             out["raw"] = stack(raw, raw_dtype)
+            if visited is not None:
+                out["visited"] = visited
         return out
 
 
@@ -222,6 +255,7 @@ class Engine:
     # The scan and batch functions: kernel wrappers that take the plain
     # versions for CPU tensors.
     _scan_fn = staticmethod(schedule_scan)
+    _sampled_fn = staticmethod(schedule_sampled)
     _batch_fn = staticmethod(batch_eval)
 
     def __init__(
@@ -234,10 +268,20 @@ class Engine:
         device: "str | torch.device | None" = None,
         sampling_k: int | None = None,
     ) -> None:
+        """``sampling_k`` enables percentageOfNodesToScore emulation on
+        the ``schedule`` path (batch evaluation has no visit order and
+        refuses it)."""
         if record not in ("full", "final", "selection"):
             raise ValueError(f"unknown record mode {record!r}")
-        if sampling_k is not None:
-            raise NotImplementedError("percentageOfNodesToScore sampling (sampling_k) is not ported")
+        # Validated against the REAL node count: a k between the count and
+        # the padded axis would "find" padding rows that never pass.
+        if sampling_k is not None and not 0 < sampling_k <= int(feats.nodes.count):
+            raise ValueError(
+                f"sampling_k {sampling_k} out of range: must be in "
+                f"[1, {int(feats.nodes.count)}] (real node count; the "
+                f"padded axis is {int(feats.nodes.valid.shape[0])})"
+            )
+        self.sampling_k = sampling_k
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -274,8 +318,12 @@ class Engine:
                 for f in dataclasses.fields(v)
                 if isinstance(getattr(v, f.name), np.ndarray)
             }
-        # The pod-independent term-match product, once per snapshot.
+        # Pod-independent derived tables, once per snapshot: the term-match
+        # product and PodTopologySpread's log-weight tables.
         self._aux["affinity"]["term_ok"] = term_matches(self._aux["affinity"])
+        w64, w32 = log_weights(int(n.valid.shape[0]))
+        self._aux["spread"]["log_w64"] = _to_device(w64, dev)
+        self._aux["spread"]["log_w32"] = _to_device(w32, dev)
 
     @property
     def _plugins(self) -> tuple[ScoredPlugin, ...]:
@@ -299,31 +347,54 @@ class Engine:
         return self.SCHEDULE_CHUNK
 
     def schedule(
-        self, *, chunk: int | None = None, pull_state: bool = True
+        self, *, chunk: int | None = None, pull_state: bool = True, sampling_start: int = 0
     ) -> tuple[EngineResult, NodeStateView | None]:
         """Greedy sequential scheduling of the pod queue with capacity
         commit, in queue order, in ``chunk``-sized pod segments (one
         kernel launch each; the carries thread through, so chunking is
         invisible in the results).  Returns the results and, unless
-        ``pull_state=False``, the committed node state as numpy arrays."""
+        ``pull_state=False``, the committed node state as numpy arrays.
+
+        ``sampling_start`` (sampling engines only) is the rotating node
+        index carried over from the previous pass (upstream's
+        sched.nextStartNodeIndex); the result's ``sampling_next_start``
+        feeds the next pass."""
         P = int(self._pods.valid.shape[0])
         chunk = min(P, chunk or self._default_schedule_chunk())
         state, carries = self._node_state, self._prog.init_carries(self._aux)
+        sampled = self.sampling_k is not None
+        start = torch.tensor(sampling_start, dtype=torch.int32, device=self.device)
+        n_real = int(self._feats.nodes.count)
         outs = []
         for s in range(0, P, chunk):
-            state, carries, out = self._scan_fn(
-                self._prog, state, self._pods.rows(s, s + chunk), self._aux, carries
-            )
+            pods = self._pods.rows(s, s + chunk)
+            if sampled:
+                state, carries, start, out = self._sampled_fn(
+                    self._prog, state, pods, self._aux, carries, start, n_real, self.sampling_k
+                )
+            else:
+                state, carries, out = self._scan_fn(self._prog, state, pods, self._aux, carries)
             outs.append(_pull_tree_to_host(out))
         merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         final_state = (
             NodeStateView(**_pull_tree_to_host(state._asdict())) if pull_state else None
         )
-        return self._to_result(merged), final_state
+        result = self._to_result(merged)
+        if sampled:
+            result.sampling_next_start = int(start)
+        return result, final_state
+
+    def _refuse_sampling(self) -> None:
+        if self.sampling_k is not None:
+            raise ValueError(
+                "percentageOfNodesToScore emulation is scan-only "
+                "(batch evaluation has no sequential visit order)"
+            )
 
     def evaluate_batch_chunks(self, *, chunk: int | None = None):
         """Yield ``(start, device_out)`` per contiguous pod chunk — the
         streaming form of ``evaluate_batch`` (one kernel launch each)."""
+        self._refuse_sampling()
         P = int(self._pods.valid.shape[0])
         chunk = min(P, chunk or self._default_batch_chunk())
         carries = self._prog.init_carries(self._aux)
@@ -344,6 +415,7 @@ class Engine:
         record modes; record="full" must stream through evaluate_batch."""
         if self._record == "full":
             raise ValueError("record='full' results must stream: use evaluate_batch")
+        self._refuse_sampling()
         out = self._batch_fn(
             self._prog, self._node_state, self._pods, self._aux, self._prog.init_carries(self._aux)
         )
@@ -360,4 +432,5 @@ class Engine:
             total=out.get("total"),
             feasible=selected >= 0,
             selected=selected,
+            visited=out.get("visited"),
         )

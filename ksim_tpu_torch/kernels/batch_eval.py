@@ -39,7 +39,7 @@ def batch_eval(prog, state, pods, aux, carries):
         raise ValueError(f"batch_eval runs on cpu or cuda, not {device}")
     lib = build.load("batch_eval")
     out = chain.empty_outputs(prog, pods.valid.shape[0], state.valid.shape[0], device)
-    prm = chain.chain_params(prog, state, pods, aux, carries, out)
+    prm = chain.chain_params(prog, state, pods, aux, carries, out, grid=max(pods.valid.shape[0], 1))
     chain.launch(lib, "ksim_batch_eval", prm)
     batch_eval.launches += 1
     return out

@@ -2,8 +2,8 @@
 
 ``schedule_scan(prog, state, pods, aux, carries)`` runs the engine
 program ``prog`` (engine/core.py ``_Program``) over the pods of ``pods``
-in order, committing each placed pod into the node state and NodePorts'
-carry.  It returns ``(state, carries, out)``: the committed state, the
+in order, committing each placed pod into the node state and the
+plugins' carries.  It returns ``(state, carries, out)``: the committed state, the
 committed carries and the recorded outputs of ``prog.record``.  Its
 inputs are never modified.
 
@@ -42,12 +42,7 @@ def schedule_scan(prog, state, pods, aux, carries):
     if device.type != "cuda":
         raise ValueError(f"schedule_scan runs on cpu or cuda, not {device}")
     lib = build.load("schedule_scan")
-    state = state._replace(
-        requested=state.requested.clone(),
-        nonzero_requested=state.nonzero_requested.clone(),
-        pod_count=state.pod_count.clone(),
-    )
-    carries = {k: v.clone() for k, v in carries.items()}
+    state, carries = chain.fresh_scan_state(state, carries)
     out = chain.empty_outputs(prog, pods.valid.shape[0], state.valid.shape[0], device)
     prm = chain.chain_params(prog, state, pods, aux, carries, out)
     chain.launch(lib, "ksim_schedule_scan", prm)

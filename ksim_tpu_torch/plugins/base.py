@@ -8,6 +8,10 @@ dimension; the sequential-commit scan uses B = 1.
 Reason codes: filters return an int32 code per node (0 == passed); the
 meaning is plugin-specific and decoded host-side into the upstream
 status messages for the result annotations.
+
+Normalizes share one signature, ``normalize(raw, ok, *, pods, aux,
+exact)``; a plugin that needs only the raw scores and the mask ignores
+the rest.
 """
 
 from __future__ import annotations

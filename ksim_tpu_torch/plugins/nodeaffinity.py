@@ -114,7 +114,9 @@ class NodeAffinity:
             out += term_ok[None, :, t] * weights[:, t, None]
         return out
 
-    def normalize(self, scores: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    def normalize(
+        self, scores: torch.Tensor, ok: torch.Tensor, *, pods=None, aux=None, exact=True
+    ) -> torch.Tensor:
         """DefaultNormalizeScore(MaxNodeScore, reverse=False) over feasible
         nodes."""
         mx = torch.where(ok, scores, 0).amax(dim=1, keepdim=True)

@@ -32,6 +32,16 @@ NAME = "TaintToleration"
 _BIG = torch.iinfo(torch.int32).max
 
 
+def forbidding_taints_tolerated(aux, pods: PodView) -> torch.Tensor:
+    """bool [B, N]: no untolerated NoSchedule/NoExecute taint — the
+    predicate PodTopologySpread's Honor nodeTaintsPolicy consults."""
+    a = aux["taints"]
+    order = a["node_taint_order"][None]  # [1, N, W]
+    tolerated = a["pod_tolerated"][pods.index][:, None, :]  # [B, 1, W]
+    bad = (order > 0) & a["forbidding"][None, None, :] & ~tolerated
+    return ~bad.any(dim=2)
+
+
 class TaintToleration:
     final_score_bound = 100  # post-normalize max (MaxNodeScore)
     name = NAME
@@ -81,7 +91,9 @@ class TaintToleration:
         intolerable = (order > 0) & a["prefer"][None, None, :] & ~tolerated
         return intolerable.sum(dim=2, dtype=torch.int32)
 
-    def normalize(self, scores: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    def normalize(
+        self, scores: torch.Tensor, ok: torch.Tensor, *, pods=None, aux=None, exact=True
+    ) -> torch.Tensor:
         """DefaultNormalizeScore(MaxNodeScore, reverse=True) over feasible
         nodes (upstream normalizes the scored-node list only)."""
         mx = torch.where(ok, scores, 0).amax(dim=1, keepdim=True)

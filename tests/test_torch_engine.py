@@ -1,12 +1,11 @@
-"""The port's Engine against ksim_tpu's on the eight-plugin profile (the
-default profile without the volume, PodTopologySpread and
-InterPodAffinity plugins), on the CPU.
+"""The port's Engine against ksim_tpu's on the whole default profile (all
+14 plugins), on the CPU.
 
 One ksim_tpu-featurized snapshot feeds both engines.  Every recorded
-tensor (selected, total, final, bits, raw), its dtype and the committed
-node state must be equal, element for element (tolerance 0: every output
-is an integer or a bool), in exact mode (x64 on in ksim_tpu) and in f32
-mode (x64 off)."""
+tensor (selected, total, final, bits, raw, and under sampling visited and
+the next start), its dtype and the committed node state must be equal,
+element for element (tolerance 0: every output is an integer or a bool),
+in exact mode (x64 on in ksim_tpu) and in f32 mode (x64 off)."""
 
 from __future__ import annotations
 
@@ -20,11 +19,13 @@ from ksim_tpu.engine.core import Engine as JaxEngine
 from ksim_tpu.engine.profiles import default_plugins as jax_default_plugins
 from ksim_tpu.state.featurizer import Featurizer as JaxFeaturizer
 from ksim_tpu_torch.engine.core import Engine
-from ksim_tpu_torch.engine.profiles import UNPORTED, default_plugins
+from ksim_tpu_torch.engine.profiles import default_plugins
 from ksim_tpu_torch.state.featurizer import snapshot_from_arrays
-from test_torch_clusters import CLUSTERS
+from test_torch_clusters import case_inputs
 
-RESULT_FIELDS = ("selected", "feasible", "total", "final_scores", "reason_bits", "scores")
+RESULT_FIELDS = (
+    "selected", "feasible", "total", "final_scores", "reason_bits", "scores", "visited",
+)
 
 
 @contextlib.contextmanager
@@ -38,18 +39,23 @@ def x64(enabled: bool):
         jax.config.update("jax_enable_x64", before)
 
 
-def engines(case: str, record: str, exact: bool):
-    nodes, pods = CLUSTERS[case]()
-    jf = JaxFeaturizer().featurize(nodes, pods)
-    jax_plugins = tuple(sp for sp in jax_default_plugins(jf) if sp.plugin.name not in UNPORTED)
+def engines_for(nodes, pods, kw: dict, record: str, exact: bool, sampling_k=None):
+    """(ksim_tpu Engine, port Engine) on one ksim_tpu-featurized snapshot,
+    both with the whole default profile.  Build under ``x64(exact)``."""
+    jf = JaxFeaturizer().featurize(nodes, pods, **kw)
     tf = snapshot_from_arrays(jf)
-    port = Engine(tf, default_plugins(tf, disabled=UNPORTED), record=record, exact=exact, device="cpu")
-    return JaxEngine(jf, jax_plugins, record=record), port
+    port = Engine(tf, default_plugins(tf), record=record, exact=exact, device="cpu", sampling_k=sampling_k)
+    return JaxEngine(jf, jax_default_plugins(jf), record=record, sampling_k=sampling_k), port
+
+
+def engines(case: str, record: str, exact: bool):
+    return engines_for(*case_inputs(case), record, exact)
 
 
 def assert_results_equal(ref, got) -> None:
     assert got.plugin_names == ref.plugin_names
     assert got.filter_plugin_names == ref.filter_plugin_names
+    assert got.sampling_next_start == ref.sampling_next_start
     for name in RESULT_FIELDS:
         a, b = getattr(ref, name), getattr(got, name)
         if a is None:
@@ -69,9 +75,10 @@ def assert_states_equal(ref, got) -> None:
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
 @pytest.mark.parametrize("record", ["full", "final", "selection"])
-def test_schedule_matches_reference(record, exact):
+@pytest.mark.parametrize("case", ["seed0", "seed1", "seed2"])
+def test_schedule_matches_reference(case, record, exact):
     with x64(exact):
-        ref_engine, port = engines("seed0", record, exact)
+        ref_engine, port = engines(case, record, exact)
         ref, ref_state = ref_engine.schedule()
     got, state = port.schedule(chunk=24)  # chunk boundaries inside the queue
     assert_results_equal(ref, got)
@@ -96,19 +103,21 @@ def test_schedule_matches_reference_on_special_clusters(case, exact):
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
-def test_evaluate_batch_chunked_matches_reference(exact):
+@pytest.mark.parametrize("case", ["seed0", "seed1", "seed2"])
+def test_evaluate_batch_chunked_matches_reference(case, exact):
     with x64(exact):
-        ref_engine, port = engines("seed1", "full", exact)
+        ref_engine, port = engines(case, "full", exact)
         ref = ref_engine.evaluate_batch()
-    # 64 padded pods in chunks of 24: a ragged last chunk.
+    # Chunks of 24 over a padded pod axis of 32 or 64: a ragged last chunk.
     assert_results_equal(ref, port.evaluate_batch(chunk=24))
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
 @pytest.mark.parametrize("record", ["final", "selection"])
-def test_evaluate_batch_fused_matches_reference(record, exact):
+@pytest.mark.parametrize("case", ["images_ports", "seed0", "seed1", "seed2"])
+def test_evaluate_batch_fused_matches_reference(case, record, exact):
     with x64(exact):
-        ref_engine, port = engines("images_ports", record, exact)
+        ref_engine, port = engines(case, record, exact)
         ref = ref_engine.evaluate_batch_fused()
     assert_results_equal(ref, port.evaluate_batch_fused())
 
@@ -119,14 +128,58 @@ def test_evaluate_batch_fused_refuses_full_record():
         port.evaluate_batch_fused()
 
 
+def test_default_profile_matches_reference_order_and_weights():
+    ref_engine, port = engines("seed0", "selection", True)
+    want = [(sp.plugin.name, sp.weight, sp.filter_enabled, sp.score_enabled) for sp in ref_engine._plugins]
+    have = [(sp.plugin.name, sp.weight, sp.filter_enabled, sp.score_enabled) for sp in port._plugins]
+    assert have == want and len(have) == 14
+
+
 def test_engine_refuses_unported_options():
     _, port = engines("ports_commit", "selection", True)
-    with pytest.raises(NotImplementedError):
-        Engine(port._feats, port._plugins, device="cpu", sampling_k=1)
-    with pytest.raises(NotImplementedError, match="PodTopologySpread"):
-        default_plugins(port._feats, disabled=UNPORTED - {"PodTopologySpread"})
     from ksim_tpu_torch.engine.core import ScoredPlugin
+    from ksim_tpu_torch.plugins.volumes import NodeVolumeLimits
 
     hooked = (ScoredPlugin(port._plugins[0].plugin, score_enabled=False, extender=object()),)
     with pytest.raises(NotImplementedError):
         Engine(port._feats, hooked, device="cpu")
+    # A second, pool-restricted NodeVolumeLimits instance (the legacy
+    # EBSLimits et al.): the kernels hold one instance per plugin class.
+    legacy = NodeVolumeLimits(port._feats.aux["volumes"], name="EBSLimits", pools=("ebs",))
+    with pytest.raises(NotImplementedError, match="one NodeVolumeLimits instance"):
+        Engine(port._feats, port._plugins + (ScoredPlugin(legacy, score_enabled=False),), device="cpu")
+    # sampling_k is checked against the real node count (2 nodes here).
+    for k in (0, 3):
+        with pytest.raises(ValueError, match="sampling_k"):
+            Engine(port._feats, port._plugins, device="cpu", sampling_k=k)
+
+
+def run_both(case: str, exact: bool, *, batch: bool = True):
+    """Schedule (record="full") and, with ``batch``, evaluate_batch on both
+    engines; asserts every recorded tensor and the committed state equal
+    (tolerance 0).  Returns the port's (engine, schedule result, batch
+    result or None)."""
+    with x64(exact):
+        ref_engine, port = engines(case, "full", exact)
+        ref, ref_state = ref_engine.schedule()
+        ref_b = ref_engine.evaluate_batch() if batch else None
+    got, state = port.schedule()
+    assert_results_equal(ref, got)
+    assert_states_equal(ref_state, state)
+    got_b = None
+    if batch:
+        got_b = port.evaluate_batch(chunk=16)
+        assert_results_equal(ref_b, got_b)
+    return port, got, got_b
+
+
+def reasons(port, res, plugin: str, pi: int, ni: int) -> list[str]:
+    """The decoded filter reasons of ``plugin`` for pod pi on node ni."""
+    fi = res.filter_plugin_names.index(plugin)
+    inst = next(sp.plugin for sp in port._plugins if sp.plugin.name == plugin)
+    return inst.decode_reasons(int(res.reason_bits[pi, fi, ni]))
+
+
+def node_name(port, res, pi: int) -> str | None:
+    sel = int(res.selected[pi])
+    return port._feats.nodes.names[sel] if sel >= 0 else None

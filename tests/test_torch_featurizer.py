@@ -1,6 +1,8 @@
 """The port's copied featurizer against ksim_tpu's: equal arrays on the
 same clusters, so the ten copied state modules cannot drift; and
-``snapshot_from_arrays`` carrying a ksim_tpu snapshot into the port."""
+``snapshot_from_arrays`` carrying a ksim_tpu snapshot into the port.
+Every aux family is compared field by field, the ``spread``,
+``interpod`` and ``volumes`` ones included, on clusters that fill them."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import pytest
 from ksim_tpu.state.featurizer import Featurizer as JaxFeaturizer
 from ksim_tpu_torch.state.featurizer import Featurizer, snapshot_from_arrays
 from tests.helpers import random_cluster
-from test_torch_clusters import CLUSTERS, images_ports_cluster
+from test_torch_clusters import CLUSTERS, CLUSTERS_KW, case_inputs, images_ports_cluster
 
 
 def _assert_same(a, b, where: str) -> None:
@@ -38,12 +40,27 @@ def assert_snapshots_equal(jf, tf) -> None:
             _assert_same(getattr(jv, f.name), getattr(tv, f.name), f"aux.{key}.{f.name}")
 
 
-@pytest.mark.parametrize("case", sorted(CLUSTERS))
+@pytest.mark.parametrize("case", sorted(CLUSTERS) + sorted(CLUSTERS_KW))
 def test_featurizer_matches_reference(case):
-    nodes, pods = CLUSTERS[case]()
+    nodes, pods, kw = case_inputs(case)
     assert_snapshots_equal(
-        JaxFeaturizer().featurize(nodes, pods), Featurizer().featurize(nodes, pods)
+        JaxFeaturizer().featurize(nodes, pods, **kw), Featurizer().featurize(nodes, pods, **kw)
     )
+
+
+@pytest.mark.parametrize("case", ["spread_affinity", "volumes"])
+def test_snapshot_from_arrays_carries_spread_interpod_and_volumes(case):
+    nodes, pods, kw = case_inputs(case)
+    jf = JaxFeaturizer().featurize(nodes, pods, **kw)
+    tf = snapshot_from_arrays(jf)
+    assert_snapshots_equal(jf, tf)
+    family = "volumes" if case == "volumes" else "spread"
+    # The family is filled, not left at its empty encoding.
+    filled = {
+        "volumes": lambda v: v.pod_vol.any() and v.pod_pv.any() and v.pod_disk_any.any(),
+        "spread": lambda v: v.con_valid.any() and tf.aux["interpod"].req_anti.any(),
+    }
+    assert filled[family](tf.aux[family])
 
 
 def test_snapshot_from_arrays_round_trips_reference_snapshot():

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from ksim_tpu_torch.engine.core import Engine
-from ksim_tpu_torch.engine.profiles import UNPORTED, default_plugins
+from ksim_tpu_torch.engine.profiles import default_plugins
 from ksim_tpu_torch.kernels.batch_eval import batch_eval
+from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan
 from ksim_tpu_torch.state.featurizer import Featurizer
 from tests.helpers import random_cluster, sanitized_cpu_env
@@ -41,13 +42,23 @@ import ksim_tpu_torch
 for m in pkgutil.walk_packages(ksim_tpu_torch.__path__, "ksim_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+for name in {modules!r}:
+    assert name in sys.modules, name
 print("imported", len(sys.modules))
 """
+
+# The modules of the second slice, which the blocked import must reach.
+SLICE_MODULES = (
+    "ksim_tpu_torch.plugins.volumes",
+    "ksim_tpu_torch.plugins.podtopologyspread",
+    "ksim_tpu_torch.plugins.interpodaffinity",
+    "ksim_tpu_torch.kernels.schedule_sampled",
+)
 
 
 def test_port_imports_with_jax_and_ksim_tpu_blocked():
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_IMPORT.format(forbidden=set(FORBIDDEN))],
+        [sys.executable, "-c", _BLOCKED_IMPORT.format(forbidden=set(FORBIDDEN), modules=SLICE_MODULES)],
         cwd=ROOT,
         env=sanitized_cpu_env(),
         capture_output=True,
@@ -74,7 +85,7 @@ def test_no_jax_or_ksim_tpu_import(path):
 
 def _snapshot():
     feats = Featurizer().featurize(*random_cluster(0, 12, 20))
-    return feats, default_plugins(feats, disabled=UNPORTED)
+    return feats, default_plugins(feats)
 
 
 def test_engine_defaults_to_cuda_and_never_falls_back():
@@ -88,12 +99,13 @@ def test_engine_defaults_to_cuda_and_never_falls_back():
 
 def test_cpu_tensors_take_the_plain_versions_without_launches():
     feats, plugins = _snapshot()
-    scans, batches = schedule_scan.launches, batch_eval.launches
+    before = schedule_scan.launches, batch_eval.launches, schedule_sampled.launches
     eng = Engine(feats, plugins, record="full", device="cpu")
     res, _ = eng.schedule()
     eng.evaluate_batch()
-    assert (res.selected[:20] >= 0).any()
-    assert (schedule_scan.launches, batch_eval.launches) == (scans, batches)
+    sampled, _ = Engine(feats, plugins, record="full", device="cpu", sampling_k=4).schedule()
+    assert (res.selected[:20] >= 0).any() and sampled.visited.any()
+    assert (schedule_scan.launches, batch_eval.launches, schedule_sampled.launches) == before
 
 
 def test_other_devices_raise():
@@ -103,3 +115,6 @@ def test_other_devices_raise():
         eng.schedule()
     with pytest.raises(ValueError, match="cpu or cuda"):
         eng.evaluate_batch()
+    eng = Engine(feats, plugins, record="selection", device="meta", sampling_k=2)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        eng.schedule()

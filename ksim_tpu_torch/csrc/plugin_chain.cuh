@@ -61,7 +61,8 @@
 //    order for PodTopologySpread).
 //  - TIES: selectHost takes the max total, ties to the LOWEST node index;
 //    padding nodes (valid == false) are never feasible and never enter a
-//    normalize extremum.
+//    normalize extremum.  The replay kernel (D) breaks ties by the minimal
+//    canonical rank instead (eval_pod's RANKED).
 #pragma once
 
 #include <climits>
@@ -983,9 +984,12 @@ __device__ inline long long sample_window(const ChainParams& P, long long p, lon
 // writes the records of P.record, and returns the selected node (-1 when
 // none is feasible or the pod is padding) to every thread.  SAMPLED
 // (kernel C) narrows the scored set to the visit window and advances
-// *P.samp_start.
-template <bool SAMPLED>
-__device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s) {
+// *P.samp_start.  RANKED (kernel D) selects among the max-total feasible
+// nodes the one of minimal rank[n] (ksim_tpu/engine/replay.py:942-951):
+// a jnp.argmin over the whole node axis, so the lowest index of minimal
+// value wins, non-candidates counting as INT_MAX.
+template <bool SAMPLED, bool RANKED = false>
+__device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const int32_t* rank = nullptr) {
   const long long N = P.N;
   const long long j = P.pindex[p];
   const bool full = P.record == 2;
@@ -1228,12 +1232,29 @@ __device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s) {
       if (finals) store_int(P.final_out, rowS + P.s_row[INTERPOD] * N + n, fin, P.final_size);
     }
     if (finals) P.total[p * N + n] = total;
+    if (RANKED) s.partial[n] = total;  // this thread's node: read below
     if (fl & FL_OK) {
       const unsigned long long key = select_key(total, n);
       best = key > best ? key : best;
     }
   }
   best = block_max_u64(best, s.red64);
+  if (RANKED) {
+    if (best == 0ULL || !P.pvalid[p]) return -1;
+    const int mx = static_cast<int>(static_cast<unsigned int>(best >> 32) ^ 0x80000000u);
+    // Key: the smaller value, then the lower index, wins the max.
+    unsigned long long rk = 0ULL;
+    for (long long n = threadIdx.x; n < N; n += blockDim.x) {
+      const bool cand = (s.flags[n] & FL_OK) && s.partial[n] == mx;
+      const int v = cand ? rank[n] : INT_MAX;
+      const unsigned long long key =
+          (static_cast<unsigned long long>(static_cast<unsigned int>(INT_MAX - v)) << 32) |
+          static_cast<unsigned long long>(0xFFFFFFFFu - static_cast<unsigned int>(n));
+      rk = key > rk ? key : rk;
+    }
+    rk = block_max_u64(rk, s.red64);
+    return key_node(rk);
+  }
   // Padding pods never ran a cycle upstream: no rotation.  Every thread
   // read *samp_start in phase 0, before the barriers since.
   if (SAMPLED && threadIdx.x == 0 && P.pvalid[p])

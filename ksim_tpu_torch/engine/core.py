@@ -62,10 +62,17 @@ class ScoredPlugin:
     # Before/After hooks (ksim_tpu's PluginExtender) are not ported: the
     # Engine refuses a plugin that carries one.
     extender: Any = None
-    # Host-side recording hints read by the annotation renderer: is the
-    # plugin active at the Reserve / PreBind points.
+    # Host-side hints (not part of the device computation): is the plugin
+    # active at the Reserve / PreBind / Permit / PostFilter / Bind /
+    # PostBind points.  The annotation renderer reads the first two; the
+    # scheduler service reads them all before calling a plugin's host-side
+    # hook.
     reserve_enabled: bool = True
     prebind_enabled: bool = True
+    permit_enabled: bool = True
+    postfilter_enabled: bool = True
+    bind_enabled: bool = True
+    postbind_enabled: bool = True
 
 
 @dataclass
@@ -116,6 +123,26 @@ def _pull_tree_to_host(tree: dict) -> dict:
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     # A copy: on the CPU the engine's tensors never alias the snapshot.
     return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+
+
+def device_aux(aux: dict, n_padded: int, device: torch.device) -> dict:
+    """The plugins' aux families as device tensors ({family: {field:
+    tensor}}, the array fields of each featurizer dataclass), plus the
+    pod-independent derived tables, once per snapshot: the term-match
+    product and PodTopologySpread's log-weight tables."""
+    out = {}
+    for key in AUX_KEYS:
+        v = aux[key]
+        out[key] = {
+            f.name: _to_device(getattr(v, f.name), device)
+            for f in dataclasses.fields(v)
+            if isinstance(getattr(v, f.name), np.ndarray)
+        }
+    out["affinity"]["term_ok"] = term_matches(out["affinity"])
+    w64, w32 = log_weights(n_padded)
+    out["spread"]["log_w64"] = _to_device(w64, device)
+    out["spread"]["log_w32"] = _to_device(w32, device)
+    return out
 
 
 class _Program:
@@ -310,20 +337,7 @@ class Engine:
             has_requests=_to_device(p.has_requests, dev),
             index=_to_device(p.index, dev),
         )
-        self._aux = {}
-        for key in AUX_KEYS:
-            v = feats.aux[key]
-            self._aux[key] = {
-                f.name: _to_device(getattr(v, f.name), dev)
-                for f in dataclasses.fields(v)
-                if isinstance(getattr(v, f.name), np.ndarray)
-            }
-        # Pod-independent derived tables, once per snapshot: the term-match
-        # product and PodTopologySpread's log-weight tables.
-        self._aux["affinity"]["term_ok"] = term_matches(self._aux["affinity"])
-        w64, w32 = log_weights(int(n.valid.shape[0]))
-        self._aux["spread"]["log_w64"] = _to_device(w64, dev)
-        self._aux["spread"]["log_w32"] = _to_device(w32, dev)
+        self._aux = device_aux(feats.aux, int(n.valid.shape[0]), dev)
 
     @property
     def _plugins(self) -> tuple[ScoredPlugin, ...]:

@@ -21,7 +21,7 @@ from ksim_tpu_torch.kernels.chain import ChainParams
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ksim_tpu_torch"
-SOURCES = ("schedule_scan", "schedule_sampled", "batch_eval")
+SOURCES = ("schedule_scan", "schedule_sampled", "batch_eval", "replay_segment")
 # --fmad=false: no a*b+c contracted into an FMA where the reference
 # rounds twice (the chain's float paths must match it bit for bit).
 NVCC_FLAGS = (

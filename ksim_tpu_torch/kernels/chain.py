@@ -36,6 +36,11 @@ MAX_TK = 16  # PodTopologySpread topology keys
 # Per-domain scratch that fits this many bytes lives in shared memory,
 # more in a global buffer.
 DOMAIN_SMEM_BYTES = 16384
+# The dynamic shared memory one block may opt into on sm_90 (227 KB).
+MAX_SMEM_BYTES = 232448
+# plugin_chain.cuh Smem: reduction slots and the prefix-count scratch.
+RED_MAX = 24
+SCAN_INTS = 64
 RECORD_IDS = {"selection": 0, "final": 1, "full": 2}
 
 _P = ctypes.c_void_p
@@ -382,9 +387,37 @@ def fresh_scan_state(state, carries: dict):
     return state, carries
 
 
+def smem_bytes(prm: ChainParams) -> int:
+    """The dynamic shared memory a chain kernel's block takes
+    (plugin_chain.cuh ``smem_bytes``): 13 bytes per padded node, the
+    pod's image weights, the reduction scratch and, when it fits, the
+    PodTopologySpread domain scratch."""
+    align8 = (3 * 4 * prm.N + prm.N + 7) & ~7
+    dom = 4 * 4 * prm.MC * prm.DMAX if prm.sp_smem else 0
+    return align8 + 8 * prm.I + 8 * 33 + 4 * 33 * RED_MAX + 4 * SCAN_INTS + dom
+
+
+def check_smem(prm: ChainParams, *, extra: int = 0) -> None:
+    """Raise ValueError when a block's shared memory (the chain's plus
+    ``extra``) is over what one block may take, naming the padded node
+    count: the node axis lives in shared memory, so it bounds the
+    cluster (about 17,590 padded nodes with no spread domain scratch)."""
+    need = smem_bytes(prm) + extra
+    if need > MAX_SMEM_BYTES:
+        fixed = need - 13 * prm.N
+        raise ValueError(
+            f"padded node axis N={prm.N} needs {need} bytes of shared memory per "
+            f"block, over the {MAX_SMEM_BYTES} bytes one block may take on sm_90: "
+            f"at 13 bytes per node the kernels hold at most "
+            f"{(MAX_SMEM_BYTES - fixed) // 13} padded nodes for this profile and vocabulary"
+        )
+
+
 def launch(lib, entry: str, prm: ChainParams) -> None:
     """Call ``entry`` on the current stream; raise on a nonzero
-    cudaGetLastError()."""
+    cudaGetLastError().  A node axis over the shared-memory bound raises
+    ValueError before the launch."""
+    check_smem(prm)
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, entry)(ctypes.byref(prm), ctypes.c_void_p(stream))
     if err != 0:

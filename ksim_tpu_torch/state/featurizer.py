@@ -603,11 +603,11 @@ def _copy_into(cls: type, src: Any) -> Any:
     return cls(**kw)
 
 
-def snapshot_from_arrays(obj: Any) -> FeaturizedSnapshot:
-    """This package's FeaturizedSnapshot from any object shaped like one:
-    ``ksim_tpu``'s own (duck-typed, never imported), or the same fields
-    held in mappings of numpy arrays.  The aux families are matched by
-    key; families this package has no encoder type for are left out."""
+def _aux_from_arrays(aux: dict) -> dict:
+    """This package's aux families from a mapping shaped like a
+    snapshot's ``aux`` (``ksim_tpu``'s dataclasses, duck-typed, or
+    mappings of arrays), every array an owned copy.  Families this
+    package has no encoder type for are left out."""
     from ksim_tpu_torch.state.encoding import AffinityTensors, SpreadTensors, TaintTensors
     from ksim_tpu_torch.state.extras import ImageTensors, NodeNameTensors, NodePortTensors
     from ksim_tpu_torch.state.interpod import InterPodTensors
@@ -623,11 +623,15 @@ def snapshot_from_arrays(obj: Any) -> FeaturizedSnapshot:
         "imagelocality": ImageTensors,
         "volumes": VolumeTensors,
     }
-    aux = {
-        key: _copy_into(aux_types[key], val)
-        for key, val in _field(obj, "aux").items()
-        if key in aux_types
-    }
+    return {key: _copy_into(aux_types[key], val) for key, val in aux.items() if key in aux_types}
+
+
+def snapshot_from_arrays(obj: Any) -> FeaturizedSnapshot:
+    """This package's FeaturizedSnapshot from any object shaped like one:
+    ``ksim_tpu``'s own (duck-typed, never imported), or the same fields
+    held in mappings of numpy arrays.  The aux families are matched by
+    key; families this package has no encoder type for are left out."""
+    aux = _aux_from_arrays(_field(obj, "aux"))
     return FeaturizedSnapshot(
         resources=tuple(_field(obj, "resources")),
         units=dict(_field(obj, "units")),

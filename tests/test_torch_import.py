@@ -18,7 +18,7 @@ from ksim_tpu_torch.kernels.batch_eval import batch_eval
 from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan
 from ksim_tpu_torch.state.featurizer import Featurizer
-from tests.helpers import random_cluster, sanitized_cpu_env
+from tests.helpers import make_node, make_pod, random_cluster, sanitized_cpu_env
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ksim_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -47,12 +47,28 @@ for name in {modules!r}:
 print("imported", len(sys.modules))
 """
 
-# The modules of the second slice, which the blocked import must reach.
+# The modules of the second and third slices, which the blocked import
+# must reach.
 SLICE_MODULES = (
     "ksim_tpu_torch.plugins.volumes",
     "ksim_tpu_torch.plugins.podtopologyspread",
     "ksim_tpu_torch.plugins.interpodaffinity",
     "ksim_tpu_torch.kernels.schedule_sampled",
+    "ksim_tpu_torch.errors",
+    "ksim_tpu_torch.obs",
+    "ksim_tpu_torch.faults",
+    "ksim_tpu_torch.util",
+    "ksim_tpu_torch.state.cluster",
+    "ksim_tpu_torch.state.priorities",
+    "ksim_tpu_torch.plugins.oracle",
+    "ksim_tpu_torch.scheduler.preemption",
+    "ksim_tpu_torch.scheduler.permit",
+    "ksim_tpu_torch.scheduler.profile",
+    "ksim_tpu_torch.scheduler.service",
+    "ksim_tpu_torch.scenario.runner",
+    "ksim_tpu_torch.scenario.generate",
+    "ksim_tpu_torch.engine.replay",
+    "ksim_tpu_torch.kernels.replay_segment",
 )
 
 
@@ -118,3 +134,48 @@ def test_other_devices_raise():
     eng = Engine(feats, plugins, record="selection", device="meta", sampling_k=2)
     with pytest.raises(ValueError, match="cpu or cuda"):
         eng.schedule()
+
+
+def test_service_and_runner_need_a_card_unless_the_cpu_is_asked_for():
+    from ksim_tpu_torch.scenario.runner import ScenarioRunner
+    from ksim_tpu_torch.scheduler.service import SchedulerService
+    from ksim_tpu_torch.state.cluster import ClusterStore
+
+    if torch.cuda.is_available():
+        assert SchedulerService(ClusterStore())._device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SchedulerService(ClusterStore())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ScenarioRunner()
+    assert ScenarioRunner(device="cpu").service._device.type == "cpu"
+
+
+def test_unported_surfaces_refuse():
+    from ksim_tpu_torch.scenario.runner import ScenarioRunner
+    from ksim_tpu_torch.scheduler.service import SchedulerService
+    from ksim_tpu_torch.state.cluster import ClusterStore
+
+    store = ClusterStore()
+    with pytest.raises(NotImplementedError, match="extenders"):
+        SchedulerService(store, config={"extenders": [{"urlPrefix": "http://localhost:1"}]}, device="cpu")
+    with pytest.raises(NotImplementedError, match="shard_mesh"):
+        SchedulerService(store, shard_mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="profiler"):
+        SchedulerService(store, device="cpu").start_profiling("unused")
+    with pytest.raises(NotImplementedError, match="fleet"):
+        ScenarioRunner(device="cpu", device_replay=True, fleet=2)
+    # A legacy per-pool volume-limit plugin compiles, and the Engine
+    # refuses it: the kernels hold one NodeVolumeLimits instance.
+    store = ClusterStore()
+    store.create("nodes", make_node("n1"))
+    store.create("pods", make_pod("p1"))
+    legacy = {"profiles": [{"plugins": {"multiPoint": {"enabled": [{"name": "EBSLimits"}]}}}]}
+    with pytest.raises(NotImplementedError, match="NodeVolumeLimits"):
+        SchedulerService(store, config=legacy, device="cpu").schedule_pending()
+
+    class _Stream(list):
+        streaming_ops = True
+
+    with pytest.raises(NotImplementedError, match="streaming"):
+        ScenarioRunner(device="cpu").run(_Stream())

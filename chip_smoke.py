@@ -48,7 +48,26 @@ Phases, in order; any failure exits non-zero before the last line:
    standalone entry (derive_interpod) equals its plain version on the
    first segment's state; then the 50k flagship (52781 / 42829) through
    kernel D, its host and kernel time apart.  D's and derive_interpod's
-   ms, plain ms and bound are taken on one segment of the 6k f32 run.
+   ms, plain ms and bound are taken on one segment of the 6k f32 run;
+7. fleet replay (rows 10-11): ScenarioRunner(fleet=8, device_replay=True,
+   preemption=True) on the 6k stream, in both cohort modes (dedupe: the
+   leader's solo kernel-D launch fanned out; vmap, KSIM_FLEET_VMAP=1: one
+   launch of 8 blocks, replay_segment_fleet).  Every lane lands the lock
+   with step triples equal to phase 6's solo device run, and only the
+   leader lowers.  The vmap leg's launch counts (and row 6's runs, 8 per
+   active step) are read around it; its fullest launch equals, lane by
+   lane, the solo kernel-D launch on the same inputs, and a 2-lane fleet
+   launch of that segment equals replay_segment_fleet_plain.  Rows
+   10-11's ms and bound are the 8-lane launch's, its plain ms the 2-lane
+   plain version's on that segment;
+8. kernel D completed (record="full", the on-device victim search): the
+   hand-derived preemption fixtures (tests/fixtures/preemption_victims.py)
+   and a priority-strata churn on the device path equal the per-pass path
+   (nominations, victims in order, steps, store), record="full"
+   annotations of a 24-node churn equal the per-pass path's, and kernel D
+   equals its plain version on every segment of those runs; D's time in
+   its preemption + full-record form is taken on the strata churn's
+   fullest searching segment.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds.
@@ -57,6 +76,7 @@ the kernels with their launches, errors, times and bounds.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -78,25 +98,30 @@ from ksim_tpu_torch.kernels.replay_segment import (
     derive_layout,
     derive_runs,
     replay_segment,
+    replay_segment_fleet,
+    replay_segment_fleet_plain,
     replay_segment_plain,
     reset_derive_runs,
 )
 from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled, schedule_sampled_plain
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan, schedule_scan_plain
 from ksim_tpu_torch.scenario.generate import churn_scenario
-from ksim_tpu_torch.scenario.runner import ScenarioRunner
+from ksim_tpu_torch.scenario.runner import Operation, ScenarioRunner
+from ksim_tpu_torch.state.cluster import ClusterStore
 from ksim_tpu_torch.state.featurizer import Featurizer
 
 # The cluster builders live in tests/ (stdlib only).  They are imported
 # from that directory, not as the package ``tests``: an installed package
 # of that name can shadow it.
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from fixtures.preemption_victims import CASES as PREEMPTION_CASES  # noqa: E402
 from helpers import random_cluster  # noqa: E402
 from test_torch_clusters import (  # noqa: E402
     images_ports_cluster,
     spread_affinity_cluster,
     volume_cluster,
 )
+from test_torch_gpu_replay import case_objects, priority_strata_stream, store_view  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM
 # bandwidth, and the float32 rate outside the tensor cores, which this
@@ -126,6 +151,9 @@ SEGMENT_K = 16
 # ksim_tpu's own device lock asks the kernel to carry at least this many
 # of the 6k run's 41 steps (tests/test_replay_device.py).
 MIN_DEVICE_STEPS = 32
+# Phase 7: the fleet's lanes, and the lanes of the plain comparison.
+FLEET_LANES = 8
+FLEET_PLAIN_LANES = 2
 
 KERNELS = {
     "schedule_scan": ("ksim_tpu_torch/csrc/schedule_scan.cu", "ksim_tpu/engine/core.py:790"),
@@ -133,6 +161,7 @@ KERNELS = {
     "schedule_sampled": ("ksim_tpu_torch/csrc/schedule_sampled.cu", "ksim_tpu/engine/core.py:750"),
     "replay_segment": ("ksim_tpu_torch/csrc/replay_segment.cu", "ksim_tpu/engine/replay.py:492"),
     "derive_interpod": ("ksim_tpu_torch/csrc/derive_interpod.cuh", "ksim_tpu/engine/replay.py:459"),
+    "replay_segment_fleet": ("ksim_tpu_torch/csrc/replay_segment.cu", "ksim_tpu/engine/replay.py:1244"),
 }
 WRAPPERS = {"schedule_scan": schedule_scan, "batch_eval": batch_eval, "schedule_sampled": schedule_sampled}
 
@@ -422,11 +451,11 @@ def churn_phase(check: Check, card: str) -> dict:
                                      f"for {active} active steps")
             if derive_interpod.launches:
                 raise AssertionError("the standalone derive_interpod entry ran on the main path")
-            runs[exact] = (list(segments), launches, drv.kernel_ms)
+            runs[exact] = (list(segments), launches, drv.kernel_ms, step_triples(res))
     finally:
         replay_mod.replay_segment = kernel
 
-    segments, launches, kernel_ms_6k = runs[False]
+    segments, launches, kernel_ms_6k, solo_steps = runs[False]
     t = time.perf_counter()
     plain_seg_ms, seg_pairs = [], []
     for i, (st, prog, const, ev, state0, final, outs) in enumerate(segments + runs[True][0][:1]):
@@ -514,7 +543,242 @@ def churn_phase(check: Check, card: str) -> dict:
         "launches": launches,
         "replay_segment": (ms_d, plain_seg_ms[pick], d_bound, d_by, d_shape),
         "derive_interpod": (ms_v, plain_v, v_bound, v_by, v_shape),
+        "solo_steps": solo_steps,
     }
+
+
+def step_triples(res) -> list[tuple[int, int, int]]:
+    return [(s.scheduled, s.unschedulable, s.pending_after) for s in res.steps]
+
+
+def segment_work(st, prog, const, ev, state0, outs, final, pairs: tuple[int, int]) -> tuple[float, float]:
+    """(bytes, operations) one lane of kernel D needs on a segment: its
+    inputs read once and outputs written once; the chain's operations on
+    the attempted pods against the valid nodes, scores on the feasible
+    pairs only (``pairs`` = (pairs, feasible), counted by PairCount)."""
+    P = const["pods"]["requests"].shape[0]
+    idx = outs["idx"]
+    mask = np.zeros(P, bool)
+    mask[idx[idx < P].long().cpu().numpy()] = True
+    ops = chain_pair_ops(const["aux"], prog.plugins, const["node"]["allocatable"].shape[1], mask)
+    n_ops = (ops["filter"] + ops["commit"]) * pairs[0] + ops["score"] * pairs[1]
+    n_bytes = tensor_bytes(const) + tensor_bytes(ev) + tensor_bytes(state0) + tensor_bytes(outs) + tensor_bytes(final)
+    return n_bytes, n_ops
+
+
+def fleet_phase(check: Check, card: str, solo_steps) -> dict:
+    """Phase 7; returns rows 10-11's launches and measurements."""
+    t7 = time.perf_counter()
+    ops = list(churn_scenario(0, n_nodes=CHURN_NODES, n_events=6000, ops_per_step=100))
+    lock = CHURN_LOCKS[6000]
+    captured = []
+    fleet_kernel = replay_mod.replay_segment_fleet
+
+    def capture(st, prog, const, ev, state0):
+        held = {k: v.clone() for k, v in state0.items()}
+        final, outs = fleet_kernel(st, prog, const, ev, state0)
+        captured.append((st, prog, const, ev, held, final, outs))
+        return final, outs
+
+    counts = {}
+    replay_mod.replay_segment_fleet = capture
+    try:
+        for mode in ("dedupe", "vmap"):
+            os.environ["KSIM_FLEET_VMAP"] = "1" if mode == "vmap" else "0"
+            captured.clear()
+            replay_segment.launches = 0
+            replay_segment_fleet.launches = 0
+            reset_derive_runs()
+            runner = ScenarioRunner(max_pods_per_pass=1024, pod_bucket_min=128, device_replay=True,
+                                    device_segment_steps=SEGMENT_K, preemption=True, exact=False,
+                                    device=DEVICE, fleet=FLEET_LANES)
+            t = time.perf_counter()
+            agg = runner.run(ops)
+            wall = time.perf_counter() - t
+            launched = {"replay_segment": replay_segment.launches,
+                        "replay_segment_fleet": replay_segment_fleet.launches, "derive_runs": derive_runs()}
+            stats = runner.fleet_driver.stats()
+            what = f"fleet {FLEET_LANES} x 6k, {mode}"
+            for ln in runner.fleet_lanes:
+                r = ln.result
+                if (r.events_applied, r.pods_scheduled, r.unschedulable_attempts) != lock:
+                    raise AssertionError(f"{what}: lane {ln.idx} {r.pods_scheduled}/{r.unschedulable_attempts}")
+                if step_triples(r) != solo_steps:
+                    raise AssertionError(f"{what}: lane {ln.idx}'s steps differ from the solo device run")
+            lowerings = stats["lane_lowerings"]
+            if not (sum(lowerings) == lowerings[0] > 0) or stats["lanes_on_device"] != 1.0:
+                raise AssertionError(f"{what}: {stats}")
+            dispatches = stats["group_dispatches"]
+            active = sum(int(seg[3]["active"].sum()) for seg in captured)
+            if mode == "vmap":
+                if launched["replay_segment_fleet"] != dispatches or dispatches < 1 or launched["replay_segment"]:
+                    raise AssertionError(f"{what}: launches {launched} for {dispatches} group dispatches")
+                if launched["derive_runs"] != FLEET_LANES * active:
+                    raise AssertionError(f"{what}: row 6 ran {launched['derive_runs']} times, for "
+                                         f"{FLEET_LANES} lanes x {active} active steps")
+            elif launched["replay_segment"] != dispatches or launched["replay_segment_fleet"]:
+                raise AssertionError(f"{what}: launches {launched} for {dispatches} group dispatches")
+            counts[mode] = launched
+            print(f"  {what}: every lane {lock[1]}/{lock[2]} with the solo run's steps; lowerings {lowerings}; "
+                  f"{dispatches} group dispatches; launches {launched}; wall {wall:.2f} s, fleet kernel "
+                  f"{stats['kernel_ms']:.1f} ms, phases {agg.phase_seconds} {card}", flush=True)
+    finally:
+        replay_mod.replay_segment_fleet = fleet_kernel
+        os.environ.pop("KSIM_FLEET_VMAP", None)
+
+    # The vmap leg's fullest launch: lane by lane against the solo kernel,
+    # then a 2-lane launch against the plain fleet version.
+    pick = max(range(len(captured)), key=lambda i: int((captured[i][6]["idx"][0] < captured[i][2]["pods"]["requests"].shape[0]).sum()))
+    st, prog, const, ev, state0, final, outs = captured[pick]
+    lane0 = {k: v[0] for k, v in state0.items()}
+    solo_final, solo_outs = replay_segment(st, prog, const, ev, lane0)
+    for i in range(FLEET_LANES):
+        tree_equal(check, "replay_segment_fleet", f"fleet lane {i} outputs", {k: v[i] for k, v in outs.items()},
+                   solo_outs)
+        tree_equal(check, "replay_segment_fleet", f"fleet lane {i} final state",
+                   {k: v[i] for k, v in final.items()}, solo_final)
+    two = {k: v[:FLEET_PLAIN_LANES].contiguous() for k, v in state0.items()}
+    got_final, got_outs = replay_segment_fleet(st, prog, const, ev, two)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with PairCount(prog, const["pods"]["requests"].shape[0]) as count:
+        start.record()
+        want_final, want_outs = replay_segment_fleet_plain(st, prog, const, ev, two)
+        end.record()
+        torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    tree_equal(check, "replay_segment_fleet", f"{FLEET_PLAIN_LANES}-lane fleet outputs", got_outs, want_outs)
+    tree_equal(check, "replay_segment_fleet", f"{FLEET_PLAIN_LANES}-lane fleet final state", got_final, want_final)
+    ms_fleet = cuda_ms(lambda: fleet_kernel(st, prog, const, ev, state0), reps=3)
+    ms_two = cuda_ms(lambda: fleet_kernel(st, prog, const, ev, two), reps=3)
+    ms_solo = cuda_ms(lambda: replay_segment(st, prog, const, ev, lane0), reps=3)
+    # Bound: every lane's needed work (the plain run counted two lanes'
+    # pairs); const and ev are read once for all lanes.
+    lane_pairs = (count.pairs // FLEET_PLAIN_LANES, count.feasible // FLEET_PLAIN_LANES)
+    lane_bytes, lane_ops = segment_work(st, prog, const, ev, lane0, solo_outs, solo_final, lane_pairs)
+    shared = tensor_bytes(const) + tensor_bytes(ev)
+    f_bytes = shared + FLEET_LANES * (lane_bytes - shared)
+    f_bound, f_by = bound_ms(f_bytes, FLEET_LANES * lane_ops)
+    P = const["pods"]["requests"].shape[0]
+    N = const["node"]["allocatable"].shape[0]
+    n_att = int((outs["idx"][0] < P).sum())
+    f_shape = f"{FLEET_LANES} lanes x K={st.k} x Q={st.q} x {N} nodes x {P} pod rows, {n_att} attempts per lane"
+    print(f"  replay_segment_fleet (rows 10-11), {f_shape}: {ms_fleet:.3f} ms per launch; the solo launch "
+          f"{ms_solo:.3f} ms ({ms_fleet / ms_solo:.2f}x); {FLEET_PLAIN_LANES} lanes {ms_two:.3f} ms; plain "
+          f"{FLEET_PLAIN_LANES} lanes {plain_ms:.1f} ms; bound {f_bound:.4f} ms by {f_by} ({f_bytes} bytes) {card}")
+    print(f"  the fleet launch equals the solo kernel lane by lane and, on {FLEET_PLAIN_LANES} lanes, its plain "
+          f"version; phase 7 took {time.perf_counter() - t7:.1f} s", flush=True)
+    return {
+        "launches": counts["vmap"]["replay_segment_fleet"],
+        "measured": (ms_fleet, f_bound, f_by, f_shape),
+        "plain_ms": plain_ms,
+        "extra": {"plain_shape": f"{FLEET_PLAIN_LANES} lanes of the same segment",
+                  f"ms_{FLEET_PLAIN_LANES}_lanes": ms_two, "solo_ms_same_segment": ms_solo,
+                  "dedupe_launches": counts["dedupe"]["replay_segment"]},
+    }
+
+
+def completed_d_phase(check: Check, card: str) -> dict:
+    """Phase 8; returns kernel D's measurements in its preemption +
+    full-record form."""
+    t8 = time.perf_counter()
+    segments = []
+    kernel = replay_mod.replay_segment
+
+    def capture(st, prog, const, ev, state0):
+        held = {k: v.clone() for k, v in state0.items()}
+        final, outs = kernel(st, prog, const, ev, state0)
+        segments.append((st, prog, const, ev, held, final, outs))
+        return final, outs
+
+    def plain_equal(what: str, segs) -> None:
+        for i, (st, prog, const, ev, state0, final, outs) in enumerate(segs):
+            want_final, want_outs = replay_segment_plain(st, prog, const, ev, state0)
+            tree_equal(check, "replay_segment", f"{what} segment {i} outputs", outs, want_outs)
+            tree_equal(check, "replay_segment", f"{what} segment {i} final state", final, want_final)
+
+    replay_mod.replay_segment = capture
+    try:
+        for case in PREEMPTION_CASES:
+            segments.clear()
+            nodes, victims, pre = case_objects(case)
+            store = ClusterStore()
+            for n in nodes:
+                store.create("nodes", n)
+            for v in victims:
+                store.create("pods", v)
+            runner = ScenarioRunner(store=store, preemption=True, device_replay=True, device_segment_steps=4,
+                                    exact=False, device=DEVICE)
+            evicted = []
+            runner.service.add_eviction_listener(lambda ns, nm: evicted.append(nm))
+            runner.run(iter([Operation(step=1, op="create", kind="pods", obj=pre)]))
+            nominated = store.get("pods", "preemptor").get("status", {}).get("nominatedNodeName")
+            if (runner.replay_driver.device_steps < 1 or nominated != case["expected_nominated"]
+                    or evicted != case["expected_victims"] or not all(s[0].preempt for s in segments)):
+                raise AssertionError(f"preemption fixture {case['name']}: nominated {nominated}, evicted "
+                                     f"{evicted}, {runner.replay_driver.unsupported}")
+            plain_equal(f"fixture {case['name']}", segments)
+        print(f"  the {len(PREEMPTION_CASES)} preemption fixtures: the hand-derived nominations and victims "
+              f"through kernel D's victim search; D equals its plain version on each", flush=True)
+        strata = {}
+        for record in ("selection", "full"):
+            outcome = {}
+            for device_replay in (True, False):
+                segments.clear()
+                runner = ScenarioRunner(preemption=True, record=record, device_replay=device_replay,
+                                        device_segment_steps=4, exact=False, device=DEVICE)
+                evicted = []
+                runner.service.add_eviction_listener(lambda ns, nm: evicted.append(nm))
+                res = runner.run(priority_strata_stream())
+                outcome[device_replay] = (step_triples(res), store_view(runner), evicted)
+                if device_replay:
+                    drv = runner.replay_driver
+                    if drv.device_steps < 8 or drv.unsupported or not any(s[0].preempt for s in segments):
+                        raise AssertionError(f"strata churn {record}: {drv.device_steps} steps, {drv.unsupported}")
+                    plain_equal(f"strata churn {record}", segments)
+                    strata[record] = list(segments)
+            if outcome[True] != outcome[False] or not outcome[True][2]:
+                raise AssertionError(f"strata churn {record}: the device path differs from the per-pass path")
+            print(f"  priority-strata churn, record={record}: device path equals per-pass "
+                  f"({len(outcome[True][2])} evictions, in order); D equals its plain version", flush=True)
+        segments.clear()
+        kw = dict(record="full", max_pods_per_pass=64, pod_bucket_min=32, exact=False, device=DEVICE)
+        dev = ScenarioRunner(**kw, device_replay=True, device_segment_steps=8)
+        dev_res = dev.run(churn_scenario(0, n_nodes=24, n_events=160, ops_per_step=16))
+        base = ScenarioRunner(**kw)
+        base_res = base.run(churn_scenario(0, n_nodes=24, n_events=160, ops_per_step=16))
+        if (dev.replay_driver.device_steps < 4 or step_triples(dev_res) != step_triples(base_res)
+                or store_view(dev) != store_view(base)):
+            raise AssertionError("record=full churn: the device path's annotations differ from the per-pass path")
+        plain_equal("record=full churn", segments)
+        n_annotated = sum(1 for p in dev.store.list("pods") if p["metadata"].get("annotations"))
+        print(f"  record=full churn (24 nodes): {n_annotated} pods' annotations equal the per-pass path's; "
+              f"D equals its plain version on its {len(segments)} segments", flush=True)
+    finally:
+        replay_mod.replay_segment = kernel
+
+    # D in its preemption + full-record form: the strata churn's segment
+    # with the most victim searches.
+    segs = strata["full"]
+    pick = max(range(len(segs)), key=lambda i: int((segs[i][6]["nom"] >= 0).sum()))
+    st, prog, const, ev, state0, final, outs = segs[pick]
+    ms = cuda_ms(lambda: kernel(st, prog, const, ev, state0), reps=5)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with PairCount(prog, const["pods"]["requests"].shape[0]) as count:
+        start.record()
+        replay_segment_plain(st, prog, const, ev, state0)
+        end.record()
+        torch.cuda.synchronize()
+    n_bytes, n_ops = segment_work(st, prog, const, ev, state0, outs, final, (count.pairs, count.feasible))
+    bound, by = bound_ms(n_bytes, n_ops)
+    P = const["pods"]["requests"].shape[0]
+    N = const["node"]["allocatable"].shape[0]
+    shape = (f"K={st.k} x Q={st.q} x {N} nodes x {P} pod rows, record=full, {int((outs['nom'] >= 0).sum())} "
+             f"nominations; pairs counted in the plain version's chain only ({count.pairs})")
+    print(f"  replay_segment (kernel D) with the victim search and record=full, {shape}: {ms:.3f} ms per launch; "
+          f"plain {start.elapsed_time(end):.1f} ms; bound {bound:.5f} ms by {by} {card}")
+    print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
+    return {"preempt_full_ms": ms, "preempt_full_plain_ms": start.elapsed_time(end),
+            "preempt_full_bound_ms": bound, "preempt_full_shape": shape}
 
 
 def main() -> int:
@@ -803,16 +1067,27 @@ def main() -> int:
     launches.update(churn["launches"])
     plain_ms["replay_segment"], plain_ms["derive_interpod"] = (churn[k][1] for k in ("replay_segment", "derive_interpod"))
 
+    phase(f"7 fleet replay ({FLEET_LANES} lanes, rows 10-11)")
+    fleet = fleet_phase(check, card, churn["solo_steps"])
+    launches["replay_segment_fleet"] = fleet["launches"]
+    plain_ms["replay_segment_fleet"] = fleet["plain_ms"]
+
+    phase("8 kernel D completed: the victim search and record=full")
+    completed = completed_d_phase(check, card)
+
     measured = {
         "schedule_scan": (ms_a, a_bound, a_by, f"{P}x{N} selection"),
         "batch_eval": (ms_b, b_bound, b_by, f"{P}x{N} final"),
         "schedule_sampled": (ms_c, c_bound, c_by, f"{P2}x{N} full"),
-        **{k: (v[0], v[2], v[3], v[4]) for k, v in churn.items() if k != "launches"},
+        **{k: (churn[k][0], churn[k][2], churn[k][3], churn[k][4]) for k in ("replay_segment", "derive_interpod")},
+        "replay_segment_fleet": fleet["measured"],
     }
     # Row 6 runs inside kernel D: its "launches" are its runs there, as
     # the kernel counted them; its standalone entry ran no time on the path.
     notes = {"derive_interpod": {"launches_are": "runs inside replay_segment, counted on the card",
-                                 "standalone_launches": 0}}
+                                 "standalone_launches": 0},
+             "replay_segment": completed,
+             "replay_segment_fleet": {"launches_are": "launches on the vmap leg of phase 7", **fleet["extra"]}}
     kernels = [
         {
             "name": name,

@@ -980,8 +980,107 @@ __device__ inline long long sample_window(const ChainParams& P, long long p, lon
 
 // ---- one pod against every node -------------------------------------------
 
+// Every filter of the chain for chunk row p (pod j) at node n: the FL_*
+// flags, with FL_OK when the node is feasible.  With `record_bits` the
+// reason codes go to row rowF of bits_out.  Kernel D's victim search
+// calls it alone, for one node, over a modified node state (csrc/
+// replay_segment.cu eval_fit).
+__device__ inline uint8_t filter_node(const ChainParams& P, long long p, long long j, long long n,
+                                      const Smem& s, const Spread& sp, const Interpod& ip,
+                                      const int* min_match, bool sp_filter, bool record_bits,
+                                      long long rowF) {
+  const long long N = P.N;
+  bool ok = P.nvalid[n] != 0;
+  const int taint = taint_block(P, j, n);
+  const bool aff = affinity_match(P, j, n);
+  const uint8_t fl = (aff ? FL_AFF : 0) | (taint == 0 ? FL_TNT : 0);
+  if (P.f_row[UNSCHED] >= 0) {
+    const bool blocked = P.unsched[n] && !P.ptol[p];
+    ok = ok && !blocked;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[UNSCHED] * N + n, blocked, P.bits_size);
+  }
+  if (P.f_row[NODENAME] >= 0) {
+    const int req = P.pod_req_node[j];
+    const bool pass = req == -1 || n == req;
+    ok = ok && pass;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[NODENAME] * N + n, !pass, P.bits_size);
+  }
+  if (P.f_row[TAINT] >= 0) {
+    ok = ok && taint == 0;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[TAINT] * N + n, taint, P.bits_size);
+  }
+  if (P.f_row[AFFINITY] >= 0) {
+    bool added_ok = true;
+    if (P.has_added[0]) {
+      const uint8_t* tok = P.term_ok + n * P.T;
+      added_ok = false;
+      for (long long t = 0; t < P.T; ++t) added_ok = added_ok || (tok[t] && P.added_terms[t]);
+    }
+    const int bits = (added_ok ? 0 : 2) | (aff ? 0 : 1);
+    ok = ok && bits == 0;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[AFFINITY] * N + n, bits, P.bits_size);
+  }
+  if (P.f_row[PORTS] >= 0) {
+    const int32_t* cnt = P.port_counts + n * P.V;
+    const uint8_t* wants = P.pod_wants + j * P.V;
+    bool conflict = false;
+    for (long long v = 0; v < P.V; ++v) conflict = conflict || (cnt[v] > 0 && wants[v]);
+    ok = ok && !conflict;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[PORTS] * N + n, conflict, P.bits_size);
+  }
+  if (P.f_row[FIT] >= 0) {
+    int bits = P.pod_count[n] + 1 > P.allowed[n] ? 1 : 0;
+    if (P.phas[p]) {
+      for (long long r = 0; r < P.R; ++r) {
+        const int podr = P.preq[p * P.R + r];
+        const bool checked = r < P.fit_base_count || podr > 0;
+        const int freev = P.alloc[n * P.R + r] - P.requested[n * P.R + r];
+        if (checked && podr > freev) bits |= 1 << (r + 1 < 30 ? r + 1 : 30);
+      }
+    }
+    ok = ok && bits == 0;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[FIT] * N + n, bits, P.bits_size);
+  }
+  if (P.f_row[BALANCED] >= 0 && record_bits) {
+    store_int(P.bits_out, rowF + P.f_row[BALANCED] * N + n, 0, P.bits_size);
+  }
+  if (P.f_row[VOLRESTR] >= 0) {
+    const int code = volume_restrictions_code(P, j, n);
+    ok = ok && code == 0;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[VOLRESTR] * N + n, code, P.bits_size);
+  }
+  if (P.f_row[VOLLIMITS] >= 0) {
+    const bool over = volume_limits_over(P, j, n);
+    ok = ok && !over;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[VOLLIMITS] * N + n, over, P.bits_size);
+  }
+  if (P.f_row[VOLBIND] >= 0) {
+    const int code = volume_binding_code(P, j, n);
+    ok = ok && code == 0;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[VOLBIND] * N + n, code, P.bits_size);
+  }
+  if (P.f_row[VOLZONE] >= 0) {
+    const bool conflict = volume_zone_conflict(P, j, n);
+    ok = ok && !conflict;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[VOLZONE] * N + n, conflict, P.bits_size);
+  }
+  if (P.f_row[SPREAD] >= 0) {
+    const int code = sp_filter ? spread_filter_code(P, sp, s, min_match, n, fl) : 0;
+    ok = ok && code == 0;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[SPREAD] * N + n, code, P.bits_size);
+  }
+  if (P.f_row[INTERPOD] >= 0) {
+    const int code = ip.filter ? interpod_code(P, ip, n) : 0;
+    ok = ok && code == 0;
+    if (record_bits) store_int(P.bits_out, rowF + P.f_row[INTERPOD] * N + n, code, P.bits_size);
+  }
+  return fl | (ok ? FL_OK : 0);
+}
+
+
 // Runs the chain for chunk row p over all N nodes with the calling block,
-// writes the records of P.record, and returns the selected node (-1 when
+// writes the records of P.record (at row orow when one is given: kernel D
+// writes attempt k * Q + q), and returns the selected node (-1 when
 // none is feasible or the pod is padding) to every thread.  SAMPLED
 // (kernel C) narrows the scored set to the visit window and advances
 // *P.samp_start.  RANKED (kernel D) selects among the max-total feasible
@@ -989,13 +1088,15 @@ __device__ inline long long sample_window(const ChainParams& P, long long p, lon
 // a jnp.argmin over the whole node axis, so the lowest index of minimal
 // value wins, non-candidates counting as INT_MAX.
 template <bool SAMPLED, bool RANKED = false>
-__device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const int32_t* rank = nullptr) {
+__device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const int32_t* rank = nullptr,
+                               long long orow = -1) {
   const long long N = P.N;
   const long long j = P.pindex[p];
   const bool full = P.record == 2;
   const bool finals = P.record >= 1;
-  const long long rowF = p * P.F * N;
-  const long long rowS = p * P.S * N;
+  const long long o = orow < 0 ? p : orow;  // the records' row
+  const long long rowF = o * P.F * N;
+  const long long rowS = o * P.S * N;
   const bool use_spread = P.f_row[SPREAD] >= 0 || P.s_row[SPREAD] >= 0;
   const bool use_ipa = P.f_row[INTERPOD] >= 0 || P.s_row[INTERPOD] >= 0;
 
@@ -1014,93 +1115,8 @@ __device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const
   if (sp_filter) spread_filter_stats(P, sp, j, s, min_match);
 
   // -- phase 2: filters (every one runs: all reason codes are recorded) --
-  for (long long n = threadIdx.x; n < N; n += blockDim.x) {
-    bool ok = P.nvalid[n] != 0;
-    const int taint = taint_block(P, j, n);
-    const bool aff = affinity_match(P, j, n);
-    const uint8_t fl = (aff ? FL_AFF : 0) | (taint == 0 ? FL_TNT : 0);
-    if (P.f_row[UNSCHED] >= 0) {
-      const bool blocked = P.unsched[n] && !P.ptol[p];
-      ok = ok && !blocked;
-      if (full) store_int(P.bits_out, rowF + P.f_row[UNSCHED] * N + n, blocked, P.bits_size);
-    }
-    if (P.f_row[NODENAME] >= 0) {
-      const int req = P.pod_req_node[j];
-      const bool pass = req == -1 || n == req;
-      ok = ok && pass;
-      if (full) store_int(P.bits_out, rowF + P.f_row[NODENAME] * N + n, !pass, P.bits_size);
-    }
-    if (P.f_row[TAINT] >= 0) {
-      ok = ok && taint == 0;
-      if (full) store_int(P.bits_out, rowF + P.f_row[TAINT] * N + n, taint, P.bits_size);
-    }
-    if (P.f_row[AFFINITY] >= 0) {
-      bool added_ok = true;
-      if (P.has_added[0]) {
-        const uint8_t* tok = P.term_ok + n * P.T;
-        added_ok = false;
-        for (long long t = 0; t < P.T; ++t) added_ok = added_ok || (tok[t] && P.added_terms[t]);
-      }
-      const int bits = (added_ok ? 0 : 2) | (aff ? 0 : 1);
-      ok = ok && bits == 0;
-      if (full) store_int(P.bits_out, rowF + P.f_row[AFFINITY] * N + n, bits, P.bits_size);
-    }
-    if (P.f_row[PORTS] >= 0) {
-      const int32_t* cnt = P.port_counts + n * P.V;
-      const uint8_t* wants = P.pod_wants + j * P.V;
-      bool conflict = false;
-      for (long long v = 0; v < P.V; ++v) conflict = conflict || (cnt[v] > 0 && wants[v]);
-      ok = ok && !conflict;
-      if (full) store_int(P.bits_out, rowF + P.f_row[PORTS] * N + n, conflict, P.bits_size);
-    }
-    if (P.f_row[FIT] >= 0) {
-      int bits = P.pod_count[n] + 1 > P.allowed[n] ? 1 : 0;
-      if (P.phas[p]) {
-        for (long long r = 0; r < P.R; ++r) {
-          const int podr = P.preq[p * P.R + r];
-          const bool checked = r < P.fit_base_count || podr > 0;
-          const int freev = P.alloc[n * P.R + r] - P.requested[n * P.R + r];
-          if (checked && podr > freev) bits |= 1 << (r + 1 < 30 ? r + 1 : 30);
-        }
-      }
-      ok = ok && bits == 0;
-      if (full) store_int(P.bits_out, rowF + P.f_row[FIT] * N + n, bits, P.bits_size);
-    }
-    if (P.f_row[BALANCED] >= 0 && full) {
-      store_int(P.bits_out, rowF + P.f_row[BALANCED] * N + n, 0, P.bits_size);
-    }
-    if (P.f_row[VOLRESTR] >= 0) {
-      const int code = volume_restrictions_code(P, j, n);
-      ok = ok && code == 0;
-      if (full) store_int(P.bits_out, rowF + P.f_row[VOLRESTR] * N + n, code, P.bits_size);
-    }
-    if (P.f_row[VOLLIMITS] >= 0) {
-      const bool over = volume_limits_over(P, j, n);
-      ok = ok && !over;
-      if (full) store_int(P.bits_out, rowF + P.f_row[VOLLIMITS] * N + n, over, P.bits_size);
-    }
-    if (P.f_row[VOLBIND] >= 0) {
-      const int code = volume_binding_code(P, j, n);
-      ok = ok && code == 0;
-      if (full) store_int(P.bits_out, rowF + P.f_row[VOLBIND] * N + n, code, P.bits_size);
-    }
-    if (P.f_row[VOLZONE] >= 0) {
-      const bool conflict = volume_zone_conflict(P, j, n);
-      ok = ok && !conflict;
-      if (full) store_int(P.bits_out, rowF + P.f_row[VOLZONE] * N + n, conflict, P.bits_size);
-    }
-    if (P.f_row[SPREAD] >= 0) {
-      const int code = sp_filter ? spread_filter_code(P, sp, s, min_match, n, fl) : 0;
-      ok = ok && code == 0;
-      if (full) store_int(P.bits_out, rowF + P.f_row[SPREAD] * N + n, code, P.bits_size);
-    }
-    if (P.f_row[INTERPOD] >= 0) {
-      const int code = ip.filter ? interpod_code(P, ip, n) : 0;
-      ok = ok && code == 0;
-      if (full) store_int(P.bits_out, rowF + P.f_row[INTERPOD] * N + n, code, P.bits_size);
-    }
-    s.flags[n] = fl | (ok ? FL_OK : 0);
-  }
+  for (long long n = threadIdx.x; n < N; n += blockDim.x)
+    s.flags[n] = filter_node(P, p, j, n, s, sp, ip, min_match, sp_filter, full, rowF);
   __syncthreads();
 
   long long thr = 0;
@@ -1231,7 +1247,7 @@ __device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const
       total += fin;
       if (finals) store_int(P.final_out, rowS + P.s_row[INTERPOD] * N + n, fin, P.final_size);
     }
-    if (finals) P.total[p * N + n] = total;
+    if (finals && P.total != nullptr) P.total[o * N + n] = total;
     if (RANKED) s.partial[n] = total;  // this thread's node: read below
     if (fl & FL_OK) {
       const unsigned long long key = select_key(total, n);

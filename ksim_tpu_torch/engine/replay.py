@@ -34,14 +34,19 @@ choices that guarantee it are the reference's:
   (``derive_interpod``), checked at lowering time against the
   featurizer's own aggregation.
 
+record="full" segments run at ``FULL_SEGMENT_STEPS`` steps and stream
+every attempt's reason codes and scores out of the kernel; the decode
+renders the per-pass path's result annotations from them.  With
+DefaultPreemption on, the victim search runs in the kernel too (bounded
+by kernels/replay_segment.py ``MAX_CANDIDATES`` / ``MAX_VICTIMS``: a
+search past them discards the segment, ``preemption_overflow``).
+
 Anything outside the vocabulary makes the lowering raise ``_Unsupported``
 and the window's head step falls back to the per-pass path under a named
-reason (``FALLBACK_REASONS``).  Beyond the reference's reasons, two
-configurations that the reference lowers run per-pass here: record="full"
-(``record_full``) and a window that needs DefaultPreemption's victim
-search (``preemption``); neither is in kernel D yet.  Also not ported:
+reason (``FALLBACK_REASONS``).  Fleet lanes (engine/fleet.py) lower once
+on the cohort leader and dispatch through ``_fleet_exec``.  Not ported:
 the dispatch watchdog and circuit breaker, the speculative prelower, the
-AOT executable cache, device-buffer reuse, the tp mesh and fleet lanes.
+AOT executable cache, device-buffer reuse and the tp mesh.
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ from ksim_tpu_torch.engine.core import _Program, _pull_tree_to_host, _to_device,
 from ksim_tpu_torch.errors import ReplayFallback, SimulatorError
 from ksim_tpu_torch.faults import FAULTS
 from ksim_tpu_torch.kernels.replay_segment import SegmentStatics as _SegmentStatics
-from ksim_tpu_torch.kernels.replay_segment import replay_segment
+from ksim_tpu_torch.kernels.replay_segment import replay_segment, replay_segment_fleet
 from ksim_tpu_torch.obs import TRACE, register_provider
 from ksim_tpu_torch.state.resources import JSON, name_of, namespace_of
 
@@ -69,7 +74,7 @@ logger = logging.getLogger(__name__)
 FALLBACK_REASONS: frozenset[str] = frozenset(
     {
         # service/profile configuration outside the vocabulary
-        "record_mode", "record_full", "pnts_emulation",
+        "record_mode", "pnts_emulation",
         "featurizer_override", "multi_profile", "no_profile",
         "queue_hooks", "permit_waiters", "plugin_extender",
         # object vocabulary misses
@@ -81,9 +86,10 @@ FALLBACK_REASONS: frozenset[str] = frozenset(
         "delete_unknown_pod", "delete_unknown_node",
         "drain_without_requeue", "duplicate_pod_keys",
         # lowering-time guards
-        "interpod_local_mismatch", "preemption",
-        # post-dispatch validation discard
-        "featurize_prediction",
+        "interpod_local_mismatch", "preemption_filter_set",
+        "preemption_bits_width", "full_record_bytes",
+        # post-dispatch validation discards
+        "featurize_prediction", "preemption_overflow",
         # classified faults
         "lowering_fault", "device_error", "reconcile_fault",
     }
@@ -96,6 +102,12 @@ FALLBACK_REASON_PREFIXES: tuple[str, ...] = ("op:", "host_hook:")
 # it; 8-32 is the useful range (beyond that the universe grows stale and
 # the first fallback forces a re-lower anyway).
 SEGMENT_STEPS = int(os.environ.get("KSIM_REPLAY_K", "16"))
+
+# record="full" segments keep every attempt's [F|S, N] records per step on
+# the device, so they run at a shorter K and are refused when even that
+# would pass the byte bound ("full_record_bytes"), as in the reference.
+FULL_SEGMENT_STEPS = 4
+FULL_RECORD_BYTES = 1 << 30
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -279,6 +291,9 @@ class _LowerCache:
 _NODE_KEYS = ("allocatable", "allowed_pods", "unschedulable")
 _POD_KEYS = ("requests", "nonzero_requests", "tolerates_unschedulable", "has_requests")
 _EV_KEYS = ("rank", "flush", "active", "pod_create", "pod_delete", "node_create", "node_delete")
+# DefaultPreemption's extra rows (pods) and per-step views (ev).
+_PREEMPT_POD_KEYS = ("priority", "imp_rank", "start_rank", "preempt_ok")
+_PREEMPT_EV_KEYS = ("name_rank", "want")
 _STATE_KEYS = (
     "valid", "requested", "nonzero_requested", "pod_count", "alive", "bound",
     "attempts", "retry_at", "nominated", "spread", "ip_cnt", "ip_eat", "ip_vw",
@@ -286,31 +301,60 @@ _STATE_KEYS = (
 )
 
 
-def segment_from_arrays(const: dict, ev: dict, state0: dict, *, device="cpu"):
+def segment_from_arrays(const: dict, ev: dict, state0: dict, *, device="cpu", lanes: int | None = None):
     """The kernel's tensors from a lowered segment's numpy trees:
     ``const`` (``node``, ``pods`` and ``aux``, the featurizer's aux
-    families), ``ev`` and ``state0``, as this module's ``_lower`` builds
-    them — or as ``ksim_tpu``'s lowering does (duck-typed, never
-    imported: its aux dataclasses are matched field by field, and the
-    trees' extra preemption keys are left out).  Returns
-    ``(const, ev, state0)`` on ``device``, every tensor a fresh copy."""
+    families, and with preemption ``empty_start_rank`` / ``resolv``),
+    ``ev`` and ``state0``, as this module's ``_lower`` builds them — or
+    as ``ksim_tpu``'s lowering does (duck-typed, never imported: its aux
+    dataclasses are matched field by field).  With ``lanes`` the state
+    is stacked S times along a new leading lane axis (a fleet launch's
+    carries).  Returns ``(const, ev, state0)`` on ``device``, every
+    tensor a fresh copy."""
     from ksim_tpu_torch.state.featurizer import _aux_from_arrays
 
     dev = torch.device(device)
     n_padded = int(np.asarray(const["node"]["allocatable"]).shape[0])
+    pods = const["pods"]
+    pod_keys = _POD_KEYS + tuple(k for k in _PREEMPT_POD_KEYS if k in pods)
     const_t = {
         "node": {k: _to_device(np.asarray(const["node"][k]), dev) for k in _NODE_KEYS},
-        "pods": {k: _to_device(np.asarray(const["pods"][k]), dev) for k in _POD_KEYS},
+        "pods": {k: _to_device(np.asarray(pods[k]), dev) for k in pod_keys},
         "aux": device_aux(_aux_from_arrays(const["aux"]), n_padded, dev),
     }
-    ev_t = {k: _to_device(np.asarray(ev[k]), dev) for k in _EV_KEYS}
-    state_t = {k: _to_device(np.asarray(state0[k]), dev) for k in _STATE_KEYS}
+    for k in ("empty_start_rank", "resolv"):
+        if k in const:
+            const_t[k] = _to_device(np.asarray(const[k]), dev)
+    ev_keys = _EV_KEYS + tuple(k for k in _PREEMPT_EV_KEYS if k in ev)
+    ev_t = {k: _to_device(np.asarray(ev[k]), dev) for k in ev_keys}
+
+    def state(a):
+        a = np.asarray(a)
+        return a if lanes is None else np.stack([a] * lanes)
+
+    state_t = {k: _to_device(state(state0[k]), dev) for k in _STATE_KEYS}
     return const_t, ev_t, state_t
 
 
 # ---------------------------------------------------------------------------
 # Host driver: segment lowering, dispatch, reconcile
 # ---------------------------------------------------------------------------
+
+
+@dataclass
+class AttemptOutcome:
+    """One scheduling attempt within a device step, in commit order:
+    what the reconcile needs to mirror the per-pass path's store writes
+    for the pod — the bind (or nomination), the preemption victims to
+    evict right after the pod's own write, and the record="full" result
+    annotations."""
+
+    namespace: str
+    name: str
+    node: str | None  # bound node (None = unschedulable this pass)
+    nominated: str | None  # newly nominated node (preemption)
+    victims: list[tuple[str, str]]  # (namespace, name) in reprieve order
+    anno: dict | None  # record="full" annotations (None in selection)
 
 
 @dataclass
@@ -323,6 +367,9 @@ class StepOutcome:
     eligible: int  # queue size before the cap (0 = the pass never featurized)
     # (namespace, name, node_name) in queue (commit) order.
     binds: list[tuple[str, str, str]] = field(default_factory=list)
+    # Per-attempt detail (preemption / full-record segments); None means
+    # the binds list is the whole story (pure selection mode).
+    attempts: "list[AttemptOutcome] | None" = None
 
 
 @dataclass
@@ -371,6 +418,10 @@ class _SegmentPlan:
     pred_featurizes: list[bool]
     initial_pass_count: int
     step_node_event: list = field(default_factory=list)
+    # record="full": per step, the live node slots and names in name order
+    # (the per-pass path's node list), for the decode.
+    step_live_slots: list = field(default_factory=list)
+    step_live_names: list = field(default_factory=list)
     # Lower-cache seed (ReplayDriver._advance_cache filters it to the
     # committed segment's survivors) + the store epoch the lowering read.
     lower_epoch: int = -1
@@ -379,6 +430,45 @@ class _SegmentPlan:
     priority_of: Any = None
     prio_gen: int = 0
     sched_names: Any = None  # profile set the lowering screened against
+
+
+_PULLED_STATE = ("alive", "bound", "attempts", "retry_at", "pass_count")
+
+
+class _KernelClock:
+    """CUDA events around a launch on a CUDA device; ``ms()`` (read after
+    the outputs were pulled) is its kernel time, 0.0 on the CPU."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.events = None
+        if device.type == "cuda":
+            self.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+
+    def stop(self) -> None:
+        if self.events is not None:
+            self.events[1].record()
+
+    def ms(self) -> float:
+        return self.events[0].elapsed_time(self.events[1]) if self.events is not None else 0.0
+
+
+def _fleet_exec(plan: "_SegmentPlan", lanes: int, device):
+    """One fleet launch advancing ``lanes`` trajectories by the plan's K
+    steps (engine/fleet.py's group dispatch; ``_fleet_exec`` of the
+    reference).  The cohort's lanes are identical by its convergence
+    invariant, so the carried state stacks the plan's ``state0`` along a
+    new leading lane axis; ``const`` and ``ev`` are shared by every lane.
+    Returns ``(pulled_state, pulled, kernel_ms)``: the pulled trees carry
+    the lane axis on every leaf."""
+    FAULTS.check("replay.dispatch")
+    const, ev, state0 = segment_from_arrays(plan.const, plan.ev, plan.state0, device=device, lanes=lanes)
+    clock = _KernelClock(device)
+    final, outs = replay_segment_fleet(plan.statics, plan.prog, const, ev, state0)
+    clock.stop()
+    pulled_state = _pull_tree_to_host({k: final[k] for k in _PULLED_STATE})
+    pulled = _pull_tree_to_host(outs)
+    return pulled_state, pulled, clock.ms()
 
 
 class _Unsupported(ReplayFallback):
@@ -397,7 +487,12 @@ class ReplayDriver:
     ``None`` means the segment's head step is outside the supported
     vocabulary and the caller falls back to the per-pass path for it.
     The kernel runs on the service's device (CUDA, or the plain version
-    on the CPU)."""
+    on the CPU).
+
+    ``lane`` is the driver's fleet lane (engine/fleet.py; stamped on its
+    spans and fallback events) and ``lane_faults`` that lane's private
+    FaultPlane, checked next to ``FAULTS`` at ``replay.lower`` and
+    ``replay.dispatch``."""
 
     def __init__(
         self,
@@ -406,10 +501,23 @@ class ReplayDriver:
         *,
         k: int = SEGMENT_STEPS,
         requeue_on_node_delete: bool = True,
+        lane: int | None = None,
+        lane_faults=None,
     ) -> None:
         self.store = store
         self.service = service
         self.k = max(int(k), 1)
+        self._full_k = max(min(FULL_SEGMENT_STEPS, self.k), 1)
+        self._lane_faults = lane_faults
+        self._span_tags = {} if lane is None else {"lane": lane}
+        self._record_mode = "selection"
+        self._preempt_active = False
+        # The reason the last rejection recorded (the fleet mirrors a
+        # shared lowering's reason onto every follower lane).
+        self._last_reject: str | None = None
+        # One entry per successful lowering (the fleet's lowered-once
+        # evidence counts them per lane).
+        self.lower_log: list[dict] = []
         # The segment program bakes the runner's drain-requeue semantics
         # in; a no-requeue runner takes the per-pass path for any segment
         # containing node deletes.
@@ -463,16 +571,13 @@ class ReplayDriver:
 
     def _reject(self, reason: str) -> None:
         self.unsupported[reason] = self.unsupported.get(reason, 0) + 1
-        TRACE.event("replay.fallback", reason=reason, segment=self._segment_seq)
+        self._last_reject = reason
+        TRACE.event("replay.fallback", reason=reason, segment=self._segment_seq, **self._span_tags)
 
     def service_supported(self) -> bool:
         svc = self.service
         if svc._record not in ("selection", "full"):
             self._reject("record_mode")
-            return False
-        if svc._record == "full":
-            # The streamed per-attempt records are not in kernel D yet.
-            self._reject("record_full")
             return False
         if svc._pnts_emulation:
             self._reject("pnts_emulation")
@@ -497,6 +602,7 @@ class ReplayDriver:
             self._reject("permit_waiters")
             return False
         self._sched_name = names[0]
+        self._record_mode = svc._record
         preempt = bool(svc._preemption)
         if preempt and prof is not None and "DefaultPreemption" in prof.postfilter_disabled:
             preempt = False
@@ -504,6 +610,11 @@ class ReplayDriver:
         return True
 
     _OP_KINDS = frozenset({"pods", "nodes"})
+
+    def _window_len(self) -> int:
+        """Steps one lowered window may take (valid after
+        ``service_supported``)."""
+        return self._full_k if self._record_mode == "full" else self.k
 
     def _parse_window(self, batches: list[list[Any]]) -> _WindowSpec:
         """The store-independent lowering prefix for up to one window of
@@ -668,28 +779,44 @@ class ReplayDriver:
         plan = self.prepare_segment(batches)
         out = self.dispatch_segment(plan) if plan is not None else None
         if out is None:
-            self._cache.invalidate("fallback")
-            self._last_plan = None
+            self._flush_incremental("fallback")
         return out
 
-    def prepare_segment(self, batches: list[list[Any]]) -> "_SegmentPlan | None":
+    def _flush_incremental(self, reason: str) -> None:
+        """Drop the lowered-universe cache: the per-pass path is about to
+        mutate store and service state it cannot track."""
+        self._cache.invalidate(reason)
+        self._last_plan = None
+
+    def prepare_segment(
+        self, batches: list[list[Any]], *, check_lane_faults: bool = True
+    ) -> "_SegmentPlan | None":
         """The lowering half of ``try_segment``: support / op screens plus
         the classified lowering taxonomy, ending in a dispatch-ready
-        ``_SegmentPlan`` or None with the reason recorded."""
+        ``_SegmentPlan`` or None with the reason recorded.  The fleet
+        lowers a cohort's shared window through it on the leader and
+        passes ``check_lane_faults=False``: it gates every lane's private
+        plane itself, so a lane fault degrades that lane alone."""
         if not self.service_supported():
             return None
         # Pre-span head screen: a window whose FIRST step is outside the
         # op vocabulary never lowers (no replay.lower span, no fault slot).
         if not batches or not self._batch_ops_ok(batches[0], record=True):
             return None
+        wlen = self._window_len()
         self._segment_seq += 1
         try:
             with TRACE.span(
-                "replay.lower", segment=self._segment_seq, steps=min(len(batches), self.k)
+                "replay.lower",
+                segment=self._segment_seq,
+                steps=min(len(batches), wlen),
+                **self._span_tags,
             ) as sp:
                 FAULTS.check("replay.lower")
-                spec = self._parse_window(batches[: self.k])
-                m = min(spec.n, self.k)
+                if check_lane_faults and self._lane_faults is not None:
+                    self._lane_faults.check("replay.lower")
+                spec = self._parse_window(batches[:wlen])
+                m = min(spec.n, wlen)
                 if m == 0:
                     raise _Unsupported(spec.head_reason or spec.err_reason)
                 sp.set(steps=m)
@@ -710,17 +837,17 @@ class ReplayDriver:
         pull of its outputs and their decode.  Returns the SegmentOutcome
         or None (reason recorded)."""
         try:
-            with TRACE.span("replay.dispatch", segment=self._segment_seq, steps=plan.n_steps):
+            with TRACE.span(
+                "replay.dispatch", segment=self._segment_seq, steps=plan.n_steps, **self._span_tags
+            ):
                 res = self._run(plan)
         except ReplayFallback as e:
             self._reject(str(e))
             return None
         except SimulatorError as e:
-            self.device_errors += 1
-            logger.warning("segment dispatch failed (%s: %s); falling back per-pass", type(e).__name__, e)
-            self._reject("device_error")
+            self._note_device_error(e)
             return None
-        self.device_round_trips += 1
+        self.note_dispatch_healthy()
         if isinstance(res, str):
             # Post-dispatch validation discard: store untouched, fall back.
             self._reject(res)
@@ -728,6 +855,17 @@ class ReplayDriver:
         # device_steps is counted by the caller once the segment COMMITS.
         self._last_plan = plan
         return res
+
+    def _note_device_error(self, e: BaseException) -> None:
+        """Account one failed dispatch (an injected fault: the port has no
+        watchdog or breaker, so the window just falls back)."""
+        self.device_errors += 1
+        logger.warning("segment dispatch failed (%s: %s); falling back per-pass", type(e).__name__, e)
+        self._reject("device_error")
+
+    def note_dispatch_healthy(self) -> None:
+        """Account one dispatch that came back (solo, or a fleet group)."""
+        self.device_round_trips += 1
 
     def _service_featurizer(self):
         """The canonical per-pass featurizer (created exactly as the
@@ -820,7 +958,7 @@ class ReplayDriver:
 
         # Tail padding: segments shorter than K extend with inactive no-op
         # steps.
-        k_pad = self.k
+        k_pad = self._window_len()
         step_active = [True] * m_steps + [False] * (k_pad - m_steps)
         for _ in range(k_pad - m_steps):
             step_pod_creates.append([])
@@ -878,19 +1016,22 @@ class ReplayDriver:
         if len(row_of) != len(universe_pods):
             raise _Unsupported("duplicate_pod_keys")
 
-        # DefaultPreemption's victim search is not in kernel D.  A
-        # PRIORITY-FLAT selection window can never enter it (a candidate
-        # node needs a bound pod of strictly lower priority, and no pod
-        # holds a nomination), so such a window lowers preempt-free, as in
-        # the reference; any other window with preemption on runs
-        # per-pass.
-        if self._preempt_active:
+        # A PRIORITY-FLAT selection window can never run a victim search
+        # (a candidate node needs a bound pod of strictly lower priority,
+        # and no pod holds a nomination), so it lowers preempt-free, as in
+        # the reference.  record="full" keeps the search: with preemption
+        # on the per-pass path writes a postfilter result for every failed
+        # attempt, which only the preemption decode reproduces.
+        preempt_plan = self._preempt_active
+        prios = None
+        if preempt_plan:
             prios = [priority_of(p) for p in universe_pods]
-            flat = not any(
-                p.get("status", {}).get("nominatedNodeName") for p in cur_pods
-            ) and (not prios or prios.count(prios[0]) == len(prios))
-            if not flat:
-                raise _Unsupported("preemption")
+            if (
+                self._record_mode == "selection"
+                and not any(p.get("status", {}).get("nominatedNodeName") for p in cur_pods)
+                and (not prios or prios.count(prios[0]) == len(prios))
+            ):
+                preempt_plan = False
 
         # Featurize the universe once (persistent featurizer: per-pod rows
         # memoize, bound aggregates update by delta).
@@ -928,7 +1069,19 @@ class ReplayDriver:
             ):
                 if hasattr(sp.plugin, attr):
                     raise _Unsupported(f"host_hook:{attr}")
-        prog = _Program(plugins, "selection", svc._exact)
+        prog = _Program(plugins, self._record_mode, svc._exact)
+        if preempt_plan:
+            from ksim_tpu_torch.scheduler.preemption import (
+                ORACLE_FIT_FILTER_NAMES,
+                VOLUME_FIT_FILTER_NAMES,
+            )
+
+            # The kernel re-checks fits through the profile's filters; the
+            # host oracle's fit chain is fixed, so they must agree (the
+            # volume filters pass trivially in this vocabulary).
+            fnames = {sp.plugin.name for sp in plugins if sp.filter_enabled}
+            if not ORACLE_FIT_FILTER_NAMES <= fnames <= (ORACLE_FIT_FILTER_NAMES | VOLUME_FIT_FILTER_NAMES):
+                raise _Unsupported("preemption_filter_set")
 
         N = feats.nodes.padded
         P = feats.pods.requests.shape[0]
@@ -1005,9 +1158,17 @@ class ReplayDriver:
         # must fail loudly — a silently empty seed would give wrong ranks.
         sim = _SlotSim(sim_feat._slots.slot_of, sim_feat._slots._names)
         ranks = np.full((K, N), _I32_MAX, np.int32)
+        # Per-step live-node views: name-order ranks and upstream's
+        # candidate count for the victim search; the live slots and names
+        # (store list order = name order) for the full-record decode.
+        name_ranks = np.full((K, N), _I32_MAX, np.int32)
+        want = np.zeros(K, np.int32)
+        step_live_slots: list[np.ndarray] = []
+        step_live_names: list[list[str]] = []
         step_node_event = [
             bool(step_node_creates[k] or step_node_deletes[k]) for k in range(K)
         ]
+        from ksim_tpu_torch.scheduler.preemption import candidate_count
         # Rank rows are maintained incrementally: each sync applies only
         # the slots it changed, and the sorted live-name list evolves by
         # bisect insert/remove.
@@ -1019,12 +1180,20 @@ class ReplayDriver:
             j = slot_of.get(nm)
             if j is not None:
                 rank_row[j] = slot
+        need_names = preempt_plan or self._record_mode == "full"
         live_sorted: list[str] = sorted(node_names)
+        live_slots = np.asarray([slot_of[nm] for nm in live_sorted], np.int64) if need_names else None
         for k in range(K):
             for nm in step_node_deletes[k]:
-                live_sorted.pop(bisect.bisect_left(live_sorted, nm))
+                j = bisect.bisect_left(live_sorted, nm)
+                live_sorted.pop(j)
+                if need_names:
+                    live_slots = np.delete(live_slots, j)
             for nm in step_node_creates[k]:
-                live_sorted.insert(bisect.bisect_left(live_sorted, nm), nm)
+                j = bisect.bisect_left(live_sorted, nm)
+                live_sorted.insert(j, nm)
+                if need_names:
+                    live_slots = np.insert(live_slots, j, slot_of[nm])
             if pred_featurizes[k]:
                 removed, changed = sim.sync(live_sorted)
                 for nm in removed:
@@ -1034,6 +1203,12 @@ class ReplayDriver:
                 for nm, slot in changed:
                     rank_row[slot_of[nm]] = slot
             ranks[k] = rank_row
+            if need_names:
+                want[k] = candidate_count(len(live_sorted))
+                name_ranks[k, live_slots] = np.arange(len(live_sorted), dtype=np.int32)
+                if self._record_mode == "full":
+                    step_live_slots.append(live_slots)
+                    step_live_names.append(list(live_sorted))
 
         # Queue width: pending(now) + creates + requeue-able bounds the
         # pending population at any step (overflow-free by construction).
@@ -1055,6 +1230,8 @@ class ReplayDriver:
             n_dom=n_dom_pad,
             max_backoff=max_backoff,
             flush_cap=flush_cap,
+            record=self._record_mode,
+            preempt=preempt_plan,
         )
         const = {
             "node": dict(
@@ -1083,6 +1260,20 @@ class ReplayDriver:
         for p in cur_pods:
             if p.get("status", {}).get("nominatedNodeName"):
                 nominated0[row_of[_pod_key(p)]] = True
+        # The stacked records multiply one pass's [Q, F|S, N] by K on the
+        # device: bound them before the dispatch.
+        bits_dt, final_dt, raw_dt = prog.dtypes
+        per_cell = sum(
+            n * torch.empty((), dtype=dt).element_size()
+            for n, dt in ((len(prog.filters), bits_dt), (len(prog.scores), raw_dt), (len(prog.scores), final_dt))
+        )
+        full_bytes = K * q * N * per_cell
+        if self._record_mode == "full" and full_bytes > FULL_RECORD_BYTES:
+            raise _Unsupported("full_record_bytes")
+        if preempt_plan:
+            self._preempt_consts(const, ev, plugins, universe_pods, prios, priority_of, prio_gen, P)
+            ev["name_rank"] = name_ranks
+            ev["want"] = want
         state0 = {
             "valid": valid0,
             "requested": feats.nodes.requested,
@@ -1099,6 +1290,10 @@ class ReplayDriver:
             "ip_vw": ip_vw0,
             "pass_count": np.asarray(svc._pass_count, np.int32),
         }
+        self.lower_log.append(
+            {"events": sum(len(b) for b in batches), "steps": m_steps, "universe": len(universe_pods),
+             "cache_hit": use_cache, "full_bytes": int(full_bytes)}
+        )
         return _SegmentPlan(
             statics=statics,
             prog=prog,
@@ -1112,6 +1307,8 @@ class ReplayDriver:
             pred_featurizes=pred_featurizes,
             initial_pass_count=int(svc._pass_count),
             step_node_event=step_node_event,
+            step_live_slots=step_live_slots,
+            step_live_names=step_live_names,
             lower_epoch=lower_epoch,
             sort_keys=uni_sort,
             clean_pods=uni_clean,
@@ -1119,6 +1316,67 @@ class ReplayDriver:
             prio_gen=prio_gen,
             sched_names=sched_names,
         )
+
+    def _preempt_consts(self, const, ev, plugins, universe_pods, prios, priority_of, prio_gen, P) -> None:
+        """The victim search's per-pod rows (priority, MoreImportantPod
+        rank, start-time rank, may-preempt) and, under record="full", the
+        per-filter reason-code resolvability table, into ``const``."""
+        from ksim_tpu_torch.scheduler.preemption import (
+            more_important_key,
+            pod_eligible_to_preempt,
+            start_time,
+        )
+        from ksim_tpu_torch.state import objcache
+
+        # Per-pod statics memoized on object identity; the importance key
+        # depends on the priority resolver, so its memo carries the
+        # resolver generation.
+        def mik(p: JSON):
+            return objcache.cached("replay_mik", p, lambda: more_important_key(p, priority_of), prio_gen)
+
+        def stime(p: JSON) -> str:
+            return objcache.cached("replay_stime", p, lambda: start_time(p))
+
+        U = len(universe_pods)
+        priority = np.zeros(P, np.int32)
+        imp_rank = np.full(P, _I32_MAX, np.int32)
+        start_rank = np.zeros(P, np.int32)
+        preempt_ok = np.zeros(P, bool)
+        priority[:U] = prios
+        for r, j in enumerate(sorted(range(U), key=lambda j: mik(universe_pods[j]))):
+            imp_rank[j] = r
+        starts = sorted({stime(p) for p in universe_pods} | {""})
+        srank = {sv: i for i, sv in enumerate(starts)}
+        for j, p in enumerate(universe_pods):
+            start_rank[j] = srank[stime(p)]
+            preempt_ok[j] = objcache.cached("replay_pel", p, lambda p=p: pod_eligible_to_preempt(p))
+        const["pods"].update(
+            priority=priority, imp_rank=imp_rank, start_rank=start_rank, preempt_ok=preempt_ok,
+        )
+        const["empty_start_rank"] = np.asarray(srank[""], np.int32)
+        if self._record_mode != "full":
+            return
+        # Reason bit -> "resolvable by preemption", per filter (the tensor
+        # form of the service's _resolvable_mask: a missing
+        # failure_unresolvable rule counts as unresolvable).
+        tables = []
+        for sp in plugins:
+            if not sp.filter_enabled:
+                continue
+            w = int(getattr(sp.plugin, "reason_bit_width", 31))
+            if w > 10:
+                raise _Unsupported("preemption_bits_width")
+            rule = getattr(sp.plugin, "failure_unresolvable", None)
+            t = np.zeros(1 << w, bool)
+            if rule is not None:
+                for b in range(1, 1 << w):
+                    t[b] = not rule(b)
+            tables.append(t)
+        tw = max((len(t) for t in tables), default=1)
+        resolv = np.zeros((max(len(tables), 1), tw), bool)
+        for fi, t in enumerate(tables):
+            resolv[fi, : len(t)] = t
+        const["resolv"] = resolv
 
     @staticmethod
     def _check_interpod_locals(ipa, cnt, eat, vw, n_dom_pad: int) -> bool:
@@ -1157,29 +1415,78 @@ class ReplayDriver:
         """Launch the lowered segment and decode its outputs: the
         SegmentOutcome, or a DISCARD REASON string when post-dispatch
         validation rejects the results (store untouched either way)."""
+        if self._lane_faults is not None:
+            # The lane's private plane fires here, not in _device_exec:
+            # the fleet's group dispatch gates every lane itself and calls
+            # _device_exec directly.
+            self._lane_faults.check("replay.dispatch")
+        pulled_state, pulled = self._device_exec(plan)
+        return self._decode_outputs(plan, pulled_state, pulled)
+
+    def _device_exec(self, plan: "_SegmentPlan"):
+        """The device half of a dispatch: the plan's tensors onto the
+        service's device, kernel D, and its outputs pulled to host numpy."""
         FAULTS.check("replay.dispatch")
         device = self.service._device
         const, ev, state0 = segment_from_arrays(plan.const, plan.ev, plan.state0, device=device)
-        timed = device.type == "cuda"
-        if timed:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
+        clock = _KernelClock(device)
         final, outs = replay_segment(plan.statics, plan.prog, const, ev, state0)
-        if timed:
-            t1.record()
-        pulled_state = _pull_tree_to_host(
-            {k: final[k] for k in ("alive", "bound", "attempts", "retry_at", "pass_count")}
+        clock.stop()
+        pulled = _pull_tree_to_host({k: final[k] for k in _PULLED_STATE}), _pull_tree_to_host(outs)
+        self.kernel_ms += clock.ms()
+        return pulled
+
+    def _step_render_ctx(self, plan: "_SegmentPlan", k: int):
+        """RenderCtx over step k's live node set (rebuilt only when a node
+        event changed the set)."""
+        from ksim_tpu_torch.engine.annotations import RenderCtx
+
+        return RenderCtx(plan.step_live_names[k], plan.prog.plugins)
+
+    def _render_step_annotations(self, plan: "_SegmentPlan", k: int, att, pulled, noms, ctx) -> list[dict]:
+        """record="full": the result annotations of every attempt of step
+        k, decoded from the streamed records as the per-pass path renders
+        them — same renderer, the node axis restricted to the step's live
+        set, the postfilter map from the on-device preemption outcome."""
+        from ksim_tpu_torch.engine.annotations import render_pod_results
+        from ksim_tpu_torch.engine.core import EngineResult
+        from ksim_tpu_torch.scheduler.preemption import DEFAULT_PREEMPTION, NOMINATED_MESSAGE
+
+        slots = plan.step_live_slots[k]
+        names = plan.step_live_names[k]
+        pos_of = {int(s): i for i, s in enumerate(slots)}
+        sel_k = np.asarray(pulled["sel"][k])[att]
+        sel_sub = np.asarray([pos_of.get(int(s), -1) if s >= 0 else -1 for s in sel_k], np.int64)
+        prog = plan.prog
+        res = EngineResult(
+            plugin_names=[sp.plugin.name for sp in prog.scores],
+            filter_plugin_names=[sp.plugin.name for sp in prog.filters],
+            reason_bits=np.asarray(pulled["bits"][k])[att][:, :, slots],
+            scores=np.asarray(pulled["raw"][k])[att][:, :, slots],
+            final_scores=np.asarray(pulled["final"][k])[att][:, :, slots],
+            total=None,
+            feasible=sel_sub >= 0,
+            selected=sel_sub,
         )
-        pulled = _pull_tree_to_host(outs)
-        if timed:
-            self.kernel_ms += t0.elapsed_time(t1)
-        return self._decode_outputs(plan, pulled_state, pulled)
+        out = []
+        for i, qq in enumerate(att):
+            postfilter = None
+            if plan.statics.preempt and sel_sub[i] < 0:
+                # The per-pass render_postfilter_result: every live node
+                # gets an entry; the nominated one names the plugin.
+                postfilter = {nm: {} for nm in names}
+                nsl = int(noms[k, qq])
+                if nsl >= 0:
+                    postfilter[plan.node_names[nsl]] = {DEFAULT_PREEMPTION: NOMINATED_MESSAGE}
+            out.append(render_pod_results(None, prog.plugins, res, i, postfilter=postfilter, ctx=ctx))
+        return out
 
     def _decode_outputs(self, plan: "_SegmentPlan", pulled_state, pulled) -> "SegmentOutcome | str":
-        """The host half of a dispatch: validate the featurize prediction
-        and decode the pulled tensors into a SegmentOutcome (or a
-        discard-reason string)."""
+        """The host half of a dispatch: validate the featurize and
+        overflow predictions and decode the pulled tensors into a
+        SegmentOutcome (or a discard-reason string).  The fleet calls it
+        once per lane with that lane's slice of the stacked outputs."""
+        st = plan.statics
         eligible = np.asarray(pulled["eligible"])
         for k in range(plan.n_steps):
             if bool(eligible[k] > 0) != plan.pred_featurizes[k]:
@@ -1200,17 +1507,53 @@ class ReplayDriver:
                 if any(plan.step_node_event[last_sync + 1 : plan.n_steps]):
                     return "featurize_prediction"
                 break
+        if st.preempt and bool(np.any(np.asarray(pulled["overflow"])[: plan.n_steps])):
+            # A victim search passed the candidate/victim bounds: what the
+            # kernel computed past it assumed a truncated search.
+            return "preemption_overflow"
 
         sel = np.asarray(pulled["sel"])  # [K, Q]
         idx = np.asarray(pulled["idx"])  # [K, Q]
         P = len(plan.universe_keys)
+        detailed = st.preempt or st.record == "full"
+        noms = np.asarray(pulled["nom"]) if st.preempt else None
+        vics = np.asarray(pulled["vic"]) if st.preempt else None
         steps: list[StepOutcome] = []
+        render_ctx = None
         for k in range(plan.n_steps):
             binds = []
-            for qq in np.nonzero((idx[k] < P) & (sel[k] >= 0))[0]:
-                key = plan.universe_keys[int(idx[k, qq])]
-                ns, _, nm = key.partition("/")
-                binds.append((ns, nm, plan.node_names[int(sel[k, qq])]))
+            attempts = None
+            if detailed:
+                att = np.nonzero(idx[k] < P)[0]
+                annos = [None] * len(att)
+                if st.record == "full":
+                    if render_ctx is None or plan.step_node_event[k]:
+                        render_ctx = self._step_render_ctx(plan, k)
+                    annos = self._render_step_annotations(plan, k, att, pulled, noms, render_ctx)
+                attempts = []
+                for i, qq in enumerate(att):
+                    ns, _, nm = plan.universe_keys[int(idx[k, qq])].partition("/")
+                    sl = int(sel[k, qq])
+                    node = plan.node_names[sl] if sl >= 0 else None
+                    nominated = None
+                    victims: list[tuple[str, str]] = []
+                    if st.preempt:
+                        nsl = int(noms[k, qq])
+                        nominated = plan.node_names[nsl] if nsl >= 0 else None
+                        for vr in vics[k, qq]:
+                            if vr >= 0:
+                                vns, _, vnm = plan.universe_keys[int(vr)].partition("/")
+                                victims.append((vns, vnm))
+                    attempts.append(AttemptOutcome(
+                        namespace=ns, name=nm, node=node, nominated=nominated, victims=victims, anno=annos[i],
+                    ))
+                    if node is not None:
+                        binds.append((ns, nm, node))
+            else:
+                for qq in np.nonzero((idx[k] < P) & (sel[k] >= 0))[0]:
+                    key = plan.universe_keys[int(idx[k, qq])]
+                    ns, _, nm = key.partition("/")
+                    binds.append((ns, nm, plan.node_names[int(sel[k, qq])]))
             steps.append(
                 StepOutcome(
                     scheduled=int(pulled["scheduled"][k]),
@@ -1218,6 +1561,7 @@ class ReplayDriver:
                     pending_after=int(pulled["pending_after"][k]),
                     eligible=int(eligible[k]),
                     binds=binds,
+                    attempts=attempts,
                 )
             )
         alive = np.asarray(pulled_state["alive"])[:P]

@@ -142,15 +142,17 @@ def _ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple, device) -> in
 
 
 def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1,
-                 sampling: tuple | None = None) -> ChainParams:
+                 sampling: tuple | None = None, rows: int | None = None) -> ChainParams:
     """Fill ChainParams for ``prog`` (engine/core.py _Program) over the
     pod chunk ``pods``.  ``state`` and the carries are the tensors the
     scan kernels update in place; ``out`` holds the output tensors of the
     record mode (plus ``visited`` under sampling).  ``grid`` is the
     number of blocks the launch runs, for the per-block domain scratch;
-    ``sampling`` is (start [1] i32 tensor, n_real, k) for kernel C.  The
-    tensors the kernel reads but the caller does not hold (the scratch)
-    are kept alive on the returned object."""
+    ``sampling`` is (start [1] i32 tensor, n_real, k) for kernel C.
+    ``rows`` is the records' row count when it is not the chunk's (kernel
+    D records per attempt), and ``out["total"]`` may then be None (no
+    total kept).  The tensors the kernel reads but the caller does not
+    hold (the scratch) are kept alive on the returned object."""
     i32, f32, f64, b = torch.int32, torch.float32, torch.float64, torch.bool
     dev = state.valid.device
     N, R = state.allocatable.shape
@@ -342,13 +344,14 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1,
         if prog.record == "full":
             put("visited_out", out["visited"], b, (Pc, N))
 
+    rows = Pc if rows is None else rows
     put("selected", out["selected"], i32, (Pc,))
     if prog.record in ("final", "full"):
-        put("total", out["total"], i32, (Pc, N))
-        put("final_out", out["final"], final_dtype, (Pc, prm.S, N))
+        put("total", out["total"], i32, (rows, N))
+        put("final_out", out["final"], final_dtype, (rows, prm.S, N))
     if prog.record == "full":
-        put("bits_out", out["bits"], bits_dtype, (Pc, prm.F, N))
-        put("raw_out", out["raw"], raw_dtype, (Pc, prm.S, N))
+        put("bits_out", out["bits"], bits_dtype, (rows, prm.F, N))
+        put("raw_out", out["raw"], raw_dtype, (rows, prm.S, N))
     prm.keep = keep
     return prm
 

@@ -1,11 +1,16 @@
-"""Kernel D wrapper: K churn-replay steps in one launch, and row 6 alone.
+"""Kernel D wrapper: K churn-replay steps in one launch, S lanes in one
+launch, and row 6 alone.
 
 ``replay_segment(st, prog, const, ev, state0)`` runs the segment program
-of ``ksim_tpu/engine/replay.py _segment_body`` (record="selection", no
-on-device preemption) for ``st.k`` steps: event application, the flush
-and backoff rules, the queue, InterPodAffinity's domain view, the plugin
-chain with the minimal-rank selectHost, and the commit.  It returns
-``(final_state, outs)``; its inputs are never modified.
+of ``ksim_tpu/engine/replay.py _segment_body`` for ``st.k`` steps: event
+application, the flush and backoff rules, the queue, InterPodAffinity's
+domain view, the plugin chain with the minimal-rank selectHost, the
+commit, and with ``st.preempt`` DefaultPreemption's victim search; with
+``st.record == "full"`` every attempt's reason codes, raw scores and
+finals are recorded.  It returns ``(final_state, outs)``; its inputs are
+never modified.  ``replay_segment_fleet`` runs S lanes of it in one
+launch (the reference's ``_fleet_segment_fn``): ``state0`` gains a
+leading lane axis, ``const`` and ``ev`` are shared.
 ``derive_interpod(loc, ipa, n_tk, n_dom)`` is the domain-view derivation
 (``_derive_interpod``) alone.
 
@@ -13,18 +18,26 @@ The trees are the lowering's (engine/replay.py ``segment_from_arrays``):
 
 - ``const``: ``node`` (allocatable, allowed_pods, unschedulable),
   ``pods`` (requests, nonzero_requests, tolerates_unschedulable,
-  has_requests) over the P universe rows, ``aux`` (the engine's device
-  aux, engine/core.py ``device_aux``);
+  has_requests; with preemption priority, imp_rank, start_rank,
+  preempt_ok) over the P universe rows, ``aux`` (the engine's device
+  aux, engine/core.py ``device_aux``); with preemption
+  ``empty_start_rank`` and, under record="full", ``resolv`` [F, W] (a
+  reason code resolvable by preemption, per filter);
 - ``ev``: leading axis K — ``pod_create`` / ``pod_delete`` /
   ``node_create`` / ``node_delete`` index lists padded with -1, ``rank``
-  [K, N], ``flush`` and ``active`` [K];
+  [K, N], ``flush`` and ``active`` [K]; with preemption ``name_rank``
+  [K, N] (live name order) and ``want`` [K] (upstream's candidate count);
 - ``state0``: valid [N], requested / nonzero_requested [N, R], pod_count
   [N], alive / bound / attempts / retry_at / nominated [P], spread
   [N, S], ip_cnt / ip_eat / ip_vw [N, T] (node-local term counts),
   pass_count (0-d).
 
 ``outs``: sel / idx [K, Q] and scheduled / unschedulable / eligible /
-pass_count / pending_after [K], all int32.
+pass_count / pending_after [K], all int32; with preemption nom [K, Q]
+(the nominated node, -1), vic [K, Q, v_eff] (victim rows in reprieve
+order, -1) and overflow [K] (a search past the bounds); under
+record="full" bits / raw / final [K, Q, F|S, N] in the dtypes of
+engine/core.py ``_Program.dtypes`` (rows that no attempt used are 0).
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device
 launch csrc/replay_segment.cu (kernel D, and its standalone
@@ -47,6 +60,11 @@ _I32_MAX = torch.iinfo(torch.int32).max
 
 MAX_TKI = 16  # csrc/derive_interpod.cuh: inter-pod topology keys
 DERIVE_SMEM_BYTES = 32768  # domain scratch up to this lives in shared memory
+# csrc/replay_segment.cu: the victim search's bounds (the reference's
+# PREEMPT_CANDIDATES and PREEMPT_VICTIMS); a search past them discards
+# the segment.
+MAX_CANDIDATES = 16
+MAX_VICTIMS = 8
 
 
 @dataclass(frozen=True)
@@ -60,6 +78,18 @@ class SegmentStatics:
     n_dom: int  # inter-pod padded domain count (segment id space)
     max_backoff: int = 16  # SchedulerService.MAX_BACKOFF_PASSES
     flush_cap: int = 4  # SchedulerService.FLUSH_CAP_PASSES
+    record: str = "selection"  # "selection" | "full" (per-attempt results)
+    preempt: bool = False  # DefaultPreemption's victim search
+
+    @staticmethod
+    def c_eff(n_nodes: int) -> int:
+        """The candidate bound over a padded node axis of ``n_nodes``."""
+        return min(MAX_CANDIDATES, n_nodes)
+
+    @staticmethod
+    def v_eff(n_pods: int) -> int:
+        """The victim bound over a universe of ``n_pods`` rows."""
+        return min(MAX_VICTIMS, n_pods)
 
     @property
     def shift_cap(self) -> int:
@@ -105,9 +135,15 @@ def _select_ranked(ok: torch.Tensor, total: torch.Tensor, rank: torch.Tensor) ->
     return torch.where(ok.any(), best, -1).to(torch.int32)
 
 
-def _skip_outputs(st: SegmentStatics, P: int, pass_count, device) -> dict:
+_LIVE_KEYS = (
+    "alive", "bound", "requested", "nonzero_requested", "pod_count", "spread",
+    "ip_cnt", "ip_eat", "ip_vw", "nominated",
+)
+
+
+def _skip_outputs(st: SegmentStatics, prog, P: int, N: int, pass_count, device) -> dict:
     z = torch.zeros((), dtype=torch.int32, device=device)
-    return {
+    out = {
         "sel": torch.full((st.q,), -1, dtype=torch.int32, device=device),
         "idx": torch.full((st.q,), P, dtype=torch.int32, device=device),
         "scheduled": z,
@@ -116,6 +152,185 @@ def _skip_outputs(st: SegmentStatics, P: int, pass_count, device) -> dict:
         "pass_count": pass_count.clone(),
         "pending_after": z,
     }
+    if st.preempt:
+        out["nom"] = torch.full((st.q,), -1, dtype=torch.int32, device=device)
+        out["vic"] = torch.full((st.q, st.v_eff(P)), -1, dtype=torch.int32, device=device)
+        out["overflow"] = torch.zeros((), dtype=torch.bool, device=device)
+    if st.record == "full":
+        out.update(_record_buffers(prog, (st.q,), N, device))
+    return out
+
+
+def _record_buffers(prog, lead: tuple, N: int, device) -> dict:
+    """Zeroed bits / raw / final of record="full", leading shape ``lead``."""
+    bits_dtype, final_dtype, raw_dtype = prog.dtypes
+    F, S = len(prog.filters), len(prog.scores)
+    return {
+        "bits": torch.zeros((*lead, F, N), dtype=bits_dtype, device=device),
+        "raw": torch.zeros((*lead, S, N), dtype=raw_dtype, device=device),
+        "final": torch.zeros((*lead, S, N), dtype=final_dtype, device=device),
+    }
+
+
+class _PodRows:
+    """The universe's per-pod rows that event application, binds and the
+    victim search add into node state."""
+
+    def __init__(self, const: dict) -> None:
+        aux, prow = const["aux"], const["pods"]
+        self.prow = prow
+        self.sel = aux["spread"]["pod_sel_match"]
+        self.qm = aux["interpod"]["pod_term_match"]
+        self.eat = aux["interpod"]["pod_eat"]
+        self.vw = aux["interpod"]["pod_vw"]
+
+    def bind_live(self, live: dict, j: int, best: int) -> None:
+        """One attempt's bind into the live view (replay.py _bind_live;
+        a failed attempt changes nothing)."""
+        if best < 0:
+            return
+        i32 = torch.int32
+        live["requested"][best] += self.prow["requests"][j]
+        live["nonzero_requested"][best] += self.prow["nonzero_requests"][j]
+        live["pod_count"][best] += 1
+        live["spread"][best] += self.sel[j].to(i32)
+        live["ip_cnt"][best] += self.qm[j].to(i32)
+        live["ip_eat"][best] += self.eat[j]
+        live["ip_vw"][best] += self.vw[j]
+        live["bound"][j] = best
+        live["nominated"][j] = False
+
+    def deltas(self, rows: torch.Tensor) -> dict:
+        """The summed rows of ``rows`` (replay.py _victim_deltas)."""
+        i32 = torch.int32
+        return {
+            "req": self.prow["requests"][rows].sum(0, dtype=i32),
+            "nz": self.prow["nonzero_requests"][rows].sum(0, dtype=i32),
+            "cnt": int(rows.numel()),
+            "sel": self.sel[rows].to(i32).sum(0, dtype=i32),
+            "qm": self.qm[rows].to(i32).sum(0, dtype=i32),
+            "eat": self.eat[rows].sum(0, dtype=i32),
+            "vw": self.vw[rows].sum(0, dtype=i32),
+        }
+
+
+def _sub_at(live: dict, n: int, d: dict) -> dict:
+    """``live``'s node-state arrays with ``d`` taken off node ``n`` (copies)."""
+    out = {}
+    for key, dk in (("requested", "req"), ("nonzero_requested", "nz"), ("spread", "sel"),
+                    ("ip_cnt", "qm"), ("ip_eat", "eat"), ("ip_vw", "vw")):
+        t = live[key].clone()
+        t[n] -= d[dk]
+        out[key] = t
+    pc = live["pod_count"].clone()
+    pc[n] -= d["cnt"]
+    out["pod_count"] = pc
+    return out
+
+
+def _preempt_search_plain(st, prog, const, rows: _PodRows, valid, live: dict, j: int,
+                          bits_mat, name_rank, want: int):
+    """DefaultPreemption's victim search for attempt ``j`` against the
+    live view (replay.py _preempt_search); updates ``live`` and returns
+    (nominated node, victim rows [v_eff], overflow)."""
+    aux, nstat, prow = const["aux"], const["node"], const["pods"]
+    ipa = aux["interpod"]
+    P = prow["requests"].shape[0]
+    N = nstat["allocatable"].shape[0]
+    dev = valid.device
+    c_eff, v_eff = st.c_eff(N), st.v_eff(P)
+    prio = prow["priority"]
+    lower = live["alive"] & (live["bound"] >= 0) & (prio < prio[j])
+    if st.record == "full":
+        fail = bits_mat != 0  # [F, N]
+        first = fail.to(torch.int32).argmax(0)
+        bval = bits_mat.gather(0, first[None, :])[0].to(torch.int64)
+        resolv = const["resolv"]
+        bval = bval.clamp(0, resolv.shape[1] - 1)
+        resolvable = resolv[first.long(), bval] & fail.any(0)
+    else:
+        resolvable = torch.ones(N, dtype=torch.bool, device=dev)
+    vcnt = torch.zeros(N, dtype=torch.int32, device=dev)
+    vcnt.index_add_(0, live["bound"][lower].long(), torch.ones(int(lower.sum()), dtype=torch.int32, device=dev))
+    examine = (vcnt > 0) & valid & resolvable
+    over = int(examine.sum()) > c_eff
+    ex = torch.nonzero(examine)[:, 0]
+    cands = ex[torch.argsort(name_rank[ex], stable=True)][:c_eff].tolist()
+    pod = PodView(
+        requests=prow["requests"][j : j + 1],
+        nonzero_requests=prow["nonzero_requests"][j : j + 1],
+        tolerates_unschedulable=prow["tolerates_unschedulable"][j : j + 1],
+        has_requests=prow["has_requests"][j : j + 1],
+        index=torch.tensor([j], dtype=torch.int32, device=dev),
+    )
+
+    def eval_fit(n: int, vrows: list[int]) -> bool:
+        # The preemptor's filter chain at n with the victims' rows taken
+        # off n (spread and inter-pod re-derive from the modified locals).
+        mod = _sub_at(live, n, rows.deltas(torch.tensor(vrows, dtype=torch.long, device=dev)))
+        view = NodeStateView(
+            allocatable=nstat["allocatable"],
+            allowed_pods=nstat["allowed_pods"],
+            valid=valid,
+            unschedulable=nstat["unschedulable"],
+            requested=mod["requested"],
+            nonzero_requested=mod["nonzero_requested"],
+            pod_count=mod["pod_count"],
+        )
+        carries = prog.init_carries(aux)
+        carries["PodTopologySpread"] = mod["spread"]
+        carries["InterPodAffinity"] = derive_interpod_plain(
+            {"cnt": mod["ip_cnt"], "eat": mod["ip_eat"], "vw": mod["ip_vw"]}, ipa, st.n_tk, st.n_dom
+        )
+        ok, _bits = prog.eval_filters(view, pod, aux, carries)
+        return bool(ok[0, n])
+
+    imp = prow["imp_rank"]
+    found = []  # (is_c, max prio, prio sum, count, start rank, name rank, node, victim rows)
+    for n in cands:
+        on_n = torch.nonzero(lower & (live["bound"] == n))[:, 0]
+        on_n = on_n[torch.argsort(imp[on_n], stable=True)]
+        over = over or on_n.numel() > v_eff
+        vrows = on_n[:v_eff].tolist()
+        fit0 = eval_fit(n, vrows)
+        removed = list(range(len(vrows)))
+        vic = [False] * len(vrows)
+        for v in range(len(vrows)):
+            test = [u for u in removed if u != v]
+            if eval_fit(n, [vrows[u] for u in test]):
+                removed = test  # reprieved
+            else:
+                vic[v] = True
+        vp = [int(prio[vrows[v]]) for v in range(len(vrows)) if vic[v]]
+        if vp:
+            maxp = max(vp)
+            est = min(int(prow["start_rank"][vrows[v]]) for v in range(len(vrows))
+                      if vic[v] and int(prio[vrows[v]]) == maxp)
+        else:
+            maxp, est = _I32_MIN, int(const["empty_start_rank"])
+        vsum = (sum(vp) + 2**31) % 2**32 - 2**31  # the reference's int32 sum
+        found.append((fit0, maxp, vsum, len(vp), est, int(name_rank[n]), n,
+                      [vrows[v] if vic[v] else -1 for v in range(len(vrows))]))
+    # pickOneNodeForPreemption: the first `want` fitting candidates in
+    # discovery order, then the lexicographic narrowing.
+    keep = [f for f in found if f[0]][:want]
+    vic_rows = [-1] * v_eff
+    if not keep:
+        return -1, vic_rows, over
+    for pos, take_min in ((1, True), (2, True), (3, True), (4, False), (5, True)):
+        tgt = (min if take_min else max)(f[pos] for f in keep)
+        keep = [f for f in keep if f[pos] == tgt]
+    best = keep[0]
+    nom = best[6]
+    vic_rows[: len(best[7])] = best[7]
+    gone = [r for r in best[7] if r >= 0]
+    mod = _sub_at(live, nom, rows.deltas(torch.tensor(gone, dtype=torch.long, device=dev)))
+    live.update(mod)
+    for r in gone:
+        live["alive"][r] = False
+        live["bound"][r] = -1
+    live["nominated"][j] = True
+    return nom, vic_rows, over
 
 
 def replay_segment_plain(st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
@@ -126,29 +341,30 @@ def replay_segment_plain(st: SegmentStatics, prog, const: dict, ev: dict, state0
     P = prow["requests"].shape[0]
     N = nstat["allocatable"].shape[0]
     dev = prow["requests"].device
-    sel_rows = aux["spread"]["pod_sel_match"]
-    qm_rows = ipa["pod_term_match"]
-    eat_rows, vw_rows = ipa["pod_eat"], ipa["pod_vw"]
+    rows = _PodRows(const)
+    sel_rows, qm_rows, eat_rows, vw_rows = rows.sel, rows.qm, rows.eat, rows.vw
+    full = st.record == "full"
+    v_eff = st.v_eff(P)
     s = {k: v.clone() for k, v in state0.items()}
     outs = []
     for k in range(st.k):
         evk = {name: t[k] for name, t in ev.items()}
         if not bool(evk["active"]):
-            outs.append(_skip_outputs(st, P, s["pass_count"], dev))
+            outs.append(_skip_outputs(st, prog, P, N, s["pass_count"], dev))
             continue
         # Pod deletes: the bound node's rows lose the pod's.
         pdel = evk["pod_delete"]
         pdel = pdel[pdel >= 0].long()
         bnode = s["bound"][pdel]
         hit = bnode >= 0
-        rows, tgt = pdel[hit], bnode[hit].long()
-        s["requested"].index_add_(0, tgt, -prow["requests"][rows])
-        s["nonzero_requested"].index_add_(0, tgt, -prow["nonzero_requests"][rows])
+        rows_d, tgt = pdel[hit], bnode[hit].long()
+        s["requested"].index_add_(0, tgt, -prow["requests"][rows_d])
+        s["nonzero_requested"].index_add_(0, tgt, -prow["nonzero_requests"][rows_d])
         s["pod_count"].index_add_(0, tgt, -torch.ones_like(tgt, dtype=torch.int32))
-        s["spread"].index_add_(0, tgt, -sel_rows[rows].to(torch.int32))
-        s["ip_cnt"].index_add_(0, tgt, -qm_rows[rows].to(torch.int32))
-        s["ip_eat"].index_add_(0, tgt, -eat_rows[rows])
-        s["ip_vw"].index_add_(0, tgt, -vw_rows[rows])
+        s["spread"].index_add_(0, tgt, -sel_rows[rows_d].to(torch.int32))
+        s["ip_cnt"].index_add_(0, tgt, -qm_rows[rows_d].to(torch.int32))
+        s["ip_eat"].index_add_(0, tgt, -eat_rows[rows_d])
+        s["ip_vw"].index_add_(0, tgt, -vw_rows[rows_d])
         s["alive"][pdel] = False
         s["bound"][pdel] = -1
         # Node drains and creates; drained nodes' pods requeue.
@@ -184,6 +400,8 @@ def replay_segment_plain(st: SegmentStatics, prog, const: dict, ev: dict, state0
         idx_q = torch.full((st.q,), P, dtype=torch.int32, device=dev)
         idx_q[pos[att].long()] = torch.arange(P, dtype=torch.int32, device=dev)[att]
         n_att = int(att.sum())
+        # The victim search's live view starts from the pre-pass state.
+        live0 = {key: s[key].clone() for key in _LIVE_KEYS} if st.preempt else None
         # The chain over the attempted pods, committing each.
         state = NodeStateView(
             allocatable=nstat["allocatable"],
@@ -200,6 +418,8 @@ def replay_segment_plain(st: SegmentStatics, prog, const: dict, ev: dict, state0
             {"cnt": s["ip_cnt"], "eat": s["ip_eat"], "vw": s["ip_vw"]}, ipa, st.n_tk, st.n_dom
         )
         sel = torch.full((st.q,), -1, dtype=torch.int32, device=dev)
+        rec = _record_buffers(prog, (st.q,), N, dev) if full else None
+        bits_dtype, final_dtype, raw_dtype = prog.dtypes
         for qq in range(n_att):
             j = int(idx_q[qq])
             pod = PodView(
@@ -209,26 +429,56 @@ def replay_segment_plain(st: SegmentStatics, prog, const: dict, ev: dict, state0
                 has_requests=prow["has_requests"][j : j + 1],
                 index=idx_q[qq : qq + 1],
             )
-            ok, _bits, _raw, _final, total = prog.eval_block(state, pod, aux, carries)
+            ok, bits, raw, final, total = prog.eval_block(state, pod, aux, carries)
             best = _select_ranked(ok[0], total[0], evk["rank"])
             state = state.commit(best, prow["requests"][j], prow["nonzero_requests"][j])
             carries = prog.commit_carries(carries, pod, best, aux)
             sel[qq] = best
+            if full:
+                for name, xs, dtype in (("bits", bits, bits_dtype), ("raw", raw, raw_dtype),
+                                        ("final", final, final_dtype)):
+                    if xs:
+                        rec[name][qq] = torch.stack([x[0].to(dtype) for x in xs])
         s["requested"] = state.requested
         s["nonzero_requested"] = state.nonzero_requested
         s["pod_count"] = state.pod_count
         s["spread"] = carries["PodTopologySpread"]
-        # Step end: binds into the node-local counts and the pod rows.
-        live = idx_q < P
-        bound_mask = live & (sel >= 0)
-        fail_mask = live & (sel < 0)
+        live_mask = idx_q < P
+        bound_mask = live_mask & (sel >= 0)
+        fail_mask = live_mask & (sel < 0)
         b_rows = idx_q[bound_mask].long()
-        b_nodes = sel[bound_mask].long()
-        s["ip_cnt"].index_add_(0, b_nodes, qm_rows[b_rows].to(torch.int32))
-        s["ip_eat"].index_add_(0, b_nodes, eat_rows[b_rows])
-        s["ip_vw"].index_add_(0, b_nodes, vw_rows[b_rows])
-        s["bound"][b_rows] = sel[bound_mask]
-        s["nominated"][b_rows] = False
+        nom = torch.full((st.q,), -1, dtype=torch.int32, device=dev)
+        vic = torch.full((st.q, v_eff), -1, dtype=torch.int32, device=dev)
+        overflow = False
+        if st.preempt:
+            # The pass again, in queue order, against the live view (this
+            # pass's binds so far, the victims removed so far), with the
+            # victim search for each failed attempt that may preempt; the
+            # live view is the step's end state.
+            live = {key: t.clone() for key, t in live0.items()}
+            for qq in range(n_att):
+                j, best = int(idx_q[qq]), int(sel[qq])
+                rows.bind_live(live, j, best)
+                lower = live["alive"] & (live["bound"] >= 0) & (prow["priority"] < prow["priority"][j])
+                if best >= 0 or not bool(prow["preempt_ok"][j]) or not bool(lower.any()):
+                    continue
+                n_nom, vrows, over = _preempt_search_plain(
+                    st, prog, const, rows, s["valid"], live, j,
+                    rec["bits"][qq] if full else None, evk["name_rank"], int(evk["want"]),
+                )
+                nom[qq] = n_nom
+                vic[qq] = torch.tensor(vrows, dtype=torch.int32, device=dev)
+                overflow = overflow or over
+            for key in _LIVE_KEYS:
+                s[key] = live[key]
+        else:
+            # Step end: binds into the node-local counts and the pod rows.
+            b_nodes = sel[bound_mask].long()
+            s["ip_cnt"].index_add_(0, b_nodes, qm_rows[b_rows].to(torch.int32))
+            s["ip_eat"].index_add_(0, b_nodes, eat_rows[b_rows])
+            s["ip_vw"].index_add_(0, b_nodes, vw_rows[b_rows])
+            s["bound"][b_rows] = sel[bound_mask]
+            s["nominated"][b_rows] = False
         # Backoff: success pops the entry, failure doubles the delay
         # (capped) unless the pod holds a nomination.
         f_rows = idx_q[fail_mask].long()
@@ -242,7 +492,7 @@ def replay_segment_plain(st: SegmentStatics, prog, const: dict, ev: dict, state0
         s["retry_at"][b_rows] = 0
         s["attempts"][f_rows] = torch.where(nomd, 0, a_prev + 1)
         s["retry_at"][f_rows] = torch.where(nomd, 0, pc + delay).to(torch.int32)
-        outs.append({
+        out = {
             "sel": sel,
             "idx": idx_q,
             "scheduled": bound_mask.sum(dtype=torch.int32),
@@ -250,8 +500,27 @@ def replay_segment_plain(st: SegmentStatics, prog, const: dict, ev: dict, state0
             "eligible": (elig.sum(dtype=torch.int32) if any_valid else torch.zeros((), dtype=torch.int32, device=dev)),
             "pass_count": pc.clone(),
             "pending_after": (s["alive"] & (s["bound"] < 0)).sum(dtype=torch.int32),
-        })
+        }
+        if st.preempt:
+            out.update(nom=nom, vic=vic, overflow=torch.tensor(overflow, device=dev))
+        if full:
+            out.update(rec)
+        outs.append(out)
     return s, {name: torch.stack([o[name] for o in outs]) for name in outs[0]}
+
+
+def replay_segment_fleet_plain(st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
+    """Rows 10-11's plain version: ``replay_segment_plain`` once per lane.
+    ``state0`` carries a leading lane axis on every leaf; ``const`` and
+    ``ev`` are shared.  Returns (final state, outs), each leaf stacked
+    along the lane axis."""
+    lanes = state0["valid"].shape[0]
+    runs = [replay_segment_plain(st, prog, const, ev, {k: v[i] for k, v in state0.items()})
+            for i in range(lanes)]
+    return (
+        {k: torch.stack([r[0][k] for r in runs]) for k in runs[0][0]},
+        {k: torch.stack([r[1][k] for r in runs]) for k in runs[0][1]},
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -287,10 +556,15 @@ class SegmentParams(ctypes.Structure):
             "ev_pc", "ev_pd", "ev_nc", "ev_nd", "ev_rank", "ev_flush", "ev_active",
             "out_sel", "out_idx", "out_scheduled", "out_unsched", "out_eligible",
             "out_pass", "out_pending", "derive_runs",
+            "priority", "imp_order", "start_rank", "preempt_ok", "resolv",
+            "ev_name_rank", "ev_want",
+            "snap_req", "snap_nz", "snap_pc", "snap_spread", "name_order", "vcnt",
+            "out_nom", "out_vic", "out_over",
         )]
         + [(name, _L) for name in (
             "K", "Q", "cap", "P", "Wpc", "Wpd", "Wnc", "Wnd",
             "max_backoff", "flush_cap", "shift_cap",
+            "preempt", "CE", "VE", "empty_start_rank", "resolv_f", "resolv_w",
         )]
     )
 
@@ -304,6 +578,9 @@ def _load():
             fn.restype = ctypes.c_longlong
             if fn() != ctypes.sizeof(struct):
                 raise RuntimeError(f"{struct.__name__} differs between csrc/ and kernels/replay_segment.py")
+        lib.ksim_replay_segment.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        lib.ksim_replay_segment.restype = ctypes.c_int
+        lib.ksim_segment_static_smem.restype = ctypes.c_longlong
         lib.ksim_derive_interpod.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.ksim_derive_interpod.restype = ctypes.c_int
         lib._ksim_segment_checked = True
@@ -429,120 +706,255 @@ def reset_derive_runs() -> None:
         c.zero_()
 
 
-def replay_segment(st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
+def _segment_outputs(st: SegmentStatics, prog, P: int, N: int, lead: tuple, device) -> dict:
+    """Output tensors of one launch, leading shape ``lead`` (the lane axis
+    of a fleet launch); record="full" rows start zeroed (the kernel writes
+    the attempted rows only)."""
+    i32 = torch.int32
+    K, Q = st.k, st.q
+    outs = {
+        "sel": torch.empty((*lead, K, Q), dtype=i32, device=device),
+        "idx": torch.empty((*lead, K, Q), dtype=i32, device=device),
+        **{name: torch.empty((*lead, K), dtype=i32, device=device)
+           for name in ("scheduled", "unschedulable", "eligible", "pass_count", "pending_after")},
+    }
+    if st.preempt:
+        outs["nom"] = torch.empty((*lead, K, Q), dtype=i32, device=device)
+        outs["vic"] = torch.empty((*lead, K, Q, st.v_eff(P)), dtype=i32, device=device)
+        outs["overflow"] = torch.empty((*lead, K), dtype=torch.bool, device=device)
+    if st.record == "full":
+        outs.update(_record_buffers(prog, (*lead, K, Q), N, device))
+    return outs
+
+
+class _Launch:
+    """What every lane of one launch shares: the universe's tensors, the
+    step-start carries, the row-6 layout, the preemption tables.  ``keep``
+    holds every tensor a lane's params point at until the launch is
+    enqueued (the caching allocator keeps them for the stream after)."""
+
+    def __init__(self, st: SegmentStatics, prog, const: dict, ev: dict, lanes: int) -> None:
+        if prog.record not in ("selection", "full"):
+            raise NotImplementedError(f"kernel D records selection or full, not {prog.record!r}")
+        self.st, self.prog, self.const, self.ev, self.lanes = st, prog, const, ev, lanes
+        aux, nstat, prow = const["aux"], const["node"], const["pods"]
+        self.device = prow["requests"].device
+        self.P = prow["requests"].shape[0]
+        self.N = nstat["allocatable"].shape[0]
+        self.pods = PodBatch(
+            requests=prow["requests"],
+            nonzero_requests=prow["nonzero_requests"],
+            valid=torch.ones(self.P, dtype=torch.bool, device=self.device),
+            tolerates_unschedulable=prow["tolerates_unschedulable"],
+            has_requests=prow["has_requests"],
+            index=torch.arange(self.P, dtype=torch.int32, device=self.device),
+        )
+        self.init = prog.init_carries(aux)
+        self.layout = derive_layout(aux["interpod"]["node_dom"])
+        runs = _DERIVE_RUNS.get(self.device)
+        if runs is None:
+            runs = _DERIVE_RUNS[self.device] = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.runs = runs
+        self.keep: list = [self.pods, self.init, self.layout]
+        if st.preempt:
+            imp = prow["imp_rank"]
+            order = torch.full((self.P,), -1, dtype=torch.int32, device=self.device)
+            ranked = imp < self.P
+            order[imp[ranked].long()] = self.pods.index[ranked]
+            self.imp_order = order
+            self.keep.append(order)
+
+    def put(self, prm, field, t, dtype, shape) -> None:
+        setattr(prm, field, chain._ptr(t, dtype, shape, self.device))
+
+    def lane_params(self, s: dict, outs: dict) -> SegmentParams:
+        """One lane's params over its carried state ``s`` (written in
+        place; ``pass_count`` shaped [1]) and its outputs ``outs``."""
+        st, prog, const, ev = self.st, self.prog, self.const, self.ev
+        i32, b = torch.int32, torch.bool
+        aux, nstat, prow = const["aux"], const["node"], const["pods"]
+        ipa = aux["interpod"]
+        P, N, K, Q, dev = self.P, self.N, st.k, st.q, self.device
+        R = prow["requests"].shape[1]
+        T2 = ipa["dom_t"].shape[1]
+        SS = s["spread"].shape[1]
+        keep = self.keep
+        state = NodeStateView(
+            allocatable=nstat["allocatable"],
+            allowed_pods=nstat["allowed_pods"],
+            valid=s["valid"],
+            unschedulable=nstat["unschedulable"],
+            requested=s["requested"],
+            nonzero_requested=s["nonzero_requested"],
+            pod_count=s["pod_count"],
+        )
+        # The lane's own working carries and inter-pod view.
+        carries = {
+            name: ({f: t.clone() for f, t in c.items()} if isinstance(c, dict) else c.clone())
+            for name, c in self.init.items()
+        }
+        view = _view_out(s["ip_cnt"], T2)
+        if "PodTopologySpread" in carries:
+            carries["PodTopologySpread"] = s["spread"]
+        if "InterPodAffinity" in carries:
+            carries["InterPodAffinity"] = view
+        full = st.record == "full"
+        chain_out = {"selected": torch.empty(P, dtype=i32, device=dev)}
+        if full:
+            chain_out.update(
+                total=None, **{k: outs[k].reshape(K * Q, *outs[k].shape[2:]) for k in ("bits", "raw", "final")}
+            )
+        prm = SegmentParams()
+        chain_prm = chain.chain_params(prog, state, self.pods, aux, carries, chain_out,
+                                       grid=self.lanes, rows=K * Q)
+        prm.chain = chain_prm  # a copy of the struct: keep its tensors alive here
+        keep += [chain_prm, state, carries, chain_out, view]
+        prm.derive = _derive_params(
+            {"cnt": s["ip_cnt"], "eat": s["ip_eat"], "vw": s["ip_vw"]}, ipa, view, keep, self.layout,
+        )
+
+        def put(field, t, dtype, shape):
+            self.put(prm, field, t, dtype, shape)
+
+        put("valid", s["valid"], b, (N,))
+        for name in ("alive", "nominated"):
+            put(name, s[name], b, (P,))
+        for name in ("bound", "attempts", "retry_at"):
+            put(name, s[name], i32, (P,))
+        put("spread", s["spread"], i32, (N, SS))
+        for name in ("ip_cnt", "ip_eat", "ip_vw"):
+            put(name, s[name], i32, (N, T2))
+        put("pass_count", s["pass_count"], i32, (1,))
+        init = self.init
+        if "NodePorts" in init:
+            put("ports_init", init["NodePorts"], i32, tuple(init["NodePorts"].shape))
+        if "NodeVolumeLimits" in init:
+            put("attached_init", init["NodeVolumeLimits"], i32, tuple(init["NodeVolumeLimits"].shape))
+        if "VolumeRestrictions" in init:
+            v = init["VolumeRestrictions"]
+            put("rwop_init", v["rwop"], i32, tuple(v["rwop"].shape))
+            put("disk_any_init", v["disk_any"], i32, tuple(v["disk_any"].shape))
+            put("disk_rw_init", v["disk_rw"], i32, tuple(v["disk_rw"].shape))
+        widths = {}
+        for field, name in (("ev_pc", "pod_create"), ("ev_pd", "pod_delete"),
+                            ("ev_nc", "node_create"), ("ev_nd", "node_delete")):
+            t = ev[name]
+            widths[field] = t.shape[1]
+            put(field, t, i32, (K, t.shape[1]))
+        put("ev_rank", ev["rank"], i32, (K, N))
+        put("ev_flush", ev["flush"], b, (K,))
+        put("ev_active", ev["active"], b, (K,))
+        put("out_sel", outs["sel"], i32, (K, Q))
+        put("out_idx", outs["idx"], i32, (K, Q))
+        for field, name in (("out_scheduled", "scheduled"), ("out_unsched", "unschedulable"),
+                            ("out_eligible", "eligible"), ("out_pass", "pass_count"),
+                            ("out_pending", "pending_after")):
+            put(field, outs[name], i32, (K,))
+        put("derive_runs", self.runs, i32, (1,))
+        prm.K, prm.Q, prm.cap, prm.P = K, Q, st.cap, P
+        prm.Wpc, prm.Wpd, prm.Wnc, prm.Wnd = (widths[f] for f in ("ev_pc", "ev_pd", "ev_nc", "ev_nd"))
+        prm.max_backoff, prm.flush_cap, prm.shift_cap = st.max_backoff, st.flush_cap, st.shift_cap
+        if st.preempt:
+            VE = st.v_eff(P)
+            prm.preempt, prm.CE, prm.VE = 1, st.c_eff(N), VE
+            prm.empty_start_rank = int(const["empty_start_rank"])
+            put("priority", prow["priority"], i32, (P,))
+            put("imp_order", self.imp_order, i32, (P,))
+            put("start_rank", prow["start_rank"], i32, (P,))
+            put("preempt_ok", prow["preempt_ok"], b, (P,))
+            put("ev_name_rank", ev["name_rank"], i32, (K, N))
+            put("ev_want", ev["want"], i32, (K,))
+            if full:
+                resolv = const["resolv"]
+                prm.resolv_f, prm.resolv_w = resolv.shape
+                put("resolv", resolv, b, tuple(resolv.shape))
+            scratch = {
+                "snap_req": torch.empty((N, R), dtype=i32, device=dev),
+                "snap_nz": torch.empty((N, R), dtype=i32, device=dev),
+                "snap_pc": torch.empty(N, dtype=i32, device=dev),
+                "snap_spread": torch.empty((N, SS), dtype=i32, device=dev),
+                "name_order": torch.empty(N, dtype=i32, device=dev),
+                "vcnt": torch.empty(N, dtype=i32, device=dev),
+            }
+            keep.append(scratch)
+            for field, t in scratch.items():
+                put(field, t, i32, tuple(t.shape))
+            put("out_nom", outs["nom"], i32, (K, Q))
+            put("out_vic", outs["vic"], i32, (K, Q, VE))
+            put("out_over", outs["overflow"], b, (K,))
+        return prm
+
+    def launch(self, lib, params: list, *, lanes: bool) -> None:
+        """One launch, on the current stream: the solo kernel with the one
+        lane's params by value, or (``lanes``) len(params) blocks, block b
+        running lane b from a device copy of the params.  Raises on a CUDA
+        error."""
+        static = lib.ksim_segment_static_smem()
+        chain.check_smem(params[0].chain, extra=_derive_smem(params[0].derive) + static)
+        dev_params = None
+        if lanes:
+            blob = b"".join(ctypes.string_at(ctypes.addressof(p), ctypes.sizeof(p)) for p in params)
+            dev_params = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(self.device)
+            self.keep.append(dev_params)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ksim_replay_segment(
+            ctypes.byref(params[0]),
+            ctypes.c_void_p(dev_params.data_ptr() if lanes else None),
+            len(params),
+            ctypes.c_void_p(stream),
+        )
+        if err != 0:
+            raise RuntimeError(f"ksim_replay_segment: CUDA error {err}: {lib.ksim_error_string(err).decode()}")
+
+
+def _device_of(const: dict, name: str) -> torch.device:
     device = const["pods"]["requests"].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
+    return device
+
+
+def replay_segment(st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
+    device = _device_of(const, "replay_segment")
     if device.type == "cpu":
         return replay_segment_plain(st, prog, const, ev, state0)
-    if device.type != "cuda":
-        raise ValueError(f"replay_segment runs on cpu or cuda, not {device}")
-    if prog.record != "selection":
-        raise NotImplementedError("kernel D records selections only")
     lib = _load()
-    i32, b = torch.int32, torch.bool
-    aux, nstat, prow = const["aux"], const["node"], const["pods"]
-    ipa = aux["interpod"]
-    P, R = prow["requests"].shape
-    N = nstat["allocatable"].shape[0]
-    T2 = ipa["dom_t"].shape[1]
-    K, Q = st.k, st.q
+    run = _Launch(st, prog, const, ev, lanes=1)
     # Fresh copies: the kernel writes the carried state in place.
     s = {k: v.clone() for k, v in state0.items()}
     s["pass_count"] = s["pass_count"].reshape(1)
-    state = NodeStateView(
-        allocatable=nstat["allocatable"],
-        allowed_pods=nstat["allowed_pods"],
-        valid=s["valid"],
-        unschedulable=nstat["unschedulable"],
-        requested=s["requested"],
-        nonzero_requested=s["nonzero_requested"],
-        pod_count=s["pod_count"],
-    )
-    pods = PodBatch(
-        requests=prow["requests"],
-        nonzero_requests=prow["nonzero_requests"],
-        valid=torch.ones(P, dtype=b, device=device),
-        tolerates_unschedulable=prow["tolerates_unschedulable"],
-        has_requests=prow["has_requests"],
-        index=torch.arange(P, dtype=i32, device=device),
-    )
-    init = prog.init_carries(aux)
-    carries = {
-        name: ({f: t.clone() for f, t in c.items()} if isinstance(c, dict) else c.clone())
-        for name, c in init.items()
-    }
-    view = _view_out(s["ip_cnt"], T2)
-    if "PodTopologySpread" in carries:
-        carries["PodTopologySpread"] = s["spread"]
-    if "InterPodAffinity" in carries:
-        carries["InterPodAffinity"] = view
-    outs = {
-        "sel": torch.empty((K, Q), dtype=i32, device=device),
-        "idx": torch.empty((K, Q), dtype=i32, device=device),
-        **{name: torch.empty(K, dtype=i32, device=device)
-           for name in ("scheduled", "unschedulable", "eligible", "pass_count", "pending_after")},
-    }
-    dummy = {"selected": torch.empty(P, dtype=i32, device=device)}
-    prm = SegmentParams()
-    chain_prm = chain.chain_params(prog, state, pods, aux, carries, dummy)
-    prm.chain = chain_prm  # a copy of the struct: keep its tensors alive here
-    keep = [chain_prm, state, pods, carries, dummy, init]
-    prm.derive = _derive_params(
-        {"cnt": s["ip_cnt"], "eat": s["ip_eat"], "vw": s["ip_vw"]}, ipa, view, keep,
-        derive_layout(ipa["node_dom"]),
-    )
-    runs = _DERIVE_RUNS.get(device)
-    if runs is None:
-        runs = _DERIVE_RUNS[device] = torch.zeros(1, dtype=i32, device=device)
-
-    def put(field, t, dtype, shape):
-        setattr(prm, field, chain._ptr(t, dtype, shape, device))
-
-    SS = s["spread"].shape[1]
-    put("valid", s["valid"], b, (N,))
-    for name in ("alive", "nominated"):
-        put(name, s[name], b, (P,))
-    for name in ("bound", "attempts", "retry_at"):
-        put(name, s[name], i32, (P,))
-    put("spread", s["spread"], i32, (N, SS))
-    for name in ("ip_cnt", "ip_eat", "ip_vw"):
-        put(name, s[name], i32, (N, T2))
-    put("pass_count", s["pass_count"], i32, (1,))
-    if "NodePorts" in init:
-        put("ports_init", init["NodePorts"], i32, tuple(init["NodePorts"].shape))
-    if "NodeVolumeLimits" in init:
-        put("attached_init", init["NodeVolumeLimits"], i32, tuple(init["NodeVolumeLimits"].shape))
-    if "VolumeRestrictions" in init:
-        v = init["VolumeRestrictions"]
-        put("rwop_init", v["rwop"], i32, tuple(v["rwop"].shape))
-        put("disk_any_init", v["disk_any"], i32, tuple(v["disk_any"].shape))
-        put("disk_rw_init", v["disk_rw"], i32, tuple(v["disk_rw"].shape))
-    widths = {}
-    for field, name in (("ev_pc", "pod_create"), ("ev_pd", "pod_delete"),
-                        ("ev_nc", "node_create"), ("ev_nd", "node_delete")):
-        t = ev[name]
-        widths[field] = t.shape[1]
-        put(field, t, i32, (K, t.shape[1]))
-    put("ev_rank", ev["rank"], i32, (K, N))
-    put("ev_flush", ev["flush"], b, (K,))
-    put("ev_active", ev["active"], b, (K,))
-    put("out_sel", outs["sel"], i32, (K, Q))
-    put("out_idx", outs["idx"], i32, (K, Q))
-    for field, name in (("out_scheduled", "scheduled"), ("out_unsched", "unschedulable"),
-                        ("out_eligible", "eligible"), ("out_pass", "pass_count"),
-                        ("out_pending", "pending_after")):
-        put(field, outs[name], i32, (K,))
-    put("derive_runs", runs, i32, (1,))
-    prm.K, prm.Q, prm.cap, prm.P = K, Q, st.cap, P
-    prm.Wpc, prm.Wpd, prm.Wnc, prm.Wnd = (widths[f] for f in ("ev_pc", "ev_pd", "ev_nc", "ev_nd"))
-    prm.max_backoff, prm.flush_cap, prm.shift_cap = st.max_backoff, st.flush_cap, st.shift_cap
-    chain.check_smem(prm.chain, extra=_derive_smem(prm.derive))
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.ksim_replay_segment(ctypes.byref(prm), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"ksim_replay_segment: CUDA error {err}: {lib.ksim_error_string(err).decode()}")
+    outs = _segment_outputs(st, prog, run.P, run.N, (), device)
+    run.launch(lib, [run.lane_params(s, outs)], lanes=False)
     replay_segment.launches += 1
     s["pass_count"] = s["pass_count"].reshape(())
     return s, outs
 
 
 replay_segment.launches = 0
+
+
+def replay_segment_fleet(st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
+    """Rows 10-11: S lanes of kernel D in one launch of S blocks.
+    ``state0`` carries a leading lane axis on every leaf (``pass_count``
+    is [S]); ``const`` and ``ev`` are shared by every lane.  Returns
+    (final state, outs) with the lane axis leading every leaf."""
+    device = _device_of(const, "replay_segment_fleet")
+    if device.type == "cpu":
+        return replay_segment_fleet_plain(st, prog, const, ev, state0)
+    lib = _load()
+    lanes = state0["valid"].shape[0]
+    run = _Launch(st, prog, const, ev, lanes=lanes)
+    s = {k: v.clone() for k, v in state0.items()}
+    s["pass_count"] = s["pass_count"].reshape(lanes, 1)
+    outs = _segment_outputs(st, prog, run.P, run.N, (lanes,), device)
+    params = [
+        run.lane_params({k: v[i] for k, v in s.items()}, {k: v[i] for k, v in outs.items()})
+        for i in range(lanes)
+    ]
+    run.launch(lib, params, lanes=True)
+    replay_segment_fleet.launches += 1
+    s["pass_count"] = s["pass_count"].reshape(lanes)
+    return s, outs
+
+
+replay_segment_fleet.launches = 0

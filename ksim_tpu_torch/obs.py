@@ -77,6 +77,10 @@ EVENT_NAMES: tuple[str, ...] = (
     "store.txn_rollback",  # segment transaction rolled back
     "replay.cache_invalidate",  # the lowered-universe cache flushed
     #                             (args.reason)
+    "replay.fleet_lane_fallback",  # one fleet lane left the convergent
+    #                                cohort (args.lane, args.reason) and
+    #                                continues on the solo device path
+    #                                (engine/fleet.py)
 )
 
 

@@ -4,12 +4,14 @@ KEP-140 semantics (reference keps/140-scenario-based-simulation/README.md):
 operations carry a step number; all operations of a step are applied,
 then the scheduler runs, then results are recorded.
 
-The port of ``ksim_tpu/scenario/runner.py``: the per-pass loop and the
-solo ``device_replay=True`` loop (engine/replay.py, kernel D on a card).
-Not ported, each refused with an error: fleet replay (``fleet=``),
-streaming ingest (an ``ops`` with ``streaming_ops``), and the Scenario
-document loaders of ``scenario/spec.py`` (only its merge patch, which the
-``patch`` op applies, is kept here).
+The port of ``ksim_tpu/scenario/runner.py``: the per-pass loop, the
+solo ``device_replay=True`` loop (engine/replay.py, kernel D on a card)
+and fleet replay (``fleet=S``, engine/fleet.py).  Not ported, each
+refused with an error: streaming ingest (an ``ops`` with
+``streaming_ops``), and the Scenario document loaders of
+``scenario/spec.py`` (only its merge patch, which the ``patch`` op
+applies, is kept here).  The job plane's ``private_faults``,
+``checkpoint_hook`` and incremental resume are not ported.
 """
 
 from __future__ import annotations
@@ -86,6 +88,9 @@ class ScenarioResult:
     # reported side by side, not additive).
     phase_seconds: dict[str, float] = field(default_factory=dict)
     phase_counts: dict[str, int] = field(default_factory=dict)
+    # Fleet runs (ScenarioRunner(fleet=S)): the per-lane results; the
+    # aggregate fields above sum over them.
+    lanes: "list[ScenarioResult] | None" = None
 
     @property
     def events_per_second(self) -> float:
@@ -117,6 +122,7 @@ class ScenarioRunner:
         device_segment_steps: int | None = None,
         fleet: int | None = None,
         fleet_faults: str | None = None,
+        cancel: "Any | None" = None,
         exact: bool = True,
         device: "str | torch.device | None" = None,
     ) -> None:
@@ -126,19 +132,39 @@ class ScenarioRunner:
         segment boundaries, byte-identical scheduling counts.  Steps
         containing ops outside the tensor vocabulary (patch/update/done,
         non-pod/node kinds, pods with host ports or volumes, ...) fall
-        back to this per-pass path automatically, as do record="full"
-        runs and windows that need DefaultPreemption's victim search
-        (their own fallback reasons: the streamed records and the
-        on-device search are not in kernel D yet).  ``exact`` and
-        ``device`` configure the service the runner builds
-        (SchedulerService).
+        back to this per-pass path automatically; DefaultPreemption and
+        record="full" segments stay on the device (the victim search and
+        the streamed records are in kernel D).  ``exact`` and ``device``
+        configure the service the runner builds (SchedulerService).
 
-        ``fleet=S`` (S lanes in one vmapped dispatch) is not ported and
-        raises NotImplementedError, as does ``fleet_faults``."""
-        if fleet is not None or fleet_faults is not None:
-            raise NotImplementedError(
-                "fleet replay (engine/fleet.py) is not ported to ksim_tpu_torch"
-            )
+        ``cancel`` (a ``threading.Event``-like object) makes the run
+        cooperatively cancellable: the flag is checked before every
+        per-pass step and inside the segment reconcile loop, where a set
+        flag raises ``errors.RunCancelled`` inside the store transaction,
+        rolling the in-flight segment back before it propagates.
+
+        ``fleet=S`` (requires ``device_replay=True``) replays S
+        independent trajectories, each with its own store, service and
+        replay driver, advancing the fleet K steps per launch with the
+        shared universe lowered once per window (engine/fleet.py).
+        ``run`` then returns the aggregate result with the per-lane
+        results on ``.lanes``; per-lane chaos arms via ``fleet_faults``
+        / ``KSIM_FLEET_FAULTS`` (``lane:site=schedule`` entries), per-lane
+        streams via ``run(..., lane_ops=...)``.  Lane 0 reuses this
+        runner's own store and service."""
+        if fleet is not None:
+            if fleet < 2:
+                raise ValueError("fleet needs at least 2 lanes")
+            if not device_replay:
+                raise ValueError("fleet replay requires device_replay=True")
+            if store is not None or service is not None:
+                raise ValueError(
+                    "fleet lanes build their own stores/services; pass the "
+                    "service CONFIG (record/preemption/...) instead"
+                )
+        elif fleet_faults is not None:
+            # A lane fault spec with no fleet would be silently dropped.
+            raise ValueError("fleet_faults requires fleet=S")
         self.store = store if store is not None else ClusterStore()
         self.service = (
             service
@@ -157,9 +183,40 @@ class ScenarioRunner:
         self._drained_nodes: set[str] = set()
         self._device_replay = device_replay
         self._device_segment_steps = device_segment_steps
+        self._fleet = fleet
+        self._fleet_faults = fleet_faults
+        # Per-lane service construction config (fleet lanes must match
+        # lane 0's scheduling semantics exactly).
+        self._lane_cfg = dict(
+            record=record,
+            preemption=preemption,
+            max_pods_per_pass=max_pods_per_pass,
+            pod_bucket_min=pod_bucket_min,
+            exact=exact,
+            device=device,
+        )
+        # Fleet-lane identity and private fault plane (set per lane by
+        # _run_fleet): the lane's spans carry it, its reconcile checks it.
+        self._lane: int | None = None
+        self._lane_faults = None
+        self._cancel = cancel
         # The last run's ReplayDriver (evidence counters: device_steps,
         # fallback_steps, device_round_trips, unsupported reasons).
         self.replay_driver = None
+        # Fleet evidence (set by a fleet run): the FleetDriver (stats())
+        # and the FleetLane list (per-lane runners, drivers, results).
+        self.fleet_driver = None
+        self.fleet_lanes = None
+
+    def _check_cancelled(self) -> None:
+        """Raise ``RunCancelled`` if the run's cancel flag is set.  Called
+        between per-pass steps and inside the segment reconcile loop —
+        the latter aborts (and rolls back) the in-flight store
+        transaction, so a cancel never leaves a half-applied window."""
+        if self._cancel is not None and self._cancel.is_set():
+            from ksim_tpu_torch.errors import RunCancelled
+
+            raise RunCancelled("scenario run cancelled")
 
     # -- one operation ------------------------------------------------------
 
@@ -255,7 +312,8 @@ class ScenarioRunner:
     def _run_step(self, step: int, batch: list[Operation], result: ScenarioResult) -> bool:
         """The per-pass step body: apply ops, flush, one scheduling pass.
         Returns the done flag."""
-        with TRACE.span("runner.step", step=step, ops=len(batch)):
+        tags = {} if self._lane is None else {"lane": self._lane}
+        with TRACE.span("runner.step", step=step, ops=len(batch), **tags):
             return self._run_step_traced(step, batch, result)
 
     def _run_step_traced(
@@ -289,11 +347,39 @@ class ScenarioRunner:
         )
         return done
 
-    def _stage_device_step(self, batch: list[Operation], outcome) -> None:
+    def _stage_device_step(self, batch: list[Operation], outcome, eviction_sink: list) -> None:
         """Stage one device-computed step's STORE writes: the step's ops
-        (+ requeue), then the pass's binds in commit order.  Runs inside
-        the segment transaction: store-only, no service/result effects."""
+        (+ requeue), then the pass's placements in commit order.  With
+        per-attempt detail (preemption / record="full" segments) each
+        attempt's write mirrors the per-pass rebuild — result
+        annotations, bind or nomination — followed by its preemption
+        victims' evictions, in the per-pass order.  Runs inside the
+        segment transaction: store-only (victim eviction listeners defer
+        into ``eviction_sink`` and fire after the commit)."""
         self._apply_batch(batch)
+        if outcome.attempts is not None:
+            from ksim_tpu_torch.engine.annotations import apply_results_to_pod
+
+            for att in outcome.attempts:
+                if att.anno or att.node or att.nominated:
+
+                    def mutate(obj: JSON, att=att) -> None:
+                        if att.anno:
+                            annos = obj.setdefault("metadata", {}).setdefault("annotations", {})
+                            apply_results_to_pod(annos, att.anno)
+                        if att.node:
+                            obj.setdefault("spec", {})["nodeName"] = att.node
+                            obj.setdefault("status", {})["phase"] = "Running"
+                            obj.get("status", {}).pop("nominatedNodeName", None)
+                        elif att.nominated:
+                            obj.setdefault("status", {})["nominatedNodeName"] = att.nominated
+
+                    self.store.patch("pods", att.name, att.namespace, mutate, copy_ret=False)
+                for vns, vname in att.victims:
+                    self.service._evict_victim(
+                        {"metadata": {"name": vname, "namespace": vns}}, listener_sink=eviction_sink
+                    )
+            return
         for ns, name, node in outcome.binds:
 
             def bind(obj: JSON) -> None:
@@ -346,10 +432,12 @@ class ScenarioRunner:
         from an injected chaos fault."""
         from ksim_tpu_torch.faults import FAULTS, InjectedFault
 
+        evictions: list = []
         step_nodes: list = []
+        tags = {} if self._lane is None else {"lane": self._lane}
         try:
             with TRACE.span(
-                "replay.reconcile", segment=driver.segment_seq, steps=len(seg.steps)
+                "replay.reconcile", segment=driver.segment_seq, steps=len(seg.steps), **tags
             ), self.store.transaction(epoch_exempt=True):
                 # epoch_exempt: the segment's own staged writes are the
                 # deltas the driver's lower-cache already tracks; only
@@ -357,8 +445,16 @@ class ScenarioRunner:
                 # (and thereby invalidate the cache).  A rollback takes
                 # the explicit invalidation path (note_reconcile_fault).
                 for batch, outcome in zip(batches, seg.steps):
+                    # A cancel landing mid-segment aborts here: it is not
+                    # an InjectedFault, so the transaction rolls back and
+                    # it propagates.
+                    self._check_cancelled()
                     FAULTS.check("replay.reconcile")
-                    self._stage_device_step(batch, outcome)
+                    if self._lane_faults is not None:
+                        # The lane's private plane: a fault here rolls
+                        # back only this lane's segment.
+                        self._lane_faults.check("replay.reconcile")
+                    self._stage_device_step(batch, outcome, evictions)
                     # Captured per step for the deferred slot advance:
                     # live node dicts are frozen (replace-on-write), so
                     # the references stay valid after commit.
@@ -377,6 +473,7 @@ class ScenarioRunner:
                 type(e).__name__, e,
             )
             return False
+        self.service._notify_evictions(evictions)
         driver.advance_service_slots(step_nodes)
         driver.sync_service(seg)
         driver.device_steps += len(seg.steps)
@@ -396,14 +493,21 @@ class ScenarioRunner:
         supported K-step segments run as single device dispatches (see
         engine/replay.py); everything else takes this per-pass loop.
 
-        A STREAMING source (``ops.streaming_ops``) and ``lane_ops`` (per-
-        lane fleet streams) are not ported and raise NotImplementedError."""
+        With ``fleet=S`` the stream replays on every lane (``lane_ops``
+        overrides individual lanes' streams: those lanes run the solo
+        device path, outside the shared-universe cohort) and the result
+        carries the per-lane results on ``.lanes``.
+
+        A STREAMING source (``ops.streaming_ops``) is not ported and
+        raises NotImplementedError."""
         if getattr(ops, "streaming_ops", False):
             raise NotImplementedError(
                 "streaming ingest (traces/stream.py) is not ported to ksim_tpu_torch"
             )
+        if self._fleet is not None:
+            return self._run_fleet(ops, lane_ops)
         if lane_ops:
-            raise NotImplementedError("lane_ops: fleet replay is not ported to ksim_tpu_torch")
+            raise ValueError("lane_ops requires fleet=S")
         result = ScenarioResult()
         # Per-phase wall-clock split rides on the trace plane's latency
         # histograms; timing-only mode costs two clock reads per span at
@@ -422,10 +526,12 @@ class ScenarioRunner:
                 self.service,
                 k=self._device_segment_steps or SEGMENT_STEPS,
                 requeue_on_node_delete=self._requeue,
+                lane_faults=self._lane_faults,
             )
             self.replay_driver = driver
         i = 0
         while i < len(keys):
+            self._check_cancelled()
             if driver is not None:
                 # Tails shorter than K do not fall back: the driver
                 # consumes the supported PREFIX of the window (possibly
@@ -469,3 +575,112 @@ class ScenarioRunner:
         for op in ops:
             by_step.setdefault(op.step, []).append(op)
         return by_step, sorted(by_step)
+
+    def _run_fleet(self, ops, lane_ops) -> ScenarioResult:
+        """Fleet replay (engine/fleet.py): S independent trajectories, the
+        shared universe lowered once per window, one launch per cohort
+        window, per-lane reconcile into each lane's own store.  Parity
+        contract: every lane's counts and annotations equal its solo
+        ``device_replay=True`` run."""
+        import os
+
+        # A cancel that landed before the fleet was built; mid-run
+        # cancels thread through every lane runner.
+        self._check_cancelled()
+        from ksim_tpu_torch.engine.fleet import FleetDriver, FleetLane, parse_fleet_faults
+        from ksim_tpu_torch.engine.replay import SEGMENT_STEPS, ReplayDriver
+
+        n = self._fleet
+        if lane_ops:
+            # A typoed index would silently replay the base stream on
+            # every lane and the sweep would be vacuous.
+            bad = sorted(k for k in lane_ops if not 0 <= k < n)
+            if bad:
+                raise ValueError(f"lane_ops lanes {bad} outside the fleet (0..{n - 1})")
+            if any(getattr(v, "streaming_ops", False) for v in lane_ops.values()):
+                raise NotImplementedError(
+                    "streaming ingest (traces/stream.py) is not ported to ksim_tpu_torch"
+                )
+        spec = self._fleet_faults
+        if spec is None:
+            spec = os.environ.get("KSIM_FLEET_FAULTS", "")
+        planes = parse_fleet_faults(spec, n) if spec else {}
+        base_by_step, base_keys = self._group_by_step(ops)
+        k = self._device_segment_steps or SEGMENT_STEPS
+        lanes: list[FleetLane] = []
+        for idx in range(n):
+            if idx == 0:
+                lane_runner = ScenarioRunner(
+                    store=self.store,
+                    service=self.service,
+                    requeue_on_node_delete=self._requeue,
+                    device_replay=True,
+                    device_segment_steps=self._device_segment_steps,
+                    cancel=self._cancel,
+                )
+            else:
+                lane_runner = ScenarioRunner(
+                    requeue_on_node_delete=self._requeue,
+                    device_replay=True,
+                    device_segment_steps=self._device_segment_steps,
+                    cancel=self._cancel,
+                    **self._lane_cfg,
+                )
+            lane_runner._lane = idx
+            lane_runner._lane_faults = planes.get(idx)
+            lane_runner.service._trace_lane = idx
+            own = lane_ops.get(idx) if lane_ops else None
+            if own is not None:
+                # A per-lane stream: divergent from the start, it rides
+                # the solo device path.
+                by_step, keys = self._group_by_step(own)
+                shared = False
+            else:
+                by_step, keys = base_by_step, base_keys
+                shared = True
+            driver = ReplayDriver(
+                lane_runner.store,
+                lane_runner.service,
+                k=k,
+                requeue_on_node_delete=self._requeue,
+                lane=idx,
+                lane_faults=planes.get(idx),
+            )
+            lane_runner.replay_driver = driver
+            lanes.append(
+                FleetLane(
+                    idx=idx,
+                    runner=lane_runner,
+                    driver=driver,
+                    keys=keys,
+                    by_step=by_step,
+                    result=ScenarioResult(),
+                    faults=planes.get(idx),
+                    shared_stream=shared,
+                    convergent=shared,
+                )
+            )
+        fleet = FleetDriver(lanes)
+        self.fleet_driver = fleet
+        self.fleet_lanes = lanes
+        self.replay_driver = lanes[0].driver
+        TRACE.ensure_timing()
+        phase0 = TRACE.phase_totals()
+        t0 = time.perf_counter()
+        fleet.run()
+        wall = time.perf_counter() - t0
+        agg = ScenarioResult(lanes=[ln.result for ln in lanes])
+        for ln in lanes:
+            ln.result.wall_seconds = wall  # fleet lanes finish together
+            agg.events_applied += ln.result.events_applied
+            agg.pods_scheduled += ln.result.pods_scheduled
+            agg.unschedulable_attempts += ln.result.unschedulable_attempts
+        # Solo semantics per lane: succeeded = a doneOperation completed.
+        agg.succeeded = all(ln.result.succeeded for ln in lanes)
+        agg.wall_seconds = wall
+        for name, (total, count) in TRACE.phase_totals().items():
+            prev_total, prev_count = phase0.get(name, (0.0, 0))
+            if count > prev_count:
+                agg.phase_seconds[name] = round(total - prev_total, 6)
+                agg.phase_counts[name] = count - prev_count
+        return agg

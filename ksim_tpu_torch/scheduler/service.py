@@ -160,6 +160,10 @@ class SchedulerService:
         self._registry = registry or {}
         self._record = record
         self._preemption = preemption
+        # Fleet-lane attribution (engine/fleet.py): when this service
+        # belongs to one trajectory of an S-lane fleet, its scheduling
+        # spans carry the lane id.
+        self._trace_lane: "int | None" = None
         # Upstream schedules ONE pod per cycle; a pass here batches the
         # queue.  Capping the batch bounds featurize/scan cost per pass
         # under churn saturation — excess pods are simply deeper in the
@@ -489,8 +493,11 @@ class SchedulerService:
         with self._pass_lock:
             # The span covers the pass body only (not the lock wait):
             # queue-contention latency would otherwise masquerade as
-            # scheduling latency in the histogram.
-            with TRACE.span("service.schedule", pass_num=self._pass_count + 1):
+            # scheduling latency in the histogram.  A fleet-lane service
+            # (scenario/runner.py sets _trace_lane) stamps its lane id so a
+            # per-pass fallback pass is attributable to its trajectory.
+            tags = {} if self._trace_lane is None else {"lane": self._trace_lane}
+            with TRACE.span("service.schedule", pass_num=self._pass_count + 1, **tags):
                 return self._schedule_pending_locked()
 
     def _schedule_pending_locked(self) -> dict[str, str | None]:

@@ -1,7 +1,10 @@
-"""Kernel D (replay_segment) and row 6's standalone entry (derive_interpod)
-against their plain PyTorch versions on a CUDA device, element for
-element (tolerance 0), on a small churn replay with the whole default
-profile.
+"""Kernel D (replay_segment), its fleet launch (replay_segment_fleet) and
+row 6's standalone entry (derive_interpod) against their plain PyTorch
+versions on a CUDA device, element for element (tolerance 0), on small
+churn replays with the whole default profile: record="selection", the
+on-device DefaultPreemption victim search (the hand-derived fixtures and
+a priority-strata churn) and record="full"; and the fleet runner in both
+cohort modes against the solo device run.
 
 Marked ``gpu``; each test skips when there is no CUDA device.  This file
 imports neither jax nor ksim_tpu:
@@ -13,11 +16,13 @@ from __future__ import annotations
 
 import pytest
 import torch
+from fixtures.preemption_victims import CASES as PREEMPTION_CASES
 
 import ksim_tpu_torch.engine.replay as replay_mod
 from ksim_tpu_torch.kernels import replay_segment as segment_mod
-from ksim_tpu_torch.scenario.generate import churn_scenario
-from ksim_tpu_torch.scenario.runner import ScenarioRunner
+from ksim_tpu_torch.scenario.generate import churn_scenario, make_node, make_pod
+from ksim_tpu_torch.scenario.runner import Operation, ScenarioRunner
+from ksim_tpu_torch.state.cluster import ClusterStore
 
 pytestmark = pytest.mark.gpu
 
@@ -31,9 +36,9 @@ def cuda():
     return "cuda"
 
 
-def _replay(device: str, exact: bool, monkeypatch):
-    """The churn through the device path; returns (result, the segments'
-    (statics, prog, const, ev, state0, final, outs))."""
+def _capture(monkeypatch) -> list:
+    """Every kernel-D dispatch of the device path from here on:
+    (statics, prog, const, ev, state0, final, outs)."""
     segments = []
     kernel = replay_mod.replay_segment
 
@@ -44,9 +49,68 @@ def _replay(device: str, exact: bool, monkeypatch):
         return final, outs
 
     monkeypatch.setattr(replay_mod, "replay_segment", capture)
+    return segments
+
+
+def _replay(device: str, exact: bool, monkeypatch):
+    """The churn through the device path; returns (result, the segments)."""
+    segments = _capture(monkeypatch)
     runner = ScenarioRunner(max_pods_per_pass=1024, pod_bucket_min=128, device_replay=True,
                             device_segment_steps=8, exact=exact, device=device)
     return runner.run(list(churn_scenario(0, **CHURN))), segments
+
+
+def _assert_plain_equal(segments) -> None:
+    """Kernel D's outputs and final state equal its plain version's."""
+    assert segments
+    for st, prog, const, ev, state0, final, outs in segments:
+        want_final, want_outs = segment_mod.replay_segment_plain(st, prog, const, ev, state0)
+        assert set(outs) == set(want_outs)
+        for key in want_outs:
+            assert torch.equal(outs[key], want_outs[key]), key
+        for key in want_final:
+            assert torch.equal(final[key], want_final[key]), key
+
+
+def case_objects(case):
+    """(nodes, victims, preemptor) of one hand-derived preemption case
+    (tests/test_preemption_fixtures.py case_objects, with the port's
+    object builders)."""
+    nodes = [make_node(nm, cpu=cpu, memory="8Gi") for nm, cpu in case["nodes"]]
+    victims = []
+    for spec in case["victims"]:
+        name, node, cpu, prio, start = spec[:5]
+        p = make_pod(name, cpu=cpu, memory=None, node_name=node, priority=prio)
+        p["metadata"]["creationTimestamp"] = spec[5] if len(spec) > 5 else "2024-01-01T00:00:00Z"
+        p.setdefault("status", {})["phase"] = "Running"
+        if start:
+            p["status"]["startTime"] = start
+        victims.append(p)
+    cpu, prio, policy = case["preemptor"]
+    pre = make_pod("preemptor", cpu=cpu, memory=None, priority=prio)
+    if policy:
+        pre["spec"]["preemptionPolicy"] = policy
+    return nodes, victims, pre
+
+
+def priority_strata_stream():
+    """3 nodes x 4 cpu saturate after 8 x 1.5-cpu pods; later arrivals of
+    higher priority preempt the priority-0 stratum mid-segment."""
+    for i in range(3):
+        yield Operation(step=0, op="create", kind="nodes", obj=make_node(f"n-{i}", cpu="4", memory="16Gi"))
+    for step in range(1, 17):
+        pod = make_pod(f"p-{step}", cpu="1500m", memory="256Mi", priority=[0, 0, 5, 10][step % 4])
+        pod["metadata"]["creationTimestamp"] = f"2026-01-{step:02d}T00:00:00Z"
+        yield Operation(step=step, op="create", kind="pods", obj=pod)
+
+
+def store_view(runner) -> list:
+    """Every pod's placement, nomination and result annotations."""
+    return sorted(
+        (p["metadata"]["name"], p.get("spec", {}).get("nodeName"), p.get("status", {}).get("nominatedNodeName"),
+         p["metadata"].get("annotations", {}))
+        for p in runner.store.list("pods")
+    )
 
 
 def _steps(res):
@@ -61,12 +125,7 @@ def test_replay_segment_kernel_matches_plain(cuda, exact, monkeypatch):
     assert segment_mod.replay_segment.launches - before == len(segments) > 0
     # Row 6 runs once per active step inside kernel D, which counts it.
     assert segment_mod.derive_runs() == sum(int(ev["active"].sum()) for _st, _p, _c, ev, *_ in segments)
-    for st, prog, const, ev, state0, final, outs in segments:
-        want_final, want_outs = segment_mod.replay_segment_plain(st, prog, const, ev, state0)
-        for key in want_outs:
-            assert torch.equal(outs[key], want_outs[key]), key
-        for key in want_final:
-            assert torch.equal(final[key], want_final[key]), key
+    _assert_plain_equal(segments)
     cpu_res, _ = _replay("cpu", exact, monkeypatch)
     assert _steps(res) == _steps(cpu_res)
 
@@ -83,3 +142,119 @@ def test_derive_interpod_kernel_matches_plain(cuda, smem, monkeypatch):
         want = segment_mod.derive_interpod_plain(loc, ipa, st.n_tk, st.n_dom)
         for key in want:
             assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("case", PREEMPTION_CASES, ids=[c["name"] for c in PREEMPTION_CASES])
+def test_replay_segment_kernel_preemption_fixtures(cuda, case, monkeypatch):
+    """The victim search on the card lands on the hand-derived node and
+    evicts the same victims in the same order, and kernel D equals its
+    plain version on the segment."""
+    nodes, victims, pre = case_objects(case)
+    store = ClusterStore()
+    for n in nodes:
+        store.create("nodes", n)
+    for v in victims:
+        store.create("pods", v)
+    segments = _capture(monkeypatch)
+    runner = ScenarioRunner(store=store, preemption=True, device_replay=True, device_segment_steps=4,
+                            exact=False, device=cuda)
+    evicted = []
+    runner.service.add_eviction_listener(lambda ns, nm: evicted.append(nm))
+    runner.run(iter([Operation(step=1, op="create", kind="pods", obj=pre)]))
+    assert runner.replay_driver.device_steps >= 1, runner.replay_driver.unsupported
+    got = store.get("pods", "preemptor").get("status", {}).get("nominatedNodeName")
+    assert got == case["expected_nominated"]
+    assert evicted == case["expected_victims"]
+    assert all(seg[0].preempt for seg in segments)
+    _assert_plain_equal(segments)
+
+
+@pytest.mark.parametrize("record", ["selection", "full"])
+def test_replay_segment_kernel_preemption_churn_matches_per_pass(cuda, record, monkeypatch):
+    """The priority-strata churn on the card: kernel D (victim search, and
+    under record="full" the streamed records and the resolvability mask)
+    equals its plain version, and the run equals the per-pass path's
+    steps, store and eviction order."""
+
+    def run(device_replay: bool, device: str):
+        runner = ScenarioRunner(preemption=True, record=record, device_replay=device_replay,
+                                device_segment_steps=4, exact=False, device=device)
+        evicted = []
+        runner.service.add_eviction_listener(lambda ns, nm: evicted.append(nm))
+        res = runner.run(priority_strata_stream())
+        return runner, _steps(res), store_view(runner), evicted
+
+    segments = _capture(monkeypatch)
+    runner, steps, store, evicted = run(True, cuda)
+    assert runner.replay_driver.device_steps >= 8, runner.replay_driver.unsupported
+    assert any(seg[0].preempt for seg in segments)
+    assert any(bool((seg[6]["nom"] >= 0).any()) for seg in segments)  # a search nominated on the card
+    _assert_plain_equal(segments)
+    _r, want_steps, want_store, want_evicted = run(False, "cpu")
+    assert (steps, store, evicted) == (want_steps, want_store, want_evicted)
+    assert evicted
+
+
+def test_replay_segment_kernel_full_record_matches_per_pass(cuda, monkeypatch):
+    """record="full" through kernel D: the streamed records equal the
+    plain version's and the decoded annotations the per-pass path's."""
+    kw = dict(record="full", max_pods_per_pass=64, pod_bucket_min=32, exact=False)
+
+    def stream():
+        return churn_scenario(0, n_nodes=24, n_events=160, ops_per_step=16)
+
+    segments = _capture(monkeypatch)
+    dev = ScenarioRunner(**kw, device_replay=True, device_segment_steps=8, device=cuda)
+    dev_res = dev.run(stream())
+    assert dev.replay_driver.device_steps >= 4, dev.replay_driver.unsupported
+    assert all(seg[0].record == "full" and seg[0].k == 4 for seg in segments)
+    _assert_plain_equal(segments)
+    base = ScenarioRunner(**kw, device="cpu")
+    base_res = base.run(stream())
+    assert _steps(dev_res) == _steps(base_res)
+    assert store_view(dev) == store_view(base)
+
+
+def test_replay_segment_fleet_kernel_matches_plain_and_solo(cuda, monkeypatch):
+    """Rows 10-11: one launch of S blocks equals the fleet plain version
+    and, lane by lane, the solo launch; row 6 runs S times per active
+    step."""
+    _res, segments = _replay(cuda, False, monkeypatch)
+    lanes = 3
+    for st, prog, const, ev, state0, final, outs in segments[:2]:
+        stacked = {k: torch.stack([v] * lanes) for k, v in state0.items()}
+        before = segment_mod.replay_segment_fleet.launches
+        segment_mod.reset_derive_runs()
+        got_final, got_outs = segment_mod.replay_segment_fleet(st, prog, const, ev, stacked)
+        assert segment_mod.replay_segment_fleet.launches == before + 1
+        assert segment_mod.derive_runs() == lanes * int(ev["active"].sum())
+        want_final, want_outs = segment_mod.replay_segment_fleet_plain(st, prog, const, ev, stacked)
+        for key in want_outs:
+            assert torch.equal(got_outs[key], want_outs[key]), key
+            for i in range(lanes):
+                assert torch.equal(got_outs[key][i], outs[key]), key
+        for key in want_final:
+            assert torch.equal(got_final[key], want_final[key]), key
+            for i in range(lanes):
+                assert torch.equal(got_final[key][i], final[key].reshape(got_final[key][i].shape)), key
+
+
+@pytest.mark.parametrize("vmap", ["0", "1"], ids=["dedupe", "vmap"])
+def test_fleet_runner_on_card_equals_solo(cuda, vmap, monkeypatch):
+    kw = dict(max_pods_per_pass=1024, pod_bucket_min=128, device_segment_steps=8, exact=False, device=cuda)
+
+    def stream():
+        return churn_scenario(0, n_nodes=48, n_events=200, ops_per_step=20)
+
+    solo = ScenarioRunner(device_replay=True, **kw).run(stream())
+    monkeypatch.setenv("KSIM_FLEET_VMAP", vmap)
+    before = segment_mod.replay_segment_fleet.launches
+    fleet = ScenarioRunner(device_replay=True, fleet=3, **kw)
+    fleet.run(stream())
+    stats = fleet.fleet_driver.stats()
+    assert stats["lanes_on_device"] == 1.0
+    assert stats["cohort_mode"] == ("vmap" if vmap == "1" else "dedupe")
+    launched = segment_mod.replay_segment_fleet.launches - before
+    assert launched == (stats["group_dispatches"] if vmap == "1" else 0)
+    for ln in fleet.fleet_lanes:
+        assert _steps(ln.result) == _steps(solo), ln.idx

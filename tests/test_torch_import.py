@@ -47,7 +47,7 @@ for name in {modules!r}:
 print("imported", len(sys.modules))
 """
 
-# The modules of the second and third slices, which the blocked import
+# The modules of the second to fourth slices, which the blocked import
 # must reach.
 SLICE_MODULES = (
     "ksim_tpu_torch.plugins.volumes",
@@ -69,6 +69,7 @@ SLICE_MODULES = (
     "ksim_tpu_torch.scenario.generate",
     "ksim_tpu_torch.engine.replay",
     "ksim_tpu_torch.kernels.replay_segment",
+    "ksim_tpu_torch.engine.fleet",
 )
 
 
@@ -151,7 +152,7 @@ def test_service_and_runner_need_a_card_unless_the_cpu_is_asked_for():
     assert ScenarioRunner(device="cpu").service._device.type == "cpu"
 
 
-def test_unported_surfaces_refuse():
+def test_unported_surfaces_refuse(monkeypatch):
     from ksim_tpu_torch.scenario.runner import ScenarioRunner
     from ksim_tpu_torch.scheduler.service import SchedulerService
     from ksim_tpu_torch.state.cluster import ClusterStore
@@ -163,8 +164,11 @@ def test_unported_surfaces_refuse():
         SchedulerService(store, shard_mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="profiler"):
         SchedulerService(store, device="cpu").start_profiling("unused")
-    with pytest.raises(NotImplementedError, match="fleet"):
-        ScenarioRunner(device="cpu", device_replay=True, fleet=2)
+    # Fleet replay is ported; its lane mesh (KSIM_FLEET_DP) is not.
+    monkeypatch.setenv("KSIM_FLEET_DP", "2")
+    with pytest.raises(NotImplementedError, match="KSIM_FLEET_DP"):
+        ScenarioRunner(device="cpu", device_replay=True, fleet=2).run(iter(()))
+    monkeypatch.delenv("KSIM_FLEET_DP")
     # A legacy per-pool volume-limit plugin compiles, and the Engine
     # refuses it: the kernels hold one NodeVolumeLimits instance.
     store = ClusterStore()

@@ -28,6 +28,8 @@ import torch
 from ksim_tpu.engine.replay import ReplayDriver as JaxReplayDriver
 from ksim_tpu.engine.replay import _derive_interpod as jax_derive_interpod
 from ksim_tpu.engine.replay import _pack_plan_buffers, _segment_fn
+from ksim_tpu.scenario import Operation as JaxOperation
+from ksim_tpu.scenario import ScenarioResult as JaxResult
 from ksim_tpu.scenario import ScenarioRunner as JaxRunner
 from ksim_tpu.scenario import churn_scenario as jax_churn
 from ksim_tpu_torch.engine.replay import FALLBACK_REASONS, ReplayDriver, segment_from_arrays
@@ -41,6 +43,11 @@ from ksim_tpu_torch.kernels.replay_segment import (
 )
 from ksim_tpu_torch.scenario.generate import churn_scenario, make_node, make_pod
 from ksim_tpu_torch.scenario.runner import Operation, ScenarioResult, ScenarioRunner
+from ksim_tpu_torch.state.cluster import ClusterStore
+from tests.fixtures.preemption_victims import CASES as PREEMPTION_CASES
+from tests.helpers import make_node as helpers_make_node
+from tests.helpers import make_pod as helpers_make_pod
+from tests.test_preemption_fixtures import case_objects
 
 CHURN = dict(n_nodes=200, n_events=800, ops_per_step=50)
 RUNNER = dict(max_pods_per_pass=1024, pod_bucket_min=128)
@@ -252,6 +259,10 @@ def _priority_stream() -> list[Operation]:
     [("patch", "op:patch/nodes"), ("record_full", "record_full"), ("preemption", "preemption")],
 )
 def test_unsupported_windows_fall_back_with_their_reason(case, reason):
+    """A patch op falls back per-pass under its reason.  record="full" and
+    DefaultPreemption's victim search once fell back too, under reasons of
+    the port's own; both run on the device path now: their reasons are
+    gone and the windows equal the per-pass path."""
     kw = dict(RUNNER, exact=True, device="cpu")
     if case == "patch":
         ops = _patch_stream()
@@ -261,19 +272,193 @@ def test_unsupported_windows_fall_back_with_their_reason(case, reason):
     else:
         ops = _priority_stream()
         kw["preemption"] = True
-    per_pass = ScenarioRunner(**kw).run(list(ops))
+    base = ScenarioRunner(**kw)
+    per_pass = base.run(list(ops))
     runner = ScenarioRunner(**kw, device_replay=True, device_segment_steps=4)
     got = runner.run(list(ops))
     assert _steps(got) == _steps(per_pass)
     assert got.events_applied == per_pass.events_applied
     drv = runner.replay_driver
-    assert drv.unsupported.get(reason, 0) >= 1, drv.unsupported
     assert drv.device_steps + drv.fallback_steps == len(got.steps)
     if case == "patch":
+        assert drv.unsupported.get(reason, 0) >= 1, drv.unsupported
         assert drv.device_steps > 0  # only the patched step's window fell back
+        return
+    assert reason not in FALLBACK_REASONS
+    assert drv.unsupported == {} and drv.fallback_steps == 0 and drv.device_steps == len(got.steps)
+    assert _pods(runner) == _pods(base)
     if case == "preemption":
-        assert runner.store.list("pods")  # the victims were evicted, the rest stayed
         assert got.pods_scheduled > 0
+        assert len(runner.store.list("pods")) < len(ops)  # victims were evicted
+
+
+def _pods(runner) -> list:
+    """Every pod's placement, nomination and result annotations."""
+    return sorted(
+        (p["metadata"]["name"], p.get("spec", {}).get("nodeName"), p.get("status", {}).get("nominatedNodeName"),
+         p["metadata"].get("annotations", {}))
+        for p in runner.store.list("pods")
+    )
+
+
+def _evictions(runner) -> list:
+    order = []
+    runner.service.add_eviction_listener(lambda ns, nm: order.append((ns, nm)))
+    return order
+
+
+def test_full_record_annotations_equal_reference_and_per_pass():
+    """record="full" through the device path: the decoded annotations
+    equal ksim_tpu's device path and the per-pass path, pod for pod."""
+
+    kw = dict(record="full", max_pods_per_pass=64, pod_bucket_min=32)
+    with x64(False):
+        jrun = JaxRunner(**kw, device_replay=True, device_segment_steps=8)
+        jres = jrun.run(jax_churn(0, n_nodes=24, n_events=160, ops_per_step=16))
+    base = ScenarioRunner(**kw, exact=False, device="cpu")
+    base_res = base.run(churn_scenario(0, n_nodes=24, n_events=160, ops_per_step=16))
+    dev = ScenarioRunner(**kw, device_replay=True, device_segment_steps=8, exact=False, device="cpu")
+    dev_res = dev.run(churn_scenario(0, n_nodes=24, n_events=160, ops_per_step=16))
+    drv = dev.replay_driver
+    assert drv.device_steps >= 4 and drv.fallback_steps == 0, drv.unsupported
+    assert drv.device_steps == jrun.replay_driver.device_steps
+    assert _steps(dev_res) == _steps(base_res) == _steps(jres)
+    assert _pods(dev) == _pods(base)
+    ref = {p["metadata"]["name"]: p["metadata"].get("annotations", {}) for p in jrun.store.list("pods")}
+    got = {p["metadata"]["name"]: p["metadata"].get("annotations", {}) for p in dev.store.list("pods")}
+    assert got == ref
+    assert any(got.values())
+
+
+@pytest.mark.parametrize("case", PREEMPTION_CASES, ids=[c["name"] for c in PREEMPTION_CASES])
+def test_device_preemption_matches_fixtures(case):
+    """The on-device victim search (kernel D's plain version) lands on the
+    hand-derived nominated node and evicts the same victims in the same
+    (reprieve) order, and the segment ran on the device path."""
+    nodes, victims, pre = case_objects(case)
+    store = ClusterStore()
+    for n in nodes:
+        store.create("nodes", n)
+    for v in victims:
+        store.create("pods", v)
+    runner = ScenarioRunner(store=store, preemption=True, device_replay=True, device_segment_steps=4,
+                            exact=False, device="cpu")
+    evicted = _evictions(runner)
+    runner.run(iter([Operation(step=1, op="create", kind="pods", obj=pre)]))
+    assert runner.replay_driver.device_steps >= 1, runner.replay_driver.unsupported
+    assert store.get("pods", "preemptor").get("status", {}).get("nominatedNodeName") == case["expected_nominated"]
+    assert [nm for _ns, nm in evicted] == case["expected_victims"]
+
+
+def _strata_stream(op):
+    """3 nodes x 4 cpu saturate after 8 x 1.5-cpu pods; later arrivals of
+    higher priority preempt the priority-0 stratum mid-segment (the stream
+    of ksim_tpu's test_device_preemption_churn_matches_per_pass)."""
+    for i in range(3):
+        yield op(step=0, op="create", kind="nodes", obj=helpers_make_node(f"n-{i}", cpu="4", memory="16Gi"))
+    for step in range(1, 17):
+        pod = helpers_make_pod(f"p-{step}", cpu="1500m", memory="256Mi", priority=[0, 0, 5, 10][step % 4])
+        pod["metadata"]["creationTimestamp"] = f"2026-01-{step:02d}T00:00:00Z"
+        yield op(step=step, op="create", kind="pods", obj=pod)
+
+
+def test_device_preemption_churn_equals_per_pass_and_reference():
+    """The priority-strata churn with preemption on: the device path's
+    steps, store and eviction order equal the per-pass path's and
+    ksim_tpu's device path's."""
+
+    def port(device_replay):
+        runner = ScenarioRunner(preemption=True, device_replay=device_replay, device_segment_steps=4,
+                                exact=False, device="cpu")
+        ev = _evictions(runner)
+        res = runner.run(_strata_stream(Operation))
+        return runner, res, ev
+
+    with x64(False):
+        jrun = JaxRunner(preemption=True, device_replay=True, device_segment_steps=4)
+        jev = _evictions(jrun)
+        jres = jrun.run(_strata_stream(JaxOperation))
+    base_r, base, base_ev = port(False)
+    dev_r, dev, dev_ev = port(True)
+    assert _steps(dev) == _steps(base) == _steps(jres)
+    assert _pods(dev_r) == _pods(base_r)
+    assert dev_ev == base_ev == jev
+    assert base_ev, "the stream never preempted"
+    assert dev_r.replay_driver.device_steps >= 8
+    assert dev_r.replay_driver.unsupported == {}
+
+
+def test_replay_segment_plain_preemption_full_record_equals_segment_body():
+    """A window of the priority-strata churn with preemption on and
+    record="full", lowered by both packages: kernel D's plain version
+    equals ksim_tpu's segment program on every output (the victim
+    search's nominations, victims and overflow; the streamed records on
+    the attempted rows) and the final state."""
+    kw = dict(preemption=True, record="full")
+    with x64(False):
+        jr = JaxRunner(**kw)
+        jby, jkeys = jr._group_by_step(list(_strata_stream(JaxOperation)))
+        for s in jkeys[:9]:
+            jr._run_step(s, jby[s], JaxResult())
+        jplan = JaxReplayDriver(jr.store, jr.service, k=4).prepare_segment([jby[s] for s in jkeys[9:13]])
+        ref_state, ref_outs = _reference_segment(jplan)
+    tr = ScenarioRunner(**kw, exact=False, device="cpu")
+    tby, tkeys = tr._group_by_step(list(_strata_stream(Operation)))
+    for s in tkeys[:9]:
+        tr._run_step(s, tby[s], ScenarioResult())
+    tplan = ReplayDriver(tr.store, tr.service, k=4).prepare_segment([tby[s] for s in tkeys[9:13]])
+    assert tplan.statics.preempt and tplan.statics.record == "full"
+    for key in ("priority", "imp_rank", "start_rank", "preempt_ok"):
+        np.testing.assert_array_equal(tplan.const["pods"][key], jplan.const["pods"][key], err_msg=key)
+    for key in ("name_rank", "want"):
+        np.testing.assert_array_equal(tplan.ev[key], jplan.ev[key], err_msg=key)
+    np.testing.assert_array_equal(tplan.const["resolv"], jplan.const["resolv"])
+    const, ev, state0 = segment_from_arrays(dict(jplan.const, aux=jplan.aux), jplan.ev, jplan.state0)
+    final, outs = replay_segment(tplan.statics, tplan.prog, const, ev, state0)
+    assert set(outs) == set(ref_outs)
+    P = const["pods"]["requests"].shape[0]
+    att = torch.from_numpy(np.array(ref_outs["idx"])) < P  # [K, Q]
+    for key in outs:
+        if key in ("bits", "raw", "final"):
+            # Only attempted rows are recorded (the reference's padded
+            # rows hold a clamped pod's evaluation, which nothing reads).
+            ref = np.asarray(ref_outs[key])[att.numpy()]
+            np.testing.assert_array_equal(outs[key][att].numpy(), ref, err_msg=key)
+        else:
+            _assert_equal(ref_outs[key], outs[key], f"outs.{key}")
+    for key in final:
+        _assert_equal(ref_state[key], final[key], f"state.{key}")
+    assert int((outs["nom"] >= 0).sum()) > 0  # the window preempted
+
+
+def test_preemption_overflow_discards_the_segment():
+    """A victim search with more candidate nodes than the bound (16)
+    discards the segment before any store effect; the window runs
+    per-pass, with the per-pass outcome."""
+
+    def ops():
+        for i in range(18):
+            yield Operation(step=0, op="create", kind="nodes", obj=make_node(f"n-{i:02d}", cpu="1", memory="4Gi"))
+        for i in range(18):
+            yield Operation(step=1, op="create", kind="pods",
+                            obj=make_pod(f"low-{i:02d}", cpu="1", memory="64Mi", priority=1))
+        yield Operation(step=2, op="create", kind="pods", obj=make_pod("high", cpu="1", memory="64Mi", priority=100))
+
+    def run(device_replay):
+        runner = ScenarioRunner(preemption=True, device_replay=device_replay, device_segment_steps=4,
+                                exact=False, device="cpu")
+        ev = _evictions(runner)
+        return runner, runner.run(ops()), ev
+
+    base_r, base, base_ev = run(False)
+    dev_r, dev, dev_ev = run(True)
+    assert _steps(dev) == _steps(base)
+    assert _pods(dev_r) == _pods(base_r)
+    assert dev_ev == base_ev and len(base_ev) == 1
+    drv = dev_r.replay_driver
+    assert drv.unsupported.get("preemption_overflow", 0) >= 1, drv.unsupported
+    assert drv.fallback_steps >= 1 and drv.device_steps + drv.fallback_steps == len(dev.steps)
+    assert "preemption_overflow" in FALLBACK_REASONS
 
 
 def test_node_axis_over_the_shared_memory_bound_raises_before_launch():

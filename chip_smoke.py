@@ -31,11 +31,19 @@ Phases, in order; any failure exits non-zero before the last line:
    plain scan over the whole queue, kernel C's against the plain sampled
    scan over the first 2048 pods (a sequential scan's prefix is the
    whole run's prefix; the plain sampled scan over the whole queue would
-   take a third of the run's time limit);
-5. timings with CUDA events, beside each kernel's bound.  Each kernel's
-   ms, plain_ms and bound_ms are taken on one shape: A over the whole
-   queue (selection), B fused over the whole queue (final), C on the
-   2048-pod full-record pass; C's whole-queue time is printed beside it;
+   take a third of the run's time limit).  Kernels A and C run on one
+   thread-block cluster whose size the launch picks (16 blocks where the
+   card has room, else 8); the main path must get at least 8;
+5. timings with CUDA events, beside each kernel's bound.  Kernels A and C
+   at clusters of 8 and of 16 blocks, each size held equal to the plain
+   versions again (A's whole queue, C's 2048-pod full-record pass and its
+   whole queue's prefix) and timed, with the microseconds per real pod,
+   the cluster barriers per evaluated pod and block 0's cycles by phase
+   of a pod (counted by the kernel).  Each kernel's ms, plain_ms and
+   bound_ms are taken on one shape: A over the whole queue (selection),
+   B fused over the whole queue (final), C on the 2048-pod full-record
+   pass; C's whole-queue selection time is printed on its own line and
+   kept as the kernel's "queue_ms";
 6. churn replay, the whole default profile: ScenarioRunner on
    churn_scenario(0, 2000 nodes, 6000 events, 100 ops per step) must give
    the behavior lock (6430 events, 2524 scheduled, 471 unschedulable) on
@@ -90,7 +98,7 @@ import ksim_tpu_torch.kernels.replay_segment as segment_mod
 from ksim_tpu_torch.engine.annotations import ALL_RESULT_KEYS, RenderCtx, render_pod_results
 from ksim_tpu_torch.engine.core import Engine
 from ksim_tpu_torch.engine.profiles import default_plugins
-from ksim_tpu_torch.kernels import build
+from ksim_tpu_torch.kernels import build, chain
 from ksim_tpu_torch.kernels.batch_eval import batch_eval, batch_eval_plain
 from ksim_tpu_torch.kernels.replay_segment import (
     derive_interpod,
@@ -143,6 +151,8 @@ SMALL = (512, 256)
 MAIN = (5000, 10000)
 PREFIX = 2048
 SAMPLING_K = 500
+# Phase 5: the cluster sizes timed for kernels A and C.
+CLUSTER_SIZES = (8, 16)
 # The churn replay: the behavior locks (seed 0, 2000 nodes, 100 ops per
 # step), events -> (events applied, scheduled, unschedulable).
 CHURN_NODES = 2000
@@ -214,6 +224,11 @@ def same_state(kernel: str, what: str, check: Check, got, want) -> None:
         if isinstance(b, torch.Tensor):
             b = b.cpu().numpy()
         check.equal(kernel, f"{what} state.{field}", a, b)
+
+
+def host_state(state):
+    """A node state's tensors pulled to numpy arrays."""
+    return state._replace(**{f: getattr(state, f).cpu().numpy() for f in state._fields})
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -901,7 +916,12 @@ def main() -> int:
         for pi in range(3)
     ]
     launches = {name: w.launches for name, w in WRAPPERS.items()}
-    print(f"  main path ran; launches {launches}")
+    clusters = {name: {k: WRAPPERS[name].last[k] for k in ("cluster", "threads", "smem_bytes")}
+                for name in ("schedule_scan", "schedule_sampled")}
+    print(f"  main path ran; launches {launches}; clusters {clusters}")
+    for name, got in clusters.items():
+        if got["cluster"] < 8:
+            raise AssertionError(f"{name} ran on a cluster of {got['cluster']} blocks on the main path")
     for name, sec in wall.items():
         print(f"    {name}: {sec:.3f} s host wall {card}")
     for name, n in launches.items():
@@ -955,10 +975,10 @@ def main() -> int:
         plain_state, _, plain_out = plain_timed(
             "schedule_scan", lambda: schedule_scan_plain(prog, state0, pods0, aux, carries0)
         )
-    check.equal("schedule_scan", "main-path selected, whole queue", res.selected,
-                plain_out["selected"].cpu().numpy())
+    plain_sel_a = plain_out["selected"].cpu().numpy()
+    check.equal("schedule_scan", "main-path selected, whole queue", res.selected, plain_sel_a)
     same_state("schedule_scan", "main-path schedule", check, state, plain_state)
-    del plain_state, plain_out
+    del plain_out
     fprog, fcarries = fused._prog, fused._prog.init_carries(fused._aux)
     batch_eval_plain(fprog, fused._node_state, fused._pods.rows(0, 16), fused._aux, fcarries)
     with PairCount(fprog, n_pods) as count_b:
@@ -990,16 +1010,76 @@ def main() -> int:
     print("  kernels equal the plain versions on the main path")
 
     phase("5 timings (CUDA events)")
-    ms_a = cuda_ms(lambda: schedule_scan(prog, state0, pods0, aux, carries0), reps=3)
-    ms_b = cuda_ms(lambda: batch_eval(fprog, fused._node_state, fused._pods, fused._aux, fcarries), reps=3)
     sprog = sampled._prog
-    ms_c_queue = cuda_ms(
-        lambda: schedule_sampled(sprog, state0, pods0, aux, carries0, start0, n_real, SAMPLING_K), reps=3
-    )
-    ms_c = cuda_ms(
-        lambda: schedule_sampled(s2prog, s2state, s2pods, s2aux, s2carries, start0, n_real, SAMPLING_K), reps=3
-    )
     P, N = pods0.valid.shape[0], state0.valid.shape[0]
+
+    def run_a():
+        return schedule_scan(prog, state0, pods0, aux, carries0)
+
+    def run_c_queue():
+        return schedule_sampled(sprog, state0, pods0, aux, carries0, start0, n_real, SAMPLING_K)
+
+    def run_c():
+        return schedule_sampled(s2prog, s2state, s2pods, s2aux, s2carries, start0, n_real, SAMPLING_K)
+
+    def stats(wrapper) -> tuple[int, int, dict]:
+        """The last launch's cluster barriers, pods evaluated, and block
+        0's share of the cycles in each phase of a pod."""
+        counts = [int(x) for x in wrapper.last["stats"].cpu()]
+        cycles = counts[2:]
+        share = {name: c / max(sum(cycles), 1) for name, c in zip(chain.CLUSTER_PHASES, cycles)}
+        return counts[0], counts[1], share
+
+    def shares(share: dict) -> str:
+        return ", ".join(f"{name} {100 * x:.1f}%" for name, x in share.items() if x)
+
+    # Kernels A and C at each cluster size: held equal to the plain
+    # versions, then timed.
+    by_cluster = {}
+    for cs in CLUSTER_SIZES:
+        chain.CLUSTER_SIZE = cs
+        st_a, _, out_a = run_a()
+        what = f"cluster of {cs}"
+        check.equal("schedule_scan", f"{what}: selected, whole queue", out_a["selected"].cpu().numpy(), plain_sel_a)
+        same_state("schedule_scan", f"{what}: whole queue", check, host_state(st_a), plain_state)
+        bar_a, ev_a, share_a = stats(schedule_scan)
+        shape_a = {k: schedule_scan.last[k] for k in ("threads", "smem_bytes")}
+        _, _, nxt_q, out_q = run_c_queue()
+        sel_q = out_q["selected"].cpu().numpy()
+        check.equal("schedule_sampled", f"{what}: whole-queue selected, first {PREFIX} pods", sel_q[:PREFIX],
+                    want_s2k.selected[:PREFIX])
+        check.equal("schedule_sampled", f"{what}: whole-queue selected", sel_q, res_samp.selected)
+        if int(nxt_q) != res_samp.sampling_next_start:
+            raise AssertionError(f"{what}: whole-queue next start {int(nxt_q)} vs {res_samp.sampling_next_start}")
+        bar_q, ev_q, share_q = stats(schedule_sampled)
+        _, _, nxt_2k, out_2k = run_c()
+        got_2k = sampled_2k._to_result({key: v.cpu().numpy() for key, v in out_2k.items()})
+        got_2k.sampling_next_start = int(nxt_2k)
+        check.results("schedule_sampled", f"{what}: sampled full {PREFIX}", got_2k, want_s2k)
+        del out_a, st_a, out_q, out_2k, got_2k
+        run = {
+            "a_ms": cuda_ms(run_a, reps=3), "c_queue_ms": cuda_ms(run_c_queue, reps=3), "c_ms": cuda_ms(run_c, reps=3),
+            "a_barriers_per_pod": bar_a / max(ev_a, 1), "a_evaluated": ev_a, **shape_a,
+            "c_queue_barriers_per_pod": bar_q / max(ev_q, 1),
+            "a_phase_share": share_a, "c_queue_phase_share": share_q,
+        }
+        run["a_us_per_real_pod"] = run["a_ms"] * 1e3 / n_pods
+        run["c_queue_us_per_real_pod"] = run["c_queue_ms"] * 1e3 / n_pods
+        by_cluster[cs] = run
+        print(f"  cluster of {cs} blocks ({run['threads']} threads, {run['smem_bytes']} B shared memory each): "
+              f"A {run['a_ms']:.3f} ms per whole-queue pass, {run['a_us_per_real_pod']:.2f} us per real pod, "
+              f"{run['a_barriers_per_pod']:.2f} cluster barriers per evaluated pod ({ev_a} evaluated); "
+              f"C whole queue {run['c_queue_ms']:.3f} ms ({run['c_queue_us_per_real_pod']:.2f} us per real pod, "
+              f"{run['c_queue_barriers_per_pod']:.2f} barriers per pod), C {PREFIX} full {run['c_ms']:.3f} ms; "
+              f"equal to the plain versions {card}", flush=True)
+        print(f"    A, block 0's cycles by phase: {shares(share_a)}")
+        print(f"    C whole queue, block 0's cycles by phase: {shares(share_q)}", flush=True)
+    chain.CLUSTER_SIZE = 0
+    auto_cs = clusters["schedule_scan"]["cluster"]
+    ms_a = by_cluster[auto_cs]["a_ms"]
+    ms_c_queue = by_cluster[auto_cs]["c_queue_ms"]
+    ms_c = by_cluster[auto_cs]["c_ms"]
+    ms_b = cuda_ms(lambda: batch_eval(fprog, fused._node_state, fused._pods, fused._aux, fcarries), reps=3)
     inputs = tensor_bytes(state0) + tensor_bytes(pods0) + tensor_bytes(aux)
     carry_out = tensor_bytes([state0.requested, state0.nonzero_requested, state0.pod_count, carries0])
     a_bytes = inputs + P * 4 + carry_out
@@ -1041,8 +1121,9 @@ def main() -> int:
     print(f"  batch_eval plain: {plain_ms['batch_eval']:.1f} ms {card}")
     print(f"  batch_eval bound: {b_bound:.4f} ms by {b_by} ({b_bytes} bytes; "
           f"{ops_b['filter'] + ops_b['score']:.1f} ops on each of {count_b.pairs} real pairs)")
-    print(f"  schedule_sampled (kernel C), {P2} x {N} full, k={SAMPLING_K}: {ms_c:.3f} ms; "
-          f"{P} x {N} selection (whole queue): {ms_c_queue:.3f} ms per pass {card}")
+    print(f"  schedule_sampled (kernel C), {P2} x {N} full, k={SAMPLING_K}: {ms_c:.3f} ms per pass {card}")
+    print(f"  schedule_sampled (kernel C), {P} x {N} selection (whole queue), k={SAMPLING_K}: "
+          f"{ms_c_queue:.3f} ms per pass, cluster of {auto_cs} {card}")
     print(f"  schedule_sampled plain, {P2} x {N} full: {plain_ms['schedule_sampled']:.1f} ms {card}")
     print(f"  schedule_sampled bound: {c_bound:.4f} ms by {c_by} ({c_bytes} bytes; "
           f"{ops_c['sample'] + ops_c['commit']:.1f} ops per real pair, {ops_c['filter']:.1f} per pair "
@@ -1084,7 +1165,20 @@ def main() -> int:
     }
     # Row 6 runs inside kernel D: its "launches" are its runs there, as
     # the kernel counted them; its standalone entry ran no time on the path.
-    notes = {"derive_interpod": {"launches_are": "runs inside replay_segment, counted on the card",
+    cluster_keys = ("threads", "smem_bytes")
+    notes = {"schedule_scan": {"cluster": auto_cs, **{k: by_cluster[auto_cs][k] for k in cluster_keys},
+                               "us_per_real_pod": by_cluster[auto_cs]["a_us_per_real_pod"],
+                               "barriers_per_pod": by_cluster[auto_cs]["a_barriers_per_pod"],
+                               "phase_share": by_cluster[auto_cs]["a_phase_share"],
+                               "ms_by_cluster": {cs: r["a_ms"] for cs, r in by_cluster.items()}},
+             "schedule_sampled": {"cluster": auto_cs, "queue_ms": ms_c_queue,
+                                  "queue_shape": f"{P}x{N} selection, k={SAMPLING_K}",
+                                  "queue_us_per_real_pod": by_cluster[auto_cs]["c_queue_us_per_real_pod"],
+                                  "queue_barriers_per_pod": by_cluster[auto_cs]["c_queue_barriers_per_pod"],
+                                  "queue_phase_share": by_cluster[auto_cs]["c_queue_phase_share"],
+                                  "ms_by_cluster": {cs: r["c_ms"] for cs, r in by_cluster.items()},
+                                  "queue_ms_by_cluster": {cs: r["c_queue_ms"] for cs, r in by_cluster.items()}},
+             "derive_interpod": {"launches_are": "runs inside replay_segment, counted on the card",
                                  "standalone_launches": 0},
              "replay_segment": completed,
              "replay_segment_fleet": {"launches_are": "launches on the vmap leg of phase 7", **fleet["extra"]}}

@@ -25,7 +25,7 @@ __global__ void __launch_bounds__(256) batch_eval_kernel(const ChainParams P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem s = carve(smem_raw, P);
   const long long p = blockIdx.x;
-  const int best = eval_pod<false>(P, p, s);
+  const int best = eval_pod(P, p, s);
   if (threadIdx.x == 0) P.selected[p] = best;
 }
 

@@ -1,12 +1,20 @@
 // The default profile's plugin chain, one pod against every node, for sm_90a.
 //
-// Shared by schedule_scan.cu (kernel A, the sequential-commit scan),
-// schedule_sampled.cu (kernel C, the scan with percentageOfNodesToScore
-// sampling) and batch_eval.cu (kernel B, batch evaluation).  One thread
-// block evaluates one pod at a time: thread t owns nodes t, t + blockDim.x,
-// ... (so the per-node records a warp writes are contiguous), and the
-// node-axis reductions (domain statistics, normalize extrema, selectHost's
-// argmax) run in-block.
+// Shared by batch_eval.cu (kernel B, batch evaluation), replay_segment.cu
+// (kernel D) and, through cluster_scan.cuh, schedule_scan.cu (kernel A, the
+// sequential-commit scan) and schedule_sampled.cu (kernel C, the scan with
+// percentageOfNodesToScore sampling).  A "team" evaluates one pod at a
+// time, and its type says how the node axis is owned and reduced:
+//  - BlockTeam (B, D): one thread block; thread t owns nodes t,
+//    t + blockDim.x, ... (so the per-node records a warp writes are
+//    contiguous), and the node-axis reductions (domain statistics,
+//    normalize extrema, selectHost's argmax) run in-block;
+//  - ClusterTeam (A, C; cluster_scan.cuh): a thread-block cluster, each
+//    block owning a share of the node axis, its reductions crossing the
+//    cluster through distributed shared memory.
+// A team's node slots li = threadIdx.x, threadIdx.x + blockDim.x, ... map
+// to nodes through team.node(li); the per-node shared-memory arrays are
+// indexed by slot.
 //
 // Plugins (ids below) and the reference functions they translate:
 //   NodeUnschedulable  ksim_tpu/plugins/nodeunschedulable.py  filter
@@ -32,8 +40,10 @@
 //      atomics) and, reduced over the block, the present-domain count and
 //      the least domain sum;
 //   2. every filter, per node: the feasible mask and the reason codes;
-//   (kernel C: the visit window from the rotating start, by a block-wide
-//      prefix count; the feasible mask becomes the sampled mask;)
+//   (kernel C: the visit window from the rotating start, by prefix
+//      counts over the cluster; the feasible mask becomes the sampled
+//      mask; under record="selection" the filters run only on the nodes
+//      the window visits;)
 //   3. PodTopologySpread's score statistics: the domains registered among
 //      the feasible (sampled) nodes, then the contributions of eligible
 //      nodes in registered domains, and the registered-domain count;
@@ -42,7 +52,10 @@
 //      scores are recomputed here rather than kept per node), the total
 //      and selectHost's block argmax.
 // A domain sum of a singleton key (every domain one node: hostname) is
-// the node's own value, so such keys need no domain array.
+// the node's own value, so such keys need no domain array.  Under
+// record="selection" a cluster team does no work the record never holds:
+// no filter on an invalid node, no score on an infeasible one (only
+// InterPodAffinity's "any nonzero raw", which runs over every node).
 //
 // Numerics, each flagged where it is handled:
 //  - DIVISION: the reference's `//` floors, C++ `/` truncates.  Integer
@@ -248,24 +261,37 @@ struct ChainParams {
 constexpr uint8_t FL_OK = 1;  // feasible (kernel C: feasible and visited)
 constexpr uint8_t FL_AFF = 2;  // pod's nodeSelector + required node affinity match
 constexpr uint8_t FL_TNT = 4;  // no untolerated NoSchedule/NoExecute taint
+constexpr uint8_t FL_VIS = 8;  // kernel C, record="selection": filtered (FL_AFF / FL_TNT hold)
 
 // Block-reduction slots (see block_reduce) and the prefix-count scratch.
 constexpr int RED_MAX = 24;
 constexpr int SCAN_INTS = 64;
 
 // Dynamic shared memory: per-node values carried from one phase to the
-// next, the pod's image weights, the reduction scratch and, when it fits,
-// the pod's per-domain scratch.
+// next (one per node slot), the pod's image weights, the reduction
+// scratch and, when it fits, the pod's per-domain scratch.
 struct Smem {
-  int32_t* raw_taint;  // [N]
-  int32_t* raw_aff;  // [N]
-  int32_t* partial;  // [N] sum of the unnormalized finals
-  uint8_t* flags;  // [N] FL_* bits
+  int32_t* raw_taint;  // [slots]
+  int32_t* raw_aff;  // [slots]
+  int32_t* partial;  // [slots] sum of the unnormalized finals
+  uint8_t* flags;  // [slots] FL_* bits
   double* imgw;  // [I] (float in f32 mode, in the same slots)
   unsigned long long* red64;  // [33]
   int* red;  // [33 * RED_MAX]
   int* scan;  // [SCAN_INTS]
-  int* dom;  // [4 * MC * DMAX]: filter sum, filter presence, score registration, score sum
+  // [4 * MC * DMAX] each (DomPart): `dom` takes this block's atomics,
+  // `domc` is what the chain reads.  The block layout has one array (domc
+  // == dom); a cluster sums every block's dom into its own domc.
+  int* dom;
+  int* domc;
+  // Cluster only (null in the block layout): this block's reduction
+  // partials and prefix-count words, two of each (by parity), and its copy
+  // of InterPodAffinity's term totals.
+  int* cred;  // [2 * RED_MAX]
+  unsigned long long* cred64;  // [2]
+  int* wcnt;  // [2 * 32]
+  unsigned* wmask;  // [2 * 32]
+  int32_t* ipa_tot;  // [T2]
 };
 
 __host__ __device__ inline long long align8(long long x) { return (x + 7) & ~7LL; }
@@ -289,6 +315,11 @@ __device__ inline Smem carve(unsigned char* base, const ChainParams& P) {
   s.red = reinterpret_cast<int*>(s.red64 + 33);
   s.scan = s.red + 33 * RED_MAX;
   s.dom = P.sp_smem ? s.scan + SCAN_INTS : P.sp_scratch + blockIdx.x * domain_ints(P);
+  s.domc = s.dom;
+  s.cred = s.wcnt = nullptr;
+  s.cred64 = nullptr;
+  s.wmask = nullptr;
+  s.ipa_tot = nullptr;
   return s;
 }
 
@@ -373,6 +404,56 @@ __device__ inline unsigned long long block_max_u64(unsigned long long v, unsigne
   __syncthreads();
   return red[32];
 }
+
+// The per-domain parts of Smem::dom: filter sum, filter presence, score
+// registration, score sum.
+enum DomPart : int { F_SUM = 0, F_PRES = 1, S_REG = 2, S_SUM = 3 };
+
+struct Spread;
+
+// The phases of a pod a cluster team times (ClusterTeam::mark): each
+// reduction's phase includes its wait for the cluster's slowest block.
+enum Phase : int {
+  PH_SETUP = 0,
+  PH_SPREAD_F,  // PodTopologySpread's filter statistics
+  PH_FILTER,
+  PH_WINDOW,  // kernel C's visit window
+  PH_SPREAD_S,  // PodTopologySpread's score statistics
+  PH_SCORE,
+  PH_EX_REDUCE,  // the normalize extrema across the team
+  PH_NORMALIZE,  // normalizes, totals, the selection key
+  PH_SELECT,  // selectHost's maximum across the team
+  PH_COMMIT,  // the commit, up to the next pod
+  NPHASES,
+};
+
+// One thread block is the team (kernels B and D): every node is a slot of
+// the block, the reductions are block_reduce / block_max_u64, and the
+// per-domain atomics are read where they landed after a block barrier.
+struct BlockTeam {
+  static constexpr bool kCluster = false;
+  __device__ long long slots(const ChainParams& P) const { return P.N; }
+  __device__ long long node(long long li) const { return li; }
+  // The thread that owns node n (it alone touches n's carried rows).
+  __device__ bool owns(long long n) const { return n % blockDim.x == threadIdx.x; }
+  // The block whose threads add the per-domain terms to a reduction.
+  __device__ bool leader() const { return true; }
+  __device__ void mark(int) {}
+  __device__ const int32_t* ipa_total(const ChainParams& P) const { return P.ipa_total; }
+  __device__ void reduce(int* v, const int* op, int K, Smem& s) { block_reduce(v, op, K, s.red); }
+  __device__ unsigned long long max_u64(unsigned long long v, Smem& s) { return block_max_u64(v, s.red64); }
+  // The atomics into parts [first, first + nparts) are done: make them
+  // readable in domc.
+  __device__ void domains(const ChainParams&, const Spread&, Smem&, unsigned, int, int) { __syncthreads(); }
+  // The same, after a reduction whose barriers already published them.
+  __device__ void domains_after_reduce(const ChainParams&, const Spread&, Smem&, unsigned, int) {}
+  // Commits the pod's matching terms into the term totals (thread 0's).
+  __device__ void commit_total(const ChainParams& P, const int32_t* db, long long base) {
+    if (threadIdx.x == 0)
+      for (long long t = 0; t < P.T2; ++t)
+        if (db[t] >= 0) P.ipa_total[t] += P.ipa_qm[base + t];
+  }
+};
 
 // selectHost key: the larger total wins, then the LOWER node index.
 // 0 means "no feasible node" (every feasible key is > 0).
@@ -681,22 +762,21 @@ __device__ inline bool sp_allkeys(const ChainParams& P, const Spread& sp, unsign
   return true;
 }
 
-__device__ inline int* dom_f_sum(const ChainParams& P, const Smem& s, long long c) {
-  return s.dom + (0 * P.MC + c) * P.DMAX;
+// Part `part` of constraint c's per-domain arrays in `base` (Smem::dom or
+// Smem::domc).
+__device__ inline int* dom_part(const ChainParams& P, int* base, int part, long long c) {
+  return base + (part * P.MC + c) * P.DMAX;
 }
-__device__ inline int* dom_f_pres(const ChainParams& P, const Smem& s, long long c) {
-  return s.dom + (1 * P.MC + c) * P.DMAX;
-}
-__device__ inline int* dom_s_reg(const ChainParams& P, const Smem& s, long long c) {
-  return s.dom + (2 * P.MC + c) * P.DMAX;
-}
-__device__ inline int* dom_s_sum(const ChainParams& P, const Smem& s, long long c) {
-  return s.dom + (3 * P.MC + c) * P.DMAX;
+
+// The pod's nodeSelector / required node affinity and taint flags at n.
+__device__ inline uint8_t node_flags(const ChainParams& P, long long j, long long n) {
+  return (affinity_match(P, j, n) ? FL_AFF : 0) | (taint_block(P, j, n) == 0 ? FL_TNT : 0);
 }
 
 // Filter phase 1: min_match per DoNotSchedule constraint (0 where unused).
+template <class Team>
 __device__ inline void spread_filter_stats(const ChainParams& P, const Spread& sp, long long j, Smem& s,
-                                           int* min_match) {
+                                           int* min_match, Team& team) {
   int v[2 * MAX_MC], op[2 * MAX_MC];
   const int MC = static_cast<int>(P.MC);
   for (int c = 0; c < MC; ++c) {
@@ -705,8 +785,10 @@ __device__ inline void spread_filter_stats(const ChainParams& P, const Spread& s
     v[MC + c] = INT_MAX;  // least present-domain sum
     op[MC + c] = RMIN;
   }
-  for (long long n = threadIdx.x; n < P.N; n += blockDim.x) {
-    const uint8_t fl = (affinity_match(P, j, n) ? FL_AFF : 0) | (taint_block(P, j, n) == 0 ? FL_TNT : 0);
+  for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+    const long long n = team.node(li);
+    if (n >= P.N) continue;
+    const uint8_t fl = node_flags(P, j, n);
     if (!sp_allkeys(P, sp, sp.active_f, n)) continue;
     for (int c = 0; c < MC; ++c) {
       if (!((sp.active_f >> c) & 1u)) continue;
@@ -718,22 +800,24 @@ __device__ inline void spread_filter_stats(const ChainParams& P, const Spread& s
         v[c] += 1;
         v[MC + c] = min(v[MC + c], x);
       } else {
-        atomicAdd(dom_f_sum(P, s, c) + l, x);
-        dom_f_pres(P, s, c)[l] = 1;
+        atomicAdd(dom_part(P, s.dom, F_SUM, c) + l, x);
+        dom_part(P, s.dom, F_PRES, c)[l] = 1;
       }
     }
   }
-  __syncthreads();
-  for (int c = 0; c < MC; ++c) {
-    const int k = sp_key(P, sp, c);
-    if (!((sp.active_f >> c) & 1u) || sp_singleton(P, k)) continue;
-    for (long long d = threadIdx.x; d < P.tk_size[k]; d += blockDim.x) {
-      if (!dom_f_pres(P, s, c)[d]) continue;
-      v[c] += 1;
-      v[MC + c] = min(v[MC + c], dom_f_sum(P, s, c)[d]);
+  team.domains(P, sp, s, sp.active_f, F_SUM, 2);
+  if (team.leader()) {
+    for (int c = 0; c < MC; ++c) {
+      const int k = sp_key(P, sp, c);
+      if (!((sp.active_f >> c) & 1u) || sp_singleton(P, k)) continue;
+      for (long long d = threadIdx.x; d < P.tk_size[k]; d += blockDim.x) {
+        if (!dom_part(P, s.domc, F_PRES, c)[d]) continue;
+        v[c] += 1;
+        v[MC + c] = min(v[MC + c], dom_part(P, s.domc, F_SUM, c)[d]);
+      }
     }
   }
-  block_reduce(v, op, 2 * MC, s.red);
+  team.reduce(v, op, 2 * MC, s);
   for (int c = 0; c < MC; ++c) {
     const int dom_num = v[c];
     int mm = dom_num > 0 ? v[MC + c] : 0;
@@ -741,6 +825,13 @@ __device__ inline void spread_filter_stats(const ChainParams& P, const Spread& s
     if (min_domains > 0 && dom_num < min_domains) mm = 0;
     min_match[c] = mm;
   }
+}
+
+// The block's own (kernel D's victim search).
+__device__ inline void spread_filter_stats(const ChainParams& P, const Spread& sp, long long j, Smem& s,
+                                           int* min_match) {
+  BlockTeam team;
+  spread_filter_stats(P, sp, j, s, min_match, team);
 }
 
 // Filter phase 2: the reason code at node n (first failing constraint).
@@ -756,7 +847,7 @@ __device__ inline int spread_filter_code(const ChainParams& P, const Spread& sp,
     if (sp_singleton(P, k)) {
       seg = (allkeys && sp_policy(P, sp, c, n, fl)) ? sp_count(P, sp, c, n) : 0;
     } else {
-      seg = dom_f_sum(P, s, c)[l];
+      seg = dom_part(P, s.domc, F_SUM, c)[l];
     }
     const int skew = seg + static_cast<int>(P.con_self[sp.base + c]) - min_match[c];
     if (skew > P.con_max_skew[sp.base + c]) return 1;  // SKEW_BIT
@@ -765,7 +856,12 @@ __device__ inline int spread_filter_code(const ChainParams& P, const Spread& sp,
 }
 
 // Score phase 3: the registered-domain counts; fills the score sums.
-__device__ inline void spread_score_stats(const ChainParams& P, const Spread& sp, Smem& s, int* dom_num) {
+// With `lazy`, a node's FL_AFF / FL_TNT hold only where FL_VIS is set
+// (kernel C under record="selection" filters the visited nodes alone),
+// and are computed here for the others the contributions reach.
+template <class Team>
+__device__ inline void spread_score_stats(const ChainParams& P, const Spread& sp, long long j, Smem& s,
+                                          int* dom_num, Team& team, bool lazy) {
   int v[MAX_MC], op[MAX_MC];
   const int MC = static_cast<int>(P.MC);
   for (int c = 0; c < MC; ++c) {
@@ -773,35 +869,42 @@ __device__ inline void spread_score_stats(const ChainParams& P, const Spread& sp
     op[c] = RSUM;
   }
   // Domains present among feasible, non-ignored nodes.
-  for (long long n = threadIdx.x; n < P.N; n += blockDim.x) {
-    if (!(s.flags[n] & FL_OK) || !sp_allkeys(P, sp, sp.active_s, n)) continue;
+  for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+    const long long n = team.node(li);
+    if (n >= P.N || !(s.flags[li] & FL_OK) || !sp_allkeys(P, sp, sp.active_s, n)) continue;
     for (int c = 0; c < MC; ++c) {
       if (!((sp.active_s >> c) & 1u)) continue;
       const int k = sp_key(P, sp, c);
       const int l = sp_ldom(P, n, k);
       if (l < 0) continue;
       if (sp_singleton(P, k)) v[c] += 1;
-      else dom_s_reg(P, s, c)[l] = 1;
+      else dom_part(P, s.dom, S_REG, c)[l] = 1;
     }
   }
-  __syncthreads();
+  team.domains(P, sp, s, sp.active_s, S_REG, 1);
   // Contributions of policy-passing nodes in registered domains.
-  for (long long n = threadIdx.x; n < P.N; n += blockDim.x) {
-    const uint8_t fl = s.flags[n];
+  for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+    const long long n = team.node(li);
+    if (n >= P.N) continue;
+    uint8_t fl = s.flags[li];
     for (int c = 0; c < MC; ++c) {
       const int k = sp_key(P, sp, c);
       if (!((sp.active_s >> c) & 1u) || sp_singleton(P, k)) continue;
       const int l = sp_ldom(P, n, k);
-      if (l >= 0 && dom_s_reg(P, s, c)[l] && sp_policy(P, sp, c, n, fl))
-        atomicAdd(dom_s_sum(P, s, c) + l, sp_count(P, sp, c, n));
+      if (l < 0 || !dom_part(P, s.domc, S_REG, c)[l]) continue;
+      if (lazy && !(fl & FL_VIS) && P.nvalid[n]) fl = node_flags(P, j, n) | FL_VIS;
+      if (sp_policy(P, sp, c, n, fl)) atomicAdd(dom_part(P, s.dom, S_SUM, c) + l, sp_count(P, sp, c, n));
     }
   }
-  for (int c = 0; c < MC; ++c) {
-    const int k = sp_key(P, sp, c);
-    if (!((sp.active_s >> c) & 1u) || sp_singleton(P, k)) continue;
-    for (long long d = threadIdx.x; d < P.tk_size[k]; d += blockDim.x) v[c] += dom_s_reg(P, s, c)[d];
+  if (team.leader()) {
+    for (int c = 0; c < MC; ++c) {
+      const int k = sp_key(P, sp, c);
+      if (!((sp.active_s >> c) & 1u) || sp_singleton(P, k)) continue;
+      for (long long d = threadIdx.x; d < P.tk_size[k]; d += blockDim.x) v[c] += dom_part(P, s.domc, S_REG, c)[d];
+    }
   }
-  block_reduce(v, op, MC, s.red);  // its barriers also publish the atomics
+  team.reduce(v, op, MC, s);  // its barriers also publish the atomics
+  team.domains_after_reduce(P, sp, s, sp.active_s, S_SUM);
   for (int c = 0; c < MC; ++c) dom_num[c] = v[c];
 }
 
@@ -821,7 +924,7 @@ __device__ inline int spread_raw(const ChainParams& P, const Spread& sp, const S
       const int l = sp_ldom(P, n, k);
       if (l >= 0) {
         if (sp_singleton(P, k)) seg = sp_policy(P, sp, c, n, fl) ? sp_count(P, sp, c, n) : 0;
-        else seg = dom_s_sum(P, s, c)[l];
+        else seg = dom_part(P, s.domc, S_SUM, c)[l];
       }
     }
     const long long w = min(max(static_cast<long long>(dom_num[c]), 0LL), P.N);
@@ -851,7 +954,9 @@ struct Interpod {
   bool raff;  // the pod has required affinity terms
 };
 
-__device__ inline Interpod interpod_pod(const ChainParams& P, long long j) {
+// `total` is the term totals the team reads (ipa_total, or a cluster
+// block's copy of it; null when InterPodAffinity is off).
+__device__ inline Interpod interpod_pod(const ChainParams& P, long long j, const int32_t* total) {
   Interpod ip;
   ip.base = j * P.T2;
   bool any_raff = false, any_ranti = false, any_qm = false, any_pref = false;
@@ -862,7 +967,7 @@ __device__ inline Interpod interpod_pod(const ChainParams& P, long long j) {
     any_ranti = any_ranti || P.ipa_ranti[ip.base + t];
     any_qm = any_qm || qm;
     any_pref = any_pref || P.ipa_pref_w[ip.base + t] != 0;
-    if (raff && P.ipa_total != nullptr) total_req += static_cast<unsigned>(P.ipa_total[t]);
+    if (raff && total != nullptr) total_req += static_cast<unsigned>(total[t]);
   }
   ip.filter = any_raff || any_ranti || any_qm;
   ip.score = any_pref || any_qm;
@@ -870,6 +975,8 @@ __device__ inline Interpod interpod_pod(const ChainParams& P, long long j) {
   ip.escape = static_cast<int>(total_req) == 0 && P.ipa_self_aff[j];
   return ip;
 }
+
+__device__ inline Interpod interpod_pod(const ChainParams& P, long long j) { return interpod_pod(P, j, P.ipa_total); }
 
 // The reason code at node n; checks in upstream order.
 __device__ inline int interpod_code(const ChainParams& P, const Interpod& ip, long long n) {
@@ -925,58 +1032,6 @@ __device__ inline int interpod_norm(const ChainParams& P, int raw, int mn, int m
 // ---- sampling (kernel C) ------------------------------------------------------
 
 __device__ inline long long floormod(long long a, long long m) { return ((a % m) + m) % m; }
-
-// Narrows the feasible mask to the visited window: from the rotating start,
-// in index order over the real nodes, up to the k-th feasible node.
-// Returns the window's last visit position (the threshold).
-__device__ inline long long sample_window(const ChainParams& P, long long p, long long start, Smem& s) {
-  const long long nr = max(P.n_real, 1LL);
-  const long long sm = floormod(start, nr);
-  int v[2] = {0, 0};  // feasible before the start, feasible in all
-  const int op[2] = {RSUM, RSUM};
-  for (long long n = threadIdx.x; n < P.n_real; n += blockDim.x) {
-    if (!(s.flags[n] & FL_OK)) continue;
-    v[1] += 1;
-    if (n < sm) v[0] += 1;
-  }
-  block_reduce(v, op, 2, s.red);
-  const int before = v[0], all = v[1];
-  long long thr = P.n_real - 1;
-  if (all >= P.samp_k) {
-    // The k-th feasible node in visit order is the one whose rotated
-    // feasible rank is k: a prefix count over index order, tile by tile.
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nw = (blockDim.x + 31) >> 5;
-    long long running = 0;
-    for (long long base = 0; base < P.n_real; base += blockDim.x) {
-      const long long n = base + threadIdx.x;
-      const bool f = n < P.n_real && (s.flags[n] & FL_OK);
-      const unsigned mask = __ballot_sync(0xffffffffu, f);
-      if (lane == 0) s.scan[warp] = __popc(mask);
-      __syncthreads();
-      int below = 0, tile = 0;
-      for (int w = 0; w < nw; ++w) {
-        const int c = s.scan[w];
-        if (w < warp) below += c;
-        tile += c;
-      }
-      const long long incl = running + below + __popc(mask & ((2u << lane) - 1u));
-      const long long rank = n >= sm ? incl - before : incl + (all - before);
-      if (f && rank == P.samp_k) s.scan[33] = static_cast<int>(n - sm + (n < sm ? nr : 0));
-      __syncthreads();
-      running += tile;
-    }
-    thr = s.scan[33];
-  }
-  const bool full = P.record == 2;
-  for (long long n = threadIdx.x; n < P.N; n += blockDim.x) {
-    const bool visited = n < P.n_real && floormod(n - sm, nr) <= thr;
-    if (!visited) s.flags[n] &= static_cast<uint8_t>(~FL_OK);
-    if (full) P.visited_out[p * P.N + n] = visited;
-  }
-  __syncthreads();
-  return thr;
-}
 
 // ---- one pod against every node -------------------------------------------
 
@@ -1078,22 +1133,78 @@ __device__ inline uint8_t filter_node(const ChainParams& P, long long p, long lo
 }
 
 
-// Runs the chain for chunk row p over all N nodes with the calling block,
-// writes the records of P.record (at row orow when one is given: kernel D
+// Kernel C's visit window from the rotated start sm: the real nodes in
+// index order from sm, wrapping, up to the k-th feasible one (all of them
+// when fewer are feasible); returns the last visited position (the
+// threshold).  The walk goes a cluster tile at a time (team.T nodes of
+// index order, every thread one node) in visit order: the tile that holds
+// sm from sm on, the tiles after it, wrapping, then that tile's nodes
+// before sm; one exchange across the cluster per tile
+// (team.piece_find), and the walk stops after the tile that holds the
+// k-th feasible node.  When one tile holds every real node, the walk is
+// that one tile in rotated order, found in one exchange.  With FILTER
+// (record="selection") the walk runs the filters on the nodes it
+// reaches and nowhere else (flags stay 0 on the rest), and takes FL_OK
+// back from those past the k-th; without, the flags of every node are
+// already set and the walk only counts.
+template <bool FILTER, class Team>
+__device__ inline long long visit_window(const ChainParams& P, long long p, long long j, Smem& s, const Spread& sp,
+                                         const Interpod& ip, const int* min_match, bool sp_filter, Team& team,
+                                         long long sm) {
+  const long long nreal = P.n_real, nr = max(nreal, 1LL);
+  const long long tiles = (nreal + team.T - 1) / team.T;  // the tiles that hold real nodes
+  const long long t0 = sm / team.T;
+  long long running = 0;  // feasible nodes visited so far
+  for (long long step = 0; step < tiles + (tiles > 1 ? 1 : 0); ++step) {
+    const long long tile = (t0 + step) % tiles;
+    const long long li = tile * blockDim.x + threadIdx.x;
+    const long long n = team.node(li);
+    // The nodes of this step: with one tile, all of it (rotated at sm);
+    // else the start tile's nodes from sm first and before sm last.
+    const bool in = n < nreal && (tiles == 1 || (step == 0 ? n >= sm : step < tiles || n < sm));
+    bool f = false;
+    if (in) {
+      if constexpr (FILTER) {
+        const uint8_t fl = P.nvalid[n] ? filter_node(P, p, j, n, s, sp, ip, min_match, sp_filter, false, 0) | FL_VIS : 0;
+        s.flags[li] = fl;
+        f = fl & FL_OK;
+      } else {
+        f = s.flags[li] & FL_OK;
+      }
+    }
+    long long count;
+    const long long nstar = team.piece_find(f, tile, P.samp_k - running, s, count, tiles == 1 ? sm : -1);
+    if (nstar >= 0) {
+      const long long thr = floormod(nstar - sm, nr);
+      if constexpr (FILTER) {
+        if (in && floormod(n - sm, nr) > thr) s.flags[li] &= static_cast<uint8_t>(~FL_OK);
+      }
+      return thr;
+    }
+    running += count;
+  }
+  return nreal - 1;
+}
+
+// Runs the chain for chunk row p over all N nodes with the team, writes
+// the records of P.record (at row orow when one is given: kernel D
 // writes attempt k * Q + q), and returns the selected node (-1 when
 // none is feasible or the pod is padding) to every thread.  SAMPLED
-// (kernel C) narrows the scored set to the visit window and advances
-// *P.samp_start.  RANKED (kernel D) selects among the max-total feasible
-// nodes the one of minimal rank[n] (ksim_tpu/engine/replay.py:942-951):
-// a jnp.argmin over the whole node axis, so the lowest index of minimal
-// value wins, non-candidates counting as INT_MAX.
-template <bool SAMPLED, bool RANKED = false>
-__device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const int32_t* rank = nullptr,
-                               long long orow = -1) {
+// (kernel C, a cluster team) narrows the scored set to the visit window
+// and advances team.start.  RANKED (kernel D) selects among the max-total
+// feasible nodes the one of minimal rank[n] (ksim_tpu/engine/replay.py:
+// 942-951): a jnp.argmin over the whole node axis, so the lowest index of
+// minimal value wins, non-candidates counting as INT_MAX.
+template <bool SAMPLED, bool RANKED, class Team>
+__device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, Team& team,
+                                    const int32_t* rank, long long orow) {
+  static_assert(!SAMPLED || Team::kCluster, "the sampled scan runs on a cluster team");
   const long long N = P.N;
   const long long j = P.pindex[p];
   const bool full = P.record == 2;
   const bool finals = P.record >= 1;
+  // No work on pairs the record never holds (cluster teams, selection).
+  const bool sparse = Team::kCluster && P.record == 0;
   const long long o = orow < 0 ? p : orow;  // the records' row
   const long long rowF = o * P.F * N;
   const long long rowS = o * P.S * N;
@@ -1101,48 +1212,83 @@ __device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const
   const bool use_ipa = P.f_row[INTERPOD] >= 0 || P.s_row[INTERPOD] >= 0;
 
   // -- phase 0: setup; the barrier also orders the previous pod's commit --
+  team.mark(PH_SETUP);
   if (P.s_row[IMAGE] >= 0) image_weights(P, j, s);
   if (use_spread)
     for (long long i = threadIdx.x; i < domain_ints(P); i += blockDim.x) s.dom[i] = 0;
   __syncthreads();
   const Spread sp = use_spread ? spread_pod(P, j) : Spread{0, 0u, 0u, false};
-  const Interpod ip = use_ipa ? interpod_pod(P, j) : Interpod{0, false, false, false, false};
-  const long long start = SAMPLED ? static_cast<long long>(*P.samp_start) : 0;
+  const Interpod ip = use_ipa ? interpod_pod(P, j, team.ipa_total(P)) : Interpod{0, false, false, false, false};
 
   // -- phase 1: PodTopologySpread's filter statistics --
+  team.mark(PH_SPREAD_F);
   int min_match[MAX_MC];
   const bool sp_filter = P.f_row[SPREAD] >= 0 && sp.active_f != 0;
-  if (sp_filter) spread_filter_stats(P, sp, j, s, min_match);
+  if (sp_filter) spread_filter_stats(P, sp, j, s, min_match, team);
 
-  // -- phase 2: filters (every one runs: all reason codes are recorded) --
-  for (long long n = threadIdx.x; n < N; n += blockDim.x)
-    s.flags[n] = filter_node(P, p, j, n, s, sp, ip, min_match, sp_filter, full, rowF);
+  // -- phase 2: filters (every one runs: all reason codes are recorded);
+  //    kernel C's visit window --
+  team.mark(PH_FILTER);
+  long long thr = 0, start = 0;
+  if constexpr (SAMPLED) start = team.start;
+  if (SAMPLED && sparse) {
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) s.flags[li] = 0;
+  } else {
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= N) continue;
+      s.flags[li] = (sparse && !P.nvalid[n]) ? 0 : filter_node(P, p, j, n, s, sp, ip, min_match, sp_filter, full, rowF);
+    }
+  }
   __syncthreads();
-
-  long long thr = 0;
-  if (SAMPLED) thr = sample_window(P, p, start, s);
+  if constexpr (SAMPLED) {
+    team.mark(PH_WINDOW);
+    const long long nr = max(P.n_real, 1LL);
+    const long long sm = floormod(start, nr);
+    if (sparse) {
+      thr = visit_window<true>(P, p, j, s, sp, ip, min_match, sp_filter, team, sm);
+    } else {
+      thr = visit_window<false>(P, p, j, s, sp, ip, min_match, sp_filter, team, sm);
+      for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+        const long long n = team.node(li);
+        if (n >= N) continue;
+        const bool visited = n < P.n_real && floormod(n - sm, nr) <= thr;
+        if (!visited) s.flags[li] &= static_cast<uint8_t>(~FL_OK);
+        if (full) P.visited_out[p * N + n] = visited;
+      }
+    }
+    __syncthreads();
+  }
 
   // -- phase 3: PodTopologySpread's score statistics --
+  team.mark(PH_SPREAD_S);
   int dom_num[MAX_MC];
   for (int c = 0; c < MAX_MC; ++c) dom_num[c] = 0;
-  if (P.s_row[SPREAD] >= 0 && sp.has_score) spread_score_stats(P, sp, s, dom_num);
+  if (P.s_row[SPREAD] >= 0 && sp.has_score) spread_score_stats(P, sp, j, s, dom_num, team, SAMPLED && sparse);
 
   // -- phase 4: scores; the unnormalized finals are summed right away --
   // Extrema: taint max, affinity max, spread max / min / any over the
   // scoreable nodes, interpod max / min / any over the feasible nodes,
   // interpod any nonzero over all nodes.
+  team.mark(PH_SCORE);
   int ex[9] = {0, 0, INT_MIN, INT_MAX, 0, INT_MIN, INT_MAX, 0, 0};
   const int ex_op[9] = {RMAX, RMAX, RMAX, RMIN, RMAX, RMAX, RMIN, RMAX, RMAX};
-  for (long long n = threadIdx.x; n < N; n += blockDim.x) {
-    const uint8_t fl = s.flags[n];
+  for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+    const long long n = team.node(li);
+    if (n >= N) continue;
+    const uint8_t fl = s.flags[li];
     const bool ok = fl & FL_OK;
+    if (sparse && !ok) {
+      if (P.s_row[INTERPOD] >= 0 && interpod_raw(P, ip, n) != 0) ex[8] = 1;
+      continue;
+    }
     int partial = 0;
     if (P.s_row[TAINT] >= 0) {
       const int32_t* order = P.taint_order + n * P.W;
       const uint8_t* tolp = P.pod_tolerated_prefer + j * P.W;
       int c = 0;
       for (long long w = 0; w < P.W; ++w) c += (order[w] > 0 && P.prefer[w] && !tolp[w]) ? 1 : 0;
-      s.raw_taint[n] = c;
+      s.raw_taint[li] = c;
       if (ok) ex[0] = max(ex[0], c);
       if (full) store_int(P.raw_out, rowS + P.s_row[TAINT] * N + n, c, P.raw_size);
     }
@@ -1153,7 +1299,7 @@ __device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const
       long long sc = 0;
       for (long long t = 0; t < P.T; ++t)
         if (tok[t]) sc += pw[t] + P.added_pref[t];
-      s.raw_aff[n] = static_cast<int>(sc);
+      s.raw_aff[li] = static_cast<int>(sc);
       if (ok) ex[1] = max(ex[1], static_cast<int>(sc));
       if (full) store_int(P.raw_out, rowS + P.s_row[AFFINITY] * N + n, sc, P.raw_size);
     }
@@ -1197,22 +1343,27 @@ __device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const
       if (full) store_int(P.raw_out, rowS + P.s_row[IMAGE] * N + n, raw, P.raw_size);
       if (finals) store_int(P.final_out, rowS + P.s_row[IMAGE] * N + n, fin, P.final_size);
     }
-    s.partial[n] = partial;
+    s.partial[li] = partial;
   }
-  block_reduce(ex, ex_op, 9, s.red);
+  team.mark(PH_EX_REDUCE);
+  team.reduce(ex, ex_op, 9, s);
   const int mx_taint = ex[0], mx_aff = ex[1];
   const int sp_mx = ex[4] ? ex[2] : 0, sp_mn = ex[4] ? ex[3] : 0;
   const int ipa_mx = ex[7] ? ex[5] : 0, ipa_mn = ex[7] ? ex[6] : 0;
   const bool ipa_nonzero = ex[8] != 0;
 
   // -- phase 5: normalizes, total, selectHost --
+  team.mark(PH_NORMALIZE);
   unsigned long long best = 0ULL;
-  for (long long n = threadIdx.x; n < N; n += blockDim.x) {
-    const uint8_t fl = s.flags[n];
-    int total = s.partial[n];
+  for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+    const long long n = team.node(li);
+    if (n >= N) continue;
+    const uint8_t fl = s.flags[li];
+    if (sparse && !(fl & FL_OK)) continue;
+    int total = s.partial[li];
     if (P.s_row[TAINT] >= 0) {
       // Reverse DefaultNormalizeScore; DIVISION: raw >= 0, max > 0.
-      const int raw = s.raw_taint[n];
+      const int raw = s.raw_taint[li];
       const int norm = mx_taint > 0 ? MAX_NODE_SCORE - (MAX_NODE_SCORE * raw) / mx_taint : MAX_NODE_SCORE;
       const int fin = norm * static_cast<int>(P.weight[TAINT]);
       total += fin;
@@ -1220,7 +1371,7 @@ __device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const
     }
     if (P.s_row[AFFINITY] >= 0) {
       // DefaultNormalizeScore; DIVISION: raw >= 0, max > 0.
-      const long long raw = s.raw_aff[n];
+      const long long raw = s.raw_aff[li];
       const int norm = static_cast<int>(
           mx_aff > 0 ? (static_cast<long long>(MAX_NODE_SCORE) * raw) / mx_aff : raw);
       const int fin = norm * static_cast<int>(P.weight[AFFINITY]);
@@ -1248,44 +1399,58 @@ __device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const
       if (finals) store_int(P.final_out, rowS + P.s_row[INTERPOD] * N + n, fin, P.final_size);
     }
     if (finals && P.total != nullptr) P.total[o * N + n] = total;
-    if (RANKED) s.partial[n] = total;  // this thread's node: read below
+    if (RANKED) s.partial[li] = total;  // this thread's node: read below
     if (fl & FL_OK) {
       const unsigned long long key = select_key(total, n);
       best = key > best ? key : best;
     }
   }
-  best = block_max_u64(best, s.red64);
+  team.mark(PH_SELECT);
+  best = team.max_u64(best, s);
+  team.mark(PH_COMMIT);
   if (RANKED) {
     if (best == 0ULL || !P.pvalid[p]) return -1;
     const int mx = static_cast<int>(static_cast<unsigned int>(best >> 32) ^ 0x80000000u);
     // Key: the smaller value, then the lower index, wins the max.
     unsigned long long rk = 0ULL;
-    for (long long n = threadIdx.x; n < N; n += blockDim.x) {
-      const bool cand = (s.flags[n] & FL_OK) && s.partial[n] == mx;
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= N) continue;
+      const bool cand = (s.flags[li] & FL_OK) && s.partial[li] == mx;
       const int v = cand ? rank[n] : INT_MAX;
       const unsigned long long key =
           (static_cast<unsigned long long>(static_cast<unsigned int>(INT_MAX - v)) << 32) |
           static_cast<unsigned long long>(0xFFFFFFFFu - static_cast<unsigned int>(n));
       rk = key > rk ? key : rk;
     }
-    rk = block_max_u64(rk, s.red64);
+    rk = team.max_u64(rk, s);
     return key_node(rk);
   }
-  // Padding pods never ran a cycle upstream: no rotation.  Every thread
-  // read *samp_start in phase 0, before the barriers since.
-  if (SAMPLED && threadIdx.x == 0 && P.pvalid[p])
-    *P.samp_start = static_cast<int32_t>(floormod(start + thr + 1, max(P.n_real, 1LL)));
+  // Padding pods never ran a cycle upstream: no rotation.
+  if constexpr (SAMPLED) {
+    if (P.pvalid[p]) team.start = floormod(start + thr + 1, max(P.n_real, 1LL));
+  }
   return P.pvalid[p] ? key_node(best) : -1;
 }
 
-// ---- the sequential-commit scan (kernels A and C) ---------------------------
+// The block's own (kernels B and D).
+template <bool RANKED = false>
+__device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const int32_t* rank = nullptr,
+                               long long orow = -1) {
+  BlockTeam team;
+  return eval_pod_team<false, RANKED>(P, p, s, team, rank, orow);
+}
+
+// ---- the commit (kernels A, C and D) ------------------------------------------
 
 // Commits pod p onto node `best` (>= 0): the node state and every carry.
-// Each thread updates only the nodes it owns; the cluster-wide interpod
-// total is thread 0's.  The next pod's first barrier publishes it all.
-__device__ inline void commit_pod(const ChainParams& P, long long p, int best) {
+// Only the thread that owns a node touches its carried rows, here and in
+// the chain, so the commit needs no barrier of its own; the term totals
+// are the team's (team.commit_total).
+template <class Team>
+__device__ inline void commit_pod(const ChainParams& P, long long p, int best, Team& team) {
   const long long j = P.pindex[p];
-  if (best % blockDim.x == threadIdx.x) {
+  if (team.owns(best)) {
     for (long long r = 0; r < P.R; ++r) {
       P.requested[best * P.R + r] += P.preq[p * P.R + r];
       P.nz_requested[best * P.R + r] += P.pnz[p * P.R + r];
@@ -1314,7 +1479,9 @@ __device__ inline void commit_pod(const ChainParams& P, long long p, int best) {
       any = any || P.ipa_qm[base + t] || P.ipa_vw[base + t] != 0 || P.ipa_eat[base + t] != 0;
     if (!any) return;
     const int32_t* db = P.ipa_dom + best * P.T2;
-    for (long long n = threadIdx.x; n < P.N; n += blockDim.x) {
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= P.N) continue;
       for (long long t = 0; t < P.T2; ++t) {
         if (db[t] < 0 || P.ipa_dom[n * P.T2 + t] != db[t]) continue;
         P.ipa_cnt[n * P.T2 + t] += P.ipa_qm[base + t];
@@ -1322,19 +1489,14 @@ __device__ inline void commit_pod(const ChainParams& P, long long p, int best) {
         P.ipa_ew[n * P.T2 + t] += P.ipa_vw[base + t];
       }
     }
-    if (threadIdx.x == 0)
-      for (long long t = 0; t < P.T2; ++t)
-        if (db[t] >= 0) P.ipa_total[t] += P.ipa_qm[base + t];
+    team.commit_total(P, db, base);
   }
 }
 
-template <bool SAMPLED>
-__device__ inline void scan_pods(const ChainParams& P, Smem& s) {
-  for (long long p = 0; p < P.Pc; ++p) {
-    const int best = eval_pod<SAMPLED>(P, p, s);
-    if (threadIdx.x == 0) P.selected[p] = best;
-    if (best >= 0) commit_pod(P, p, best);
-  }
+// The block's own (kernel D).
+__device__ inline void commit_pod(const ChainParams& P, long long p, int best) {
+  BlockTeam team;
+  commit_pod(P, p, best, team);
 }
 
 }  // namespace ksim

@@ -615,7 +615,7 @@ __device__ inline void segment_body(const SegmentParams& S, unsigned char* smem_
     const int32_t* rank = S.ev_rank + k * N;
     for (int qq = 0; qq < q.y; ++qq) {
       const long long j = idx[qq];
-      const int best = eval_pod<false, true>(C, j, s, rank, full ? k * S.Q + qq : -1);
+      const int best = eval_pod<true>(C, j, s, rank, full ? k * S.Q + qq : -1);
       if (threadIdx.x == 0) S.out_sel[k * S.Q + qq] = best;
       if (best >= 0) commit_pod(C, j, best);
     }

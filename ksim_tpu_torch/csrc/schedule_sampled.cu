@@ -3,44 +3,34 @@
 //
 // Replaces ksim_tpu/engine/core.py _Program._schedule_sampled_fn
 // (core.py:750-786) and _sample_visited (core.py:717-748): the scan of
-// kernel A in which each pod, after running every filter on every node,
-// visits the real nodes in index order from a rotating start and stops
-// at its k-th feasible node (upstream schedule_one.go
-// findNodesThatPassFilters + numFeasibleNodesToFind, as the deterministic
-// sequential visit).  Scores, normalizes and selectHost run over the
-// visited feasible nodes only; the start advances by the nodes visited,
-// for valid pods only, and is carried through the scan in device memory.
+// kernel A in which each pod visits the real nodes in index order from a
+// rotating start and stops at its k-th feasible node (upstream
+// schedule_one.go findNodesThatPassFilters + numFeasibleNodesToFind, as
+// the deterministic sequential visit).  Scores, normalizes and selectHost
+// run over the visited feasible nodes only; the start advances by the
+// nodes visited, for valid pods only, and is carried through the scan.
 //
-// Design: kernel A's persistent block (plugin_chain.cuh scan_pods), with
-// one more phase per pod after the filters (sample_window): a block sum of
-// the feasible nodes before the start and in all, then a tile-by-tile
-// prefix count over index order (a warp ballot and popcount per tile) that
-// finds the node whose rotated feasible rank is k.  Positions are
-// distinct, so no tie needs breaking; the top_k of the reference becomes
-// integer counting.
+// Design: kernel A's cluster scan (cluster_scan.cuh), with the visit
+// window as one more step of each pod (plugin_chain.cuh visit_window):
+// the window is walked a cluster tile at a time in visit order, each
+// piece's feasible nodes counted per warp and scanned across the cluster
+// (ClusterTeam::piece_find) until the piece that holds the k-th; positions
+// are distinct, so no tie needs breaking, and the top_k of the reference
+// becomes integer counting.  Under record="selection" the filters run on
+// the visited nodes alone, and the scores on the sampled feasible ones
+// (PodTopologySpread's and InterPodAffinity's statistics still cover
+// every node, as the reference's do); under record="full" every node is
+// filtered and scored, since the records hold them all.
 //
-// What bounds it: as kernel A, plus N / 1024 tiles of two barriers each
-// per pod for the prefix count.  Sequential across pods: one SM.
+// What bounds it: as kernel A, plus one cluster barrier per piece of the
+// walk; under record="selection" the chain runs on the visited share of
+// the node axis.
 
-#include "plugin_chain.cuh"
+#include "cluster_scan.cuh"
 
-namespace ksim {
-
-__global__ void __launch_bounds__(1024, 1) schedule_sampled_kernel(const ChainParams P) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s = carve(smem_raw, P);
-  scan_pods<true>(P, s);
-}
-
-}  // namespace ksim
-
-extern "C" int ksim_schedule_sampled(const ksim::ChainParams* params, void* stream) {
-  const long long smem = ksim::smem_bytes(*params);
-  cudaError_t err = cudaFuncSetAttribute(
-      ksim::schedule_sampled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ksim::schedule_sampled_kernel<<<1, 1024, smem, static_cast<cudaStream_t>(stream)>>>(*params);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int ksim_schedule_sampled(const ksim::ChainParams* params, void* stream, int cluster, int threads,
+                                     long long* stats, long long* info) {
+  return ksim::launch_cluster_scan<true>(params, stream, cluster, threads, stats, info);
 }
 
 extern "C" long long ksim_params_size() { return sizeof(ksim::ChainParams); }

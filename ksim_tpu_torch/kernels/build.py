@@ -30,6 +30,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The entry points' C signatures: (params, stream), and for the cluster
+# scans (kernels A and C) also (cluster size, threads, stats, info).
+_ENTRY_ARGS = (ctypes.c_void_p, ctypes.c_void_p)
+_CLUSTER_ARGS = _ENTRY_ARGS + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong))
+ARGTYPES = {"schedule_scan": _CLUSTER_ARGS, "schedule_sampled": _CLUSTER_ARGS}
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build time (0.0 when already built), "ptxas": [lines]}
@@ -93,7 +99,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build((name,))[name]))
             entry = getattr(lib, f"ksim_{name}")
-            entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            entry.argtypes = list(ARGTYPES.get(name, _ENTRY_ARGS))
             entry.restype = ctypes.c_int
             lib.ksim_error_string.argtypes = [ctypes.c_int]
             lib.ksim_error_string.restype = ctypes.c_char_p

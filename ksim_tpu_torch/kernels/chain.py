@@ -42,6 +42,18 @@ MAX_SMEM_BYTES = 232448
 RED_MAX = 24
 SCAN_INTS = 64
 RECORD_IDS = {"selection": 0, "final": 1, "full": 2}
+# Kernels A and C run on one thread-block cluster (csrc/cluster_scan.cuh):
+# its size (0: 16 where the card's occupancy query finds room for one such
+# cluster, else 8) and its threads per block (0: one node slot each for
+# N / size nodes, cluster_threads).
+CLUSTER_SIZE = 0
+CLUSTER_THREADS = 0
+MAX_CLUSTER = 16
+MAX_THREADS = 1024
+# The phases of a pod the cluster kernels time (plugin_chain.cuh Phase),
+# in the order of their cycle counts in ``launch_cluster``'s stats.
+CLUSTER_PHASES = ("setup", "spread filter stats", "filters", "visit window", "spread score stats", "scores",
+                  "extrema reduce", "normalize", "select reduce", "commit")
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -141,14 +153,16 @@ def _ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple, device) -> in
     return t.data_ptr()
 
 
-def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1,
+def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1, cluster: bool = False,
                  sampling: tuple | None = None, rows: int | None = None) -> ChainParams:
     """Fill ChainParams for ``prog`` (engine/core.py _Program) over the
     pod chunk ``pods``.  ``state`` and the carries are the tensors the
     scan kernels update in place; ``out`` holds the output tensors of the
     record mode (plus ``visited`` under sampling).  ``grid`` is the
     number of blocks the launch runs, for the per-block domain scratch;
-    ``sampling`` is (start [1] i32 tensor, n_real, k) for kernel C.
+    ``cluster`` sizes that scratch for a cluster launch instead (a
+    partial and a combined array for each of up to MAX_CLUSTER blocks);
+    ``sampling`` is (start [1] i32 tensor, n_real, k >= 1) for kernel C.
     ``rows`` is the records' row count when it is not the chunk's (kernel
     D records per attempt), and ``out["total"]`` may then be None (no
     total kept).  The tensors the kernel reads but the caller does not
@@ -313,9 +327,10 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1,
         dom_ints = 4 * MC * dmax  # filter sum, filter presence, score registration, score sum
         prm.sp_smem = int(4 * dom_ints <= DOMAIN_SMEM_BYTES)
         if not prm.sp_smem:
-            scratch = torch.empty((grid, dom_ints), dtype=i32, device=dev)
+            shape = (MAX_CLUSTER, 2 * dom_ints) if cluster else (grid, dom_ints)
+            scratch = torch.empty(shape, dtype=i32, device=dev)
             keep.append(scratch)
-            put("sp_scratch", scratch, i32, (grid, dom_ints))
+            put("sp_scratch", scratch, i32, shape)
         logw = a["log_w64"] if prog.exact else a["log_w32"]
         put("sp_logw", logw, f64 if prog.exact else f32, (N + 1,))
         put("sp_counts", carries["PodTopologySpread"], i32, (N, SS))
@@ -339,6 +354,8 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1,
 
     if sampling is not None:
         start, n_real, k = sampling
+        if k < 1:
+            raise ValueError(f"sampling k={k}: the visit stops at the k-th feasible node, k >= 1")
         put("samp_start", start, i32, (1,))
         prm.n_real, prm.samp_k = n_real, k
         if prog.record == "full":
@@ -400,11 +417,61 @@ def smem_bytes(prm: ChainParams) -> int:
     return align8 + 8 * prm.I + 8 * 33 + 4 * 33 * RED_MAX + 4 * SCAN_INTS + dom
 
 
-def check_smem(prm: ChainParams, *, extra: int = 0) -> None:
+def cluster_threads(n_nodes: int, size: int) -> int:
+    """Threads per block of a cluster launch (csrc/cluster_scan.cuh
+    ``cluster_threads``): one node slot each for N / size nodes, rounded
+    up to whole warps, between one warp and MAX_THREADS."""
+    per = -(-n_nodes // size)
+    return min(MAX_THREADS, max(32, -(-per // 32) * 32))
+
+
+def cluster_slots(n_nodes: int, size: int, threads: int) -> int:
+    """Node slots per block (``cluster_slots``): whole cluster tiles of
+    size * threads nodes."""
+    return -(-n_nodes // (size * threads)) * threads
+
+
+def block_nodes(n_nodes: int, size: int, threads: int, rank: int) -> list[int]:
+    """The nodes block ``rank`` of a cluster owns, in slot order
+    (``ClusterTeam::node``): chunks of 32 nodes dealt round robin over the
+    ranks, slot li holding node ((li // 32) * size + rank) * 32 + li % 32.
+    Thread t owns slots t, t + threads, ..."""
+    nodes = ((((li >> 5) * size) + rank) << 5 | (li & 31) for li in range(cluster_slots(n_nodes, size, threads)))
+    return [n for n in nodes if n < n_nodes]
+
+
+def cluster_smem_bytes(prm: ChainParams, size: int, threads: int = 0) -> int:
+    """The dynamic shared memory of one block of a ``size``-block cluster
+    (``cluster_smem_bytes``): 13 bytes per node slot, the reduction and
+    prefix-count scratch, the term totals' copy and, when it fits, a
+    partial and a combined PodTopologySpread domain scratch."""
+    slots = cluster_slots(prm.N, size, threads or cluster_threads(prm.N, size))
+    dom = 2 * 4 * 4 * prm.MC * prm.DMAX if prm.sp_smem else 0
+    ints = 33 * RED_MAX + SCAN_INTS + 2 * RED_MAX + 2 * 32 + 2 * 32 + prm.T2
+    return ((13 * slots + 7) & ~7) + 8 * prm.I + 8 * 33 + 8 * 2 + 4 * ints + dom
+
+
+def check_smem(prm: ChainParams, *, extra: int = 0, cluster: int = 0, threads: int = 0) -> None:
     """Raise ValueError when a block's shared memory (the chain's plus
     ``extra``) is over what one block may take, naming the padded node
-    count: the node axis lives in shared memory, so it bounds the
-    cluster (about 17,590 padded nodes with no spread domain scratch)."""
+    count.  The per-node values live in shared memory: in one block (the
+    default; kernels B and D) that bounds the node axis at about 17,590
+    padded nodes with no spread domain scratch; in a ``cluster``-block
+    cluster (kernels A and C) each block holds about N / cluster nodes,
+    and the bound is about ``cluster`` times larger."""
+    if cluster:
+        need = cluster_smem_bytes(prm, cluster, threads) + extra
+        if need > MAX_SMEM_BYTES:
+            nt = threads or cluster_threads(prm.N, cluster)
+            fixed = need - 13 * cluster_slots(prm.N, cluster, nt)
+            slots = (MAX_SMEM_BYTES - fixed - 7) // 13 // nt * nt  # whole tiles
+            raise ValueError(
+                f"padded node axis N={prm.N} needs {need} bytes of shared memory per block of a "
+                f"{cluster}-block cluster, over the {MAX_SMEM_BYTES} bytes one block may take on sm_90: "
+                f"at 13 bytes per node slot a block of {nt} threads holds at most {slots} slots, "
+                f"{slots * cluster} padded nodes for this cluster, profile and vocabulary"
+            )
+        return
     need = smem_bytes(prm) + extra
     if need > MAX_SMEM_BYTES:
         fixed = need - 13 * prm.N
@@ -414,6 +481,31 @@ def check_smem(prm: ChainParams, *, extra: int = 0) -> None:
             f"at 13 bytes per node the kernels hold at most "
             f"{(MAX_SMEM_BYTES - fixed) // 13} padded nodes for this profile and vocabulary"
         )
+
+
+def launch_cluster(lib, entry: str, prm: ChainParams) -> dict:
+    """Call a cluster-scan ``entry`` (kernels A and C) on the current
+    stream with CLUSTER_SIZE and CLUSTER_THREADS; raise on a nonzero
+    error, a refused launch included (no smaller launch takes over).
+    Returns what ran: {"cluster": blocks, "threads": per block,
+    "smem_bytes": per block, "stats": int64 [2 + len(CLUSTER_PHASES)] on
+    the card: the cluster barriers and the pods evaluated, as block 0
+    counted them, then block 0's clock cycles in each phase}.  A node axis
+    over the shared-memory bound of the smallest cluster the launch may
+    take raises ValueError before the launch."""
+    size, threads = CLUSTER_SIZE, CLUSTER_THREADS
+    if not 0 <= size <= MAX_CLUSTER or not (0 <= threads <= MAX_THREADS and threads % 32 == 0):
+        raise ValueError(f"cluster size {size} / threads {threads}: 0..{MAX_CLUSTER} blocks, "
+                         f"0..{MAX_THREADS} threads in whole warps")
+    check_smem(prm, cluster=size or 8, threads=threads)
+    stats = torch.zeros(2 + len(CLUSTER_PHASES), dtype=torch.int64, device="cuda")
+    info = (ctypes.c_longlong * 3)()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, entry)(ctypes.byref(prm), ctypes.c_void_p(stream), size, threads,
+                              ctypes.c_void_p(stats.data_ptr()), info)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err}: {lib.ksim_error_string(err).decode()}")
+    return {"cluster": info[0], "threads": info[1], "smem_bytes": info[2], "stats": stats}
 
 
 def launch(lib, entry: str, prm: ChainParams) -> None:

@@ -14,7 +14,9 @@ record="full", ``out["visited"]`` holds each pod's visited mask.  Its
 inputs are never modified.
 
 Tensors on the CPU take ``schedule_sampled_plain``; tensors on a CUDA
-device launch csrc/schedule_sampled.cu once for the whole chunk.
+device launch csrc/schedule_sampled.cu once for the whole chunk, on one
+thread-block cluster (kernels/chain.py ``launch_cluster``); what the last
+launch ran is kept in ``schedule_sampled.last``.
 """
 
 from __future__ import annotations
@@ -76,10 +78,11 @@ def schedule_sampled(prog, state, pods, aux, carries, start, n_real: int, k: int
     state, carries = chain.fresh_scan_state(state, carries)
     start = start.reshape(1).clone()
     out = chain.empty_outputs(prog, pods.valid.shape[0], state.valid.shape[0], device, sampled=True)
-    prm = chain.chain_params(prog, state, pods, aux, carries, out, sampling=(start, n_real, k))
-    chain.launch(lib, "ksim_schedule_sampled", prm)
+    prm = chain.chain_params(prog, state, pods, aux, carries, out, cluster=True, sampling=(start, n_real, k))
+    schedule_sampled.last = chain.launch_cluster(lib, "ksim_schedule_sampled", prm)
     schedule_sampled.launches += 1
     return state, carries, start.reshape(()), out
 
 
 schedule_sampled.launches = 0
+schedule_sampled.last = None

@@ -8,7 +8,10 @@ committed carries and the recorded outputs of ``prog.record``.  Its
 inputs are never modified.
 
 Tensors on the CPU take ``schedule_scan_plain``; tensors on a CUDA
-device launch csrc/schedule_scan.cu once for the whole chunk.
+device launch csrc/schedule_scan.cu once for the whole chunk, on one
+thread-block cluster (kernels/chain.py ``launch_cluster``); what the last
+launch ran (its cluster size, threads, shared memory and on-card stats)
+is kept in ``schedule_scan.last``.
 """
 
 from __future__ import annotations
@@ -44,10 +47,11 @@ def schedule_scan(prog, state, pods, aux, carries):
     lib = build.load("schedule_scan")
     state, carries = chain.fresh_scan_state(state, carries)
     out = chain.empty_outputs(prog, pods.valid.shape[0], state.valid.shape[0], device)
-    prm = chain.chain_params(prog, state, pods, aux, carries, out)
-    chain.launch(lib, "ksim_schedule_scan", prm)
+    prm = chain.chain_params(prog, state, pods, aux, carries, out, cluster=True)
+    schedule_scan.last = chain.launch_cluster(lib, "ksim_schedule_scan", prm)
     schedule_scan.launches += 1
     return state, carries, out
 
 
 schedule_scan.launches = 0
+schedule_scan.last = None

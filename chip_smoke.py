@@ -43,7 +43,9 @@ Phases, in order; any failure exits non-zero before the last line:
    bound_ms are taken on one shape: A over the whole queue (selection),
    B fused over the whole queue (final), C on the 2048-pod full-record
    pass; C's whole-queue selection time is printed on its own line and
-   kept as the kernel's "queue_ms";
+   kept as the kernel's "queue_ms", beside its bound ("queue_bound_ms")
+   from the visit windows the queue needs, read off a rerun of the queue
+   one pod per launch;
 6. churn replay, the whole default profile: ScenarioRunner on
    churn_scenario(0, 2000 nodes, 6000 events, 100 ops per step) must give
    the behavior lock (6430 events, 2524 scheduled, 471 unschedulable) on
@@ -55,8 +57,14 @@ Phases, in order; any failure exits non-zero before the last line:
    final state) and on the first segment of the exact run, and row 6's
    standalone entry (derive_interpod) equals its plain version on the
    first segment's state; then the 50k flagship (52781 / 42829) through
-   kernel D, its host and kernel time apart.  D's and derive_interpod's
-   ms, plain ms and bound are taken on one segment of the 6k f32 run;
+   kernel D, its host and kernel time apart, and D on that run's fullest
+   segment against its plain version, timed beside its bound.  D's and derive_interpod's
+   ms, plain ms and bound are taken on one segment of the 6k f32 run.
+   Kernel D runs each lane on a thread-block cluster (16 blocks where the
+   card has room, else 8; the main path must get at least 8): its row
+   carries the cluster, the threads per block, the cluster barriers per
+   attempt and block 0's cycle share by phase of a step, counted on the
+   card, and D's time at clusters of 8 and 16 blocks;
 7. fleet replay (rows 10-11): ScenarioRunner(fleet=8, device_replay=True,
    preemption=True) on the 6k stream, in both cohort modes (dedupe: the
    leader's solo kernel-D launch fanned out; vmap, KSIM_FLEET_VMAP=1: one
@@ -67,7 +75,8 @@ Phases, in order; any failure exits non-zero before the last line:
    lane, the solo kernel-D launch on the same inputs, and a 2-lane fleet
    launch of that segment equals replay_segment_fleet_plain.  Rows
    10-11's ms and bound are the 8-lane launch's, its plain ms the 2-lane
-   plain version's on that segment;
+   plain version's on that segment; the row carries the cluster size the
+   occupancy query chose for 8 lanes;
 8. kernel D completed (record="full", the on-device victim search): the
    hand-derived preemption fixtures (tests/fixtures/preemption_victims.py)
    and a priority-strata churn on the device path equal the per-pass path
@@ -75,7 +84,12 @@ Phases, in order; any failure exits non-zero before the last line:
    annotations of a 24-node churn equal the per-pass path's, and kernel D
    equals its plain version on every segment of those runs; D's time in
    its preemption + full-record form is taken on the strata churn's
-   fullest searching segment.
+   fullest searching segment.  Then a preemption-heavy churn at 2000
+   nodes (tests/test_torch_gpu_replay.py preemption_churn_stream) on the
+   device path equals the per-pass path (steps, store with nominations,
+   evictions in order), at least one device segment's kernel D nominated,
+   that segment equals D's plain version, and the count of windows the
+   search's bounds sent per-pass (preemption_overflow) is reported.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds.
@@ -129,7 +143,12 @@ from test_torch_clusters import (  # noqa: E402
     spread_affinity_cluster,
     volume_cluster,
 )
-from test_torch_gpu_replay import case_objects, priority_strata_stream, store_view  # noqa: E402
+from test_torch_gpu_replay import (  # noqa: E402
+    case_objects,
+    preemption_churn_stream,
+    priority_strata_stream,
+    store_view,
+)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM
 # bandwidth, and the float32 rate outside the tensor cores, which this
@@ -161,17 +180,23 @@ SEGMENT_K = 16
 # ksim_tpu's own device lock asks the kernel to carry at least this many
 # of the 6k run's 41 steps (tests/test_replay_device.py).
 MIN_DEVICE_STEPS = 32
+# Phase 6: the cluster sizes kernel D is timed at.
+D_CLUSTER_SIZES = (8, 16)
 # Phase 7: the fleet's lanes, and the lanes of the plain comparison.
 FLEET_LANES = 8
 FLEET_PLAIN_LANES = 2
+# Phase 8: the preemption-heavy churn's node count.
+PREEMPT_NODES = 2000
 
+# Each kernel: its source, the ksim_tpu function it replaces, and the
+# rows of PERF.md's table of ksim_tpu's 11 device programs it carries.
 KERNELS = {
-    "schedule_scan": ("ksim_tpu_torch/csrc/schedule_scan.cu", "ksim_tpu/engine/core.py:790"),
-    "batch_eval": ("ksim_tpu_torch/csrc/batch_eval.cu", "ksim_tpu/engine/core.py:670"),
-    "schedule_sampled": ("ksim_tpu_torch/csrc/schedule_sampled.cu", "ksim_tpu/engine/core.py:750"),
-    "replay_segment": ("ksim_tpu_torch/csrc/replay_segment.cu", "ksim_tpu/engine/replay.py:492"),
-    "derive_interpod": ("ksim_tpu_torch/csrc/derive_interpod.cuh", "ksim_tpu/engine/replay.py:459"),
-    "replay_segment_fleet": ("ksim_tpu_torch/csrc/replay_segment.cu", "ksim_tpu/engine/replay.py:1244"),
+    "schedule_scan": ("ksim_tpu_torch/csrc/schedule_scan.cu", "ksim_tpu/engine/core.py:790", (1,)),
+    "batch_eval": ("ksim_tpu_torch/csrc/batch_eval.cu", "ksim_tpu/engine/core.py:670", (2, 3, 4)),
+    "schedule_sampled": ("ksim_tpu_torch/csrc/schedule_sampled.cu", "ksim_tpu/engine/core.py:750", (5,)),
+    "replay_segment": ("ksim_tpu_torch/csrc/replay_segment.cu", "ksim_tpu/engine/replay.py:492", (7, 8, 9)),
+    "derive_interpod": ("ksim_tpu_torch/csrc/derive_interpod.cuh", "ksim_tpu/engine/replay.py:459", (6,)),
+    "replay_segment_fleet": ("ksim_tpu_torch/csrc/replay_segment.cu", "ksim_tpu/engine/replay.py:1244", (10, 11)),
 }
 WRAPPERS = {"schedule_scan": schedule_scan, "batch_eval": batch_eval, "schedule_sampled": schedule_sampled}
 
@@ -365,6 +390,37 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sampled_queue_bound(prog, state, pods, aux, carries, start, n_real: int, whole, ops: dict, n_pods: int):
+    """Kernel C's bound on the whole queue under record="selection", from
+    the visit windows this run's data needs: the queue again one pod per
+    launch (untimed), each pod's window read off the rotating start it
+    leaves ((next - start) mod n_real nodes, all of them when it wraps
+    once round), its selections held equal to the whole-queue launch's.
+    The filters run on the visited pairs; the scores on k sampled feasible
+    pairs where the window stopped at the k-th feasible node, and on at
+    least one (the selected) where it covered every node."""
+    P = pods.valid.shape[0]
+    valid = pods.valid.cpu().numpy()
+    visited, scored, selected = 0, 0, []
+    for i in range(P):
+        state, carries, nxt, out = schedule_sampled(prog, state, pods.rows(i, i + 1), aux, carries, start, n_real,
+                                                    SAMPLING_K)
+        sel = int(out["selected"][0])
+        selected.append(sel)
+        if valid[i]:
+            window = (int(nxt) - int(start)) % n_real or n_real
+            visited += window
+            scored += SAMPLING_K if window < n_real else (1 if sel >= 0 else 0)
+        start = nxt
+    if not np.array_equal(np.array(selected, dtype=whole.selected.dtype), whole.selected):
+        raise AssertionError("kernel C one pod per launch differs from its whole-queue launch")
+    n_bytes = (tensor_bytes(state) + tensor_bytes(pods) + tensor_bytes(aux) + 4 * P
+               + tensor_bytes([state.requested, state.nonzero_requested, state.pod_count, carries]) + 4)
+    n_ops = (ops["sample"] + ops["commit"]) * n_pods * n_real + ops["filter"] * visited + ops["score"] * scored
+    bound, by = bound_ms(n_bytes, n_ops)
+    return bound, by, f"{visited} visited pairs, {scored} scored, {n_bytes} bytes"
+
+
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
@@ -500,12 +556,41 @@ def churn_phase(check: Check, card: str) -> dict:
     print(f"  derive_interpod equals its plain version on every segment's starting state "
           f"(matching-pod term counts {views})")
 
-    res50, drv50, wall50, what50 = churn_run(50_000, device_replay=True, exact=False)
+    segments50 = []
+
+    def capture50(st, prog, const, ev, state0):
+        held = {k: v.clone() for k, v in state0.items()}
+        final, outs = kernel(st, prog, const, ev, state0)
+        segments50.append((st, prog, const, ev, held, final, outs))
+        return final, outs
+
+    replay_mod.replay_segment = capture50
+    try:
+        res50, drv50, wall50, what50 = churn_run(50_000, device_replay=True, exact=False)
+    finally:
+        replay_mod.replay_segment = kernel
     host50 = {k: v for k, v in res50.phase_seconds.items() if k.startswith("replay.") or k == "runner.step"}
     print(f"  {what50}: {res50.pods_scheduled} scheduled, {res50.unschedulable_attempts} unschedulable (the "
           f"lock); {drv50.device_steps} steps on the card in {drv50.device_round_trips} launches, "
           f"{drv50.fallback_steps} per-pass; wall {wall50:.2f} s, kernel {drv50.kernel_ms:.1f} ms, "
           f"host phases {host50} {card}", flush=True)
+    # The 50k run's fullest segment: D's time there beside its bound.
+    st, prog, const, ev, state0, final, outs = max(
+        segments50, key=lambda seg: int((seg[6]["idx"] < seg[2]["pods"]["requests"].shape[0]).sum()))
+    ms50 = cuda_ms(lambda: kernel(st, prog, const, ev, state0), reps=3)
+    with PairCount(prog, const["pods"]["requests"].shape[0]) as count:
+        want_final, want_outs = replay_segment_plain(st, prog, const, ev, state0)
+    tree_equal(check, "replay_segment", "50k fullest segment outputs", outs, want_outs)
+    tree_equal(check, "replay_segment", "50k fullest segment final state", final, want_final)
+    bytes50, ops50 = segment_work(st, prog, const, ev, state0, outs, final, (count.pairs, count.feasible))
+    bound50, by50 = bound_ms(bytes50, ops50)
+    att50 = int((outs["idx"] < const["pods"]["requests"].shape[0]).sum())
+    shape50 = (f"K={st.k} x Q={st.q} x {const['node']['allocatable'].shape[0]} nodes x "
+               f"{const['pods']['requests'].shape[0]} pod rows, {att50} attempts")
+    segments50.clear()
+    print(f"  the 50k run's fullest segment ({shape50}): {ms50:.3f} ms per launch; bound {bound50:.4f} ms by {by50} "
+          f"({bytes50} bytes; {count.pairs} attempted pod x valid node pairs, {count.feasible} feasible); equal to "
+          f"D's plain version {card}", flush=True)
 
     # Timings on one segment of the 6k f32 run: the fullest one.
     pick = max(range(len(segments)), key=lambda i: int((segments[i][6]["idx"] < segments[i][2]["pods"]["requests"].shape[0]).sum()))
@@ -516,6 +601,23 @@ def churn_phase(check: Check, card: str) -> dict:
     attempted = idx[idx < P].long()
     n_att = int(attempted.numel())
     ms_d = cuda_ms(lambda: kernel(st, prog, const, ev, state0), reps=3)
+    d_ran = launch_notes(replay_segment.last)
+    if d_ran["cluster"] < 8:
+        raise AssertionError(f"kernel D ran on a cluster of {d_ran['cluster']} blocks on the main path")
+    ms_by_cluster = {}
+    for cs in D_CLUSTER_SIZES:
+        segment_mod.CLUSTER_SIZE = cs
+        try:
+            got_final, got_outs = kernel(st, prog, const, ev, state0)
+            tree_equal(check, "replay_segment", f"cluster of {cs}: segment {pick} outputs", got_outs, outs)
+            tree_equal(check, "replay_segment", f"cluster of {cs}: segment {pick} final state", got_final, final)
+            ms_by_cluster[cs] = cuda_ms(lambda: kernel(st, prog, const, ev, state0), reps=3)
+        finally:
+            segment_mod.CLUSTER_SIZE = 0
+    d_ran["ms_by_cluster"] = ms_by_cluster
+    print(f"  kernel D ran {d_ran['cluster']} blocks of {d_ran['threads']} threads ({d_ran['smem_bytes']} B shared "
+          f"memory each), {d_ran['barriers_per_attempt']:.2f} cluster barriers per attempt; by cluster size "
+          f"{ms_by_cluster} ms; block 0's cycles by phase: {shares(d_ran['phase_share'])} {card}", flush=True)
     mask = np.zeros(P, bool)
     mask[attempted.cpu().numpy()] = True
     ops = chain_pair_ops(const["aux"], prog.plugins, const["node"]["allocatable"].shape[1], mask)
@@ -559,7 +661,25 @@ def churn_phase(check: Check, card: str) -> dict:
         "replay_segment": (ms_d, plain_seg_ms[pick], d_bound, d_by, d_shape),
         "derive_interpod": (ms_v, plain_v, v_bound, v_by, v_shape),
         "solo_steps": solo_steps,
+        "d_ran": d_ran,
+        "kernel_ms": {"6k_f32": kernel_ms_6k, "50k_f32": drv50.kernel_ms, "50k_launches": drv50.device_round_trips},
+        "fullest_50k": {"ms": ms50, "bound_ms": bound50, "bound_by": by50, "shape": shape50},
     }
+
+
+def shares(share: dict) -> str:
+    return ", ".join(f"{name} {100 * x:.1f}%" for name, x in share.items() if x)
+
+
+def launch_notes(last: dict) -> dict:
+    """What a kernel-D launch ran (replay_segment.last): cluster, threads,
+    shared memory, the cluster barriers per attempt and block 0's share of
+    its cycles by phase, as the kernel counted them."""
+    stats = [int(x) for x in last["stats"].cpu()]
+    cycles = stats[2:]
+    return {"cluster": int(last["cluster"]), "threads": int(last["threads"]), "smem_bytes": int(last["smem_bytes"]),
+            "barriers_per_attempt": stats[0] / max(stats[1], 1), "attempts": stats[1],
+            "phase_share": {name: c / max(sum(cycles), 1) for name, c in zip(chain.CLUSTER_PHASES, cycles)}}
 
 
 def step_triples(res) -> list[tuple[int, int, int]]:
@@ -664,6 +784,7 @@ def fleet_phase(check: Check, card: str, solo_steps) -> dict:
     tree_equal(check, "replay_segment_fleet", f"{FLEET_PLAIN_LANES}-lane fleet outputs", got_outs, want_outs)
     tree_equal(check, "replay_segment_fleet", f"{FLEET_PLAIN_LANES}-lane fleet final state", got_final, want_final)
     ms_fleet = cuda_ms(lambda: fleet_kernel(st, prog, const, ev, state0), reps=3)
+    fleet_ran = launch_notes(replay_segment_fleet.last)
     ms_two = cuda_ms(lambda: fleet_kernel(st, prog, const, ev, two), reps=3)
     ms_solo = cuda_ms(lambda: replay_segment(st, prog, const, ev, lane0), reps=3)
     # Bound: every lane's needed work (the plain run counted two lanes'
@@ -677,6 +798,8 @@ def fleet_phase(check: Check, card: str, solo_steps) -> dict:
     N = const["node"]["allocatable"].shape[0]
     n_att = int((outs["idx"][0] < P).sum())
     f_shape = f"{FLEET_LANES} lanes x K={st.k} x Q={st.q} x {N} nodes x {P} pod rows, {n_att} attempts per lane"
+    print(f"  the {FLEET_LANES}-lane launch ran {fleet_ran['cluster']} blocks of {fleet_ran['threads']} threads per "
+          f"lane (the occupancy query's choice)")
     print(f"  replay_segment_fleet (rows 10-11), {f_shape}: {ms_fleet:.3f} ms per launch; the solo launch "
           f"{ms_solo:.3f} ms ({ms_fleet / ms_solo:.2f}x); {FLEET_PLAIN_LANES} lanes {ms_two:.3f} ms; plain "
           f"{FLEET_PLAIN_LANES} lanes {plain_ms:.1f} ms; bound {f_bound:.4f} ms by {f_by} ({f_bytes} bytes) {card}")
@@ -688,7 +811,8 @@ def fleet_phase(check: Check, card: str, solo_steps) -> dict:
         "plain_ms": plain_ms,
         "extra": {"plain_shape": f"{FLEET_PLAIN_LANES} lanes of the same segment",
                   f"ms_{FLEET_PLAIN_LANES}_lanes": ms_two, "solo_ms_same_segment": ms_solo,
-                  "dedupe_launches": counts["dedupe"]["replay_segment"]},
+                  "dedupe_launches": counts["dedupe"]["replay_segment"],
+                  "cluster": fleet_ran["cluster"], "threads": fleet_ran["threads"]},
     }
 
 
@@ -771,6 +895,8 @@ def completed_d_phase(check: Check, card: str) -> dict:
     finally:
         replay_mod.replay_segment = kernel
 
+    preempt = preemption_churn_phase(check, card)
+
     # D in its preemption + full-record form: the strata churn's segment
     # with the most victim searches.
     segs = strata["full"]
@@ -793,7 +919,60 @@ def completed_d_phase(check: Check, card: str) -> dict:
           f"plain {start.elapsed_time(end):.1f} ms; bound {bound:.5f} ms by {by} {card}")
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
     return {"preempt_full_ms": ms, "preempt_full_plain_ms": start.elapsed_time(end),
-            "preempt_full_bound_ms": bound, "preempt_full_shape": shape}
+            "preempt_full_bound_ms": bound, "preempt_full_shape": shape, **preempt}
+
+
+def preemption_churn_phase(check: Check, card: str) -> dict:
+    """The preemption-heavy churn at PREEMPT_NODES nodes: the device path
+    (kernel D's victim search) against the per-pass path."""
+    t = time.perf_counter()
+    segments = []
+    kernel = replay_mod.replay_segment
+
+    def capture(st, prog, const, ev, state0):
+        held = {k: v.clone() for k, v in state0.items()}
+        final, outs = kernel(st, prog, const, ev, state0)
+        segments.append((st, prog, const, ev, held, final, outs))
+        return final, outs
+
+    outcome, walls = {}, {}
+    for device_replay in (True, False):
+        runner = ScenarioRunner(preemption=True, device_replay=device_replay, device_segment_steps=SEGMENT_K,
+                                max_pods_per_pass=1024, pod_bucket_min=128, exact=False, device=DEVICE)
+        evicted = []
+        runner.service.add_eviction_listener(lambda ns, nm: evicted.append(nm))
+        replay_mod.replay_segment = capture if device_replay else kernel
+        t0 = time.perf_counter()
+        try:
+            res = runner.run(preemption_churn_stream(n_nodes=PREEMPT_NODES))
+        finally:
+            replay_mod.replay_segment = kernel
+        walls[device_replay] = time.perf_counter() - t0
+        outcome[device_replay] = (step_triples(res), store_view(runner), evicted)
+        if device_replay:
+            drv = runner.replay_driver
+            scheduled, unsched = res.pods_scheduled, res.unschedulable_attempts
+    if outcome[True] != outcome[False]:
+        raise AssertionError(f"{PREEMPT_NODES}-node preemption churn: the device path differs from the per-pass path")
+    nominating = [seg for seg in segments if seg[0].preempt and bool((seg[6]["nom"] >= 0).any())]
+    if not nominating:
+        raise AssertionError(f"{PREEMPT_NODES}-node preemption churn: no device segment's kernel D nominated "
+                             f"({drv.unsupported})")
+    st, prog, const, ev, state0, final, outs = nominating[0]
+    want_final, want_outs = replay_segment_plain(st, prog, const, ev, state0)
+    tree_equal(check, "replay_segment", "preemption churn's nominating segment outputs", outs, want_outs)
+    tree_equal(check, "replay_segment", "preemption churn's nominating segment final state", final, want_final)
+    overflow = drv.unsupported.get("preemption_overflow", 0)
+    evictions = len(outcome[True][2])
+    print(f"  preemption churn, {PREEMPT_NODES} nodes: device path equals per-pass ({scheduled} scheduled, "
+          f"{unsched} unschedulable, {evictions} evictions in order); {drv.device_steps} steps on the card, "
+          f"{drv.fallback_steps} per-pass, {len(nominating)} device segments nominated "
+          f"({int((outs['nom'] >= 0).sum())} nominations in the first, equal to D's plain version); "
+          f"preemption_overflow fallbacks {overflow}; walls device {walls[True]:.1f} s, per-pass "
+          f"{walls[False]:.1f} s ({time.perf_counter() - t:.1f} s) {card}", flush=True)
+    return {"preempt_churn": {"nodes": PREEMPT_NODES, "evictions": evictions, "nominating_segments": len(nominating),
+                              "device_steps": drv.device_steps, "fallback_steps": drv.fallback_steps,
+                              "preemption_overflow": overflow}}
 
 
 def main() -> int:
@@ -1030,9 +1209,6 @@ def main() -> int:
         share = {name: c / max(sum(cycles), 1) for name, c in zip(chain.CLUSTER_PHASES, cycles)}
         return counts[0], counts[1], share
 
-    def shares(share: dict) -> str:
-        return ", ".join(f"{name} {100 * x:.1f}%" for name, x in share.items() if x)
-
     # Kernels A and C at each cluster size: held equal to the plain
     # versions, then timed.
     by_cluster = {}
@@ -1109,6 +1285,8 @@ def main() -> int:
     c_ops = ((ops_c["sample"] + ops_c["commit"]) * n_pods_2k * n_real + ops_c["filter"] * visit_pairs
              + ops_c["score"] * sample_pairs)
     c_bound, c_by = bound_ms(c_bytes, c_ops)
+    cq_bound, cq_by, cq_note = sampled_queue_bound(sprog, state0, pods0, aux, carries0, start0, n_real, res_samp,
+                                                   pair_ops(sampled), n_pods)
     pairs = n_pods * n_real
     print(f"  schedule_scan (kernel A), {P} x {N} selection: {ms_a:.3f} ms per pass, "
           f"{pairs / (ms_a / 1e3):.4g} real pod-node pairs/s {card}")
@@ -1125,6 +1303,7 @@ def main() -> int:
     print(f"  schedule_sampled (kernel C), {P} x {N} selection (whole queue), k={SAMPLING_K}: "
           f"{ms_c_queue:.3f} ms per pass, cluster of {auto_cs} {card}")
     print(f"  schedule_sampled plain, {P2} x {N} full: {plain_ms['schedule_sampled']:.1f} ms {card}")
+    print(f"  schedule_sampled whole-queue bound: {cq_bound:.4f} ms by {cq_by} ({cq_note})")
     print(f"  schedule_sampled bound: {c_bound:.4f} ms by {c_by} ({c_bytes} bytes; "
           f"{ops_c['sample'] + ops_c['commit']:.1f} ops per real pair, {ops_c['filter']:.1f} per pair "
           f"on {visit_pairs} visited pairs, {ops_c['score']:.1f} per scored pair on {sample_pairs} "
@@ -1171,7 +1350,8 @@ def main() -> int:
                                "barriers_per_pod": by_cluster[auto_cs]["a_barriers_per_pod"],
                                "phase_share": by_cluster[auto_cs]["a_phase_share"],
                                "ms_by_cluster": {cs: r["a_ms"] for cs, r in by_cluster.items()}},
-             "schedule_sampled": {"cluster": auto_cs, "queue_ms": ms_c_queue,
+             "schedule_sampled": {"cluster": auto_cs, "queue_ms": ms_c_queue, "queue_bound_ms": cq_bound,
+                                  "queue_bound_by": cq_by,
                                   "queue_shape": f"{P}x{N} selection, k={SAMPLING_K}",
                                   "queue_us_per_real_pod": by_cluster[auto_cs]["c_queue_us_per_real_pod"],
                                   "queue_barriers_per_pod": by_cluster[auto_cs]["c_queue_barriers_per_pod"],
@@ -1180,7 +1360,8 @@ def main() -> int:
                                   "queue_ms_by_cluster": {cs: r["c_queue_ms"] for cs, r in by_cluster.items()}},
              "derive_interpod": {"launches_are": "runs inside replay_segment, counted on the card",
                                  "standalone_launches": 0},
-             "replay_segment": completed,
+             "replay_segment": {**churn["d_ran"], "kernel_ms": churn["kernel_ms"],
+                                "fullest_50k": churn["fullest_50k"], **completed},
              "replay_segment_fleet": {"launches_are": "launches on the vmap leg of phase 7", **fleet["extra"]}}
     kernels = [
         {
@@ -1196,9 +1377,10 @@ def main() -> int:
             "bound_by": measured[name][2],
             "library_ms": None,
             "shape": measured[name][3],
+            "rows": list(rows),
             **notes.get(name, {}),
         }
-        for name, (source, replaces) in KERNELS.items()
+        for name, (source, replaces, rows) in KERNELS.items()
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

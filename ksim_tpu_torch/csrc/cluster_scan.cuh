@@ -1,5 +1,6 @@
 // The sequential-commit scan on a thread-block cluster, for sm_90a: the
-// body of kernels A (schedule_scan.cu) and C (schedule_sampled.cu).
+// body of kernels A (schedule_scan.cu) and C (schedule_sampled.cu), and
+// the team kernel D (replay_segment.cu) evaluates its pods with.
 //
 // The scan is sequential across pods, not across nodes, so one pod's node
 // axis is spread over a cluster of Cs blocks (Cs = 16 where one such
@@ -118,6 +119,8 @@ struct ClusterTeam {
     return static_cast<unsigned>(c % size) == rank &&
            ((((c / size) << 5) | (n & 31)) % blockDim.x) == threadIdx.x;
   }
+  // This block holds node n (one of its threads owns it).
+  __device__ bool holds(long long n) const { return static_cast<unsigned>((n >> 5) % size) == rank; }
   __device__ bool leader() const { return rank == 0; }
   __device__ void mark(int next) {
     if (!timer) return;
@@ -307,13 +310,14 @@ struct ClusterTeam {
   }
 };
 
-__device__ inline ClusterTeam make_cluster_team(const ChainParams& P) {
+// The team over a node axis of N (padded) nodes.
+__device__ inline ClusterTeam make_cluster_team(long long N) {
   cg::cluster_group cl = cg::this_cluster();
   ClusterTeam team;
   team.rank = cl.block_rank();
   team.size = cl.num_blocks();
   team.T = static_cast<long long>(team.size) * blockDim.x;
-  team.L = (P.N + team.T - 1) / team.T * blockDim.x;
+  team.L = (N + team.T - 1) / team.T * blockDim.x;
   return team;
 }
 
@@ -352,7 +356,7 @@ __device__ inline Smem carve_cluster(unsigned char* base, const ChainParams& P, 
 template <bool SAMPLED, int MAXT>
 __global__ void __launch_bounds__(MAXT, 1) cluster_scan_kernel(const ChainParams P, long long* stats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  ClusterTeam team = make_cluster_team(P);
+  ClusterTeam team = make_cluster_team(P.N);
   Smem s = carve_cluster(smem_raw, P, team);
   team.tot = s.ipa_tot;
   team.timer = stats != nullptr && team.rank == 0 && threadIdx.x == 0;

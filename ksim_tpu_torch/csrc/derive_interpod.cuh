@@ -12,21 +12,28 @@
 //
 // A key whose every domain holds one node (hostname) is a singleton key:
 // a domain's sum is the node's own value, so it needs no domain array.
-// Other keys sum into a per-block domain scratch with integer atomicAdd
-// (order-independent, so the sums are exact) over compact per-key domain
-// indices (ldom, [0, DK)): [3, T2, DK] ints, in shared memory when they fit
-// and in a global buffer beyond that.  The caller runs this with the whole
-// block and orders it against readers of the view with a barrier.
+// Other keys sum over compact per-key domain indices (ldom, [0, DK)).
+//
+// On a thread-block cluster (kernel D's team, cluster_scan.cuh): each
+// block sums the nodes it holds into its own partial scratch, [3, T2, DK]
+// domain sums then [T2] totals, with integer atomicAdd (order-independent,
+// so the sums are exact); after one cluster barrier every block adds all
+// Cs partials into its own combined copy (through distributed shared
+// memory, or past L1 from the ranks' rows of a global buffer when the
+// scratch is too large for shared memory), then writes the view rows of
+// the nodes it holds and its copy of the totals.  A closing cluster
+// barrier lets the next run overwrite a partial that other blocks read.
+// The scratch is in shared memory when both copies fit
+// kernels/replay_segment.py DERIVE_SMEM_BYTES (dsmem).  The standalone
+// entry runs the same code on one block.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace ksim {
+#include "cluster_scan.cuh"
 
-constexpr int MAX_TKI = 16;  // inter-pod topology keys
-// Domain scratch up to this many bytes lives in shared memory.
-constexpr long long DERIVE_SMEM_BYTES = 32768;
+namespace ksim {
 
 // Every field is 8 bytes wide: the ctypes mirror (kernels/replay_segment.py)
 // has no padding to agree on.
@@ -38,19 +45,20 @@ struct DeriveParams {
   const int32_t* dom_t;  // [N, T2] domain per term, -1 = key missing
   const int32_t* term_tk;  // [T2] topology key per term
   const int32_t* ldom;  // [N, TKI] compact domain of a non-singleton key, -1 = key missing
+  const uint8_t* singleton;  // [TKI] per key: every domain is one node
   int32_t* cnt;  // [N, T2] out
   int32_t* ecnt;  // [N, T2] out
   int32_t* ew;  // [N, T2] out
-  int32_t* total;  // [T2] out
-  int32_t* scratch;  // [3 * T2 * DK] when not in shared memory
+  int32_t* total;  // [T2] out (written by rank 0)
+  int32_t* scratch;  // [MAX_CLUSTER, 2 * derive_scratch_ints] when not in shared memory
   long long N, T2, TKI, DK, dsmem;
-  long long singleton[MAX_TKI];  // per key: every domain is one node
 };
 
-__host__ __device__ inline long long derive_scratch_ints(const DeriveParams& D) { return 3 * D.T2 * D.DK; }
+// One block's partial: [3, T2, DK] domain sums, then [T2] totals.
+__host__ __device__ inline long long derive_scratch_ints(const DeriveParams& D) { return 3 * D.T2 * D.DK + D.T2; }
 
 __host__ __device__ inline long long derive_smem_bytes(const DeriveParams& D) {
-  return D.dsmem ? 4 * derive_scratch_ints(D) : 0;
+  return D.dsmem ? 2 * 4 * derive_scratch_ints(D) : 0;
 }
 
 // The term's key when it is a key of the vocabulary, else -1 (the term
@@ -60,39 +68,53 @@ __device__ inline int derive_key(const DeriveParams& D, long long t) {
   return (k >= 0 && k < D.TKI) ? k : -1;
 }
 
-// smem: the block's dynamic shared memory for the scratch (used when dsmem).
-__device__ inline void derive_interpod(const DeriveParams& D, int32_t* smem) {
-  int32_t* scr = D.dsmem ? smem : D.scratch;
-  const long long T2 = D.T2, DK = D.DK;
-  // 1. zero the scratch of non-singleton terms, and the totals.
-  for (long long i = threadIdx.x; i < T2 * DK; i += blockDim.x) {
-    const long long t = i / DK;
-    const int k = derive_key(D, t);
-    if (k < 0 || D.singleton[k]) continue;
-    scr[i] = 0;
-    scr[T2 * DK + i] = 0;
-    scr[2 * T2 * DK + i] = 0;
-  }
-  for (long long t = threadIdx.x; t < T2; t += blockDim.x) D.total[t] = 0;
+// Run by every block of the team's cluster.  smem: the block's dynamic
+// shared memory for the scratch (used when dsmem); tot [T2]: the block's
+// copy of the totals (shared memory).
+__device__ inline void derive_interpod(const DeriveParams& D, ClusterTeam& team, int32_t* smem, int32_t* tot) {
+  const long long T2 = D.T2, DK = D.DK, n3 = 3 * T2 * DK, ni = n3 + T2;
+  int32_t* part = D.dsmem ? smem : D.scratch + team.rank * 2 * ni;
+  int32_t* comb = part + ni;
+  // 1. this block's partial sums over the nodes it holds.
+  for (long long i = threadIdx.x; i < ni; i += blockDim.x) part[i] = 0;
   __syncthreads();
-  // 2. per-domain sums (non-singleton keys) and the keyed-node totals.
-  for (long long n = threadIdx.x; n < D.N; n += blockDim.x) {
+  for (long long li = threadIdx.x; li < team.L; li += blockDim.x) {
+    const long long n = team.node(li);
+    if (n >= D.N) continue;
     for (long long t = 0; t < T2; ++t) {
       const long long nt = n * T2 + t;
-      if (D.dom_t[nt] >= 0 && D.loc_cnt[nt] != 0) atomicAdd(&D.total[t], D.loc_cnt[nt]);
+      const int c = D.loc_cnt[nt];
+      if (D.dom_t[nt] >= 0 && c != 0) atomicAdd(&part[n3 + t], c);
       const int k = derive_key(D, t);
       if (k < 0 || D.singleton[k]) continue;
       const int l = D.ldom[n * D.TKI + k];
       if (l < 0) continue;
       const long long at = t * DK + l;
-      if (D.loc_cnt[nt] != 0) atomicAdd(&scr[at], D.loc_cnt[nt]);
-      if (D.loc_eat[nt] != 0) atomicAdd(&scr[T2 * DK + at], D.loc_eat[nt]);
-      if (D.loc_vw[nt] != 0) atomicAdd(&scr[2 * T2 * DK + at], D.loc_vw[nt]);
+      const int e = D.loc_eat[nt], w = D.loc_vw[nt];
+      if (c != 0) atomicAdd(&part[at], c);
+      if (e != 0) atomicAdd(&part[T2 * DK + at], e);
+      if (w != 0) atomicAdd(&part[2 * T2 * DK + at], w);
     }
   }
+  team.sync();
+  // 2. every block's partials into this block's combined copy.  The global
+  // rows were written on other SMs: read past L1.
+  cg::cluster_group cl = cg::this_cluster();
+  for (long long i = threadIdx.x; i < ni; i += blockDim.x) {
+    int acc = 0;
+    for (unsigned q = 0; q < team.size; ++q)
+      acc = wrap_add(acc, D.dsmem ? cl.map_shared_rank(part, q)[i] : __ldcg(D.scratch + q * 2 * ni + i));
+    comb[i] = acc;
+  }
   __syncthreads();
-  // 3. the view, each node's row by its owner.
-  for (long long n = threadIdx.x; n < D.N; n += blockDim.x) {
+  for (long long t = threadIdx.x; t < T2; t += blockDim.x) {
+    tot[t] = comb[n3 + t];
+    if (team.rank == 0) D.total[t] = comb[n3 + t];
+  }
+  // 3. the view rows of the nodes this block holds, each by its owner.
+  for (long long li = threadIdx.x; li < team.L; li += blockDim.x) {
+    const long long n = team.node(li);
+    if (n >= D.N) continue;
     for (long long t = 0; t < T2; ++t) {
       const long long nt = n * T2 + t;
       const int k = derive_key(D, t);
@@ -104,9 +126,9 @@ __device__ inline void derive_interpod(const DeriveParams& D, int32_t* smem) {
           w = D.loc_vw[nt];
         } else {
           const long long at = t * DK + D.ldom[n * D.TKI + k];
-          c = scr[at];
-          e = scr[T2 * DK + at];
-          w = scr[2 * T2 * DK + at];
+          c = comb[at];
+          e = comb[T2 * DK + at];
+          w = comb[2 * T2 * DK + at];
         }
       }
       D.cnt[nt] = c;
@@ -114,7 +136,7 @@ __device__ inline void derive_interpod(const DeriveParams& D, int32_t* smem) {
       D.ew[nt] = w;
     }
   }
-  __syncthreads();
+  team.sync();  // every block has read every partial, and tot is the block's
 }
 
 }  // namespace ksim

@@ -5,13 +5,13 @@
 // sequential-commit scan) and schedule_sampled.cu (kernel C, the scan with
 // percentageOfNodesToScore sampling).  A "team" evaluates one pod at a
 // time, and its type says how the node axis is owned and reduced:
-//  - BlockTeam (B, D): one thread block; thread t owns nodes t,
+//  - BlockTeam (B): one thread block; thread t owns nodes t,
 //    t + blockDim.x, ... (so the per-node records a warp writes are
 //    contiguous), and the node-axis reductions (domain statistics,
 //    normalize extrema, selectHost's argmax) run in-block;
-//  - ClusterTeam (A, C; cluster_scan.cuh): a thread-block cluster, each
-//    block owning a share of the node axis, its reductions crossing the
-//    cluster through distributed shared memory.
+//  - ClusterTeam (A, C, D; cluster_scan.cuh): a thread-block cluster,
+//    each block owning a share of the node axis, its reductions crossing
+//    the cluster through distributed shared memory.
 // A team's node slots li = threadIdx.x, threadIdx.x + blockDim.x, ... map
 // to nodes through team.node(li); the per-node shared-memory arrays are
 // indexed by slot.
@@ -75,7 +75,7 @@
 //  - TIES: selectHost takes the max total, ties to the LOWEST node index;
 //    padding nodes (valid == false) are never feasible and never enter a
 //    normalize extremum.  The replay kernel (D) breaks ties by the minimal
-//    canonical rank instead (eval_pod's RANKED).
+//    canonical rank instead (eval_pod_team's RANKED).
 #pragma once
 
 #include <climits>
@@ -411,7 +411,8 @@ enum DomPart : int { F_SUM = 0, F_PRES = 1, S_REG = 2, S_SUM = 3 };
 
 struct Spread;
 
-// The phases of a pod a cluster team times (ClusterTeam::mark): each
+// The phases a cluster team times (ClusterTeam::mark): those of a pod,
+// then (kernel D) those of a replay step around its pods.  Each
 // reduction's phase includes its wait for the cluster's slowest block.
 enum Phase : int {
   PH_SETUP = 0,
@@ -424,10 +425,15 @@ enum Phase : int {
   PH_NORMALIZE,  // normalizes, totals, the selection key
   PH_SELECT,  // selectHost's maximum across the team
   PH_COMMIT,  // the commit, up to the next pod
+  PH_EVENTS,  // kernel D: a step's events
+  PH_QUEUE,  // kernel D: the flush, the backoff test and the queue
+  PH_DERIVE,  // kernel D: InterPodAffinity's domain view (row 6)
+  PH_SEARCH,  // kernel D: DefaultPreemption's pass and victim searches
+  PH_STEP_END,  // kernel D: binds, backoff and the step's outputs
   NPHASES,
 };
 
-// One thread block is the team (kernels B and D): every node is a slot of
+// One thread block is the team (kernel B): every node is a slot of
 // the block, the reductions are block_reduce / block_max_u64, and the
 // per-domain atomics are read where they landed after a block barrier.
 struct BlockTeam {
@@ -827,13 +833,6 @@ __device__ inline void spread_filter_stats(const ChainParams& P, const Spread& s
   }
 }
 
-// The block's own (kernel D's victim search).
-__device__ inline void spread_filter_stats(const ChainParams& P, const Spread& sp, long long j, Smem& s,
-                                           int* min_match) {
-  BlockTeam team;
-  spread_filter_stats(P, sp, j, s, min_match, team);
-}
-
 // Filter phase 2: the reason code at node n (first failing constraint).
 __device__ inline int spread_filter_code(const ChainParams& P, const Spread& sp, const Smem& s,
                                          const int* min_match, long long n, uint8_t fl) {
@@ -976,7 +975,6 @@ __device__ inline Interpod interpod_pod(const ChainParams& P, long long j, const
   return ip;
 }
 
-__device__ inline Interpod interpod_pod(const ChainParams& P, long long j) { return interpod_pod(P, j, P.ipa_total); }
 
 // The reason code at node n; checks in upstream order.
 __device__ inline int interpod_code(const ChainParams& P, const Interpod& ip, long long n) {
@@ -1433,12 +1431,10 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
   return P.pvalid[p] ? key_node(best) : -1;
 }
 
-// The block's own (kernels B and D).
-template <bool RANKED = false>
-__device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s, const int32_t* rank = nullptr,
-                               long long orow = -1) {
+// The block's own (kernel B).
+__device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s) {
   BlockTeam team;
-  return eval_pod_team<false, RANKED>(P, p, s, team, rank, orow);
+  return eval_pod_team<false, false>(P, p, s, team, nullptr, -1);
 }
 
 // ---- the commit (kernels A, C and D) ------------------------------------------
@@ -1491,12 +1487,6 @@ __device__ inline void commit_pod(const ChainParams& P, long long p, int best, T
     }
     team.commit_total(P, db, base);
   }
-}
-
-// The block's own (kernel D).
-__device__ inline void commit_pod(const ChainParams& P, long long p, int best) {
-  BlockTeam team;
-  commit_pod(P, p, best, team);
 }
 
 }  // namespace ksim

@@ -405,33 +405,51 @@ class Engine:
                 "(batch evaluation has no sequential visit order)"
             )
 
-    def evaluate_batch_chunks(self, *, chunk: int | None = None):
-        """Yield ``(start, device_out)`` per contiguous pod chunk — the
-        streaming form of ``evaluate_batch`` (one kernel launch each)."""
+    def evaluate_batch_chunks(self, *, chunk: int | None = None, partition: bool = False):
+        """Yield one device result per contiguous pod chunk (one kernel
+        launch each): the streaming form of ``evaluate_batch``.  The key
+        is the chunk's start, or with ``partition=True`` the int64 array
+        of its original pod positions, the reference's contract for its
+        classed chunks.  The reference classes pods because a skipped
+        plugin under vmap still costs its select; the kernel's chain
+        skips per pod what a pod cannot fail, so here the classes would
+        run the one program in another row order, and the chunks stay
+        contiguous."""
         self._refuse_sampling()
         P = int(self._pods.valid.shape[0])
         chunk = min(P, chunk or self._default_batch_chunk())
         carries = self._prog.init_carries(self._aux)
         for s in range(0, P, chunk):
-            yield s, self._batch_fn(
+            out = self._batch_fn(
                 self._prog, self._node_state, self._pods.rows(s, s + chunk), self._aux, carries
             )
+            yield (np.arange(s, min(s + chunk, P), dtype=np.int64) if partition else s), out
 
-    def evaluate_batch(self, *, chunk: int | None = None) -> EngineResult:
+    def evaluate_batch(self, *, chunk: int | None = None, partition: bool = False) -> EngineResult:
         """All pods x nodes against the fixed snapshot (no state commit),
         pod-chunked so the recorded tensors never exceed one chunk's
-        worth of device memory; chunks stream to host and concatenate."""
-        outs = [_pull_tree_to_host(out) for _s, out in self.evaluate_batch_chunks(chunk=chunk)]
+        worth of device memory; chunks stream to host and concatenate in
+        pod order (``partition`` as in ``evaluate_batch_chunks``)."""
+        outs = [_pull_tree_to_host(out)
+                for _key, out in self.evaluate_batch_chunks(chunk=chunk, partition=partition)]
         return self._to_result({k: np.concatenate([o[k] for o in outs]) for k in outs[0]})
 
-    def evaluate_batch_fused(self) -> EngineResult:
+    def evaluate_batch_fused(self, *, block: int = 256) -> EngineResult:
         """The whole pod axis in one kernel launch, for the bounded-size
-        record modes; record="full" must stream through evaluate_batch."""
+        record modes; record="full" must stream through evaluate_batch.
+        ``block`` is the reference's pods per vmap block, clamped to the
+        pod axis and halved until it divides it: here the plain version's
+        pods per step (the kernel runs one pod per thread block whatever
+        its value)."""
         if self._record == "full":
             raise ValueError("record='full' results must stream: use evaluate_batch")
         self._refuse_sampling()
+        P = int(self._pods.valid.shape[0])
+        block = max(1, min(block, P))
+        while P % block:
+            block //= 2
         out = self._batch_fn(
-            self._prog, self._node_state, self._pods, self._aux, self._prog.init_carries(self._aux)
+            self._prog, self._node_state, self._pods, self._aux, self._prog.init_carries(self._aux), block=block
         )
         return self._to_result(_pull_tree_to_host(out))
 

@@ -18,11 +18,12 @@ from ksim_tpu_torch.kernels import build, chain
 PLAIN_BLOCK = 256
 
 
-def batch_eval_plain(prog, state, pods, aux, carries):
-    """The plain PyTorch version: the chain batched over blocks of pods."""
+def batch_eval_plain(prog, state, pods, aux, carries, block: int = PLAIN_BLOCK):
+    """The plain PyTorch version: the chain batched over ``block`` pods at
+    a time."""
     outs = []
-    for s in range(0, pods.valid.shape[0], PLAIN_BLOCK):
-        blk = pods.rows(s, s + PLAIN_BLOCK)
+    for s in range(0, pods.valid.shape[0], block):
+        blk = pods.rows(s, s + block)
         ok, bits, raw, final, total = prog.eval_block(state, blk.view(), aux, carries)
         best = torch.where(blk.valid, prog.select(ok, total), -1)
         outs.append(prog.pod_outputs(blk.valid, best, bits, raw, final, total))
@@ -31,10 +32,12 @@ def batch_eval_plain(prog, state, pods, aux, carries):
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
-def batch_eval(prog, state, pods, aux, carries):
+def batch_eval(prog, state, pods, aux, carries, block: int = PLAIN_BLOCK):
+    """``block``: the plain version's pods per step; the kernel runs one
+    pod per thread block."""
     device = state.valid.device
     if device.type == "cpu":
-        return batch_eval_plain(prog, state, pods, aux, carries)
+        return batch_eval_plain(prog, state, pods, aux, carries, block)
     if device.type != "cuda":
         raise ValueError(f"batch_eval runs on cpu or cuda, not {device}")
     lib = build.load("batch_eval")

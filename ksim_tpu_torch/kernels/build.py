@@ -31,10 +31,17 @@ NVCC_FLAGS = (
 )
 
 # The entry points' C signatures: (params, stream), and for the cluster
-# scans (kernels A and C) also (cluster size, threads, stats, info).
+# launches (kernels A, C and D) also (cluster size, threads, stats, info);
+# kernel D's takes its lanes' device params and their count before the
+# stream.
 _ENTRY_ARGS = (ctypes.c_void_p, ctypes.c_void_p)
-_CLUSTER_ARGS = _ENTRY_ARGS + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong))
-ARGTYPES = {"schedule_scan": _CLUSTER_ARGS, "schedule_sampled": _CLUSTER_ARGS}
+_CLUSTER = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong))
+_CLUSTER_ARGS = _ENTRY_ARGS + _CLUSTER
+ARGTYPES = {
+    "schedule_scan": _CLUSTER_ARGS,
+    "schedule_sampled": _CLUSTER_ARGS,
+    "replay_segment": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p) + _CLUSTER,
+}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

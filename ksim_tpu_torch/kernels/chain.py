@@ -50,10 +50,12 @@ CLUSTER_SIZE = 0
 CLUSTER_THREADS = 0
 MAX_CLUSTER = 16
 MAX_THREADS = 1024
-# The phases of a pod the cluster kernels time (plugin_chain.cuh Phase),
-# in the order of their cycle counts in ``launch_cluster``'s stats.
+# The phases the cluster kernels time (plugin_chain.cuh Phase), in the
+# order of their cycle counts in ``launch_cluster``'s stats: those of a
+# pod, then (kernel D) those of a replay step around its pods.
 CLUSTER_PHASES = ("setup", "spread filter stats", "filters", "visit window", "spread score stats", "scores",
-                  "extrema reduce", "normalize", "select reduce", "commit")
+                  "extrema reduce", "normalize", "select reduce", "commit",
+                  "events", "flush and queue", "row 6", "victim search", "step end")
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -483,6 +485,14 @@ def check_smem(prm: ChainParams, *, extra: int = 0, cluster: int = 0, threads: i
         )
 
 
+def check_cluster_shape(size: int, threads: int) -> None:
+    """Raise ValueError for a forced cluster size or block width a cluster
+    launch cannot take (0 leaves each to the launch)."""
+    if not 0 <= size <= MAX_CLUSTER or not (0 <= threads <= MAX_THREADS and threads % 32 == 0):
+        raise ValueError(f"cluster size {size} / threads {threads}: 0..{MAX_CLUSTER} blocks, "
+                         f"0..{MAX_THREADS} threads in whole warps")
+
+
 def launch_cluster(lib, entry: str, prm: ChainParams) -> dict:
     """Call a cluster-scan ``entry`` (kernels A and C) on the current
     stream with CLUSTER_SIZE and CLUSTER_THREADS; raise on a nonzero
@@ -494,9 +504,7 @@ def launch_cluster(lib, entry: str, prm: ChainParams) -> dict:
     over the shared-memory bound of the smallest cluster the launch may
     take raises ValueError before the launch."""
     size, threads = CLUSTER_SIZE, CLUSTER_THREADS
-    if not 0 <= size <= MAX_CLUSTER or not (0 <= threads <= MAX_THREADS and threads % 32 == 0):
-        raise ValueError(f"cluster size {size} / threads {threads}: 0..{MAX_CLUSTER} blocks, "
-                         f"0..{MAX_THREADS} threads in whole warps")
+    check_cluster_shape(size, threads)
     check_smem(prm, cluster=size or 8, threads=threads)
     stats = torch.zeros(2 + len(CLUSTER_PHASES), dtype=torch.int64, device="cuda")
     info = (ctypes.c_longlong * 3)()

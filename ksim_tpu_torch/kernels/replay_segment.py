@@ -41,8 +41,17 @@ engine/core.py ``_Program.dtypes`` (rows that no attempt used are 0).
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device
 launch csrc/replay_segment.cu (kernel D, and its standalone
-``derive_interpod`` entry).  A kernel that fails to build or launch
-raises; it never falls back to the plain version.
+``derive_interpod`` entry).  Each lane of kernel D runs on one
+thread-block cluster: the solo launch takes 16 blocks where the card's
+occupancy query finds room, else 8; the fleet launch the largest of 16, 8,
+4 and 2 at which every lane's cluster is resident at once
+(``choose_cluster``, from the card's answers per size).  ``CLUSTER_SIZE`` and
+``CLUSTER_THREADS`` force a size and a block width, for tests and timing;
+what the last launch ran (cluster, threads, shared memory, and the stats
+counted on the card) is kept in ``replay_segment.last`` and
+``replay_segment_fleet.last``.  A kernel that fails to build or launch
+raises, a refused cluster launch included; it never falls back to a
+smaller launch or to the plain version.
 """
 
 from __future__ import annotations
@@ -58,13 +67,24 @@ from ksim_tpu_torch.plugins.base import NodeStateView, PodBatch, PodView
 _I32_MIN = torch.iinfo(torch.int32).min
 _I32_MAX = torch.iinfo(torch.int32).max
 
-MAX_TKI = 16  # csrc/derive_interpod.cuh: inter-pod topology keys
-DERIVE_SMEM_BYTES = 32768  # domain scratch up to this lives in shared memory
+# Row 6's domain scratch (a partial and a combined copy per block) up to
+# this many bytes lives in shared memory, more in a global buffer.
+DERIVE_SMEM_BYTES = 32768
 # csrc/replay_segment.cu: the victim search's bounds (the reference's
 # PREEMPT_CANDIDATES and PREEMPT_VICTIMS); a search past them discards
 # the segment.
 MAX_CANDIDATES = 16
 MAX_VICTIMS = 8
+# csrc/replay_segment.cu SearchSmem: the candidate and victim lists, the
+# pick's keys, the victims per candidate, three counters.
+SEARCH_SMEM_BYTES = 4 * (MAX_CANDIDATES + MAX_VICTIMS + 6 * MAX_CANDIDATES + MAX_CANDIDATES * MAX_VICTIMS + 3)
+# Kernel D's cluster: its size (0: the occupancy query's choice among
+# SOLO_SIZES for the solo launch, LANE_SIZES for the fleet launch) and
+# threads per block (0: chain.cluster_threads, one node slot each).
+CLUSTER_SIZE = 0
+CLUSTER_THREADS = 0
+SOLO_SIZES = (16, 8)
+LANE_SIZES = (16, 8, 4, 2)
 
 
 @dataclass(frozen=True)
@@ -536,11 +556,10 @@ class DeriveParams(ctypes.Structure):
 
     _fields_ = (
         [(name, _P) for name in (
-            "loc_cnt", "loc_eat", "loc_vw", "node_dom", "dom_t", "term_tk", "ldom",
+            "loc_cnt", "loc_eat", "loc_vw", "node_dom", "dom_t", "term_tk", "ldom", "singleton",
             "cnt", "ecnt", "ew", "total", "scratch",
         )]
         + [(name, _L) for name in ("N", "T2", "TKI", "DK", "dsmem")]
-        + [("singleton", _L * MAX_TKI)]
     )
 
 
@@ -569,22 +588,49 @@ class SegmentParams(ctypes.Structure):
     )
 
 
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+# The lanes kernel's static shared memory (csrc/replay_segment.cu
+# segment_static_smem): its lane's params and the search's working set.
+STATIC_SMEM_BYTES = _align16(ctypes.sizeof(SegmentParams)) + _align16(SEARCH_SMEM_BYTES)
+
+
 def _load():
     lib = build.load("replay_segment")
     if not getattr(lib, "_ksim_segment_checked", False):
-        for entry, struct in (("ksim_segment_params_size", SegmentParams),
-                              ("ksim_derive_params_size", DeriveParams)):
+        for entry, want in (("ksim_segment_params_size", ctypes.sizeof(SegmentParams)),
+                            ("ksim_derive_params_size", ctypes.sizeof(DeriveParams)),
+                            ("ksim_segment_static_smem", STATIC_SMEM_BYTES)):
             fn = getattr(lib, entry)
             fn.restype = ctypes.c_longlong
-            if fn() != ctypes.sizeof(struct):
-                raise RuntimeError(f"{struct.__name__} differs between csrc/ and kernels/replay_segment.py")
-        lib.ksim_replay_segment.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-        lib.ksim_replay_segment.restype = ctypes.c_int
-        lib.ksim_segment_static_smem.restype = ctypes.c_longlong
+            if fn() != want:
+                raise RuntimeError(f"{entry}: csrc/ says {fn()}, kernels/replay_segment.py {want}")
         lib.ksim_derive_interpod.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.ksim_derive_interpod.restype = ctypes.c_int
+        lib.ksim_segment_smem.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        lib.ksim_segment_smem.restype = ctypes.c_longlong
+        lib.ksim_segment_fits.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        lib.ksim_segment_fits.restype = ctypes.c_int
         lib._ksim_segment_checked = True
     return lib
+
+
+def choose_cluster(n_lanes: int, fits, sizes: tuple[int, ...]) -> int:
+    """The cluster size kernel D's launch takes: the first of ``sizes`` at
+    which ``fits(size)`` (the card's occupancy query, csrc/replay_segment.cu
+    ``ksim_segment_fits``: clusters of that size resident at once; 0 where
+    the card refuses the shape) holds all ``n_lanes``, else the one at
+    which it holds the most, the earlier (larger) on a tie."""
+    pick, most = sizes[0], -1
+    for size in sizes:
+        n = fits(size)
+        if n >= n_lanes:
+            return size
+        if n > most:
+            pick, most = size, n
+    return pick
 
 
 @dataclass(frozen=True)
@@ -596,13 +642,13 @@ class DeriveLayout:
     ldom: torch.Tensor  # i32 [N, TKI]; -1 = key missing, or a singleton key
     singleton: tuple[bool, ...]  # [TKI]
     dk: int  # the widest non-singleton key's domain count (at least 1)
+    singleton_mask: torch.Tensor  # u8 [TKI], the kernel's copy of ``singleton``
 
 
 def derive_layout(node_dom: torch.Tensor) -> DeriveLayout:
-    """The layout of ``node_dom`` (i32 [N, TKI]), with small tensor ops."""
+    """The layout of ``node_dom`` (i32 [N, TKI], any number of keys), with
+    small tensor ops."""
     N, TKI = node_dom.shape
-    if TKI > MAX_TKI:
-        raise NotImplementedError(f"InterPodAffinity: {TKI} topology keys, the kernel holds {MAX_TKI}")
     ldom = torch.full((N, TKI), -1, dtype=torch.int32, device=node_dom.device)
     singleton = []
     dk = 1
@@ -615,7 +661,14 @@ def derive_layout(node_dom: torch.Tensor) -> DeriveLayout:
         if not single:
             ldom[keyed, k] = inv.to(torch.int32)
             dk = max(dk, uniq.numel())
-    return DeriveLayout(ldom=ldom, singleton=tuple(singleton), dk=dk)
+    mask = torch.tensor(singleton, dtype=torch.uint8, device=node_dom.device).reshape(TKI)
+    return DeriveLayout(ldom=ldom, singleton=tuple(singleton), dk=dk, singleton_mask=mask)
+
+
+def derive_scratch_ints(T2: int, dk: int) -> int:
+    """One block's partial of row 6 (csrc/derive_interpod.cuh): [3, T2,
+    dk] domain sums, then [T2] totals."""
+    return 3 * T2 * dk + T2
 
 
 def _derive_params(loc: dict, ipa: dict, out: dict, keep: list, layout: DeriveLayout) -> DeriveParams:
@@ -628,12 +681,11 @@ def _derive_params(loc: dict, ipa: dict, out: dict, keep: list, layout: DeriveLa
     T2 = ipa["dom_t"].shape[1]
     prm = DeriveParams()
     prm.N, prm.T2, prm.TKI, prm.DK = N, T2, TKI, layout.dk
-    prm.dsmem = int(4 * 3 * T2 * layout.dk <= DERIVE_SMEM_BYTES)
-    for k in range(MAX_TKI):
-        prm.singleton[k] = int(layout.singleton[k]) if k < TKI else 1
+    ints = derive_scratch_ints(T2, layout.dk)
+    prm.dsmem = int(2 * 4 * ints <= DERIVE_SMEM_BYTES)
 
-    def put(field, t, shape):
-        setattr(prm, field, chain._ptr(t, i32, shape, dev))
+    def put(field, t, shape, dtype=i32):
+        setattr(prm, field, chain._ptr(t, dtype, shape, dev))
 
     put("loc_cnt", loc["cnt"], (N, T2))
     put("loc_eat", loc["eat"], (N, T2))
@@ -642,19 +694,37 @@ def _derive_params(loc: dict, ipa: dict, out: dict, keep: list, layout: DeriveLa
     put("dom_t", ipa["dom_t"], (N, T2))
     put("term_tk", ipa["term_tk"], (T2,))
     put("ldom", layout.ldom, (N, TKI))
+    put("singleton", layout.singleton_mask, (TKI,), torch.uint8)
     for field in ("cnt", "ecnt", "ew"):
         put(field, out[field], (N, T2))
     put("total", out["total"], (T2,))
     keep.append(layout)
     if not prm.dsmem:
-        scratch = torch.empty(3 * T2 * layout.dk, dtype=i32, device=dev)
+        # A partial and a combined copy for each rank of a cluster.
+        scratch = torch.empty((chain.MAX_CLUSTER, 2 * ints), dtype=i32, device=dev)
         keep.append(scratch)
-        put("scratch", scratch, (3 * T2 * layout.dk,))
+        put("scratch", scratch, (chain.MAX_CLUSTER, 2 * ints))
     return prm
 
 
 def _derive_smem(prm: DeriveParams) -> int:
-    return 4 * 3 * prm.T2 * prm.DK if prm.dsmem else 0
+    return 2 * 4 * derive_scratch_ints(prm.T2, prm.DK) if prm.dsmem else 0
+
+
+def segment_smem_bytes(prm: SegmentParams, cluster: int, threads: int = 0) -> int:
+    """Kernel D's dynamic shared memory per block of a ``cluster``-block
+    cluster (csrc/replay_segment.cu ``segment_smem_bytes``): the chain's
+    cluster layout and row 6's scratch when it is in shared memory."""
+    return chain.cluster_smem_bytes(prm.chain, cluster, threads) + _derive_smem(prm.derive)
+
+
+def check_smem(prm: SegmentParams, *, cluster: int, threads: int = 0) -> None:
+    """Raise ValueError when one block of a ``cluster``-block cluster needs
+    more shared memory than a block may take (the dynamic part and
+    STATIC_SMEM_BYTES), naming the padded node count and the bound: kernel
+    D holds about N / cluster nodes per block."""
+    chain.check_smem(prm.chain, extra=_derive_smem(prm.derive) + STATIC_SMEM_BYTES, cluster=cluster,
+                     threads=threads)
 
 
 def _view_out(like: torch.Tensor, T2: int) -> dict:
@@ -666,10 +736,13 @@ def _view_out(like: torch.Tensor, T2: int) -> dict:
     }
 
 
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
 def _launch_derive(lib, prm: DeriveParams) -> None:
     """The standalone entry on the current stream; raises on a CUDA error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.ksim_derive_interpod(ctypes.byref(prm), ctypes.c_void_p(stream))
+    err = lib.ksim_derive_interpod(ctypes.byref(prm), _stream())
     if err != 0:
         raise RuntimeError(f"ksim_derive_interpod: CUDA error {err}: {lib.ksim_error_string(err).decode()}")
 
@@ -805,8 +878,7 @@ class _Launch:
                 total=None, **{k: outs[k].reshape(K * Q, *outs[k].shape[2:]) for k in ("bits", "raw", "final")}
             )
         prm = SegmentParams()
-        chain_prm = chain.chain_params(prog, state, self.pods, aux, carries, chain_out,
-                                       grid=self.lanes, rows=K * Q)
+        chain_prm = chain.chain_params(prog, state, self.pods, aux, carries, chain_out, cluster=True, rows=K * Q)
         prm.chain = chain_prm  # a copy of the struct: keep its tensors alive here
         keep += [chain_prm, state, carries, chain_out, view]
         prm.derive = _derive_params(
@@ -884,27 +956,50 @@ class _Launch:
             put("out_over", outs["overflow"], b, (K,))
         return prm
 
-    def launch(self, lib, params: list, *, lanes: bool) -> None:
+    def launch(self, lib, params: list, *, lanes: bool) -> dict:
         """One launch, on the current stream: the solo kernel with the one
-        lane's params by value, or (``lanes``) len(params) blocks, block b
-        running lane b from a device copy of the params.  Raises on a CUDA
-        error."""
-        static = lib.ksim_segment_static_smem()
-        chain.check_smem(params[0].chain, extra=_derive_smem(params[0].derive) + static)
+        lane's params by value, or (``lanes``) len(params) clusters,
+        cluster c running lane c from a device copy of the params; at
+        CLUSTER_SIZE blocks (0: ``choose_cluster`` among SOLO_SIZES, or
+        LANE_SIZES for the lanes, from the card's occupancy answers) of
+        CLUSTER_THREADS threads (0: chain.cluster_threads).  A node axis
+        over the shared-memory bound of the largest cluster raises
+        ValueError before the launch; a CUDA error, a refused launch
+        included, raises RuntimeError.  Returns what ran: {"cluster":
+        blocks per lane, "threads": per block, "smem_bytes": dynamic
+        shared memory per block, "stats": int64 [2 +
+        len(chain.CLUSTER_PHASES)] on the card: the cluster barriers and
+        the attempts evaluated, as the grid's block 0 (lane 0's leader)
+        counted them, then its clock cycles in each phase}."""
+        size, threads = CLUSTER_SIZE, CLUSTER_THREADS
+        chain.check_cluster_shape(size, threads)
+        check_smem(params[0], cluster=size or max(SOLO_SIZES), threads=threads)
+        if not size:
+            size = choose_cluster(
+                len(params),
+                lambda cs: lib.ksim_segment_fits(ctypes.byref(params[0]), int(lanes), len(params), cs, threads),
+                LANE_SIZES if lanes else SOLO_SIZES,
+            )
         dev_params = None
         if lanes:
             blob = b"".join(ctypes.string_at(ctypes.addressof(p), ctypes.sizeof(p)) for p in params)
             dev_params = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(self.device)
             self.keep.append(dev_params)
-        stream = torch.cuda.current_stream().cuda_stream
+        stats = torch.zeros(2 + len(chain.CLUSTER_PHASES), dtype=torch.int64, device=self.device)
+        info = (ctypes.c_longlong * 3)()
         err = lib.ksim_replay_segment(
             ctypes.byref(params[0]),
             ctypes.c_void_p(dev_params.data_ptr() if lanes else None),
             len(params),
-            ctypes.c_void_p(stream),
+            _stream(),
+            size,
+            threads,
+            ctypes.c_void_p(stats.data_ptr()),
+            info,
         )
         if err != 0:
             raise RuntimeError(f"ksim_replay_segment: CUDA error {err}: {lib.ksim_error_string(err).decode()}")
+        return {"cluster": info[0], "threads": info[1], "smem_bytes": info[2], "stats": stats}
 
 
 def _device_of(const: dict, name: str) -> torch.device:
@@ -914,47 +1009,61 @@ def _device_of(const: dict, name: str) -> torch.device:
     return device
 
 
-def replay_segment(st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
-    device = _device_of(const, "replay_segment")
-    if device.type == "cpu":
-        return replay_segment_plain(st, prog, const, ev, state0)
-    lib = _load()
+def launch_solo(lib, st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
+    """Kernel D's solo launch through ``lib`` on ``state0``'s device:
+    (final state, outs, what ran)."""
     run = _Launch(st, prog, const, ev, lanes=1)
     # Fresh copies: the kernel writes the carried state in place.
     s = {k: v.clone() for k, v in state0.items()}
     s["pass_count"] = s["pass_count"].reshape(1)
-    outs = _segment_outputs(st, prog, run.P, run.N, (), device)
-    run.launch(lib, [run.lane_params(s, outs)], lanes=False)
-    replay_segment.launches += 1
+    outs = _segment_outputs(st, prog, run.P, run.N, (), run.device)
+    ran = run.launch(lib, [run.lane_params(s, outs)], lanes=False)
     s["pass_count"] = s["pass_count"].reshape(())
+    return s, outs, ran
+
+
+def launch_lanes(lib, st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
+    """Kernel D's lanes launch through ``lib`` (``state0`` with a leading
+    lane axis): (final state, outs, what ran)."""
+    lanes = state0["valid"].shape[0]
+    run = _Launch(st, prog, const, ev, lanes=lanes)
+    s = {k: v.clone() for k, v in state0.items()}
+    s["pass_count"] = s["pass_count"].reshape(lanes, 1)
+    outs = _segment_outputs(st, prog, run.P, run.N, (lanes,), run.device)
+    params = [
+        run.lane_params({k: v[i] for k, v in s.items()}, {k: v[i] for k, v in outs.items()})
+        for i in range(lanes)
+    ]
+    ran = run.launch(lib, params, lanes=True)
+    s["pass_count"] = s["pass_count"].reshape(lanes)
+    return s, outs, ran
+
+
+def replay_segment(st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
+    device = _device_of(const, "replay_segment")
+    if device.type == "cpu":
+        return replay_segment_plain(st, prog, const, ev, state0)
+    s, outs, replay_segment.last = launch_solo(_load(), st, prog, const, ev, state0)
+    replay_segment.launches += 1
     return s, outs
 
 
 replay_segment.launches = 0
+replay_segment.last = None
 
 
 def replay_segment_fleet(st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
-    """Rows 10-11: S lanes of kernel D in one launch of S blocks.
+    """Rows 10-11: S lanes of kernel D in one launch, one cluster per lane.
     ``state0`` carries a leading lane axis on every leaf (``pass_count``
     is [S]); ``const`` and ``ev`` are shared by every lane.  Returns
     (final state, outs) with the lane axis leading every leaf."""
     device = _device_of(const, "replay_segment_fleet")
     if device.type == "cpu":
         return replay_segment_fleet_plain(st, prog, const, ev, state0)
-    lib = _load()
-    lanes = state0["valid"].shape[0]
-    run = _Launch(st, prog, const, ev, lanes=lanes)
-    s = {k: v.clone() for k, v in state0.items()}
-    s["pass_count"] = s["pass_count"].reshape(lanes, 1)
-    outs = _segment_outputs(st, prog, run.P, run.N, (lanes,), device)
-    params = [
-        run.lane_params({k: v[i] for k, v in s.items()}, {k: v[i] for k, v in outs.items()})
-        for i in range(lanes)
-    ]
-    run.launch(lib, params, lanes=True)
+    s, outs, replay_segment_fleet.last = launch_lanes(_load(), st, prog, const, ev, state0)
     replay_segment_fleet.launches += 1
-    s["pass_count"] = s["pass_count"].reshape(lanes)
     return s, outs
 
 
 replay_segment_fleet.launches = 0
+replay_segment_fleet.last = None

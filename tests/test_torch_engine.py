@@ -183,3 +183,34 @@ def reasons(port, res, plugin: str, pi: int, ni: int) -> list[str]:
 def node_name(port, res, pi: int) -> str | None:
     sel = int(res.selected[pi])
     return port._feats.nodes.names[sel] if sel >= 0 else None
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("block", [256, 8, 24, 1000])
+def test_evaluate_batch_fused_block_matches_reference(block, exact):
+    """``block`` is taken as the reference takes it (clamped to the pod
+    axis, halved until it divides it): 24 becomes 8 on a 32- or 64-row
+    axis, 1000 the whole axis; the results do not depend on it."""
+    with x64(exact):
+        ref_engine, port = engines("seed1", "final", exact)
+        ref = ref_engine.evaluate_batch_fused(block=block)
+    assert_results_equal(ref, port.evaluate_batch_fused(block=block))
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("case", ["seed0", "seed2"])
+def test_evaluate_batch_partition_matches_reference(case, exact):
+    """partition=True keeps the reference's contract (chunks keyed by
+    their original pod positions, int64) and its results in pod order:
+    equal to the reference's partitioned and unpartitioned evaluation,
+    row for row."""
+    with x64(exact):
+        ref_engine, port = engines(case, "full", exact)
+        ref = ref_engine.evaluate_batch(chunk=16, partition=True)
+        ref_plain = ref_engine.evaluate_batch()
+    keys = [idx for idx, _out in port.evaluate_batch_chunks(chunk=16, partition=True)]
+    assert all(isinstance(idx, np.ndarray) and idx.dtype == np.int64 for idx in keys)
+    np.testing.assert_array_equal(np.concatenate(keys), np.arange(int(port._pods.valid.shape[0])))
+    got = port.evaluate_batch(chunk=16, partition=True)
+    assert_results_equal(ref, got)
+    assert_results_equal(ref_plain, got)

@@ -3,8 +3,10 @@ row 6's standalone entry (derive_interpod) against their plain PyTorch
 versions on a CUDA device, element for element (tolerance 0), on small
 churn replays with the whole default profile: record="selection", the
 on-device DefaultPreemption victim search (the hand-derived fixtures and
-a priority-strata churn) and record="full"; and the fleet runner in both
-cohort modes against the solo device run.
+a priority-strata churn), record="full" and inter-pod terms over 17
+topology keys, at the cluster size the launch picks and at forced sizes
+of 2, 8 and 16 blocks; a node axis past one block's shared-memory bound;
+and the fleet runner in both cohort modes against the solo device run.
 
 Marked ``gpu``; each test skips when there is no CUDA device.  This file
 imports neither jax nor ksim_tpu:
@@ -14,12 +16,15 @@ imports neither jax nor ksim_tpu:
 
 from __future__ import annotations
 
+import ctypes
+
 import pytest
 import torch
 from fixtures.preemption_victims import CASES as PREEMPTION_CASES
 
 import ksim_tpu_torch.engine.replay as replay_mod
 from ksim_tpu_torch.kernels import replay_segment as segment_mod
+from ksim_tpu_torch.kernels import chain
 from ksim_tpu_torch.scenario.generate import churn_scenario, make_node, make_pod
 from ksim_tpu_torch.scenario.runner import Operation, ScenarioRunner
 from ksim_tpu_torch.state.cluster import ClusterStore
@@ -27,6 +32,8 @@ from ksim_tpu_torch.state.cluster import ClusterStore
 pytestmark = pytest.mark.gpu
 
 CHURN = dict(n_nodes=200, n_events=800, ops_per_step=50)
+# Forced cluster sizes (kernels/replay_segment.py CLUSTER_SIZE).
+CLUSTER_SIZES = (2, 8, 16)
 
 
 @pytest.fixture
@@ -102,6 +109,74 @@ def priority_strata_stream():
         pod = make_pod(f"p-{step}", cpu="1500m", memory="256Mi", priority=[0, 0, 5, 10][step % 4])
         pod["metadata"]["creationTimestamp"] = f"2026-01-{step:02d}T00:00:00Z"
         yield Operation(step=step, op="create", kind="pods", obj=pod)
+
+
+def preemption_churn_stream(n_nodes: int = 2000, n_batch_nodes: int = 12, n_waves: int = 8, ops_per_step: int = 100):
+    """A preemption-heavy churn: ``n_nodes`` 4-cpu nodes; a priority-100
+    service tier fills all but ``n_batch_nodes`` of them (one 4-cpu pod
+    each, ``ops_per_step`` per step), a priority-0 batch tier fills the
+    rest (two 1.5-cpu pods each); then waves of 1.5-cpu arrivals at
+    priority 5 and 10 that fit only by preemption, with two service
+    completions every other wave freeing nodes for them.  Candidates of a
+    search are the nodes holding lower-priority pods: the batch nodes and
+    the freed ones, so late waves may pass the search's 16-node bound."""
+    for i in range(n_nodes):
+        yield Operation(step=0, op="create", kind="nodes", obj=make_node(f"node-{i:04d}", cpu="4", memory="16Gi"))
+    step, made = 1, 0
+    services = []
+    while made < n_nodes - n_batch_nodes:
+        for _ in range(min(ops_per_step, n_nodes - n_batch_nodes - made)):
+            services.append(f"svc-{made:04d}")
+            yield Operation(step=step, op="create", kind="pods",
+                            obj=make_pod(services[-1], cpu="4", memory="1Gi", priority=100))
+            made += 1
+        step += 1
+    for i in range(2 * n_batch_nodes):
+        yield Operation(step=step, op="create", kind="pods",
+                        obj=make_pod(f"batch-{i:02d}", cpu="1500m", memory="256Mi", priority=0))
+    step += 1
+    for wave in range(n_waves):
+        for i in range(6):
+            pod = make_pod(f"w{wave}-{i}", cpu="1500m", memory="256Mi", priority=[5, 10][(wave + i) % 2])
+            pod["metadata"]["creationTimestamp"] = f"2026-02-{wave + 1:02d}T00:00:{i:02d}Z"
+            yield Operation(step=step, op="create", kind="pods", obj=pod)
+        if wave % 2 == 1:
+            for name in services[wave : wave + 2]:
+                yield Operation(step=step, op="delete", kind="pods", name=name, namespace="default")
+        step += 2
+
+
+def interpod_keys_stream(n_keys: int = 17, n_nodes: int = 24, n_steps: int = 12):
+    """Inter-pod terms over ``n_keys`` topology keys (every fourth a
+    hostname-like key, one domain per node; the others three domains of
+    eight nodes): required anti-affinity, preferred affinity and preferred
+    anti-affinity, one key per pod in turn, with a completion every third
+    step."""
+    keys = [f"topo.example.com/k{i:02d}" for i in range(n_keys)]
+    for i in range(n_nodes):
+        labels = {key: (f"n{i}" if j % 4 == 0 else f"d{(i * (j + 1)) % 3}") for j, key in enumerate(keys)}
+        yield Operation(step=0, op="create", kind="nodes",
+                        obj=make_node(f"n-{i:02d}", cpu="4", memory="16Gi", labels=labels))
+    made = []
+    for step in range(1, n_steps + 1):
+        for q in range(4):
+            j = step * 4 + q
+            app = f"a{j % 3}"
+            term = {"labelSelector": {"matchLabels": {"app": app}}, "topologyKey": keys[j % n_keys]}
+            if j % 5 == 0:
+                affinity = {"podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [term]}}
+            elif j % 5 == 1:
+                affinity = {"podAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [
+                    {"weight": 7, "podAffinityTerm": term}]}}
+            else:
+                affinity = {"podAntiAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [
+                    {"weight": 10, "podAffinityTerm": term}]}}
+            made.append(f"p-{j:03d}")
+            yield Operation(step=step, op="create", kind="pods",
+                            obj=make_pod(made[-1], cpu="500m", memory="512Mi", labels={"app": app},
+                                         affinity=affinity))
+        if step % 3 == 0:
+            yield Operation(step=step, op="delete", kind="pods", name=made[step], namespace="default")
 
 
 def store_view(runner) -> list:
@@ -258,3 +333,134 @@ def test_fleet_runner_on_card_equals_solo(cuda, vmap, monkeypatch):
     assert launched == (stats["group_dispatches"] if vmap == "1" else 0)
     for ln in fleet.fleet_lanes:
         assert _steps(ln.result) == _steps(solo), ln.idx
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("size", CLUSTER_SIZES, ids=[f"cs{c}" for c in CLUSTER_SIZES])
+def test_replay_segment_kernel_at_forced_cluster_sizes(cuda, size, exact, monkeypatch):
+    """Every segment of the 200-node churn through kernel D on a cluster of
+    ``size`` blocks equals the plain version, and the run the CPU's."""
+    monkeypatch.setattr(segment_mod, "CLUSTER_SIZE", size)
+    res, segments = _replay(cuda, exact, monkeypatch)
+    assert segment_mod.replay_segment.last["cluster"] == size
+    stats = segment_mod.replay_segment.last["stats"].tolist()
+    assert stats[1] > 0 and stats[0] >= 3 * stats[1]  # attempts, and their cluster barriers
+    _assert_plain_equal(segments)
+    cpu_res, _ = _replay("cpu", exact, monkeypatch)
+    assert _steps(res) == _steps(cpu_res)
+
+
+@pytest.mark.parametrize("size", CLUSTER_SIZES, ids=[f"cs{c}" for c in CLUSTER_SIZES])
+def test_replay_segment_kernel_preemption_at_forced_cluster_sizes(cuda, size, monkeypatch):
+    """The victim search on a cluster of ``size`` blocks: the fixtures land
+    on the hand-derived nodes and victims, the strata churn (selection and
+    full) equals the per-pass path, and D equals its plain version on
+    every segment."""
+    monkeypatch.setattr(segment_mod, "CLUSTER_SIZE", size)
+    for case in PREEMPTION_CASES:
+        nodes, victims, pre = case_objects(case)
+        store = ClusterStore()
+        for n in nodes:
+            store.create("nodes", n)
+        for v in victims:
+            store.create("pods", v)
+        segments = _capture(monkeypatch)
+        runner = ScenarioRunner(store=store, preemption=True, device_replay=True, device_segment_steps=4,
+                                exact=False, device=cuda)
+        evicted = []
+        runner.service.add_eviction_listener(lambda ns, nm: evicted.append(nm))
+        runner.run(iter([Operation(step=1, op="create", kind="pods", obj=pre)]))
+        got = store.get("pods", "preemptor").get("status", {}).get("nominatedNodeName")
+        assert (got, evicted) == (case["expected_nominated"], case["expected_victims"]), case["name"]
+        _assert_plain_equal(segments)
+    for record in ("selection", "full"):
+
+        def run(device_replay: bool, device: str):
+            runner = ScenarioRunner(preemption=True, record=record, device_replay=device_replay,
+                                    device_segment_steps=4, exact=False, device=device)
+            evicted = []
+            runner.service.add_eviction_listener(lambda ns, nm: evicted.append(nm))
+            res = runner.run(priority_strata_stream())
+            return _steps(res), store_view(runner), evicted
+
+        segments = _capture(monkeypatch)
+        got = run(True, cuda)
+        assert any(bool((seg[6]["nom"] >= 0).any()) for seg in segments)
+        assert segment_mod.replay_segment.last["cluster"] == size
+        _assert_plain_equal(segments)
+        assert got == run(False, "cpu")
+
+
+@pytest.mark.parametrize("size", (0,) + CLUSTER_SIZES, ids=["auto"] + [f"cs{c}" for c in CLUSTER_SIZES])
+def test_replay_segment_kernel_17_topology_keys(cuda, size, monkeypatch):
+    """Inter-pod terms over 17 topology keys through kernel D: equal to the
+    plain version on every segment, and the run equal to the per-pass
+    path's."""
+    monkeypatch.setattr(segment_mod, "CLUSTER_SIZE", size)
+    segments = _capture(monkeypatch)
+    runner = ScenarioRunner(device_replay=True, device_segment_steps=4, exact=False, device=cuda)
+    res = runner.run(interpod_keys_stream())
+    assert runner.replay_driver.fallback_steps == 0, runner.replay_driver.unsupported
+    assert max(seg[2]["aux"]["interpod"]["node_dom"].shape[1] for seg in segments) == 17
+    _assert_plain_equal(segments)
+    base = ScenarioRunner(device_segment_steps=4, exact=False, device="cpu").run(interpod_keys_stream())
+    assert _steps(res) == _steps(base)
+
+
+def test_replay_segment_kernel_past_the_one_block_bound(cuda, monkeypatch):
+    """A churn over 17,700 nodes: a padded node axis past what one block's
+    shared memory holds (about 17,590 nodes) runs on a cluster and equals
+    the plain version."""
+    segments = _capture(monkeypatch)
+    runner = ScenarioRunner(max_pods_per_pass=256, pod_bucket_min=128, device_replay=True, device_segment_steps=4,
+                            exact=False, device=cuda)
+    runner.run(list(churn_scenario(0, n_nodes=17_700, n_events=17_700 + 320, ops_per_step=40)))
+    assert runner.replay_driver.device_steps >= 4, runner.replay_driver.unsupported
+    n = segments[0][2]["node"]["allocatable"].shape[0]
+    assert n > 17_590
+    prm = chain.ChainParams()
+    prm.N = n
+    with pytest.raises(ValueError, match=f"N={n}"):
+        chain.check_smem(prm)  # one block: refused
+    assert segment_mod.replay_segment.last["cluster"] in segment_mod.SOLO_SIZES
+    _assert_plain_equal(segments)
+
+
+def test_replay_segment_fleet_8_lanes_at_the_chosen_cluster(cuda, monkeypatch):
+    """Eight lanes in one launch, at the cluster size the occupancy query
+    picks for them: each lane equals the solo launch, two lanes the fleet's
+    plain version; the size is ``choose_cluster``'s on the card's occupancy
+    answers, and every lane is resident at once where any size allows it;
+    the C launch's shared memory equals the host mirror."""
+    _res, segments = _replay(cuda, False, monkeypatch)
+    st, prog, const, ev, state0, final, outs = max(
+        segments, key=lambda seg: int((seg[6]["idx"] < seg[2]["pods"]["requests"].shape[0]).sum()))
+    stacked = {k: torch.stack([v] * 8) for k, v in state0.items()}
+    got_final, got_outs = segment_mod.replay_segment_fleet(st, prog, const, ev, stacked)
+    ran = segment_mod.replay_segment_fleet.last
+    assert ran["cluster"] in segment_mod.LANE_SIZES
+    for i in range(8):
+        for key in outs:
+            assert torch.equal(got_outs[key][i], outs[key]), (i, key)
+        for key in final:
+            assert torch.equal(got_final[key][i], final[key].reshape(got_final[key][i].shape)), (i, key)
+    two = {k: v[:2].contiguous() for k, v in stacked.items()}
+    got_final, got_outs = segment_mod.replay_segment_fleet(st, prog, const, ev, two)
+    want_final, want_outs = segment_mod.replay_segment_fleet_plain(st, prog, const, ev, two)
+    for key in want_outs:
+        assert torch.equal(got_outs[key], want_outs[key]), key
+    for key in want_final:
+        assert torch.equal(got_final[key], want_final[key]), key
+    # The C side's shared memory per block equals kernels/replay_segment.py's.
+    lib = segment_mod._load()
+    run = segment_mod._Launch(st, prog, const, ev, lanes=1)
+    s = {k: v.clone() for k, v in state0.items()}
+    s["pass_count"] = s["pass_count"].reshape(1)
+    prm = run.lane_params(s, segment_mod._segment_outputs(st, prog, run.P, run.N, (), run.device))
+    for size in segment_mod.LANE_SIZES:
+        threads = chain.cluster_threads(prm.chain.N, size)
+        assert lib.ksim_segment_smem(ctypes.byref(prm), size, threads) == segment_mod.segment_smem_bytes(prm, size)
+    fits = {size: lib.ksim_segment_fits(ctypes.byref(prm), 1, 8, size, 0) for size in segment_mod.LANE_SIZES}
+    assert ran["cluster"] == segment_mod.choose_cluster(8, fits.get, segment_mod.LANE_SIZES), fits
+    if max(fits.values()) >= 8:
+        assert fits[ran["cluster"]] >= 8, fits

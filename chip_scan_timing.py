@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Time kernels A, B and C on the card at the main path's shape.
 
-    python3 chip_scan_timing.py [--reps 3] [--cluster 0] [--threads 0]
+    python3 chip_scan_timing.py [--reps 3] [--cluster 0] [--threads 0] [--drop-each]
 
 Featurizes random_cluster(0, 5000 nodes, 10000 pods, bound_fraction=0)
 (padded to 12288 x 6144, the whole default profile, exact mode) and times
 with CUDA events (mean of ``--reps`` launches after one warm-up): kernel
 A's whole-queue pass (record="selection"), kernel C's whole-queue pass
 (sampling_k=500, record="selection") and its record="full" pass over the
-first 2048 pods, and kernel B's fused launch (record="final").  Where the
+first 2048 pods, kernel B's fused launch (record="final") and its
+record="full" launch over the first 2048 pods.  Where the
 tree's kernels A and C run on a thread-block cluster, ``--cluster`` and
 ``--threads`` set its size and block width (0: the launch's own choice)
 and the line reports what ran, with block 0's share of the cycles in each
-phase of a pod.  Prints one JSON line: the card (nvidia-smi name and
+phase of a pod; likewise kernel B's persistent grid, where the tree has
+one.  ``--drop-each`` also times B's fused launch with each plugin of the
+profile left out in turn: what each plugin costs it.  Prints one JSON line: the card (nvidia-smi name and
 power limit), the tree it ran from, and the times.  Run it from the root
 of the tree to time; to compare two trees, run it from each on one card,
 in turns (A, B, B, A)."""
@@ -71,11 +74,29 @@ def ran(wrapper) -> dict | None:
     return out
 
 
+def batch_ran() -> dict | None:
+    """What the tree's last kernel-B launch ran (its persistent grid and
+    block 0's cycle share per phase of a pod), or None where kernel B
+    runs one pod per block."""
+    last = getattr(batch_eval, "last", None)
+    if last is None:
+        return None
+    import ksim_tpu_torch.kernels.batch_eval as batch_mod
+
+    out = {k: last[k] for k in ("grid", "blocks_per_sm", "registers", "local_bytes", "smem_bytes")}
+    cycles = [int(x) for x in last["stats"].cpu()][2:]
+    out["phase_share"] = {name: sum(cycles[i] for i in idx) / max(sum(cycles), 1)
+                          for name, idx in batch_mod.B_PHASES.items()}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cluster", type=int, default=0)
     ap.add_argument("--threads", type=int, default=0)
+    ap.add_argument("--drop-each", action="store_true",
+                    help="also time kernel B's fused launch with each plugin left out in turn")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_scan_timing: no CUDA device", file=sys.stderr)
@@ -111,6 +132,19 @@ def main() -> int:
     bcarries = fused._prog.init_carries(fused._aux)
     out["b_fused_ms"] = cuda_ms(
         lambda: batch_eval(fused._prog, fused._node_state, fused._pods, fused._aux, bcarries), args.reps)
+    out["b_fused_ran"] = batch_ran()
+    chunk = Engine(feats_2k, plugins_2k, record="full", exact=True, device="cuda")
+    ccarries = chunk._prog.init_carries(chunk._aux)
+    out["b_full_2k_ms"] = cuda_ms(
+        lambda: batch_eval(chunk._prog, chunk._node_state, chunk._pods, chunk._aux, ccarries), args.reps)
+    if args.drop_each:
+        out["b_fused_without_ms"] = {}
+        for sp in plugins:
+            rest = tuple(p for p in plugins if p is not sp)
+            eng = Engine(feats, rest, record="final", exact=True, device="cuda")
+            c = eng._prog.init_carries(eng._aux)
+            out["b_fused_without_ms"][sp.plugin.name] = cuda_ms(
+                lambda: batch_eval(eng._prog, eng._node_state, eng._pods, eng._aux, c), args.reps)
     print(json.dumps(out))
     return 0
 

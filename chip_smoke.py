@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero before the last line:
 1. environment: the card's name, count and power limit;
 2. build: nvcc builds every kernel from ksim_tpu_torch/csrc, one process
    per source, all at once (seconds and ptxas register / shared-memory
-   lines);
+   lines); kernel D's, the longest, is waited for only before phase 6;
 3. kernel vs plain: on random_cluster(0, 512 nodes, 256 pods), a cluster
    with images and host ports, a spread/affinity-heavy cluster and a
    volume cluster, kernels A (schedule_scan) and B (batch_eval) equal
@@ -45,7 +45,12 @@ Phases, in order; any failure exits non-zero before the last line:
    pass; C's whole-queue selection time is printed on its own line and
    kept as the kernel's "queue_ms", beside its bound ("queue_bound_ms")
    from the visit windows the queue needs, read off a rerun of the queue
-   one pod per launch;
+   one pod per launch.  Kernel B (a pre-pass over the nodes, then a
+   persistent grid over the pods) reports its blocks per SM (the
+   occupancy query; at least 4 at 6144 nodes, or the resource that stops
+   it and by how much), registers, local memory and shared memory per
+   block, block 0's cycle share per phase of a pod, and its pre-pass
+   (node_summary) is timed alone against its plain version;
 6. churn replay, the whole default profile: ScenarioRunner on
    churn_scenario(0, 2000 nodes, 6000 events, 100 ops per step) must give
    the behavior lock (6430 events, 2524 scheduled, 471 unschedulable) on
@@ -89,7 +94,17 @@ Phases, in order; any failure exits non-zero before the last line:
    device path equals the per-pass path (steps, store with nominations,
    evictions in order), at least one device segment's kernel D nominated,
    that segment equals D's plain version, and the count of windows the
-   search's bounds sent per-pass (preemption_overflow) is reported.
+   search's bounds sent per-pass (preemption_overflow) is reported;
+9. the chain past its old caps: on tests/test_torch_clusters.py
+   wide_cluster with every profile table past its old fixed width (9 Fit
+   resources on a 17-point RequestedToCapacityRatio shape, 9 Balanced
+   resources, 17 attach pools, 17 spread keys, 9 constraints on one pod)
+   and EBSLimits and GCEPDLimits beside NodeVolumeLimits, kernels A, B
+   and C equal their plain versions (exact and f32), and kernel D equals
+   its plain version on every segment of a churn with that profile
+   compiled from a KubeSchedulerConfiguration, the run equal to the
+   per-pass path's; then kernel B at a padded node axis of 24,576 (past
+   the old one-block bound of about 17,590) equals its plain version.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds.
@@ -101,6 +116,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -113,7 +129,11 @@ from ksim_tpu_torch.engine.annotations import ALL_RESULT_KEYS, RenderCtx, render
 from ksim_tpu_torch.engine.core import Engine
 from ksim_tpu_torch.engine.profiles import default_plugins
 from ksim_tpu_torch.kernels import build, chain
-from ksim_tpu_torch.kernels.batch_eval import batch_eval, batch_eval_plain
+import ksim_tpu_torch.engine.core as port_core
+import ksim_tpu_torch.kernels.batch_eval as batch_mod
+import ksim_tpu_torch.plugins.noderesources as port_res
+import ksim_tpu_torch.plugins.volumes as port_vol
+from ksim_tpu_torch.kernels.batch_eval import batch_eval, batch_eval_plain, node_summary, node_summary_plain
 from ksim_tpu_torch.kernels.replay_segment import (
     derive_interpod,
     derive_interpod_plain,
@@ -142,12 +162,16 @@ from test_torch_clusters import (  # noqa: E402
     images_ports_cluster,
     spread_affinity_cluster,
     volume_cluster,
+    wide_cluster,
+    wide_profile,
 )
 from test_torch_gpu_replay import (  # noqa: E402
     case_objects,
     preemption_churn_stream,
     priority_strata_stream,
     store_view,
+    wide_runner,
+    wide_stream,
 )
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM
@@ -193,12 +217,17 @@ PREEMPT_NODES = 2000
 KERNELS = {
     "schedule_scan": ("ksim_tpu_torch/csrc/schedule_scan.cu", "ksim_tpu/engine/core.py:790", (1,)),
     "batch_eval": ("ksim_tpu_torch/csrc/batch_eval.cu", "ksim_tpu/engine/core.py:670", (2, 3, 4)),
+    # Kernel B's pre-pass: a kernel every B launch runs once.
+    "node_summary": ("ksim_tpu_torch/csrc/batch_eval.cu", "ksim_tpu/engine/core.py:670", (3, 4)),
     "schedule_sampled": ("ksim_tpu_torch/csrc/schedule_sampled.cu", "ksim_tpu/engine/core.py:750", (5,)),
     "replay_segment": ("ksim_tpu_torch/csrc/replay_segment.cu", "ksim_tpu/engine/replay.py:492", (7, 8, 9)),
     "derive_interpod": ("ksim_tpu_torch/csrc/derive_interpod.cuh", "ksim_tpu/engine/replay.py:459", (6,)),
     "replay_segment_fleet": ("ksim_tpu_torch/csrc/replay_segment.cu", "ksim_tpu/engine/replay.py:1244", (10, 11)),
 }
-WRAPPERS = {"schedule_scan": schedule_scan, "batch_eval": batch_eval, "schedule_sampled": schedule_sampled}
+WRAPPERS = {"schedule_scan": schedule_scan, "batch_eval": batch_eval, "schedule_sampled": schedule_sampled,
+            "node_summary": node_summary}
+# Phase 9: kernel B past the old one-block node bound (padded to 24,576).
+WIDE_NODES = 20_000
 
 
 class PlainEngine(Engine):
@@ -419,6 +448,35 @@ def sampled_queue_bound(prog, state, pods, aux, carries, start, n_real: int, who
     n_ops = (ops["sample"] + ops["commit"]) * n_pods * n_real + ops["filter"] * visited + ops["score"] * scored
     bound, by = bound_ms(n_bytes, n_ops)
     return bound, by, f"{visited} visited pairs, {scored} scored, {n_bytes} bytes"
+
+
+class LateBuild:
+    """build.build(names) on a thread of its own; wait() joins it and
+    raises what it raised."""
+
+    def __init__(self, names: tuple[str, ...]):
+        self.names, self.error = names, None
+        self.thread = threading.Thread(target=self._run, name="late-build")
+        self.thread.start()
+
+    def _run(self) -> None:
+        try:
+            build.build(self.names)
+        except BaseException as e:  # re-raised on the main thread by wait()
+            self.error = e
+
+    def wait(self) -> None:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def print_build_log(names) -> None:
+    for name in names:
+        log = build.BUILD_LOG[name]
+        print(f"  {name}: nvcc {log['seconds']:.1f}s")
+        for line in log["ptxas"]:
+            print(f"    {line.strip()}")
 
 
 def phase(name: str) -> None:
@@ -816,6 +874,145 @@ def fleet_phase(check: Check, card: str, solo_steps) -> dict:
     }
 
 
+def batch_shape(run, card: str) -> dict:
+    """Kernel B's last launch (``run`` makes one): the grid, blocks per SM
+    and what bounds them, registers, local memory, shared memory per
+    block, and block 0's cycle share per phase of a pod."""
+    run()
+    last = batch_mod.batch_eval.last
+    stats = [int(x) for x in last["stats"].cpu()]
+    cycles = stats[2:]
+    share = {name: sum(cycles[i] for i in idx) / max(sum(cycles), 1) for name, idx in batch_mod.B_PHASES.items()}
+    regs, smem = last["registers"], last["smem_bytes"]
+    by_regs = 65536 // (batch_mod.B_THREADS * max(regs, 1))
+    by_smem = batch_mod.SM_SMEM_BYTES // (smem + batch_mod.BLOCK_RESERVED_BYTES)
+    print(f"  kernel B's launch: grid {last['grid']} ({last['blocks_per_sm']} blocks of {batch_mod.B_THREADS} threads "
+          f"per SM x {last['sms']} SMs), {regs} registers per thread, {last['local_bytes']} B local memory per "
+          f"thread, {smem} B shared memory per block (node arrays in a global row per block); registers allow "
+          f"{by_regs} blocks per SM, "
+          f"shared memory {by_smem} {card}")
+    if last["blocks_per_sm"] < batch_mod.MIN_BLOCKS:
+        short = {"registers": by_regs, "shared memory": by_smem}
+        name = min(short, key=short.get)
+        print(f"  kernel B holds {last['blocks_per_sm']} blocks per SM, short of {batch_mod.MIN_BLOCKS}: "
+              f"{name} stops it ({short[name]} blocks)")
+    print(f"  kernel B, block 0's cycles by phase ({stats[0]} pods): {shares(share)}", flush=True)
+    return {"grid": last["grid"], "blocks_per_sm": last["blocks_per_sm"], "registers": regs,
+            "local_bytes": last["local_bytes"], "smem_bytes": smem,
+            "blocks_per_sm_by_registers": by_regs, "blocks_per_sm_by_smem": by_smem, "phase_share": share}
+
+
+def prepass_phase(check: Check, args: tuple, card: str) -> dict:
+    """Kernel B's pre-pass alone on ``args`` (prog, state, aux, carries):
+    equal to node_summary_plain, timed, beside its bound."""
+    got, want = node_summary(*args), node_summary_plain(*args)
+    for key in want:
+        if (got[key] is None) != (want[key] is None):
+            raise AssertionError(f"node_summary {key}: produced by one side only")
+        if want[key] is not None:
+            check.equal("node_summary", f"main-path node_summary {key}", got[key].cpu().numpy(), want[key].cpu().numpy())
+    launch, _ = batch_mod.node_summary_launcher(*args)
+    ms = cuda_ms(launch, reps=50)
+    wrapper_ms = cuda_ms(lambda: node_summary(*args), reps=20)
+    plain = cuda_ms(lambda: node_summary_plain(*args), reps=3)
+    prog, state, aux, carries = args
+    N = state.valid.shape[0]
+    a = aux["affinity"]
+    reads = [aux["taints"]["node_taint_order"], aux["taints"]["forbidding"], aux["taints"]["prefer"], a["term_ok"],
+             a["added_pref"], a["added_terms"], a["has_added"], aux["imagelocality"]["node_has_image"],
+             aux["volumes"]["limits"], aux["volumes"]["vol_key"]]
+    # Only the carries the pre-pass reads: not spread's counts nor the inter-pod weights.
+    if "NodePorts" in carries:
+        reads.append(carries["NodePorts"])
+    if "VolumeRestrictions" in carries:
+        reads += [carries["VolumeRestrictions"][k] for k in ("rwop", "disk_any", "disk_rw")]
+    if "InterPodAffinity" in carries:
+        reads += [carries["InterPodAffinity"][k] for k in ("cnt", "ecnt")]
+    nvl = chain.volume_limits_carry(prog)
+    if nvl is not None:
+        reads.append(carries[nvl])
+    n_bytes = tensor_bytes(reads) + tensor_bytes([v for v in got.values() if v is not None])
+    sizes = batch_mod.group_sizes(aux)
+    VV, NK = aux["volumes"]["pod_vol"].shape[1], aux["volumes"]["limits"].shape[1]
+    n_ops = N * (sum(sizes[:batch_mod.NODE_GROUPS]) + NK * VV + 2 * sizes[3])
+    bound, by = bound_ms(n_bytes, n_ops)
+    print(f"  node_summary (kernel B's pre-pass), {N} nodes: {ms:.4f} ms per launch (the wrapper, its parameters "
+          f"built per call: {wrapper_ms:.4f} ms); plain {plain:.3f} ms; bound "
+          f"{bound:.5f} ms by {by} ({n_bytes} bytes, {n_ops} operations); equal to its plain version {card}",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "wrapper_ms": wrapper_ms}
+
+
+def wide_phase(check: Check, card: str) -> None:
+    """Phase 9: kernels A-D on the profile past every old cap, and kernel
+    B past the old node bound, each against its plain version."""
+    t9 = time.perf_counter()
+    nodes, pods, kw = wide_cluster(0)
+    feats = Featurizer().featurize(nodes, pods, **kw)
+    plugins = wide_profile("all", feats, port_core, port_res, port_vol, default_plugins)
+    for exact in (True, False):
+        what = f"wide profile exact={exact}"
+        plain = PlainEngine(feats, plugins, record="full", exact=exact, device=DEVICE)
+        kernel = Engine(feats, plugins, record="full", exact=exact, device=DEVICE)
+        want, want_state = plain.schedule(chunk=16)
+        got, got_state = kernel.schedule(chunk=16)
+        check.results("schedule_scan", f"{what} schedule", got, want)
+        same_state("schedule_scan", what, check, got_state, want_state)
+        check.results("batch_eval", f"{what} batch", kernel.evaluate_batch(chunk=16), plain.evaluate_batch(chunk=16))
+        fused = Engine(feats, plugins, record="final", exact=exact, device=DEVICE)
+        fused_plain = PlainEngine(feats, plugins, record="final", exact=exact, device=DEVICE)
+        check.results("batch_eval", f"{what} fused", fused.evaluate_batch_fused(), fused_plain.evaluate_batch_fused(),
+                      "final")
+        ks = Engine(feats, plugins, record="full", exact=exact, device=DEVICE, sampling_k=5)
+        ks_plain = PlainEngine(feats, plugins, record="full", exact=exact, device=DEVICE, sampling_k=5)
+        check.results("schedule_sampled", f"{what} sampled", ks.schedule(chunk=16, sampling_start=3)[0],
+                      ks_plain.schedule(chunk=16, sampling_start=3)[0])
+    names = [sp.plugin.name for sp in plugins]
+    print(f"  wide profile ({len(names)} plugins, with {names[names.index('NodeVolumeLimits') + 1:][:2]}): "
+          f"A, B, C equal their plain versions in exact and f32 modes", flush=True)
+    segments = []
+    kernel = replay_mod.replay_segment
+
+    def capture(st, prog, const, ev, state0):
+        held = {k: v.clone() for k, v in state0.items()}
+        final, outs = kernel(st, prog, const, ev, state0)
+        segments.append((st, prog, const, ev, held, final, outs))
+        return final, outs
+
+    replay_mod.replay_segment = capture
+    try:
+        dev = wide_runner(DEVICE, device_replay=True)
+        res = dev.run(list(wide_stream()))
+    finally:
+        replay_mod.replay_segment = kernel
+    base = wide_runner(DEVICE, device_replay=False).run(list(wide_stream()))
+    if dev.replay_driver.device_steps < 8 or step_triples(res) != step_triples(base):
+        raise AssertionError(f"wide churn: device path {step_triples(res)} vs per-pass {step_triples(base)}, "
+                             f"{dev.replay_driver.device_steps} device steps, {dev.replay_driver.unsupported}")
+    for i, (st, prog, const, ev, state0, final, outs) in enumerate(segments):
+        want_final, want_outs = replay_segment_plain(st, prog, const, ev, state0)
+        tree_equal(check, "replay_segment", f"wide churn segment {i} outputs", outs, want_outs)
+        tree_equal(check, "replay_segment", f"wide churn segment {i} final state", final, want_final)
+    print(f"  wide churn (the profile compiled from a KubeSchedulerConfiguration): {dev.replay_driver.device_steps} "
+          f"steps through kernel D, equal to the per-pass path; D equals its plain version on its "
+          f"{len(segments)} segments", flush=True)
+    nodes, pods = random_cluster(0, WIDE_NODES, 40)
+    feats = Featurizer().featurize(nodes, pods)
+    n_pad = feats.nodes.valid.shape[0]
+    if n_pad <= 17_590:
+        raise AssertionError(f"{n_pad} padded nodes: not past the old bound")
+    for exact in (True, False):
+        plugins = default_plugins(feats)
+        kernel = Engine(feats, plugins, record="full", exact=exact, device=DEVICE)
+        plain = PlainEngine(feats, plugins, record="full", exact=exact, device=DEVICE)
+        check.results("batch_eval", f"{n_pad} nodes exact={exact}", kernel.evaluate_batch(chunk=32),
+                      plain.evaluate_batch(chunk=32))
+    print(f"  kernel B at {n_pad} padded nodes (node arrays in global memory, "
+          f"{batch_mod.batch_eval.last['smem_bytes']} B shared memory per block, "
+          f"{batch_mod.batch_eval.last['blocks_per_sm']} blocks per SM): equal to its plain version; "
+          f"phase 9 took {time.perf_counter() - t9:.1f} s {card}", flush=True)
+
+
 def completed_d_phase(check: Check, card: str) -> dict:
     """Phase 8; returns kernel D's measurements in its preemption +
     full-record form."""
@@ -994,12 +1191,14 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    build.build()
-    print(f"built {', '.join(build.SOURCES)} in {time.perf_counter() - t0:.1f}s")
-    for name, log in build.BUILD_LOG.items():
-        print(f"  {name}: nvcc {log['seconds']:.1f}s")
-        for line in log["ptxas"]:
-            print(f"    {line.strip()}")
+    # Kernel D's source builds longest and is first used in phase 6: its
+    # nvcc runs beside phases 3-5 (joined before phase 6).
+    late = LateBuild(("replay_segment",))
+    early = tuple(name for name in build.SOURCES if name not in late.names)
+    build.build(early)
+    print(f"built {', '.join(early)} in {time.perf_counter() - t0:.1f}s; "
+          f"{', '.join(late.names)} building beside phases 3-5")
+    print_build_log(early)
 
     phase(f"3 kernel vs plain ({SMALL[0]} nodes x {SMALL[1]} pods)")
     n_small, p_small = SMALL
@@ -1321,7 +1520,14 @@ def main() -> int:
     bc_bound, bc_by = bound_ms(bc_bytes, (ops_bc["filter"] + ops_bc["score"]) * n_pods_2k * n_real)
     print(f"  batch_eval (kernel B), {Pc} x {N} full, one chunk: {ms_bc:.3f} ms; plain "
           f"{plain_bc:.1f} ms; bound {bc_bound:.4f} ms by {bc_by} ({bc_bytes} bytes) {card}")
+    b_notes = batch_shape(lambda: batch_eval(fprog, fused._node_state, fused._pods, fused._aux, fcarries), card)
+    b_notes.update(chunk_ms=ms_bc, chunk_plain_ms=plain_bc, chunk_bound_ms=bc_bound, chunk_bound_by=bc_by,
+                   chunk_shape=f"{Pc}x{N} full")
+    ns = prepass_phase(check, (fprog, fused._node_state, fused._aux, fcarries), card)
 
+    late.wait()
+    print(f"  {', '.join(late.names)} built, {time.perf_counter() - t0:.1f}s after the build began")
+    print_build_log(late.names)
     phase("6 churn replay (kernel D)")
     churn = churn_phase(check, card)
     launches.update(churn["launches"])
@@ -1335,9 +1541,14 @@ def main() -> int:
     phase("8 kernel D completed: the victim search and record=full")
     completed = completed_d_phase(check, card)
 
+    phase("9 the chain past its old caps (kernels A-D), and kernel B past the old node bound")
+    wide_phase(check, card)
+
+    plain_ms["node_summary"] = ns["plain_ms"]
     measured = {
         "schedule_scan": (ms_a, a_bound, a_by, f"{P}x{N} selection"),
         "batch_eval": (ms_b, b_bound, b_by, f"{P}x{N} final"),
+        "node_summary": (ns["ms"], ns["bound_ms"], ns["bound_by"], f"{N} nodes (the fused launch's state)"),
         "schedule_sampled": (ms_c, c_bound, c_by, f"{P2}x{N} full"),
         **{k: (churn[k][0], churn[k][2], churn[k][3], churn[k][4]) for k in ("replay_segment", "derive_interpod")},
         "replay_segment_fleet": fleet["measured"],
@@ -1358,6 +1569,9 @@ def main() -> int:
                                   "queue_phase_share": by_cluster[auto_cs]["c_queue_phase_share"],
                                   "ms_by_cluster": {cs: r["c_ms"] for cs, r in by_cluster.items()},
                                   "queue_ms_by_cluster": {cs: r["c_queue_ms"] for cs, r in by_cluster.items()}},
+             "batch_eval": b_notes,
+             "node_summary": {"launches_are": "pre-passes on the main path, one per kernel B launch",
+                              "wrapper_ms": ns["wrapper_ms"]},
              "derive_interpod": {"launches_are": "runs inside replay_segment, counted on the card",
                                  "standalone_launches": 0},
              "replay_segment": {**churn["d_ran"], "kernel_ms": churn["kernel_ms"],

@@ -91,7 +91,7 @@ __host__ __device__ inline long long cluster_slots(long long N, int cs, int thre
 __host__ __device__ inline long long cluster_smem_bytes(const ChainParams& P, long long slots) {
   return align8(3 * 4 * slots + slots) + 8 * P.I + 8 * 33 + 8 * 2 +
          4 * (33 * RED_MAX + SCAN_INTS + 2 * RED_MAX + 2 * 32 + 2 * 32 + P.T2) +
-         (P.sp_smem ? 2 * 4 * domain_ints(P) : 0);
+         static_cast<long long>(sizeof(SpreadCon)) * P.MC + (P.sp_smem ? 2 * 4 * domain_ints(P) : 0);
 }
 
 // One cluster is the team: see the header comment.
@@ -130,6 +130,9 @@ struct ClusterTeam {
     phase = next;
   }
   __device__ const int32_t* ipa_total(const ChainParams& P) const { return P.ipa_total != nullptr ? tot : nullptr; }
+  __device__ uint8_t node_flags(const ChainParams& P, long long j, long long n) const {
+    return ksim::node_flags(P, j, n);
+  }
 
   __device__ void sync() {
     cg::this_cluster().sync();
@@ -196,17 +199,19 @@ struct ClusterTeam {
 
   // Sums (presence and registration parts: maxima) every block's partial
   // per-domain arrays of parts [first, first + nparts) into this block's
-  // combined ones, for the non-singleton constraints of `mask`.
-  __device__ void combine(const ChainParams& P, const Spread& sp, Smem& s, unsigned mask, int first, int nparts) {
+  // combined ones, for the non-singleton constraints in [c0, c1) with
+  // flag `kind`.
+  __device__ void combine(const ChainParams& P, const Spread& sp, Smem& s, unsigned kind, int first, int nparts,
+                          int c0, int c1) {
     cg::cluster_group cl = cg::this_cluster();
     const long long di = domain_ints(P);
-    for (int c = 0; c < P.MC; ++c) {
-      const int k = sp_key(P, sp, c);
-      if (!((mask >> c) & 1u) || sp_singleton(P, k)) continue;
+    for (int c = c0; c < c1; ++c) {
+      const SpreadCon& con = sp.con[c];
+      if (!(con.flags & kind) || (con.flags & CF_SINGLE)) continue;
       for (int part = first; part < first + nparts; ++part) {
         const bool is_max = part == F_PRES || part == S_REG;
         const long long base = (part * P.MC + c) * P.DMAX;
-        for (long long d = threadIdx.x; d < P.tk_size[k]; d += blockDim.x) {
+        for (long long d = threadIdx.x; d < con.dsize; d += blockDim.x) {
           int acc = 0;
 #pragma unroll
           for (int q = 0; q < MAX_CLUSTER; ++q) {
@@ -224,14 +229,16 @@ struct ClusterTeam {
     }
   }
 
-  __device__ void domains(const ChainParams& P, const Spread& sp, Smem& s, unsigned mask, int first, int nparts) {
+  __device__ void domains(const ChainParams& P, const Spread& sp, Smem& s, unsigned kind, int first, int nparts,
+                          int c0, int c1) {
     sync();
-    combine(P, sp, s, mask, first, nparts);
+    combine(P, sp, s, kind, first, nparts, c0, c1);
     __syncthreads();
   }
 
-  __device__ void domains_after_reduce(const ChainParams& P, const Spread& sp, Smem& s, unsigned mask, int part) {
-    combine(P, sp, s, mask, part, 1);
+  __device__ void domains_after_reduce(const ChainParams& P, const Spread& sp, Smem& s, unsigned kind, int part,
+                                       int c0, int c1) {
+    combine(P, sp, s, kind, part, 1, c0, c1);
     __syncthreads();
   }
 
@@ -339,8 +346,9 @@ __device__ inline Smem carve_cluster(unsigned char* base, const ChainParams& P, 
   s.wcnt = s.cred + 2 * RED_MAX;
   s.wmask = reinterpret_cast<unsigned*>(s.wcnt + 2 * 32);
   s.ipa_tot = reinterpret_cast<int32_t*>(s.wmask + 2 * 32);
+  s.con = reinterpret_cast<SpreadCon*>(s.ipa_tot + P.T2);
   if (P.sp_smem) {
-    s.dom = s.ipa_tot + P.T2;
+    s.dom = reinterpret_cast<int*>(s.con + P.MC);
   } else {
     s.dom = P.sp_scratch + team.rank * 2 * di;  // [MAX_CLUSTER, 2 * di]: partial, combined
   }

@@ -5,16 +5,19 @@
 // sequential-commit scan) and schedule_sampled.cu (kernel C, the scan with
 // percentageOfNodesToScore sampling).  A "team" evaluates one pod at a
 // time, and its type says how the node axis is owned and reduced:
-//  - BlockTeam (B): one thread block; thread t owns nodes t,
-//    t + blockDim.x, ... (so the per-node records a warp writes are
-//    contiguous), and the node-axis reductions (domain statistics,
-//    normalize extrema, selectHost's argmax) run in-block;
+//  - BatchTeam (B; batch_eval.cu): one thread block; thread t owns nodes
+//    t, t + blockDim.x, ..., the reductions run in-block, and the
+//    predicates read B's per-launch node summary (its own evaluation,
+//    eval_pod_batch, over the helpers here);
 //  - ClusterTeam (A, C, D; cluster_scan.cuh): a thread-block cluster,
 //    each block owning a share of the node axis, its reductions crossing
-//    the cluster through distributed shared memory.
+//    the cluster through distributed shared memory (eval_pod_team).
 // A team's node slots li = threadIdx.x, threadIdx.x + blockDim.x, ... map
 // to nodes through team.node(li); the per-node shared-memory arrays are
-// indexed by slot.
+// indexed by slot.  The profile's tables (Fit's resources and shape,
+// Balanced's resources, the NodeVolumeLimits instances, the spread keys)
+// are device arrays sized by the profile, and the pod's spread
+// constraints are staged in shared memory (SpreadCon): no width is fixed.
 //
 // Plugins (ids below) and the reference functions they translate:
 //   NodeUnschedulable  ksim_tpu/plugins/nodeunschedulable.py  filter
@@ -34,7 +37,8 @@
 // plus the weight (core.py _final_from_raw) and _select's tie rule.
 //
 // Per pod, in phases separated by barriers:
-//   0. setup: image weights, the pod's per-domain scratch zeroed;
+//   0. setup: image weights, the pod's spread constraints staged, its
+//      per-domain scratch zeroed;
 //   1. PodTopologySpread's filter statistics: per DoNotSchedule constraint,
 //      per-domain sums of the carried counts over eligible nodes (integer
 //      atomics) and, reduced over the block, the present-domain count and
@@ -104,11 +108,6 @@ enum Plugin : int {
 
 enum FitStrategy : int { LEAST = 0, MOST = 1, RTCR = 2 };
 
-constexpr int MAX_SPEC = 8;
-constexpr int MAX_SHAPE = 16;
-constexpr int MAX_POOLS = 16;
-constexpr int MAX_MC = 8;
-constexpr int MAX_TK = 16;
 constexpr int MAX_NODE_SCORE = 100;
 constexpr int IPA_IN_RANGE = INT_MAX / MAX_NODE_SCORE;
 constexpr double MB = 1024.0 * 1024.0;
@@ -234,27 +233,31 @@ struct ChainParams {
   long long TK, SS, MC, DMAX, sp_smem;
   long long T2, TKI;
   long long n_real, samp_k;
-  // Per plugin id: its row in bits (-1 = filter off), its row in
-  // raw/final (-1 = score off), its weight.
+  // Per plugin id: its row in bits (-1 = filter off; NodeVolumeLimits'
+  // instances have theirs in nvl_row), its row in raw/final (-1 = score
+  // off), its weight.
   long long f_row[NPLUGINS];
   long long s_row[NPLUGINS];
   long long weight[NPLUGINS];
-  // NodeResourcesFit.
-  long long fit_base_count, fit_strategy, fit_nspec;
-  long long fit_spec_idx[MAX_SPEC];
-  long long fit_spec_w[MAX_SPEC];
-  long long fit_nshape;
-  long long shape_u[MAX_SHAPE];
-  long long shape_s[MAX_SHAPE];
-  // NodeResourcesBalancedAllocation.
-  long long bal_nspec;
-  long long bal_spec[MAX_SPEC];
-  // NodeVolumeLimits: the pools this instance checks.
-  long long nvl_npools;
-  long long nvl_pools[MAX_POOLS];
+  // The profile's tables, device arrays sized by the profile
+  // (kernels/chain.py profile_tables).
+  // NodeResourcesFit: score resources and weights, the shape points.
+  const int32_t* fit_spec_idx;  // [fit_nspec]
+  const int32_t* fit_spec_w;  // [fit_nspec]
+  const int32_t* shape_u;  // [fit_nshape]
+  const int32_t* shape_s;  // [fit_nshape]
+  // NodeResourcesBalancedAllocation's resources.
+  const int32_t* bal_spec;  // [bal_nspec]
+  // NodeVolumeLimits instances in filter order (NodeVolumeLimits itself
+  // and the legacy per-pool EBSLimits, GCEPDLimits, ...): each one's row
+  // in bits and its pools, nvl_pools[nvl_pool_off[q], nvl_pool_off[q + 1]).
+  const int32_t* nvl_row;  // [nvl_ninst]
+  const int32_t* nvl_pool_off;  // [nvl_ninst + 1]
+  const int32_t* nvl_pools;
   // PodTopologySpread: per topology key, singleton or not, domain count.
-  long long tk_singleton[MAX_TK];
-  long long tk_size[MAX_TK];
+  const int32_t* tk_singleton;  // [sp_ntk]
+  const int32_t* tk_size;  // [sp_ntk]
+  long long fit_base_count, fit_strategy, fit_nspec, fit_nshape, bal_nspec, nvl_ninst, sp_ntk;
 };
 
 // Per-node flag bits kept in shared memory between phases.
@@ -267,9 +270,30 @@ constexpr uint8_t FL_VIS = 8;  // kernel C, record="selection": filtered (FL_AFF
 constexpr int RED_MAX = 24;
 constexpr int SCAN_INTS = 64;
 
+// SpreadCon::flags.
+constexpr unsigned CF_F = 1;  // a valid DoNotSchedule constraint
+constexpr unsigned CF_S = 2;  // a valid ScheduleAnyway constraint
+constexpr unsigned CF_SINGLE = 4;  // a singleton key (or one outside the key vocabulary)
+constexpr unsigned CF_SELF = 8;  // the pod matches its own selector
+constexpr unsigned CF_HAFF = 16;  // nodeAffinityPolicy Honor
+constexpr unsigned CF_HTNT = 32;  // nodeTaintsPolicy Honor
+
+// One PodTopologySpread constraint of the pod under evaluation, in shared
+// memory (stage_spread), with the statistics phases 1 and 3 give it.
+struct SpreadCon {
+  int key;  // topology key
+  int sel;  // selector context
+  int max_skew, min_domains;
+  int dsize;  // the key's domain count (0: singleton)
+  unsigned flags;  // CF_*
+  int min_match;  // phase 1
+  int dom_num;  // phase 3
+};
+
 // Dynamic shared memory: per-node values carried from one phase to the
-// next (one per node slot), the pod's image weights, the reduction
-// scratch and, when it fits, the pod's per-domain scratch.
+// next (one per node slot), the pod's image weights and spread
+// constraints, the reduction scratch and, when it fits, the pod's
+// per-domain scratch.
 struct Smem {
   int32_t* raw_taint;  // [slots]
   int32_t* raw_aff;  // [slots]
@@ -279,6 +303,7 @@ struct Smem {
   unsigned long long* red64;  // [33]
   int* red;  // [33 * RED_MAX]
   int* scan;  // [SCAN_INTS]
+  SpreadCon* con;  // [MC]
   // [4 * MC * DMAX] each (DomPart): `dom` takes this block's atomics,
   // `domc` is what the chain reads.  The block layout has one array (domc
   // == dom); a cluster sums every block's dom into its own domc.
@@ -297,31 +322,6 @@ struct Smem {
 __host__ __device__ inline long long align8(long long x) { return (x + 7) & ~7LL; }
 
 __host__ __device__ inline long long domain_ints(const ChainParams& P) { return 4 * P.MC * P.DMAX; }
-
-__host__ __device__ inline long long smem_bytes(const ChainParams& P) {
-  return align8(3 * 4 * P.N + P.N) + 8 * P.I + 8 * 33 + 4 * 33 * RED_MAX + 4 * SCAN_INTS +
-         (P.sp_smem ? 4 * domain_ints(P) : 0);
-}
-
-__device__ inline Smem carve(unsigned char* base, const ChainParams& P) {
-  const long long N = P.N;
-  Smem s;
-  s.raw_taint = reinterpret_cast<int32_t*>(base);
-  s.raw_aff = s.raw_taint + N;
-  s.partial = s.raw_aff + N;
-  s.flags = reinterpret_cast<uint8_t*>(s.partial + N);
-  s.imgw = reinterpret_cast<double*>(base + align8(3 * 4 * N + N));
-  s.red64 = reinterpret_cast<unsigned long long*>(s.imgw + P.I);
-  s.red = reinterpret_cast<int*>(s.red64 + 33);
-  s.scan = s.red + 33 * RED_MAX;
-  s.dom = P.sp_smem ? s.scan + SCAN_INTS : P.sp_scratch + blockIdx.x * domain_ints(P);
-  s.domc = s.dom;
-  s.cred = s.wcnt = nullptr;
-  s.cred64 = nullptr;
-  s.wmask = nullptr;
-  s.ipa_tot = nullptr;
-  return s;
-}
 
 // Narrowing store: the value wraps to the element size, as the
 // reference's astype to the recorded dtype does.
@@ -433,34 +433,6 @@ enum Phase : int {
   NPHASES,
 };
 
-// One thread block is the team (kernel B): every node is a slot of
-// the block, the reductions are block_reduce / block_max_u64, and the
-// per-domain atomics are read where they landed after a block barrier.
-struct BlockTeam {
-  static constexpr bool kCluster = false;
-  __device__ long long slots(const ChainParams& P) const { return P.N; }
-  __device__ long long node(long long li) const { return li; }
-  // The thread that owns node n (it alone touches n's carried rows).
-  __device__ bool owns(long long n) const { return n % blockDim.x == threadIdx.x; }
-  // The block whose threads add the per-domain terms to a reduction.
-  __device__ bool leader() const { return true; }
-  __device__ void mark(int) {}
-  __device__ const int32_t* ipa_total(const ChainParams& P) const { return P.ipa_total; }
-  __device__ void reduce(int* v, const int* op, int K, Smem& s) { block_reduce(v, op, K, s.red); }
-  __device__ unsigned long long max_u64(unsigned long long v, Smem& s) { return block_max_u64(v, s.red64); }
-  // The atomics into parts [first, first + nparts) are done: make them
-  // readable in domc.
-  __device__ void domains(const ChainParams&, const Spread&, Smem&, unsigned, int, int) { __syncthreads(); }
-  // The same, after a reduction whose barriers already published them.
-  __device__ void domains_after_reduce(const ChainParams&, const Spread&, Smem&, unsigned, int) {}
-  // Commits the pod's matching terms into the term totals (thread 0's).
-  __device__ void commit_total(const ChainParams& P, const int32_t* db, long long base) {
-    if (threadIdx.x == 0)
-      for (long long t = 0; t < P.T2; ++t)
-        if (db[t] >= 0) P.ipa_total[t] += P.ipa_qm[base + t];
-  }
-};
-
 // selectHost key: the larger total wins, then the LOWER node index.
 // 0 means "no feasible node" (every feasible key is > 0).
 __device__ inline unsigned long long select_key(int total, long long n) {
@@ -537,6 +509,17 @@ __device__ inline int fit_score(const ChainParams& P, long long p, long long n) 
 
 // ---- NodeResourcesBalancedAllocation --------------------------------------
 
+// Resource k's requested fraction min(r / c, 1) (0 where c <= 0) and
+// whether the node has that resource.
+__device__ inline float balanced_frac(const ChainParams& P, long long p, long long n, int k, bool& present) {
+  const long long ri = P.bal_spec[k];
+  const float c = static_cast<float>(P.alloc[n * P.R + ri]);
+  const float r = static_cast<float>(P.nz_requested[n * P.R + ri] + P.pnz[p * P.R + ri]);
+  present = c > 0.0f;
+  const float f = c > 0.0f ? __fdiv_rn(r, fmaxf(c, 1.0f)) : 0.0f;
+  return fminf(f, 1.0f);
+}
+
 __device__ inline int balanced_score(const ChainParams& P, long long p, long long n) {
   if (P.exact && P.bal_nspec == 2) {
     // Exact rational floor in int64: |r1*c2 - r2*c1| * 50 needs 64 bits.
@@ -555,29 +538,25 @@ __device__ inline int balanced_score(const ChainParams& P, long long p, long lon
     return static_cast<int>(MAX_NODE_SCORE - (num + d - 1) / d);
   }
   // float32 in the reference's order: fractions, their sum, mean, squared
-  // deviations, / count, sqrt, (1 - std) * 100 + 1e-4, floor.
-  float frac[MAX_SPEC];
-  bool present[MAX_SPEC];
+  // deviations, / count, sqrt, (1 - std) * 100 + 1e-4, floor.  The
+  // second pass recomputes each fraction (the same rounded operations), so
+  // the chain keeps no per-resource array.
   int count_i = 0;
   float sum = 0.0f;
   for (int k = 0; k < P.bal_nspec; ++k) {
-    const long long ri = P.bal_spec[k];
-    const float c = static_cast<float>(P.alloc[n * P.R + ri]);
-    const float r = static_cast<float>(P.nz_requested[n * P.R + ri] + P.pnz[p * P.R + ri]);
-    float f = c > 0.0f ? __fdiv_rn(r, fmaxf(c, 1.0f)) : 0.0f;
-    f = fminf(f, 1.0f);
-    frac[k] = f;
-    present[k] = c > 0.0f;
-    count_i += present[k] ? 1 : 0;
-    sum = __fadd_rn(sum, present[k] ? f : 0.0f);
+    bool present;
+    const float f = balanced_frac(P, p, n, k, present);
+    count_i += present ? 1 : 0;
+    sum = __fadd_rn(sum, present ? f : 0.0f);
   }
   const float count = static_cast<float>(count_i);
   const float safe = fmaxf(count, 1.0f);
   const float mean = __fdiv_rn(sum, safe);
   float sq = 0.0f;
   for (int k = 0; k < P.bal_nspec; ++k) {
-    const float d = __fsub_rn(frac[k], mean);
-    sq = __fadd_rn(sq, present[k] ? __fmul_rn(d, d) : 0.0f);
+    bool present;
+    const float d = __fsub_rn(balanced_frac(P, p, n, k, present), mean);
+    sq = __fadd_rn(sq, present ? __fmul_rn(d, d) : 0.0f);
   }
   const float var = __fdiv_rn(sq, safe);
   const float std = count >= 2.0f ? __fsqrt_rn(var) : 0.0f;
@@ -605,6 +584,24 @@ __device__ inline void image_weights(const ChainParams& P, long long j, Smem& s)
   }
 }
 
+// The score from the sum of the weights of the images the node has, and
+// the pod's container count (exact: float64; else float32).
+__device__ inline int image_from_sum64(double sum, int nc) {
+  const double max_t = __dmul_rn(static_cast<double>(nc), MAX_CONTAINER_THRESHOLD);
+  const double clamped = fmin(fmax(sum, MIN_THRESHOLD), fmax(max_t, MIN_THRESHOLD));
+  const double val = __ddiv_rn(__dmul_rn(100.0, __dsub_rn(clamped, MIN_THRESHOLD)),
+                               fmax(__dsub_rn(max_t, MIN_THRESHOLD), 1.0));
+  return static_cast<int>(trunc(val));
+}
+
+__device__ inline int image_from_sum32(float sum, int nc) {
+  const float lo = static_cast<float>(MIN_THRESHOLD);
+  const float max_t = __fmul_rn(static_cast<float>(nc), static_cast<float>(MAX_CONTAINER_THRESHOLD));
+  const float clamped = fminf(fmaxf(sum, lo), fmaxf(max_t, lo));
+  const float val = __fdiv_rn(__fmul_rn(100.0f, __fsub_rn(clamped, lo)), fmaxf(__fsub_rn(max_t, lo), 1.0f));
+  return static_cast<int>(truncf(val));
+}
+
 __device__ inline int image_score(const ChainParams& P, long long j, long long n, const Smem& s) {
   const uint8_t* has = P.node_has_image + n * P.I;
   const int nc = P.pod_num_containers[j];
@@ -612,22 +609,13 @@ __device__ inline int image_score(const ChainParams& P, long long j, long long n
     double sum = 0.0;  // ORDER: image-index order, one add at a time
     for (long long i = 0; i < P.I; ++i)
       if (has[i]) sum = __dadd_rn(sum, s.imgw[i]);
-    const double max_t = __dmul_rn(static_cast<double>(nc), MAX_CONTAINER_THRESHOLD);
-    const double clamped = fmin(fmax(sum, MIN_THRESHOLD), fmax(max_t, MIN_THRESHOLD));
-    const double val = __ddiv_rn(__dmul_rn(100.0, __dsub_rn(clamped, MIN_THRESHOLD)),
-                                 fmax(__dsub_rn(max_t, MIN_THRESHOLD), 1.0));
-    return static_cast<int>(trunc(val));
+    return image_from_sum64(sum, nc);
   }
   const float* w = reinterpret_cast<const float*>(s.imgw);
   float sum = 0.0f;
   for (long long i = 0; i < P.I; ++i)
     if (has[i]) sum = __fadd_rn(sum, w[i]);
-  const float lo = static_cast<float>(MIN_THRESHOLD);
-  const float max_t = __fmul_rn(static_cast<float>(nc), static_cast<float>(MAX_CONTAINER_THRESHOLD));
-  const float clamped = fminf(fmaxf(sum, lo), fmaxf(max_t, lo));
-  const float val = __fdiv_rn(__fmul_rn(100.0f, __fsub_rn(clamped, lo)),
-                              fmaxf(__fsub_rn(max_t, lo), 1.0f));
-  return static_cast<int>(truncf(val));
+  return image_from_sum32(sum, nc);
 }
 
 // ---- TaintToleration / NodeAffinity predicates -----------------------------
@@ -678,12 +666,14 @@ __device__ inline bool volume_zone_conflict(const ChainParams& P, long long j, l
   return false;
 }
 
-__device__ inline bool volume_limits_over(const ChainParams& P, long long j, long long n) {
+// NodeVolumeLimits instance q at node n: some pool of the instance would
+// hold more attached volumes than its limit with the pod's new ones.
+__device__ inline bool volume_limits_over(const ChainParams& P, long long q, long long j, long long n) {
   const int32_t* att = P.attached + n * P.VV;
   const uint8_t* uses = P.pod_vol + j * P.VV;
   bool over = false;
-  for (long long q = 0; q < P.nvl_npools; ++q) {
-    const long long k = P.nvl_pools[q];
+  for (long long i = P.nvl_pool_off[q]; i < P.nvl_pool_off[q + 1]; ++i) {
+    const long long k = P.nvl_pools[i];
     int used = 0, added = 0;  // attached in the pool; the pod's new ones (dedup'd)
     for (long long v = 0; v < P.VV; ++v) {
       if (P.vol_key[v] != k) continue;
@@ -713,29 +703,48 @@ __device__ inline int volume_restrictions_code(const ChainParams& P, long long j
 
 // ---- PodTopologySpread ------------------------------------------------------
 
-// The pod's constraints as the kernel reads them; `active_f`/`active_s`
-// are bit masks of the valid DoNotSchedule / ScheduleAnyway constraints.
+// The pod's constraints as the kernel reads them (Spread::con, staged in
+// shared memory by stage_spread): per constraint its key, selector
+// context, parameters, CF_* flags and the two per-pod statistics the
+// phases compute, so any number of constraints and keys fits.
 struct Spread {
-  long long base;  // j * MC
-  unsigned active_f, active_s;
+  SpreadCon* con;  // [MC]
+  bool any_f, any_s;  // some valid DoNotSchedule / ScheduleAnyway constraint
   bool has_score;
 };
 
-__device__ inline Spread spread_pod(const ChainParams& P, long long j) {
-  Spread sp;
-  sp.base = j * P.MC;
-  sp.active_f = sp.active_s = 0;
-  for (long long c = 0; c < P.MC; ++c) {
-    if (!P.con_valid[sp.base + c]) continue;
-    if (P.con_mode[sp.base + c] == 0) sp.active_f |= 1u << c;
-    if (P.con_mode[sp.base + c] == 1) sp.active_s |= 1u << c;
+// Phase 0: constraint c of pod j into con[c] (one thread each); the setup
+// barrier publishes them.
+__device__ inline void stage_spread(const ChainParams& P, long long j, SpreadCon* con) {
+  for (long long c = threadIdx.x; c < P.MC; c += blockDim.x) {
+    const long long i = j * P.MC + c;
+    SpreadCon x;
+    x.key = P.con_tk[i];
+    x.sel = P.con_sel[i];
+    x.max_skew = P.con_max_skew[i];
+    x.min_domains = P.con_min_domains[i];
+    const bool single = x.key < 0 || x.key >= P.sp_ntk || P.tk_singleton[x.key] != 0;
+    x.dsize = single ? 0 : P.tk_size[x.key];
+    unsigned f = single ? CF_SINGLE : 0u;
+    if (P.con_valid[i]) f |= P.con_mode[i] == 0 ? CF_F : P.con_mode[i] == 1 ? CF_S : 0u;
+    if (P.con_self[i]) f |= CF_SELF;
+    if (P.con_honor_aff[i]) f |= CF_HAFF;
+    if (P.con_honor_taints[i]) f |= CF_HTNT;
+    x.flags = f;
+    x.min_match = 0;
+    x.dom_num = 0;
+    con[c] = x;
   }
-  sp.has_score = P.has_score_con[j] != 0;
-  return sp;
 }
 
-__device__ inline int sp_key(const ChainParams& P, const Spread& sp, long long c) {
-  return P.con_tk[sp.base + c];
+// After the setup barrier.
+__device__ inline Spread spread_pod(const ChainParams& P, long long j, SpreadCon* con) {
+  Spread sp{con, false, false, P.has_score_con[j] != 0};
+  for (long long c = 0; c < P.MC; ++c) {
+    sp.any_f = sp.any_f || (con[c].flags & CF_F);
+    sp.any_s = sp.any_s || (con[c].flags & CF_S);
+  }
+  return sp;
 }
 
 // The node's local domain for key k, -1 when it misses the key (or k is
@@ -744,27 +753,20 @@ __device__ inline int sp_ldom(const ChainParams& P, long long n, int k) {
   return (k >= 0 && k < P.TK) ? P.sp_ldom[n * P.TK + k] : -1;
 }
 
-__device__ inline bool sp_singleton(const ChainParams& P, int k) {
-  return k < 0 || k >= MAX_TK || P.tk_singleton[k] != 0;
-}
-
-// The carried matching-pod count for constraint c's selector context.
-__device__ inline int sp_count(const ChainParams& P, const Spread& sp, long long c, long long n) {
-  const int sel = P.con_sel[sp.base + c];
-  return (sel >= 0 && sel < P.SS) ? P.sp_counts[n * P.SS + sel] : 0;
+// The carried matching-pod count for a constraint's selector context.
+__device__ inline int sp_count(const ChainParams& P, const SpreadCon& c, long long n) {
+  return (c.sel >= 0 && c.sel < P.SS) ? P.sp_counts[n * P.SS + c.sel] : 0;
 }
 
 // Inclusion policies (nodeAffinityPolicy / nodeTaintsPolicy Honor).
-__device__ inline bool sp_policy(const ChainParams& P, const Spread& sp, long long c, long long n,
-                                 uint8_t fl) {
-  return P.nvalid[n] && (!P.con_honor_aff[sp.base + c] || (fl & FL_AFF)) &&
-         (!P.con_honor_taints[sp.base + c] || (fl & FL_TNT));
+__device__ inline bool sp_policy(const ChainParams& P, const SpreadCon& c, long long n, uint8_t fl) {
+  return P.nvalid[n] && (!(c.flags & CF_HAFF) || (fl & FL_AFF)) && (!(c.flags & CF_HTNT) || (fl & FL_TNT));
 }
 
-// Every constraint of `mask` has its key on the node.
-__device__ inline bool sp_allkeys(const ChainParams& P, const Spread& sp, unsigned mask, long long n) {
+// Every constraint with flag `kind` (CF_F or CF_S) has its key on the node.
+__device__ inline bool sp_allkeys(const ChainParams& P, const Spread& sp, unsigned kind, long long n) {
   for (long long c = 0; c < P.MC; ++c)
-    if (((mask >> c) & 1u) && sp_ldom(P, n, sp_key(P, sp, c)) < 0) return false;
+    if ((sp.con[c].flags & kind) && sp_ldom(P, n, sp.con[c].key) < 0) return false;
   return true;
 }
 
@@ -774,171 +776,185 @@ __device__ inline int* dom_part(const ChainParams& P, int* base, int part, long 
   return base + (part * P.MC + c) * P.DMAX;
 }
 
-// The pod's nodeSelector / required node affinity and taint flags at n.
+// The pod's nodeSelector / required node affinity and taint flags at n
+// (the teams' node_flags, but kernel B's, which reads its node summary).
 __device__ inline uint8_t node_flags(const ChainParams& P, long long j, long long n) {
   return (affinity_match(P, j, n) ? FL_AFF : 0) | (taint_block(P, j, n) == 0 ? FL_TNT : 0);
 }
 
-// Filter phase 1: min_match per DoNotSchedule constraint (0 where unused).
+// The statistics reduce the constraints a group of SP_GROUP at a time
+// (team.reduce takes at most RED_MAX values).
+constexpr int SP_GROUP = RED_MAX / 2;
+
+// Filter phase 1: con[c].min_match per DoNotSchedule constraint (0 where
+// unused), published to the team by the closing barrier.
 template <class Team>
-__device__ inline void spread_filter_stats(const ChainParams& P, const Spread& sp, long long j, Smem& s,
-                                           int* min_match, Team& team) {
-  int v[2 * MAX_MC], op[2 * MAX_MC];
+__device__ inline void spread_filter_stats(const ChainParams& P, const Spread& sp, long long j, Smem& s, Team& team) {
   const int MC = static_cast<int>(P.MC);
-  for (int c = 0; c < MC; ++c) {
-    v[c] = 0;  // present domains
-    op[c] = RSUM;
-    v[MC + c] = INT_MAX;  // least present-domain sum
-    op[MC + c] = RMIN;
-  }
-  for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
-    const long long n = team.node(li);
-    if (n >= P.N) continue;
-    const uint8_t fl = node_flags(P, j, n);
-    if (!sp_allkeys(P, sp, sp.active_f, n)) continue;
-    for (int c = 0; c < MC; ++c) {
-      if (!((sp.active_f >> c) & 1u)) continue;
-      const int k = sp_key(P, sp, c);
-      const int l = sp_ldom(P, n, k);
-      if (l < 0 || !sp_policy(P, sp, c, n, fl)) continue;  // not stat-eligible
-      const int x = sp_count(P, sp, c, n);
-      if (sp_singleton(P, k)) {
-        v[c] += 1;
-        v[MC + c] = min(v[MC + c], x);
-      } else {
-        atomicAdd(dom_part(P, s.dom, F_SUM, c) + l, x);
-        dom_part(P, s.dom, F_PRES, c)[l] = 1;
+  for (int c0 = 0; c0 < MC; c0 += SP_GROUP) {
+    const int G = min(SP_GROUP, MC - c0);
+    int v[2 * SP_GROUP], op[2 * SP_GROUP];
+    for (int g = 0; g < G; ++g) {
+      v[g] = 0;  // present domains
+      op[g] = RSUM;
+      v[G + g] = INT_MAX;  // least present-domain sum
+      op[G + g] = RMIN;
+    }
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= P.N) continue;
+      if (!sp_allkeys(P, sp, CF_F, n)) continue;
+      const uint8_t fl = team.node_flags(P, j, n);
+      for (int g = 0; g < G; ++g) {
+        const SpreadCon& c = sp.con[c0 + g];
+        if (!(c.flags & CF_F)) continue;
+        const int l = sp_ldom(P, n, c.key);
+        if (l < 0 || !sp_policy(P, c, n, fl)) continue;  // not stat-eligible
+        const int x = sp_count(P, c, n);
+        if (c.flags & CF_SINGLE) {
+          v[g] += 1;
+          v[G + g] = min(v[G + g], x);
+        } else {
+          atomicAdd(dom_part(P, s.dom, F_SUM, c0 + g) + l, x);
+          dom_part(P, s.dom, F_PRES, c0 + g)[l] = 1;
+        }
       }
     }
-  }
-  team.domains(P, sp, s, sp.active_f, F_SUM, 2);
-  if (team.leader()) {
-    for (int c = 0; c < MC; ++c) {
-      const int k = sp_key(P, sp, c);
-      if (!((sp.active_f >> c) & 1u) || sp_singleton(P, k)) continue;
-      for (long long d = threadIdx.x; d < P.tk_size[k]; d += blockDim.x) {
-        if (!dom_part(P, s.domc, F_PRES, c)[d]) continue;
-        v[c] += 1;
-        v[MC + c] = min(v[MC + c], dom_part(P, s.domc, F_SUM, c)[d]);
+    team.domains(P, sp, s, CF_F, F_SUM, 2, c0, c0 + G);
+    if (team.leader()) {
+      for (int g = 0; g < G; ++g) {
+        const SpreadCon& c = sp.con[c0 + g];
+        if (!(c.flags & CF_F) || (c.flags & CF_SINGLE)) continue;
+        for (long long d = threadIdx.x; d < c.dsize; d += blockDim.x) {
+          if (!dom_part(P, s.domc, F_PRES, c0 + g)[d]) continue;
+          v[g] += 1;
+          v[G + g] = min(v[G + g], dom_part(P, s.domc, F_SUM, c0 + g)[d]);
+        }
       }
     }
+    team.reduce(v, op, 2 * G, s);
+    if (static_cast<int>(threadIdx.x) < G) {
+      const int g = threadIdx.x;
+      SpreadCon& c = sp.con[c0 + g];
+      const int dom_num = v[g];
+      int mm = dom_num > 0 ? v[G + g] : 0;
+      if (c.min_domains > 0 && dom_num < c.min_domains) mm = 0;
+      c.min_match = mm;
+    }
   }
-  team.reduce(v, op, 2 * MC, s);
-  for (int c = 0; c < MC; ++c) {
-    const int dom_num = v[c];
-    int mm = dom_num > 0 ? v[MC + c] : 0;
-    const int min_domains = P.con_min_domains[sp.base + c];
-    if (min_domains > 0 && dom_num < min_domains) mm = 0;
-    min_match[c] = mm;
-  }
+  __syncthreads();
 }
 
 // Filter phase 2: the reason code at node n (first failing constraint).
-__device__ inline int spread_filter_code(const ChainParams& P, const Spread& sp, const Smem& s,
-                                         const int* min_match, long long n, uint8_t fl) {
-  const bool allkeys = sp_allkeys(P, sp, sp.active_f, n);
-  for (long long c = 0; c < P.MC; ++c) {
-    if (!((sp.active_f >> c) & 1u)) continue;
-    const int k = sp_key(P, sp, c);
-    const int l = sp_ldom(P, n, k);
+__device__ inline int spread_filter_code(const ChainParams& P, const Spread& sp, const Smem& s, long long n,
+                                         uint8_t fl) {
+  const bool allkeys = sp_allkeys(P, sp, CF_F, n);
+  for (long long ci = 0; ci < P.MC; ++ci) {
+    const SpreadCon& c = sp.con[ci];
+    if (!(c.flags & CF_F)) continue;
+    const int l = sp_ldom(P, n, c.key);
     if (l < 0) return 2;  // MISSING_LABEL_BIT
     int seg;
-    if (sp_singleton(P, k)) {
-      seg = (allkeys && sp_policy(P, sp, c, n, fl)) ? sp_count(P, sp, c, n) : 0;
+    if (c.flags & CF_SINGLE) {
+      seg = (allkeys && sp_policy(P, c, n, fl)) ? sp_count(P, c, n) : 0;
     } else {
-      seg = dom_part(P, s.domc, F_SUM, c)[l];
+      seg = dom_part(P, s.domc, F_SUM, ci)[l];
     }
-    const int skew = seg + static_cast<int>(P.con_self[sp.base + c]) - min_match[c];
-    if (skew > P.con_max_skew[sp.base + c]) return 1;  // SKEW_BIT
+    const int skew = seg + ((c.flags & CF_SELF) ? 1 : 0) - c.min_match;
+    if (skew > c.max_skew) return 1;  // SKEW_BIT
   }
   return 0;
 }
 
-// Score phase 3: the registered-domain counts; fills the score sums.
-// With `lazy`, a node's FL_AFF / FL_TNT hold only where FL_VIS is set
-// (kernel C under record="selection" filters the visited nodes alone),
-// and are computed here for the others the contributions reach.
+// Score phase 3: con[c].dom_num, the registered-domain counts (published
+// by the closing barrier); fills the score sums.  With `lazy`, a node's
+// FL_AFF / FL_TNT hold only where FL_VIS is set (kernel C under
+// record="selection" filters the visited nodes alone), and are computed
+// here for the others the contributions reach.
 template <class Team>
-__device__ inline void spread_score_stats(const ChainParams& P, const Spread& sp, long long j, Smem& s,
-                                          int* dom_num, Team& team, bool lazy) {
-  int v[MAX_MC], op[MAX_MC];
+__device__ inline void spread_score_stats(const ChainParams& P, const Spread& sp, long long j, Smem& s, Team& team,
+                                          bool lazy) {
   const int MC = static_cast<int>(P.MC);
-  for (int c = 0; c < MC; ++c) {
-    v[c] = 0;
-    op[c] = RSUM;
-  }
-  // Domains present among feasible, non-ignored nodes.
-  for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
-    const long long n = team.node(li);
-    if (n >= P.N || !(s.flags[li] & FL_OK) || !sp_allkeys(P, sp, sp.active_s, n)) continue;
-    for (int c = 0; c < MC; ++c) {
-      if (!((sp.active_s >> c) & 1u)) continue;
-      const int k = sp_key(P, sp, c);
-      const int l = sp_ldom(P, n, k);
-      if (l < 0) continue;
-      if (sp_singleton(P, k)) v[c] += 1;
-      else dom_part(P, s.dom, S_REG, c)[l] = 1;
+  for (int c0 = 0; c0 < MC; c0 += 2 * SP_GROUP) {
+    const int G = min(2 * SP_GROUP, MC - c0);
+    int v[2 * SP_GROUP], op[2 * SP_GROUP];
+    for (int g = 0; g < G; ++g) {
+      v[g] = 0;
+      op[g] = RSUM;
     }
-  }
-  team.domains(P, sp, s, sp.active_s, S_REG, 1);
-  // Contributions of policy-passing nodes in registered domains.
-  for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
-    const long long n = team.node(li);
-    if (n >= P.N) continue;
-    uint8_t fl = s.flags[li];
-    for (int c = 0; c < MC; ++c) {
-      const int k = sp_key(P, sp, c);
-      if (!((sp.active_s >> c) & 1u) || sp_singleton(P, k)) continue;
-      const int l = sp_ldom(P, n, k);
-      if (l < 0 || !dom_part(P, s.domc, S_REG, c)[l]) continue;
-      if (lazy && !(fl & FL_VIS) && P.nvalid[n]) fl = node_flags(P, j, n) | FL_VIS;
-      if (sp_policy(P, sp, c, n, fl)) atomicAdd(dom_part(P, s.dom, S_SUM, c) + l, sp_count(P, sp, c, n));
+    // Domains present among feasible, non-ignored nodes.
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= P.N || !(s.flags[li] & FL_OK) || !sp_allkeys(P, sp, CF_S, n)) continue;
+      for (int g = 0; g < G; ++g) {
+        const SpreadCon& c = sp.con[c0 + g];
+        if (!(c.flags & CF_S)) continue;
+        const int l = sp_ldom(P, n, c.key);
+        if (l < 0) continue;
+        if (c.flags & CF_SINGLE) v[g] += 1;
+        else dom_part(P, s.dom, S_REG, c0 + g)[l] = 1;
+      }
     }
-  }
-  if (team.leader()) {
-    for (int c = 0; c < MC; ++c) {
-      const int k = sp_key(P, sp, c);
-      if (!((sp.active_s >> c) & 1u) || sp_singleton(P, k)) continue;
-      for (long long d = threadIdx.x; d < P.tk_size[k]; d += blockDim.x) v[c] += dom_part(P, s.domc, S_REG, c)[d];
+    team.domains(P, sp, s, CF_S, S_REG, 1, c0, c0 + G);
+    // Contributions of policy-passing nodes in registered domains.
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= P.N) continue;
+      uint8_t fl = s.flags[li];
+      for (int g = 0; g < G; ++g) {
+        const SpreadCon& c = sp.con[c0 + g];
+        if (!(c.flags & CF_S) || (c.flags & CF_SINGLE)) continue;
+        const int l = sp_ldom(P, n, c.key);
+        if (l < 0 || !dom_part(P, s.domc, S_REG, c0 + g)[l]) continue;
+        if (lazy && !(fl & FL_VIS) && P.nvalid[n]) fl = team.node_flags(P, j, n) | FL_VIS;
+        if (sp_policy(P, c, n, fl)) atomicAdd(dom_part(P, s.dom, S_SUM, c0 + g) + l, sp_count(P, c, n));
+      }
     }
+    if (team.leader()) {
+      for (int g = 0; g < G; ++g) {
+        const SpreadCon& c = sp.con[c0 + g];
+        if (!(c.flags & CF_S) || (c.flags & CF_SINGLE)) continue;
+        for (long long d = threadIdx.x; d < c.dsize; d += blockDim.x) v[g] += dom_part(P, s.domc, S_REG, c0 + g)[d];
+      }
+    }
+    team.reduce(v, op, G, s);  // its barriers also publish the atomics
+    team.domains_after_reduce(P, sp, s, CF_S, S_SUM, c0, c0 + G);
+    if (static_cast<int>(threadIdx.x) < G) sp.con[c0 + threadIdx.x].dom_num = v[threadIdx.x];
   }
-  team.reduce(v, op, MC, s);  // its barriers also publish the atomics
-  team.domains_after_reduce(P, sp, s, sp.active_s, S_SUM);
-  for (int c = 0; c < MC; ++c) dom_num[c] = v[c];
+  __syncthreads();
 }
 
 // The raw score at node n: sum over constraints, in constraint order, of
 // seg * log(dom_num + 2) + (maxSkew - 1) where gated, rounded half to even.
-__device__ inline int spread_raw(const ChainParams& P, const Spread& sp, const Smem& s,
-                                 const int* dom_num, long long n, uint8_t fl) {
+__device__ inline int spread_raw(const ChainParams& P, const Spread& sp, const Smem& s, long long n, uint8_t fl) {
   if (!sp.has_score) return 0;
-  const bool filtered = (fl & FL_OK) && sp_allkeys(P, sp, sp.active_s, n);
+  const bool filtered = (fl & FL_OK) && sp_allkeys(P, sp, CF_S, n);
   double total64 = 0.0;
   float total32 = 0.0f;
-  for (long long c = 0; c < P.MC; ++c) {
+  for (long long ci = 0; ci < P.MC; ++ci) {
+    const SpreadCon& c = sp.con[ci];
     int seg = 0;
-    const bool gate = ((sp.active_s >> c) & 1u) && filtered;
+    const bool gate = (c.flags & CF_S) && filtered;
     if (gate) {
-      const int k = sp_key(P, sp, c);
-      const int l = sp_ldom(P, n, k);
+      const int l = sp_ldom(P, n, c.key);
       if (l >= 0) {
-        if (sp_singleton(P, k)) seg = sp_policy(P, sp, c, n, fl) ? sp_count(P, sp, c, n) : 0;
-        else seg = dom_part(P, s.domc, S_SUM, c)[l];
+        if (c.flags & CF_SINGLE) seg = sp_policy(P, c, n, fl) ? sp_count(P, c, n) : 0;
+        else seg = dom_part(P, s.domc, S_SUM, ci)[l];
       }
     }
-    const long long w = min(max(static_cast<long long>(dom_num[c]), 0LL), P.N);
+    const long long w = min(max(static_cast<long long>(c.dom_num), 0LL), P.N);
     if (P.exact) {
       const double wt = static_cast<const double*>(P.sp_logw)[w];
       const double v = gate ? __dadd_rn(__dmul_rn(static_cast<double>(seg), wt),
-                                        __dsub_rn(static_cast<double>(P.con_max_skew[sp.base + c]), 1.0))
+                                        __dsub_rn(static_cast<double>(c.max_skew), 1.0))
                             : 0.0;
-      total64 = c == 0 ? v : __dadd_rn(total64, v);
+      total64 = ci == 0 ? v : __dadd_rn(total64, v);
     } else {
       const float wt = static_cast<const float*>(P.sp_logw)[w];
       const float v = gate ? __fadd_rn(__fmul_rn(static_cast<float>(seg), wt),
-                                       __fsub_rn(static_cast<float>(P.con_max_skew[sp.base + c]), 1.0f))
+                                       __fsub_rn(static_cast<float>(c.max_skew), 1.0f))
                            : 0.0f;
-      total32 = c == 0 ? v : __fadd_rn(total32, v);
+      total32 = ci == 0 ? v : __fadd_rn(total32, v);
     }
   }
   return P.exact ? __double2int_rn(total64) : __float2int_rn(total32);
@@ -976,29 +992,32 @@ __device__ inline Interpod interpod_pod(const ChainParams& P, long long j, const
 }
 
 
-// The reason code at node n; checks in upstream order.
-__device__ inline int interpod_code(const ChainParams& P, const Interpod& ip, long long n) {
+// The pod's required affinity terms admit node n (true without any).
+__device__ inline bool interpod_aff_pass(const ChainParams& P, const Interpod& ip, long long n) {
+  if (!ip.raff) return true;
   const int32_t* dom = P.ipa_dom + n * P.T2;
   const int32_t* cnt = P.ipa_cnt + n * P.T2;
-  const int32_t* ecnt = P.ipa_ecnt + n * P.T2;
-  bool pass_aff = true;
-  if (ip.raff) {
-    bool missing = false, no_pods = false;
-    for (long long t = 0; t < P.T2; ++t) missing = missing || (P.ipa_raff[ip.base + t] && dom[t] < 0);
-    // Required terms sharing a topology key share one count.
-    for (long long k = 0; k < P.TKI && !no_pods; ++k) {
-      bool need = false;
-      unsigned key_cnt = 0;  // WRAP
-      for (long long t = 0; t < P.T2; ++t) {
-        if (!P.ipa_raff[ip.base + t] || P.ipa_term_tk[t] != k) continue;
-        need = true;
-        key_cnt += static_cast<unsigned>(cnt[t]);
-      }
-      no_pods = need && static_cast<int>(key_cnt) <= 0;
+  bool missing = false, no_pods = false;
+  for (long long t = 0; t < P.T2; ++t) missing = missing || (P.ipa_raff[ip.base + t] && dom[t] < 0);
+  // Required terms sharing a topology key share one count.
+  for (long long k = 0; k < P.TKI && !no_pods; ++k) {
+    bool need = false;
+    unsigned key_cnt = 0;  // WRAP
+    for (long long t = 0; t < P.T2; ++t) {
+      if (!P.ipa_raff[ip.base + t] || P.ipa_term_tk[t] != k) continue;
+      need = true;
+      key_cnt += static_cast<unsigned>(cnt[t]);
     }
-    pass_aff = !missing && (!no_pods || ip.escape);
+    no_pods = need && static_cast<int>(key_cnt) <= 0;
   }
-  if (!pass_aff) return 1;
+  return !missing && (!no_pods || ip.escape);
+}
+
+// The reason code at node n; checks in upstream order.
+__device__ inline int interpod_code(const ChainParams& P, const Interpod& ip, long long n) {
+  const int32_t* cnt = P.ipa_cnt + n * P.T2;
+  const int32_t* ecnt = P.ipa_ecnt + n * P.T2;
+  if (!interpod_aff_pass(P, ip, n)) return 1;
   for (long long t = 0; t < P.T2; ++t)
     if (cnt[t] > 0 && P.ipa_ranti[ip.base + t]) return 2;
   for (long long t = 0; t < P.T2; ++t)
@@ -1039,9 +1058,8 @@ __device__ inline long long floormod(long long a, long long m) { return ((a % m)
 // calls it alone, for one node, over a modified node state (csrc/
 // replay_segment.cu eval_fit).
 __device__ inline uint8_t filter_node(const ChainParams& P, long long p, long long j, long long n,
-                                      const Smem& s, const Spread& sp, const Interpod& ip,
-                                      const int* min_match, bool sp_filter, bool record_bits,
-                                      long long rowF) {
+                                      const Smem& s, const Spread& sp, const Interpod& ip, bool sp_filter,
+                                      bool record_bits, long long rowF) {
   const long long N = P.N;
   bool ok = P.nvalid[n] != 0;
   const int taint = taint_block(P, j, n);
@@ -1102,10 +1120,10 @@ __device__ inline uint8_t filter_node(const ChainParams& P, long long p, long lo
     ok = ok && code == 0;
     if (record_bits) store_int(P.bits_out, rowF + P.f_row[VOLRESTR] * N + n, code, P.bits_size);
   }
-  if (P.f_row[VOLLIMITS] >= 0) {
-    const bool over = volume_limits_over(P, j, n);
+  for (long long q = 0; q < P.nvl_ninst; ++q) {
+    const bool over = volume_limits_over(P, q, j, n);
     ok = ok && !over;
-    if (record_bits) store_int(P.bits_out, rowF + P.f_row[VOLLIMITS] * N + n, over, P.bits_size);
+    if (record_bits) store_int(P.bits_out, rowF + P.nvl_row[q] * N + n, over, P.bits_size);
   }
   if (P.f_row[VOLBIND] >= 0) {
     const int code = volume_binding_code(P, j, n);
@@ -1118,7 +1136,7 @@ __device__ inline uint8_t filter_node(const ChainParams& P, long long p, long lo
     if (record_bits) store_int(P.bits_out, rowF + P.f_row[VOLZONE] * N + n, conflict, P.bits_size);
   }
   if (P.f_row[SPREAD] >= 0) {
-    const int code = sp_filter ? spread_filter_code(P, sp, s, min_match, n, fl) : 0;
+    const int code = sp_filter ? spread_filter_code(P, sp, s, n, fl) : 0;
     ok = ok && code == 0;
     if (record_bits) store_int(P.bits_out, rowF + P.f_row[SPREAD] * N + n, code, P.bits_size);
   }
@@ -1147,7 +1165,7 @@ __device__ inline uint8_t filter_node(const ChainParams& P, long long p, long lo
 // already set and the walk only counts.
 template <bool FILTER, class Team>
 __device__ inline long long visit_window(const ChainParams& P, long long p, long long j, Smem& s, const Spread& sp,
-                                         const Interpod& ip, const int* min_match, bool sp_filter, Team& team,
+                                         const Interpod& ip, bool sp_filter, Team& team,
                                          long long sm) {
   const long long nreal = P.n_real, nr = max(nreal, 1LL);
   const long long tiles = (nreal + team.T - 1) / team.T;  // the tiles that hold real nodes
@@ -1163,7 +1181,7 @@ __device__ inline long long visit_window(const ChainParams& P, long long p, long
     bool f = false;
     if (in) {
       if constexpr (FILTER) {
-        const uint8_t fl = P.nvalid[n] ? filter_node(P, p, j, n, s, sp, ip, min_match, sp_filter, false, 0) | FL_VIS : 0;
+        const uint8_t fl = P.nvalid[n] ? filter_node(P, p, j, n, s, sp, ip, sp_filter, false, 0) | FL_VIS : 0;
         s.flags[li] = fl;
         f = fl & FL_OK;
       } else {
@@ -1212,17 +1230,18 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
   // -- phase 0: setup; the barrier also orders the previous pod's commit --
   team.mark(PH_SETUP);
   if (P.s_row[IMAGE] >= 0) image_weights(P, j, s);
-  if (use_spread)
+  if (use_spread) {
     for (long long i = threadIdx.x; i < domain_ints(P); i += blockDim.x) s.dom[i] = 0;
+    stage_spread(P, j, s.con);
+  }
   __syncthreads();
-  const Spread sp = use_spread ? spread_pod(P, j) : Spread{0, 0u, 0u, false};
+  const Spread sp = use_spread ? spread_pod(P, j, s.con) : Spread{s.con, false, false, false};
   const Interpod ip = use_ipa ? interpod_pod(P, j, team.ipa_total(P)) : Interpod{0, false, false, false, false};
 
   // -- phase 1: PodTopologySpread's filter statistics --
   team.mark(PH_SPREAD_F);
-  int min_match[MAX_MC];
-  const bool sp_filter = P.f_row[SPREAD] >= 0 && sp.active_f != 0;
-  if (sp_filter) spread_filter_stats(P, sp, j, s, min_match, team);
+  const bool sp_filter = P.f_row[SPREAD] >= 0 && sp.any_f;
+  if (sp_filter) spread_filter_stats(P, sp, j, s, team);
 
   // -- phase 2: filters (every one runs: all reason codes are recorded);
   //    kernel C's visit window --
@@ -1235,7 +1254,7 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
     for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
       const long long n = team.node(li);
       if (n >= N) continue;
-      s.flags[li] = (sparse && !P.nvalid[n]) ? 0 : filter_node(P, p, j, n, s, sp, ip, min_match, sp_filter, full, rowF);
+      s.flags[li] = (sparse && !P.nvalid[n]) ? 0 : filter_node(P, p, j, n, s, sp, ip, sp_filter, full, rowF);
     }
   }
   __syncthreads();
@@ -1244,9 +1263,9 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
     const long long nr = max(P.n_real, 1LL);
     const long long sm = floormod(start, nr);
     if (sparse) {
-      thr = visit_window<true>(P, p, j, s, sp, ip, min_match, sp_filter, team, sm);
+      thr = visit_window<true>(P, p, j, s, sp, ip, sp_filter, team, sm);
     } else {
-      thr = visit_window<false>(P, p, j, s, sp, ip, min_match, sp_filter, team, sm);
+      thr = visit_window<false>(P, p, j, s, sp, ip, sp_filter, team, sm);
       for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
         const long long n = team.node(li);
         if (n >= N) continue;
@@ -1260,9 +1279,7 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
 
   // -- phase 3: PodTopologySpread's score statistics --
   team.mark(PH_SPREAD_S);
-  int dom_num[MAX_MC];
-  for (int c = 0; c < MAX_MC; ++c) dom_num[c] = 0;
-  if (P.s_row[SPREAD] >= 0 && sp.has_score) spread_score_stats(P, sp, j, s, dom_num, team, SAMPLED && sparse);
+  if (P.s_row[SPREAD] >= 0 && sp.has_score) spread_score_stats(P, sp, j, s, team, SAMPLED && sparse);
 
   // -- phase 4: scores; the unnormalized finals are summed right away --
   // Extrema: taint max, affinity max, spread max / min / any over the
@@ -1316,8 +1333,8 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
       if (finals) store_int(P.final_out, rowS + P.s_row[BALANCED] * N + n, fin, P.final_size);
     }
     if (P.s_row[SPREAD] >= 0) {
-      const int raw = spread_raw(P, sp, s, dom_num, n, fl);
-      if (ok && sp.has_score && sp_allkeys(P, sp, sp.active_s, n)) {  // scoreable
+      const int raw = spread_raw(P, sp, s, n, fl);
+      if (ok && sp.has_score && sp_allkeys(P, sp, CF_S, n)) {  // scoreable
         ex[2] = max(ex[2], raw);
         ex[3] = min(ex[3], raw);
         ex[4] = 1;
@@ -1378,8 +1395,8 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
     }
     if (P.s_row[SPREAD] >= 0) {
       int norm = 0;
-      if (sp.has_score && sp_allkeys(P, sp, sp.active_s, n)) {  // not ignored
-        const int raw = spread_raw(P, sp, s, dom_num, n, fl);
+      if (sp.has_score && sp_allkeys(P, sp, CF_S, n)) {  // not ignored
+        const int raw = spread_raw(P, sp, s, n, fl);
         // WRAP, then a real floor division: the reference's int32 math.
         norm = sp_mx == 0 ? MAX_NODE_SCORE
                           : floordiv(wrap_mul(MAX_NODE_SCORE, wrap_sub(wrap_add(sp_mx, sp_mn), raw)),
@@ -1429,12 +1446,6 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
     if (P.pvalid[p]) team.start = floormod(start + thr + 1, max(P.n_real, 1LL));
   }
   return P.pvalid[p] ? key_node(best) : -1;
-}
-
-// The block's own (kernel B).
-__device__ inline int eval_pod(const ChainParams& P, long long p, Smem& s) {
-  BlockTeam team;
-  return eval_pod_team<false, false>(P, p, s, team, nullptr, -1);
 }
 
 // ---- the commit (kernels A, C and D) ------------------------------------------

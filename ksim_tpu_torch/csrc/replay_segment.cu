@@ -446,18 +446,19 @@ __device__ inline bool eval_fit(const SegmentParams& S, long long j, long long n
   __syncthreads();
   derive_interpod(S.derive, team, dscr, s.ipa_tot);
   const bool use_spread = C.f_row[SPREAD] >= 0 || C.s_row[SPREAD] >= 0;
-  if (use_spread)
+  if (use_spread) {
     for (long long i = threadIdx.x; i < domain_ints(C); i += blockDim.x) s.dom[i] = 0;
+    stage_spread(C, j, s.con);
+  }
   __syncthreads();
-  const Spread sp = use_spread ? spread_pod(C, j) : Spread{0, 0u, 0u, false};
+  const Spread sp = use_spread ? spread_pod(C, j, s.con) : Spread{s.con, false, false, false};
   const bool use_ipa = C.f_row[INTERPOD] >= 0 || C.s_row[INTERPOD] >= 0;
   const Interpod ip = use_ipa ? interpod_pod(C, j, team.ipa_total(C)) : Interpod{0, false, false, false, false};
-  int min_match[MAX_MC];
-  const bool sp_filter = C.f_row[SPREAD] >= 0 && sp.active_f != 0;
-  if (sp_filter) spread_filter_stats(C, sp, j, s, min_match, team);
+  const bool sp_filter = C.f_row[SPREAD] >= 0 && sp.any_f;
+  if (sp_filter) spread_filter_stats(C, sp, j, s, team);
   int fit[1] = {0};
   const int op_max[1] = {RMAX};
-  if (team.owns(n)) fit[0] = (filter_node(C, j, j, n, s, sp, ip, min_match, sp_filter, false, 0) & FL_OK) != 0;
+  if (team.owns(n)) fit[0] = (filter_node(C, j, j, n, s, sp, ip, sp_filter, false, 0) & FL_OK) != 0;
   team.reduce(fit, op_max, 1, s);
   if (team.holds(n)) shift_rows(S, n, ps.vrows, MAX_VIC, mask, +1, false);
   __syncthreads();

@@ -158,6 +158,9 @@ class _Program:
         self.filters = [sp for sp in plugins if sp.filter_enabled]
         self.scores = [sp for sp in plugins if sp.score_enabled]
         self.dtypes = self._result_dtypes()
+        # The kernels' copies of the profile's tables, per device
+        # (kernels/chain.py profile_tables).
+        self.kernel_tables: dict = {}
 
     def eval_block(self, state: NodeStateView, pods: PodView, aux: dict, carries: dict):
         """B pods against all N nodes through every plugin: (feasible
@@ -439,8 +442,8 @@ class Engine:
         record modes; record="full" must stream through evaluate_batch.
         ``block`` is the reference's pods per vmap block, clamped to the
         pod axis and halved until it divides it: here the plain version's
-        pods per step (the kernel runs one pod per thread block whatever
-        its value)."""
+        pods per step (the kernel's persistent grid strides over the pods
+        whatever its value)."""
         if self._record == "full":
             raise ValueError("record='full' results must stream: use evaluate_batch")
         self._refuse_sampling()

@@ -41,6 +41,8 @@ ARGTYPES = {
     "schedule_scan": _CLUSTER_ARGS,
     "schedule_sampled": _CLUSTER_ARGS,
     "replay_segment": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p) + _CLUSTER,
+    # Kernel B: (params, summary params, stream, grid).
+    "batch_eval": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong),
 }
 
 _LOCK = threading.Lock()

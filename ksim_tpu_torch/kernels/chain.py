@@ -28,19 +28,16 @@ PLUGIN_IDS = {
 }
 STRATEGY_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 NPLUGINS = 14
-MAX_SPEC = 8
-MAX_SHAPE = 16
-MAX_POOLS = 16  # NodeVolumeLimits pools
-MAX_MC = 8  # PodTopologySpread constraints per pod
-MAX_TK = 16  # PodTopologySpread topology keys
 # Per-domain scratch that fits this many bytes lives in shared memory,
 # more in a global buffer.
 DOMAIN_SMEM_BYTES = 16384
 # The dynamic shared memory one block may opt into on sm_90 (227 KB).
 MAX_SMEM_BYTES = 232448
-# plugin_chain.cuh Smem: reduction slots and the prefix-count scratch.
+# plugin_chain.cuh Smem: reduction slots, the prefix-count scratch, and
+# the bytes of one staged spread constraint (SpreadCon).
 RED_MAX = 24
 SCAN_INTS = 64
+SPREAD_CON_BYTES = 32
 RECORD_IDS = {"selection": 0, "final": 1, "full": 2}
 # Kernels A and C run on one thread-block cluster (csrc/cluster_scan.cuh):
 # its size (0: 16 where the card's occupancy query finds room for one such
@@ -92,33 +89,31 @@ _SHAPES = (
 )
 
 
+# The profile's tables (device arrays, profile_tables) and their sizes.
+_TABLES = (
+    "fit_spec_idx", "fit_spec_w", "shape_u", "shape_s", "bal_spec",
+    "nvl_row", "nvl_pool_off", "nvl_pools", "tk_singleton", "tk_size",
+)
+_TABLE_SIZES = ("fit_base_count", "fit_strategy", "fit_nspec", "fit_nshape", "bal_nspec", "nvl_ninst", "sp_ntk")
+
+
 class ChainParams(ctypes.Structure):
     _fields_ = (
         [(name, _P) for name in _POINTERS]
         + [(name, _L) for name in _SHAPES]
         + [("f_row", _L * NPLUGINS), ("s_row", _L * NPLUGINS), ("weight", _L * NPLUGINS)]
-        + [("fit_base_count", _L), ("fit_strategy", _L), ("fit_nspec", _L),
-           ("fit_spec_idx", _L * MAX_SPEC), ("fit_spec_w", _L * MAX_SPEC),
-           ("fit_nshape", _L), ("shape_u", _L * MAX_SHAPE), ("shape_s", _L * MAX_SHAPE)]
-        + [("bal_nspec", _L), ("bal_spec", _L * MAX_SPEC)]
-        + [("nvl_npools", _L), ("nvl_pools", _L * MAX_POOLS)]
-        + [("tk_singleton", _L * MAX_TK), ("tk_size", _L * MAX_TK)]
+        + [(name, _P) for name in _TABLES]
+        + [(name, _L) for name in _TABLE_SIZES]
     )
 
 
 def check_chain(plugins) -> None:
-    """Raise NotImplementedError for a chain the kernels cannot run."""
+    """Raise NotImplementedError for a chain the engine cannot run on any
+    device: hooks it does not port, a plugin without the stage it is
+    enabled at, a plugin name twice (the carries are keyed by name)."""
     seen = set()
     for sp in plugins:
         name = sp.plugin.name
-        if name not in PLUGIN_IDS:
-            if hasattr(sp.plugin, "pool_ids"):
-                raise NotImplementedError(
-                    f"{name}: a NodeVolumeLimits instance under another name (a legacy "
-                    "per-pool plugin) cannot be expressed: the kernels hold one "
-                    "NodeVolumeLimits instance"
-                )
-            raise NotImplementedError(f"plugin {name} is not ported to ksim_tpu_torch")
         if name in seen:
             raise NotImplementedError(f"plugin {name} appears twice in the profile")
         seen.add(name)
@@ -128,17 +123,61 @@ def check_chain(plugins) -> None:
             raise NotImplementedError(f"{name} has no filter")
         if sp.score_enabled and not hasattr(sp.plugin, "score"):
             raise NotImplementedError(f"{name} has no score")
-        p = sp.plugin
-        if name == "NodeResourcesFit" and (
-            len(p._score_spec) > MAX_SPEC or len(p._shape) > MAX_SHAPE
-        ):
-            raise NotImplementedError("NodeResourcesFit: more score resources or shape points than the kernels hold")
-        if name == "NodeResourcesBalancedAllocation" and len(p._spec) > MAX_SPEC:
-            raise NotImplementedError("BalancedAllocation: more resources than the kernels hold")
-        if name == "NodeVolumeLimits" and len(p.pool_ids) > MAX_POOLS:
-            raise NotImplementedError("NodeVolumeLimits: more attach pools than the kernels hold")
-        if name == "PodTopologySpread" and len(p.tk_sizes) > MAX_TK:
-            raise NotImplementedError("PodTopologySpread: more topology keys than the kernels hold")
+
+
+def is_volume_limits(plugin) -> bool:
+    """A NodeVolumeLimits instance: NodeVolumeLimits itself or a legacy
+    per-pool one (EBSLimits, GCEPDLimits, AzureDiskLimits, CinderLimits)."""
+    return hasattr(plugin, "pool_ids")
+
+
+def volume_limits_carry(prog) -> str | None:
+    """The carry the kernels keep the attached volumes in: the first
+    NodeVolumeLimits instance's (every instance carries the same one)."""
+    return next((sp.plugin.name for sp in prog.plugins if is_volume_limits(sp.plugin)), None)
+
+
+def check_kernel_chain(prog) -> None:
+    """Raise NotImplementedError for a plugin the kernels have no code for
+    (the plain path runs any plugin with a filter or score)."""
+    for sp in prog.plugins:
+        if sp.plugin.name not in PLUGIN_IDS and not is_volume_limits(sp.plugin):
+            raise NotImplementedError(f"plugin {sp.plugin.name} has no kernel code in ksim_tpu_torch")
+
+
+def profile_tables(prog, device) -> dict:
+    """The profile's tables the kernels read, as int32 tensors on
+    ``device`` (made once per program and device): NodeResourcesFit's
+    score resources, weights and shape points, BalancedAllocation's
+    resources, the NodeVolumeLimits instances (each one's row among the
+    filters and its pools) and PodTopologySpread's per-key singleton flags
+    and domain counts.  Sized by the profile: no cap."""
+    key = str(device)
+    if key in prog.kernel_tables:
+        return prog.kernel_tables[key]
+    names = {sp.plugin.name: sp.plugin for sp in prog.plugins}
+    fit = names.get("NodeResourcesFit")
+    bal = names.get("NodeResourcesBalancedAllocation")
+    spread = names.get("PodTopologySpread")
+    inst = [(row, sp.plugin.pool_ids) for row, sp in enumerate(prog.filters) if is_volume_limits(sp.plugin)]
+    off = [0]
+    for _, pools in inst:
+        off.append(off[-1] + len(pools))
+    lists = {
+        "fit_spec_idx": [ri for ri, _ in fit._score_spec] if fit else [],
+        "fit_spec_w": [w for _, w in fit._score_spec] if fit else [],
+        "shape_u": [u for u, _ in fit._shape] if fit else [],
+        "shape_s": [v for _, v in fit._shape] if fit else [],
+        "bal_spec": list(bal._spec) if bal else [],
+        "nvl_row": [row for row, _ in inst],
+        "nvl_pool_off": off,
+        "nvl_pools": [k for _, pools in inst for k in pools],
+        "tk_singleton": [int(x) for x in spread.tk_singleton] if spread else [],
+        "tk_size": list(spread.tk_sizes) if spread else [],
+    }
+    tables = {name: torch.tensor(v, dtype=torch.int32, device=device) for name, v in lists.items()}
+    prog.kernel_tables[key] = tables
+    return tables
 
 
 def _ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple, device) -> int | None:
@@ -155,15 +194,16 @@ def _ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple, device) -> in
     return t.data_ptr()
 
 
-def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1, cluster: bool = False,
+def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = False,
                  sampling: tuple | None = None, rows: int | None = None) -> ChainParams:
     """Fill ChainParams for ``prog`` (engine/core.py _Program) over the
     pod chunk ``pods``.  ``state`` and the carries are the tensors the
     scan kernels update in place; ``out`` holds the output tensors of the
-    record mode (plus ``visited`` under sampling).  ``grid`` is the
-    number of blocks the launch runs, for the per-block domain scratch;
-    ``cluster`` sizes that scratch for a cluster launch instead (a
-    partial and a combined array for each of up to MAX_CLUSTER blocks);
+    record mode (plus ``visited`` under sampling).  ``cluster`` allocates
+    the spread domain scratch, where it is not in shared memory, for a
+    cluster launch (a partial and a combined array for each of up to
+    MAX_CLUSTER blocks); else the launch allocates its own per block
+    (``domain_ints`` each) and sets ``sp_scratch``;
     ``sampling`` is (start [1] i32 tensor, n_real, k >= 1) for kernel C.
     ``rows`` is the records' row count when it is not the chunk's (kernel
     D records per attempt), and ``out["total"]`` may then be None (no
@@ -202,16 +242,23 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1, c
     put("phas", pods.has_requests, b, (Pc,))
     put("pindex", pods.index, i32, (Pc,))
 
+    check_kernel_chain(prog)
     for k in range(NPLUGINS):
         prm.f_row[k] = -1
         prm.s_row[k] = -1
         prm.weight[k] = 0
     for row, sp in enumerate(prog.filters):
-        prm.f_row[PLUGIN_IDS[sp.plugin.name]] = row
+        if not is_volume_limits(sp.plugin):  # their rows are in nvl_row
+            prm.f_row[PLUGIN_IDS[sp.plugin.name]] = row
     for row, sp in enumerate(prog.scores):
         prm.s_row[PLUGIN_IDS[sp.plugin.name]] = row
         prm.weight[PLUGIN_IDS[sp.plugin.name]] = sp.weight
     names = {sp.plugin.name: sp.plugin for sp in prog.plugins}
+    tables = profile_tables(prog, dev)
+    for name, t in tables.items():
+        put(name, t, i32, tuple(t.shape))
+    prm.nvl_ninst = tables["nvl_row"].shape[0]
+    prm.sp_ntk = tables["tk_size"].shape[0]
 
     # Every aux family goes in whole: PodTopologySpread reads the
     # NodeAffinity and TaintToleration tables whether or not those
@@ -253,18 +300,9 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1, c
         prm.fit_base_count = fit._base_count
         prm.fit_strategy = STRATEGY_IDS[fit._strategy]
         prm.fit_nspec = len(fit._score_spec)
-        for k, (ri, w) in enumerate(fit._score_spec):
-            prm.fit_spec_idx[k] = ri
-            prm.fit_spec_w[k] = w
         prm.fit_nshape = len(fit._shape)
-        for k, (u, s) in enumerate(fit._shape):
-            prm.shape_u[k] = u
-            prm.shape_s[k] = s
     if "NodeResourcesBalancedAllocation" in names:
-        spec = names["NodeResourcesBalancedAllocation"]._spec
-        prm.bal_nspec = len(spec)
-        for k, ri in enumerate(spec):
-            prm.bal_spec[k] = ri
+        prm.bal_nspec = len(names["NodeResourcesBalancedAllocation"]._spec)
 
     a = aux["volumes"]
     NPV = prm.NPV = a["pv_node_ok"].shape[0]
@@ -287,12 +325,9 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1, c
     put("pod_disk_any", a["pod_disk_any"], b, (P_all, DD))
     put("pod_disk_rw", a["pod_disk_rw"], b, (P_all, DD))
     put("disk_shareable", a["disk_ro_shareable"], b, (DD,))
-    if "NodeVolumeLimits" in names:
-        pools = names["NodeVolumeLimits"].pool_ids
-        prm.nvl_npools = len(pools)
-        for k, pool in enumerate(pools):
-            prm.nvl_pools[k] = pool
-        put("attached", carries["NodeVolumeLimits"], i32, (N, VV))
+    nvl = volume_limits_carry(prog)
+    if nvl is not None:
+        put("attached", carries[nvl], i32, (N, VV))
     if "VolumeRestrictions" in names:
         c = carries["VolumeRestrictions"]
         put("rwop", c["rwop"], i32, (N, RW))
@@ -314,22 +349,11 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1, c
     keep = []
     if "PodTopologySpread" in names:
         sp = names["PodTopologySpread"]
-        if MC > MAX_MC:
-            raise NotImplementedError("PodTopologySpread: more constraints per pod than the kernels hold")
-        dmax = 0
-        for k, (size, single) in enumerate(zip(sp.tk_sizes, sp.tk_singleton)):
-            prm.tk_size[k] = size
-            prm.tk_singleton[k] = int(single)
-            if not single:
-                dmax = max(dmax, size)
-        for k in range(len(sp.tk_sizes), MAX_TK):
-            prm.tk_size[k] = 0
-            prm.tk_singleton[k] = 1
-        prm.DMAX = dmax
-        dom_ints = 4 * MC * dmax  # filter sum, filter presence, score registration, score sum
+        prm.DMAX = max((size for size, single in zip(sp.tk_sizes, sp.tk_singleton) if not single), default=0)
+        dom_ints = domain_ints(prm)
         prm.sp_smem = int(4 * dom_ints <= DOMAIN_SMEM_BYTES)
-        if not prm.sp_smem:
-            shape = (MAX_CLUSTER, 2 * dom_ints) if cluster else (grid, dom_ints)
+        if not prm.sp_smem and cluster:
+            shape = (MAX_CLUSTER, 2 * dom_ints)
             scratch = torch.empty(shape, dtype=i32, device=dev)
             keep.append(scratch)
             put("sp_scratch", scratch, i32, shape)
@@ -371,8 +395,15 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, grid: int = 1, c
     if prog.record == "full":
         put("bits_out", out["bits"], bits_dtype, (rows, prm.F, N))
         put("raw_out", out["raw"], raw_dtype, (rows, prm.S, N))
-    prm.keep = keep
+    prm.keep = keep + [tables]
     return prm
+
+
+def domain_ints(prm: ChainParams) -> int:
+    """Ints of one block's spread domain scratch (csrc/plugin_chain.cuh
+    ``domain_ints``): filter sum, filter presence, score registration and
+    score sum per constraint and domain."""
+    return 4 * prm.MC * prm.DMAX
 
 
 def empty_outputs(prog, n_pods: int, n_nodes: int, device, *, sampled: bool = False) -> dict:
@@ -393,10 +424,12 @@ def empty_outputs(prog, n_pods: int, n_nodes: int, device, *, sampled: bool = Fa
     return out
 
 
-def fresh_scan_state(state, carries: dict):
+def fresh_scan_state(prog, state, carries: dict):
     """Fresh copies of the node state's carried fields and of the carries
     (tensors or dicts of tensors), for a scan kernel that commits into
-    them in place: its inputs stay unmodified."""
+    them in place: its inputs stay unmodified.  Every NodeVolumeLimits
+    instance gets the one copy the kernel commits into (their carries are
+    equal: each commit saturates the same attachments)."""
     state = state._replace(
         requested=state.requested.clone(),
         nonzero_requested=state.nonzero_requested.clone(),
@@ -406,17 +439,11 @@ def fresh_scan_state(state, carries: dict):
         k: {f: t.clone() for f, t in v.items()} if isinstance(v, dict) else v.clone()
         for k, v in carries.items()
     }
+    nvl = volume_limits_carry(prog)
+    for sp in prog.plugins:
+        if is_volume_limits(sp.plugin) and sp.plugin.name in carries:
+            carries[sp.plugin.name] = carries[nvl]
     return state, carries
-
-
-def smem_bytes(prm: ChainParams) -> int:
-    """The dynamic shared memory a chain kernel's block takes
-    (plugin_chain.cuh ``smem_bytes``): 13 bytes per padded node, the
-    pod's image weights, the reduction scratch and, when it fits, the
-    PodTopologySpread domain scratch."""
-    align8 = (3 * 4 * prm.N + prm.N + 7) & ~7
-    dom = 4 * 4 * prm.MC * prm.DMAX if prm.sp_smem else 0
-    return align8 + 8 * prm.I + 8 * 33 + 4 * 33 * RED_MAX + 4 * SCAN_INTS + dom
 
 
 def cluster_threads(n_nodes: int, size: int) -> int:
@@ -445,43 +472,31 @@ def block_nodes(n_nodes: int, size: int, threads: int, rank: int) -> list[int]:
 def cluster_smem_bytes(prm: ChainParams, size: int, threads: int = 0) -> int:
     """The dynamic shared memory of one block of a ``size``-block cluster
     (``cluster_smem_bytes``): 13 bytes per node slot, the reduction and
-    prefix-count scratch, the term totals' copy and, when it fits, a
-    partial and a combined PodTopologySpread domain scratch."""
+    prefix-count scratch, the term totals' copy, the pod's spread
+    constraints and, when it fits, a partial and a combined
+    PodTopologySpread domain scratch."""
     slots = cluster_slots(prm.N, size, threads or cluster_threads(prm.N, size))
     dom = 2 * 4 * 4 * prm.MC * prm.DMAX if prm.sp_smem else 0
     ints = 33 * RED_MAX + SCAN_INTS + 2 * RED_MAX + 2 * 32 + 2 * 32 + prm.T2
-    return ((13 * slots + 7) & ~7) + 8 * prm.I + 8 * 33 + 8 * 2 + 4 * ints + dom
+    return ((13 * slots + 7) & ~7) + 8 * prm.I + 8 * 33 + 8 * 2 + 4 * ints + SPREAD_CON_BYTES * prm.MC + dom
 
 
-def check_smem(prm: ChainParams, *, extra: int = 0, cluster: int = 0, threads: int = 0) -> None:
-    """Raise ValueError when a block's shared memory (the chain's plus
-    ``extra``) is over what one block may take, naming the padded node
-    count.  The per-node values live in shared memory: in one block (the
-    default; kernels B and D) that bounds the node axis at about 17,590
-    padded nodes with no spread domain scratch; in a ``cluster``-block
-    cluster (kernels A and C) each block holds about N / cluster nodes,
-    and the bound is about ``cluster`` times larger."""
-    if cluster:
-        need = cluster_smem_bytes(prm, cluster, threads) + extra
-        if need > MAX_SMEM_BYTES:
-            nt = threads or cluster_threads(prm.N, cluster)
-            fixed = need - 13 * cluster_slots(prm.N, cluster, nt)
-            slots = (MAX_SMEM_BYTES - fixed - 7) // 13 // nt * nt  # whole tiles
-            raise ValueError(
-                f"padded node axis N={prm.N} needs {need} bytes of shared memory per block of a "
-                f"{cluster}-block cluster, over the {MAX_SMEM_BYTES} bytes one block may take on sm_90: "
-                f"at 13 bytes per node slot a block of {nt} threads holds at most {slots} slots, "
-                f"{slots * cluster} padded nodes for this cluster, profile and vocabulary"
-            )
-        return
-    need = smem_bytes(prm) + extra
+def check_smem(prm: ChainParams, *, cluster: int, extra: int = 0, threads: int = 0) -> None:
+    """Raise ValueError when one block of a ``cluster``-block cluster
+    (kernels A, C and D) needs more shared memory (the chain's plus
+    ``extra``) than one block may take, naming the padded node count and
+    the bound: each block holds about N / cluster node slots at 13 bytes
+    each, so the bound is about ``cluster`` times one block's."""
+    need = cluster_smem_bytes(prm, cluster, threads) + extra
     if need > MAX_SMEM_BYTES:
-        fixed = need - 13 * prm.N
+        nt = threads or cluster_threads(prm.N, cluster)
+        fixed = need - 13 * cluster_slots(prm.N, cluster, nt)
+        slots = (MAX_SMEM_BYTES - fixed - 7) // 13 // nt * nt  # whole tiles
         raise ValueError(
-            f"padded node axis N={prm.N} needs {need} bytes of shared memory per "
-            f"block, over the {MAX_SMEM_BYTES} bytes one block may take on sm_90: "
-            f"at 13 bytes per node the kernels hold at most "
-            f"{(MAX_SMEM_BYTES - fixed) // 13} padded nodes for this profile and vocabulary"
+            f"padded node axis N={prm.N} needs {need} bytes of shared memory per block of a "
+            f"{cluster}-block cluster, over the {MAX_SMEM_BYTES} bytes one block may take on sm_90: "
+            f"at 13 bytes per node slot a block of {nt} threads holds at most {slots} slots, "
+            f"{slots * cluster} padded nodes for this cluster, profile and vocabulary"
         )
 
 
@@ -514,14 +529,3 @@ def launch_cluster(lib, entry: str, prm: ChainParams) -> dict:
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}: {lib.ksim_error_string(err).decode()}")
     return {"cluster": info[0], "threads": info[1], "smem_bytes": info[2], "stats": stats}
-
-
-def launch(lib, entry: str, prm: ChainParams) -> None:
-    """Call ``entry`` on the current stream; raise on a nonzero
-    cudaGetLastError().  A node axis over the shared-memory bound raises
-    ValueError before the launch."""
-    check_smem(prm)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, entry)(ctypes.byref(prm), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{entry}: CUDA error {err}: {lib.ksim_error_string(err).decode()}")

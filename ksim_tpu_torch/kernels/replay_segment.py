@@ -900,8 +900,9 @@ class _Launch:
         init = self.init
         if "NodePorts" in init:
             put("ports_init", init["NodePorts"], i32, tuple(init["NodePorts"].shape))
-        if "NodeVolumeLimits" in init:
-            put("attached_init", init["NodeVolumeLimits"], i32, tuple(init["NodeVolumeLimits"].shape))
+        nvl = chain.volume_limits_carry(prog)
+        if nvl is not None:
+            put("attached_init", init[nvl], i32, tuple(init[nvl].shape))
         if "VolumeRestrictions" in init:
             v = init["VolumeRestrictions"]
             put("rwop_init", v["rwop"], i32, tuple(v["rwop"].shape))

@@ -75,7 +75,7 @@ def schedule_sampled(prog, state, pods, aux, carries, start, n_real: int, k: int
     if device.type != "cuda":
         raise ValueError(f"schedule_sampled runs on cpu or cuda, not {device}")
     lib = build.load("schedule_sampled")
-    state, carries = chain.fresh_scan_state(state, carries)
+    state, carries = chain.fresh_scan_state(prog, state, carries)
     start = start.reshape(1).clone()
     out = chain.empty_outputs(prog, pods.valid.shape[0], state.valid.shape[0], device, sampled=True)
     prm = chain.chain_params(prog, state, pods, aux, carries, out, cluster=True, sampling=(start, n_real, k))

@@ -45,7 +45,7 @@ def schedule_scan(prog, state, pods, aux, carries):
     if device.type != "cuda":
         raise ValueError(f"schedule_scan runs on cpu or cuda, not {device}")
     lib = build.load("schedule_scan")
-    state, carries = chain.fresh_scan_state(state, carries)
+    state, carries = chain.fresh_scan_state(prog, state, carries)
     out = chain.empty_outputs(prog, pods.valid.shape[0], state.valid.shape[0], device)
     prm = chain.chain_params(prog, state, pods, aux, carries, out, cluster=True)
     schedule_scan.last = chain.launch_cluster(lib, "ksim_schedule_scan", prm)

@@ -139,8 +139,8 @@ class NodeVolumeLimits:
     ``NodeVolumeLimits`` covers every pool (upstream v1.30's CSI plugin
     counts migrated in-tree volumes too); the legacy registry names
     (EBSLimits, GCEPDLimits, AzureDiskLimits, CinderLimits) are instances
-    restricted to their one pool via ``pools``.  The kernels hold one
-    instance of the class (kernels/chain.py check_chain)."""
+    restricted to their one pool via ``pools``.  The kernels take any
+    number of instances (kernels/chain.py profile_tables)."""
 
     # Static reason-bit width: result tensors downcast when every
     # filter plugin's bits fit a narrower dtype (engine/core.py).

@@ -11,9 +11,9 @@ construction), with rollback on a config that fails to compile.
 
 The port of ``ksim_tpu/scheduler/profile.py``: the same merge, the same
 builders, building the port's plugins.  A config naming a legacy per-pool
-volume-limit plugin (EBSLimits, GCEPDLimits, ...) compiles, and the
-Engine refuses it with NotImplementedError (kernels/chain.py
-``check_chain``: the kernels hold one NodeVolumeLimits instance).
+volume-limit plugin (EBSLimits, GCEPDLimits, ...) compiles to one more
+NodeVolumeLimits instance, restricted to its pool, which the kernels run
+beside the others (kernels/chain.py ``profile_tables``).
 
 Merge semantics mirror upstream default_plugins.go mergePluginSet:
 

@@ -6,7 +6,8 @@ from the same layout against the plain sampled window.
 The kernels themselves run only on the card (tests/test_torch_gpu.py);
 these tests hold the host helpers that mirror their layout
 (kernels/chain.py ``cluster_threads``, ``cluster_slots``,
-``block_nodes``, ``cluster_smem_bytes``, ``check_smem``)."""
+``block_nodes``, ``cluster_smem_bytes``, ``check_smem``), and kernel B's
+layout beside it (kernels/batch_eval.py ``batch_smem_bytes``)."""
 
 from __future__ import annotations
 
@@ -71,10 +72,14 @@ def _prm(n, *, mc=2, dmax=3, images=8, t2=8, sp_smem=1):
     return prm
 
 
-def test_cluster_bound_accepts_a_node_axis_one_block_refuses():
-    prm = _prm(65536)
-    with pytest.raises(ValueError, match="N=65536"):
-        chain.check_smem(prm)  # one block: about 17,590 nodes
+def test_cluster_bound_accepts_a_node_axis_a_smaller_cluster_refuses():
+    """65,536 padded nodes fit 8- and 16-block clusters; 200,000 fit 16
+    blocks and not 8 (whole tiles of 8 x 1024 nodes: 139,264)."""
+    prm = _prm(200_000)
+    with pytest.raises(ValueError, match=r"N=200000.*8-block cluster.*139264 padded"):
+        chain.check_smem(prm, cluster=8)
+    chain.check_smem(prm, cluster=16)
+    prm.N = 65536
     for size in (8, 16):
         chain.check_smem(prm, cluster=size)
         assert chain.cluster_smem_bytes(prm, size) < chain.MAX_SMEM_BYTES
@@ -88,28 +93,37 @@ def test_cluster_bound_accepts_a_node_axis_one_block_refuses():
 
 def test_cluster_smem_layout_counts_every_part():
     """cluster_smem_bytes: 13 bytes per slot, image weights, the reduction
-    and prefix-count scratch, the term totals' copy, and two copies
-    (partial, combined) of the spread domain scratch when it is in shared
-    memory."""
+    and prefix-count scratch, the term totals' copy, the pod's staged
+    spread constraints (32 bytes each), and two copies (partial,
+    combined) of the spread domain scratch when it is in shared memory."""
     prm = _prm(6144)
     slots = 384
-    fixed = 8 * 8 + 8 * 33 + 8 * 2 + 4 * (33 * chain.RED_MAX + chain.SCAN_INTS + 2 * chain.RED_MAX + 128 + 8)
+    fixed = (8 * 8 + 8 * 33 + 8 * 2 + 4 * (33 * chain.RED_MAX + chain.SCAN_INTS + 2 * chain.RED_MAX + 128 + 8)
+             + chain.SPREAD_CON_BYTES * 2)
     assert chain.cluster_smem_bytes(prm, 16) == 13 * slots + fixed + 2 * 4 * 4 * 2 * 3
     prm.sp_smem = 0  # the domain scratch in global memory
     assert chain.cluster_smem_bytes(prm, 16) == 13 * slots + fixed
     assert chain.cluster_smem_bytes(prm, 8) == 13 * 768 + fixed
 
 
-def test_single_block_bound_of_kernels_b_and_d_is_unchanged():
-    """check_smem without a cluster is the one-block layout kernels B and
-    D launch with: 13 bytes per padded node, no cluster scratch."""
-    prm = _prm(16384)
-    assert chain.smem_bytes(prm) == 13 * 16384 + 8 * 8 + 3688 + 4 * 4 * 2 * 3
-    chain.check_smem(prm)
-    chain.check_smem(prm, cluster=0)
-    prm.N = 17600
-    with pytest.raises(ValueError, match=r"N=17600.*at most 175\d\d padded nodes"):
-        chain.check_smem(prm)
+def test_kernel_b_shared_memory_does_not_grow_with_the_node_axis():
+    """Kernel B keeps its 5 bytes per node (flags, partial) in a global row
+    per resident block, so its shared memory per block is the same at the
+    main path's 6144 padded nodes, at 16,384 and at 24,576 (past the old
+    one-block bound of about 17,590), and four blocks fit an SM."""
+    from ksim_tpu_torch.kernels import batch_eval as be
+
+    sp = be.SummaryParams()
+    for g, o in enumerate(be.word_offsets((8,) * len(be.GROUPS))):
+        sp.off[g] = o
+    sizes = set()
+    for n in (6144, 16384, 24_576):
+        prm = _prm(n)
+        assert be.batch_smem_bytes(prm, sp) == (be.batch_fixed_bytes(prm, sp) + 7) & ~7
+        sizes.add(be.batch_smem_bytes(prm, sp))
+    (smem,) = sizes
+    assert smem < 8192
+    assert be.MIN_BLOCKS * (smem + be.BLOCK_RESERVED_BYTES) <= be.SM_SMEM_BYTES
 
 
 @pytest.mark.parametrize("size,threads", [(17, 0), (-1, 0), (8, 48), (8, 2048)])

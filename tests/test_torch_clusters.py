@@ -214,6 +214,127 @@ def volume_cluster(seed: int, n_nodes: int = 16, n_pods: int = 40):
     return nodes, pods, {"pvs": pvs, "pvcs": pvcs, "storage_classes": scs}
 
 
+# The widths of wide_cluster: past every table size the kernels once held
+# at a fixed width (9 score resources, 17 shape points, 17 attach pools, 17
+# spread topology keys, 9 constraints on one pod).
+WIDE_RESOURCES = tuple(f"example.com/r{i}" for i in range(6))
+WIDE_POOLS = 17
+WIDE_KEYS = 17
+WIDE_CONSTRAINTS = 9
+
+
+def wide_cluster(seed: int, n_nodes: int = 16, n_pods: int = 40):
+    """A random cluster wide in every profile table: six extended
+    resources, 17 CSI attach pools (plus the legacy aws-ebs and gce-pd
+    pools) that bound pods' volumes fill, 17 topology label keys (the even
+    ones one domain per node, the odd ones a few shared domains, some
+    nodes missing some keys) over which the queue's spread constraints
+    range, pod-0 carrying 9 of them."""
+    rng = random.Random(seed)
+    nodes, pods = random_cluster(seed, n_nodes, n_pods, bound_fraction=0.3)
+    for i, node in enumerate(nodes):
+        alloc = node["status"]["allocatable"]
+        for r in WIDE_RESOURCES:
+            alloc[r] = str(rng.choice([4, 8, 16, 64]))
+        for k in range(WIDE_POOLS):
+            alloc[f"attachable-volumes-csi-d{k}"] = str(rng.choice([1, 2, 3]))
+        alloc["attachable-volumes-aws-ebs"] = str(rng.choice([1, 2]))
+        alloc["attachable-volumes-gce-pd"] = str(rng.choice([1, 2]))
+        node["status"]["capacity"] = dict(alloc)
+        labels = node["metadata"]["labels"]
+        for k in range(WIDE_KEYS):
+            if rng.random() < 0.1:
+                continue
+            labels[f"k{k}"] = node["metadata"]["name"] if k % 2 == 0 else f"d{rng.randrange(3)}"
+    pvs, pvcs = [], []
+    for k in range(WIDE_POOLS):
+        for v in range(2):
+            name = f"pv-{k}-{v}"
+            pvs.append(_pv(name, sc="csi", phase="Bound", driver=f"d{k}"))
+            pvcs.append(_pvc(f"c-{k}-{v}", volume_name=name, sc="csi"))
+    claims = [c["metadata"]["name"] for c in pvcs]
+    for i, pod in enumerate(pods):
+        req = pod["spec"]["containers"][0]["resources"].setdefault("requests", {})
+        for r in rng.sample(WIDE_RESOURCES, rng.randint(0, 3)):
+            req[r] = str(rng.choice([1, 2, 4]))
+        n_con = WIDE_CONSTRAINTS if i == 0 else rng.randint(0, 3)
+        app = pod["metadata"]["labels"].get("app", "web")
+        cons = []
+        for c in range(n_con):
+            key = f"k{(i + 3 * c) % WIDE_KEYS}"
+            cons.append({
+                "maxSkew": rng.choice([1, 2]),
+                "topologyKey": key,
+                "whenUnsatisfiable": rng.choice(["DoNotSchedule", "ScheduleAnyway"]),
+                "labelSelector": {"matchLabels": {"app": app}},
+            })
+        if cons:
+            pod["spec"]["topologySpreadConstraints"] = cons
+        else:
+            pod["spec"].pop("topologySpreadConstraints", None)
+        vols = []
+        for v in range(rng.choice([0, 0, 1, 2])):
+            vols.append({"name": f"v{v}", "persistentVolumeClaim": {"claimName": rng.choice(claims)}})
+        if rng.random() < 0.2:
+            vols.append({"name": "ebs", "awsElasticBlockStore": {"volumeID": f"vol-{rng.randrange(3)}"}})
+        if rng.random() < 0.2:
+            vols.append({"name": "pd", "gcePersistentDisk": {"pdName": f"pd-{rng.randrange(3)}",
+                                                             "readOnly": rng.random() < 0.5}})
+        if vols:
+            pod["spec"]["volumes"] = vols
+    return nodes, pods, {"pvs": pvs, "pvcs": pvcs, "storage_classes": [_sc("csi", provisioner="d0")]}
+
+
+# Nine resources to score: the base three and the six extended ones; 17
+# strictly increasing utilization points, scores 0..10.
+WIDE_NINE = ("cpu", "memory", "ephemeral-storage") + WIDE_RESOURCES
+WIDE_SHAPE = tuple((6 * i, (i * 7) % 11) for i in range(17))
+# One profile table widened each (on wide_cluster, whose snapshot widens
+# the pools, keys and constraints), and "all": every table at once with
+# the legacy instances.
+WIDE_CASES = ("fit_resources", "fit_shape", "balanced_resources", "volume_pools", "spread_keys",
+              "spread_constraints", "legacy_volume_limits", "all")
+# "all" as a KubeSchedulerConfiguration (the service's profile compiler).
+WIDE_CONFIG = {"profiles": [{
+    "plugins": {"multiPoint": {"enabled": [{"name": "EBSLimits"}, {"name": "GCEPDLimits"}]}},
+    "pluginConfig": [
+        {"name": "NodeResourcesFit", "args": {"scoringStrategy": {
+            "type": "RequestedToCapacityRatio",
+            "resources": [{"name": r, "weight": w + 1} for w, r in enumerate(WIDE_NINE)],
+            "requestedToCapacityRatio": {"shape": [{"utilization": u, "score": s} for u, s in WIDE_SHAPE]},
+        }}},
+        {"name": "NodeResourcesBalancedAllocation", "args": {"resources": [{"name": r} for r in WIDE_NINE]}},
+    ],
+}]}
+
+
+def wide_profile(case: str, feats, core, res, vol, defaults) -> tuple:
+    """The default profile of one package (ksim_tpu's or the port's: its
+    engine.core, plugins.noderesources and plugins.volumes modules and its
+    default_plugins), widened for ``case`` (WIDE_CASES)."""
+    plugins = list(defaults(feats))
+    names = [sp.plugin.name for sp in plugins]
+    every = case == "all"
+    if case in ("fit_resources", "fit_shape") or every:
+        kw = {}
+        if case != "fit_shape":
+            kw["score_resources"] = tuple((r, w + 1) for w, r in enumerate(WIDE_NINE))
+        if case != "fit_resources":
+            kw.update(strategy="RequestedToCapacityRatio", shape=WIDE_SHAPE)
+        plugins[names.index("NodeResourcesFit")] = core.ScoredPlugin(res.NodeResourcesFit(feats.resources, **kw))
+    if case == "balanced_resources" or every:
+        bal = res.NodeResourcesBalancedAllocation(feats.resources, score_resources=WIDE_NINE)
+        plugins[names.index("NodeResourcesBalancedAllocation")] = core.ScoredPlugin(bal, filter_enabled=False)
+    if case == "legacy_volume_limits" or every:
+        at = names.index("NodeVolumeLimits") + 1
+        vt = feats.aux["volumes"]
+        plugins[at:at] = [
+            core.ScoredPlugin(vol.NodeVolumeLimits(vt, name="EBSLimits", pools=("aws-ebs",)), score_enabled=False),
+            core.ScoredPlugin(vol.NodeVolumeLimits(vt, name="GCEPDLimits", pools=("gce-pd",)), score_enabled=False),
+        ]
+    return tuple(plugins)
+
+
 def _sc(name, *, provisioner="pd.csi.storage.gke.io", mode="WaitForFirstConsumer"):
     return {"apiVersion": "storage.k8s.io/v1", "kind": "StorageClass", "metadata": {"name": name},
             "provisioner": provisioner, "volumeBindingMode": mode}

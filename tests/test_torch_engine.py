@@ -144,10 +144,21 @@ def test_engine_refuses_unported_options():
     with pytest.raises(NotImplementedError):
         Engine(port._feats, hooked, device="cpu")
     # A second, pool-restricted NodeVolumeLimits instance (the legacy
-    # EBSLimits et al.): the kernels hold one instance per plugin class.
-    legacy = NodeVolumeLimits(port._feats.aux["volumes"], name="EBSLimits", pools=("ebs",))
-    with pytest.raises(NotImplementedError, match="one NodeVolumeLimits instance"):
-        Engine(port._feats, port._plugins + (ScoredPlugin(legacy, score_enabled=False),), device="cpu")
+    # EBSLimits et al.) is taken, and the port equals ksim_tpu with it.
+    from ksim_tpu.engine.core import ScoredPlugin as JaxScoredPlugin
+    from ksim_tpu.plugins.volumes import NodeVolumeLimits as JaxNodeVolumeLimits
+
+    ref_engine, _ = engines("ports_commit", "full", True)
+    jf = ref_engine._feats
+    ref_legacy = JaxNodeVolumeLimits(jf.aux["volumes"], name="EBSLimits", pools=("aws-ebs",))
+    legacy = NodeVolumeLimits(port._feats.aux["volumes"], name="EBSLimits", pools=("aws-ebs",))
+    with x64(True):
+        ref = JaxEngine(jf, ref_engine._plugins + (JaxScoredPlugin(ref_legacy, score_enabled=False),),
+                        record="full").evaluate_batch()
+    got = Engine(port._feats, port._plugins + (ScoredPlugin(legacy, score_enabled=False),), device="cpu",
+                 record="full").evaluate_batch()
+    assert got.filter_plugin_names[-1] == "EBSLimits"
+    assert_results_equal(ref, got)
     # sampling_k is checked against the real node count (2 nodes here).
     for k in (0, 3):
         with pytest.raises(ValueError, match="sampling_k"):

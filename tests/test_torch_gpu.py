@@ -1,8 +1,12 @@
-"""Kernels A (schedule_scan), B (batch_eval) and C (schedule_sampled)
-against their plain PyTorch versions on a CUDA device, element for
-element (tolerance 0), at small size, with the whole default profile.
-Kernels A and C run on a thread-block cluster: their tests run at
-cluster sizes 2, 8 and 16 (kernels/chain.py CLUSTER_SIZE).
+"""Kernels A (schedule_scan), B (batch_eval, and its pre-pass
+node_summary) and C (schedule_sampled) against their plain PyTorch
+versions on a CUDA device, element for element (tolerance 0), at small
+size, with the whole default profile and with the wide profile (every
+profile table past its old fixed width, EBSLimits and GCEPDLimits beside
+NodeVolumeLimits; kernel D on it through a churn).  Kernels A and C run on
+a thread-block cluster: their tests run at cluster sizes 2, 8 and 16
+(kernels/chain.py CLUSTER_SIZE); kernel B's persistent grid at forced
+sizes (kernels/batch_eval.py GRID) and past the old node bound.
 
 Marked ``gpu``; each test skips when there is no CUDA device.  This file
 imports neither jax nor ksim_tpu, so it runs on a machine with a card
@@ -20,11 +24,18 @@ import torch
 from ksim_tpu_torch.engine.core import Engine
 from ksim_tpu_torch.engine.profiles import default_plugins
 from ksim_tpu_torch.kernels import chain
-from ksim_tpu_torch.kernels.batch_eval import batch_eval, batch_eval_plain
+import ksim_tpu_torch.engine.core as port_core
+import ksim_tpu_torch.plugins.noderesources as port_res
+import ksim_tpu_torch.plugins.volumes as port_vol
+from ksim_tpu_torch.kernels import batch_eval as batch_mod
+from ksim_tpu_torch.kernels import replay_segment as segment_mod
+from ksim_tpu_torch.kernels.batch_eval import batch_eval, batch_eval_plain, node_summary, node_summary_plain
 from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled, schedule_sampled_plain
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan, schedule_scan_plain
 from ksim_tpu_torch.state.featurizer import Featurizer
-from test_torch_clusters import case_inputs
+from helpers import random_cluster
+from test_torch_clusters import case_inputs, wide_cluster, wide_profile
+from test_torch_gpu_replay import _assert_plain_equal, _capture, _steps, wide_runner, wide_stream
 
 pytestmark = pytest.mark.gpu
 
@@ -208,3 +219,99 @@ def test_main_path_cluster_is_at_least_eight_blocks(cuda, monkeypatch):
     kernel, plain = _pair("seed0", "selection", True, cuda)
     _assert_equal(kernel.schedule()[0], plain.schedule()[0])
     assert schedule_scan.last["cluster"] in (8, 16)
+
+
+def _engines(feats, plugins, record, exact, device, sampling_k=None):
+    kw = dict(record=record, exact=exact, device=device, sampling_k=sampling_k)
+    return Engine(feats, plugins, **kw), PlainEngine(feats, plugins, **kw)
+
+
+@pytest.mark.parametrize("case", ["seed0", "images_ports", "spread_affinity", "volumes", "wide"])
+def test_node_summary_kernel_matches_plain(cuda, case):
+    """The pre-pass's words, attach room, added preference sums and flags
+    equal node_summary_plain's."""
+    if case == "wide":
+        nodes, pods, kw = wide_cluster(0)
+        feats = Featurizer().featurize(nodes, pods, **kw)
+        plugins = wide_profile("all", feats, port_core, port_res, port_vol, default_plugins)
+    else:
+        nodes, pods, kw = case_inputs(case)
+        feats = Featurizer().featurize(nodes, pods, **kw)
+        plugins = default_plugins(feats)
+    eng = Engine(feats, plugins, record="full", device=cuda)
+    prog, state, aux = eng._prog, eng._node_state, eng._aux
+    carries = prog.init_carries(aux)
+    before = node_summary.launches
+    got = node_summary(prog, state, aux, carries)
+    assert node_summary.launches == before + 1
+    want = node_summary_plain(prog, state, aux, carries)
+    for key in want:
+        assert (got[key] is None) == (want[key] is None), key
+        if want[key] is not None:
+            assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("grid", [0, 1, 7, 64, 1000])
+@pytest.mark.parametrize("record", ["full", "final", "selection"])
+def test_batch_eval_persistent_grid_matches_plain(cuda, grid, record, monkeypatch):
+    """Block b of the grid takes pods b, b + grid, ...: at the resident
+    grid (0) and forced grids below, equal to (64) and above the pod
+    count, on 64- and 50-pod chunks (not a multiple of 7)."""
+    monkeypatch.setattr(batch_mod, "GRID", grid)
+    kernel, plain = _pair("seed1", record, True, cuda)
+    if record == "full":
+        _assert_equal(kernel.evaluate_batch(chunk=50), plain.evaluate_batch(chunk=50))
+    else:
+        _assert_equal(kernel.evaluate_batch_fused(), plain.evaluate_batch_fused())
+    last = batch_mod.batch_eval.last
+    assert last["grid"] == grid if grid else 1 <= last["grid"] <= last["blocks_per_sm"] * last["sms"]
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+def test_batch_eval_past_the_old_node_bound(cuda, exact):
+    """A padded node axis of 24,576 (above the one-block bound of about
+    17,590 nodes): the node arrays in global memory, every record equal to
+    the plain version."""
+    nodes, pods = random_cluster(0, 20_000, 40)
+    feats = Featurizer().featurize(nodes, pods)
+    assert feats.nodes.valid.shape[0] > 17_590
+    kernel, plain = _engines(feats, default_plugins(feats), "full", exact, cuda)
+    _assert_equal(kernel.evaluate_batch(chunk=32), plain.evaluate_batch(chunk=32))
+    assert batch_mod.batch_eval.last["smem_bytes"] < 5 * feats.nodes.valid.shape[0]  # no node array in it
+    kernel, plain = _engines(feats, default_plugins(feats), "final", exact, cuda)
+    _assert_equal(kernel.evaluate_batch_fused(), plain.evaluate_batch_fused())
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+def test_wide_profile_kernels_match_plain(cuda, cluster, exact):
+    """Kernels A, B and C on wide_cluster with every profile table past its
+    old fixed width (9 Fit resources on a 17-point shape, 9 Balanced
+    resources, 17 attach pools, 17 spread keys, 9 constraints on one pod)
+    and EBSLimits and GCEPDLimits beside NodeVolumeLimits."""
+    nodes, pods, kw = wide_cluster(0)
+    feats = Featurizer().featurize(nodes, pods, **kw)
+    plugins = wide_profile("all", feats, port_core, port_res, port_vol, default_plugins)
+    kernel, plain = _engines(feats, plugins, "full", exact, cuda)
+    got, state = kernel.schedule(chunk=16)
+    want, want_state = plain.schedule(chunk=16)
+    _assert_equal(got, want)
+    for name in state._fields:
+        np.testing.assert_array_equal(getattr(state, name), getattr(want_state, name), err_msg=name)
+    _assert_equal(kernel.evaluate_batch(chunk=16), plain.evaluate_batch(chunk=16))
+    kernel, plain = _engines(feats, plugins, "full", exact, cuda, sampling_k=5)
+    got, state = kernel.schedule(chunk=16, sampling_start=3)
+    _assert_equal(got, plain.schedule(chunk=16, sampling_start=3)[0])
+
+
+def test_wide_config_kernel_d_matches_plain(cuda, monkeypatch):
+    """Kernel D over the wide churn with the wide profile compiled from a
+    KubeSchedulerConfiguration: every segment equal to D's plain version,
+    the run equal to the per-pass path's."""
+    segments = _capture(monkeypatch)
+    runner = wide_runner(cuda, device_replay=True)
+    res = runner.run(list(wide_stream()))
+    assert runner.replay_driver.device_steps >= 8, runner.replay_driver.unsupported
+    assert segment_mod.replay_segment.launches > 0
+    _assert_plain_equal(segments)
+    base = wide_runner("cpu", device_replay=False).run(list(wide_stream()))
+    assert _steps(res) == _steps(base)

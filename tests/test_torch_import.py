@@ -169,14 +169,26 @@ def test_unported_surfaces_refuse(monkeypatch):
     with pytest.raises(NotImplementedError, match="KSIM_FLEET_DP"):
         ScenarioRunner(device="cpu", device_replay=True, fleet=2).run(iter(()))
     monkeypatch.delenv("KSIM_FLEET_DP")
-    # A legacy per-pool volume-limit plugin compiles, and the Engine
-    # refuses it: the kernels hold one NodeVolumeLimits instance.
-    store = ClusterStore()
-    store.create("nodes", make_node("n1"))
-    store.create("pods", make_pod("p1"))
-    legacy = {"profiles": [{"plugins": {"multiPoint": {"enabled": [{"name": "EBSLimits"}]}}}]}
-    with pytest.raises(NotImplementedError, match="NodeVolumeLimits"):
-        SchedulerService(store, config=legacy, device="cpu").schedule_pending()
+    # A legacy per-pool volume-limit plugin compiles and schedules beside
+    # NodeVolumeLimits, as in ksim_tpu: an EBS volume per pod on nodes
+    # that attach one each.
+    from ksim_tpu.scheduler.service import SchedulerService as JaxSchedulerService
+    from ksim_tpu.state.cluster import ClusterStore as JaxClusterStore
+
+    legacy = {"profiles": [{"plugins": {"multiPoint": {"enabled": [{"name": "EBSLimits"}, {"name": "GCEPDLimits"}]}}}]}
+    placed = []
+    for store_cls, service_cls, kw in ((ClusterStore, SchedulerService, {"device": "cpu"}),
+                                       (JaxClusterStore, JaxSchedulerService, {})):
+        store = store_cls()
+        for i in range(2):
+            store.create("nodes", make_node(f"n{i}", extra_alloc={"attachable-volumes-aws-ebs": "1"}))
+        for i in range(3):
+            pod = make_pod(f"p{i}")
+            pod["spec"]["volumes"] = [{"name": "d", "awsElasticBlockStore": {"volumeID": f"vol-{i}"}}]
+            store.create("pods", pod)
+        placed.append(service_cls(store, config=legacy, **kw).schedule_pending())
+    assert placed[0] == placed[1]
+    assert sum(node is not None for node in placed[0].values()) == 2  # one attach slot per node
 
     class _Stream(list):
         streaming_ops = True

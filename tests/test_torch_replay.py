@@ -463,17 +463,21 @@ def test_preemption_overflow_discards_the_segment():
 
 def test_node_axis_over_the_shared_memory_bound_raises_before_launch():
     """A padded node axis past the shared-memory layout's bound is refused
-    with a ValueError naming the bound and the node count (no launch)."""
+    with a ValueError naming the bound and the node count (no launch):
+    for an 8-block cluster, the smallest kernels A and C launch unforced,
+    each block holds whole tiles of 1024 slots, 139,264 padded nodes in
+    all for this profile."""
     prm = chain.ChainParams()
-    prm.N, prm.I, prm.MC, prm.DMAX, prm.sp_smem = 16384, 8, 2, 3, 1
-    chain.check_smem(prm)  # 16384 padded nodes fit
-    assert chain.smem_bytes(prm) == 13 * 16384 + 8 * 8 + 3688 + 4 * 4 * 2 * 3
-    prm.N = 32768
-    fixed = 8 * 8 + 3688 + 4 * 4 * 2 * 3  # image weights, reductions, spread domains
-    bound = (chain.MAX_SMEM_BYTES - fixed) // 13
-    assert 17500 < bound < 17600
-    with pytest.raises(ValueError, match=rf"N=32768.*232448.*at most {bound} padded nodes"):
-        chain.check_smem(prm)
-    prm.N = 16384
-    with pytest.raises(ValueError, match="N=16384"):
-        chain.check_smem(prm, extra=32768)  # kernel D's domain scratch on top
+    prm.N, prm.I, prm.MC, prm.DMAX, prm.sp_smem = 131072, 8, 2, 3, 1
+    chain.check_smem(prm, cluster=8)  # 131,072 padded nodes fit
+    fixed = chain.cluster_smem_bytes(prm, 8, 1024) - 13 * 131072 // 8
+    assert fixed == 8 * 8 + 8 * 33 + 8 * 2 + 4 * (33 * chain.RED_MAX + chain.SCAN_INTS + 2 * chain.RED_MAX + 128) \
+        + chain.SPREAD_CON_BYTES * 2 + 2 * 4 * 4 * 2 * 3
+    prm.N = 262144
+    bound = (chain.MAX_SMEM_BYTES - fixed - 7) // 13 // 1024 * 1024 * 8
+    assert bound == 139264
+    with pytest.raises(ValueError, match=rf"N=262144.*8-block cluster.*232448.*{bound} padded nodes"):
+        chain.check_smem(prm, cluster=8)
+    prm.N = 131072
+    with pytest.raises(ValueError, match="N=131072"):
+        chain.check_smem(prm, cluster=8, extra=32768)  # kernel D's domain scratch on top

@@ -94,17 +94,15 @@ def test_segment_smem_per_block_of_a_cluster(size):
     assert chain_part == chain.cluster_smem_bytes(prm.chain, size, threads)
     prm.derive.dsmem = 0  # the scratch in global memory, a row pair per rank
     assert seg.segment_smem_bytes(prm, size) == chain_part
-    assert seg.STATIC_SMEM_BYTES == ((2816 + 15) & ~15) + ((seg.SEARCH_SMEM_BYTES + 15) & ~15)
+    assert seg.STATIC_SMEM_BYTES == ((2072 + 15) & ~15) + ((seg.SEARCH_SMEM_BYTES + 15) & ~15)
     assert seg.SEARCH_SMEM_BYTES == 4 * 251
 
 
-def test_cluster_check_holds_a_node_axis_one_block_refuses():
-    """20,000 padded nodes: past what one block's shared memory holds
-    (about 17,590), inside a 16-block cluster's; and one node past the
-    cluster's bound is refused with the bound named."""
+def test_cluster_check_holds_a_node_axis_past_the_old_one_block_bound():
+    """20,000 padded nodes (past the old one-block bound of about 17,590)
+    fit 8- and 16-block clusters; one node past the 16-block cluster's
+    bound is refused with the bound named."""
     prm = _segment_prm(20_000)
-    with pytest.raises(ValueError, match="N=20000"):
-        chain.check_smem(prm.chain, extra=seg._derive_smem(prm.derive) + seg.STATIC_SMEM_BYTES)
     seg.check_smem(prm, cluster=16)
     seg.check_smem(prm, cluster=8)
     # The bound at 16 blocks of 1024 threads: whole tiles of 16 x 1024

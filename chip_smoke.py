@@ -104,7 +104,26 @@ Phases, in order; any failure exits non-zero before the last line:
    its plain version on every segment of a churn with that profile
    compiled from a KubeSchedulerConfiguration, the run equal to the
    per-pass path's; then kernel B at a padded node axis of 24,576 (past
-   the old one-block bound of about 17,590) equals its plain version.
+   the old one-block bound of about 17,590) equals its plain version;
+10. the replay executor and streaming trace ingest.  Phase 6's device
+   runs go through the pipelined executor (the dispatch on a watchdogged
+   worker, the next window pre-parsed meanwhile, device-buffer reuse):
+   each prints the prelower's consumed and discarded windows, the seconds
+   of prelower inside the worker's dispatch intervals (from the trace
+   spans), the lower / dispatch / reconcile split, the reused and sent
+   constant tensors and the bytes sent per window.  Phase 10 then runs
+   the 6k lock with KSIM_REPLAY_DEV_CACHE=0 and =1 (equal step triples;
+   every constant tensor a launch read unchanged after the run), with a
+   2 s watchdog over a first dispatch that hangs 4 s (one timeout, the
+   head step per-pass, the locks, kernel D equal to its plain version on
+   every other window), and with every dispatch failing (the breaker
+   opens after 3, the rest per-pass, the locks); then a synthetic Borg
+   trace (bench.py's streaming generator, seed 0) compiled onto 2000
+   nodes, 20,000 events at 100 per step, replayed streamed through
+   ScenarioRunner(device_replay=True) and materialized (equal steps, no
+   per-pass step), and tests/fixtures/traces/borg_mini.jsonl at 24 nodes
+   (126 events, 56 scheduled, 19 unschedulable) streamed and
+   materialized.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds.
@@ -114,8 +133,11 @@ from __future__ import annotations
 
 import json
 import os
+import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -147,10 +169,13 @@ from ksim_tpu_torch.kernels.replay_segment import (
 )
 from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled, schedule_sampled_plain
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan, schedule_scan_plain
+from ksim_tpu_torch.faults import FAULTS
+from ksim_tpu_torch.obs import TRACE
 from ksim_tpu_torch.scenario.generate import churn_scenario
 from ksim_tpu_torch.scenario.runner import Operation, ScenarioRunner
 from ksim_tpu_torch.state.cluster import ClusterStore
 from ksim_tpu_torch.state.featurizer import Featurizer
+from ksim_tpu_torch.traces import stream_trace_operations, trace_operations
 
 # The cluster builders live in tests/ (stdlib only).  They are imported
 # from that directory, not as the package ``tests``: an installed package
@@ -228,6 +253,12 @@ WRAPPERS = {"schedule_scan": schedule_scan, "batch_eval": batch_eval, "schedule_
             "node_summary": node_summary}
 # Phase 9: kernel B past the old one-block node bound (padded to 24,576).
 WIDE_NODES = 20_000
+# Phase 10: the watchdog leg (a first dispatch hanging HANG_S against a
+# WATCHDOG_S watchdog), and the streamed synthetic Borg trace.
+WATCHDOG_S, HANG_S = 2, 4
+STREAM_RECORDS, STREAM_EVENTS, STREAM_NODES = 12_000, 20_000, 2000
+BORG_MINI = "tests/fixtures/traces/borg_mini.jsonl"
+BORG_MINI_LOCK = (126, 56, 19)
 
 
 class PlainEngine(Engine):
@@ -509,7 +540,46 @@ def tree_equal(check: Check, kernel: str, what: str, got: dict, want: dict) -> N
         check.equal(kernel, f"{what}.{key}", got[key].cpu().numpy(), want[key].cpu().numpy())
 
 
-def churn_run(n_events: int, *, device_replay: bool, exact: bool):
+def traced(fn):
+    """``fn()`` with the trace plane's ring on: (its result, the ring's
+    records); the plane's settings are restored after."""
+    active, ring = TRACE._active, TRACE._ring_on
+    TRACE.reset()
+    TRACE.enable(ring=True)
+    try:
+        out = fn()
+        return out, TRACE.ring_records()
+    finally:
+        TRACE.reset()
+        TRACE._active, TRACE._ring_on = active, ring
+
+
+def executor_report(what: str, drv, res, records, card: str) -> dict:
+    """The pipelined executor's evidence for one device run: the prelower
+    (at least one window consumed), its seconds inside the dispatch
+    worker's intervals, the phase split, the device-buffer reuse and the
+    bytes each window sent."""
+    st = drv.stats()
+    pre, dc = st["prelower"], st["dev_const"]
+    inside, total = replay_mod.prelower_overlap_seconds(records)
+    if pre["consumed"] < 1:
+        raise AssertionError(f"{what}: no pre-parsed window was consumed ({pre})")
+    split = {k: res.phase_seconds.get(k, 0.0)
+             for k in ("replay.lower", "replay.prelower", "replay.dispatch", "replay.exec", "replay.reconcile",
+                       "runner.step")}
+    sent = dc["bytes_per_dispatch"]
+    print(f"  {what}, executor: prelower windows {pre['windows']}, consumed {pre['consumed']}, discarded "
+          f"{pre['discarded']}, faults {pre['faults']}; {inside:.3f} s of the prelower's {total:.3f} s inside the "
+          f"dispatch worker's intervals; split {split}; dev-const hits {dc['hits']}, misses {dc['misses']}; H2D "
+          f"bytes per window {min(sent)}-{max(sent)} (mean {sum(sent) / len(sent):.0f}, first {sent[0]}); "
+          f"compile-once rungs {st['compile_cache']['rungs']} {card}", flush=True)
+    return {"prelower": pre, "overlap_s": inside, "prelower_s": total, "split_s": split,
+            "dev_const_hits": dc["hits"], "dev_const_misses": dc["misses"],
+            "h2d_bytes_per_window": {"min": min(sent), "max": max(sent), "mean": sum(sent) / len(sent),
+                                     "first": sent[0]}}
+
+
+def churn_run(n_events: int, *, device_replay: bool, exact: bool, min_device_steps: "int | None" = None):
     runner = ScenarioRunner(
         max_pods_per_pass=1024,
         pod_bucket_min=128,
@@ -533,9 +603,11 @@ def churn_run(n_events: int, *, device_replay: bool, exact: bool):
         if drv.device_steps + drv.fallback_steps != len(res.steps):
             raise AssertionError(f"{what}: device {drv.device_steps} + fallback {drv.fallback_steps} "
                                  f"!= {len(res.steps)} steps")
-        if drv.device_steps < MIN_DEVICE_STEPS:
+        if min_device_steps is None:
+            min_device_steps = MIN_DEVICE_STEPS
+        if drv.device_steps < min_device_steps:
             raise AssertionError(f"{what}: the kernel carried {drv.device_steps} steps, "
-                                 f"fewer than {MIN_DEVICE_STEPS}")
+                                 f"fewer than {min_device_steps}")
     return res, drv, wall, what
 
 
@@ -558,14 +630,14 @@ def churn_phase(check: Check, card: str) -> dict:
         return final, outs
 
     replay_mod.replay_segment = capture
-    runs = {}
+    runs, executors = {}, {}
     try:
         for exact in (False, True):
             segments.clear()
             replay_segment.launches = 0
             reset_derive_runs()
             derive_interpod.launches = 0
-            res, drv, wall, what = churn_run(6000, device_replay=True, exact=exact)
+            (res, drv, wall, what), records = traced(lambda: churn_run(6000, device_replay=True, exact=exact))
             # Row 6 has no launch of its own on this path: kernel D counts
             # its runs on the card, one per active step.
             launches = {"replay_segment": replay_segment.launches, "derive_interpod": derive_runs()}
@@ -580,6 +652,7 @@ def churn_phase(check: Check, card: str) -> dict:
                                      f"for {active} active steps")
             if derive_interpod.launches:
                 raise AssertionError("the standalone derive_interpod entry ran on the main path")
+            executors[exact] = executor_report(what, drv, res, records, card)
             runs[exact] = (list(segments), launches, drv.kernel_ms, step_triples(res))
     finally:
         replay_mod.replay_segment = kernel
@@ -624,7 +697,8 @@ def churn_phase(check: Check, card: str) -> dict:
 
     replay_mod.replay_segment = capture50
     try:
-        res50, drv50, wall50, what50 = churn_run(50_000, device_replay=True, exact=False)
+        (res50, drv50, wall50, what50), records50 = traced(
+            lambda: churn_run(50_000, device_replay=True, exact=False))
     finally:
         replay_mod.replay_segment = kernel
     host50 = {k: v for k, v in res50.phase_seconds.items() if k.startswith("replay.") or k == "runner.step"}
@@ -632,6 +706,7 @@ def churn_phase(check: Check, card: str) -> dict:
           f"lock); {drv50.device_steps} steps on the card in {drv50.device_round_trips} launches, "
           f"{drv50.fallback_steps} per-pass; wall {wall50:.2f} s, kernel {drv50.kernel_ms:.1f} ms, "
           f"host phases {host50} {card}", flush=True)
+    executor_50k = executor_report(what50, drv50, res50, records50, card)
     # The 50k run's fullest segment: D's time there beside its bound.
     st, prog, const, ev, state0, final, outs = max(
         segments50, key=lambda seg: int((seg[6]["idx"] < seg[2]["pods"]["requests"].shape[0]).sum()))
@@ -722,6 +797,8 @@ def churn_phase(check: Check, card: str) -> dict:
         "d_ran": d_ran,
         "kernel_ms": {"6k_f32": kernel_ms_6k, "50k_f32": drv50.kernel_ms, "50k_launches": drv50.device_round_trips},
         "fullest_50k": {"ms": ms50, "bound_ms": bound50, "bound_by": by50, "shape": shape50},
+        "executor": {"6k_f32": executors[False], "6k_exact": executors[True], "50k_f32": executor_50k,
+                     "50k_wall_s": wall50},
     }
 
 
@@ -1013,6 +1090,192 @@ def wide_phase(check: Check, card: str) -> None:
           f"phase 9 took {time.perf_counter() - t9:.1f} s {card}", flush=True)
 
 
+def synthetic_borg(path: str, records: int, seed: int) -> None:
+    """A synthetic Borg JSONL (bench.py ``child_churn_stream``'s
+    generator): SUBMIT/FINISH pairs with lifetimes short against the
+    trace's span, so deletes interleave with arrivals."""
+    rng = random.Random(seed)
+    t_us = 0
+    with open(path, "w") as f:
+        for i in range(records):
+            t_us += rng.randrange(1_000, 50_000)
+            life_us = rng.randrange(500_000, 60_000_000)
+            req = {"cpus": rng.choice((0.01, 0.025, 0.05, 0.1)), "memory": rng.choice((0.005, 0.01, 0.02, 0.05))}
+            f.write(json.dumps({"time": t_us, "type": "SUBMIT", "collection_id": i, "instance_index": 0,
+                                "priority": rng.choice((0, 103, 117, 200, 360)), "resource_request": req}) + "\n")
+            f.write(json.dumps({"time": t_us + life_us, "type": "FINISH", "collection_id": i,
+                                "instance_index": 0}) + "\n")
+
+
+def join_abandoned_workers() -> None:
+    """Wait for dispatch workers the watchdog left behind (they finish
+    their own launch and touch nothing else)."""
+    for t in threading.enumerate():
+        if t.name == "replay-dispatch":
+            t.join(120)
+
+
+def trace_run(ops, *, device_replay: bool, **kw):
+    runner = ScenarioRunner(device_replay=device_replay, exact=False, device=DEVICE, **kw)
+    t = time.perf_counter()
+    res = runner.run(ops)
+    return runner, res, time.perf_counter() - t
+
+
+def executor_phase(check: Check, card: str) -> dict:
+    """Phase 10: the executor's device-buffer reuse, watchdog and breaker
+    on the card, and streaming trace ingest through ScenarioRunner."""
+    t10 = time.perf_counter()
+    out = {}
+    kernel = replay_mod.replay_segment
+    lock = CHURN_LOCKS[6000]
+
+    # Device-buffer reuse off and on; with it on, every constant tensor a
+    # launch read must still hold its bytes after the run.
+    seen = []
+
+    def watching(st, prog, const, ev, state0):
+        for part in ("node", "pods"):
+            seen.extend((t, t.clone()) for t in const[part].values())
+        for fam in const["aux"].values():
+            seen.extend((t, t.clone()) for t in fam.values())
+        return kernel(st, prog, const, ev, state0)
+
+    triples, walls, reuse = {}, {}, {}
+    for flag in ("0", "1"):
+        os.environ["KSIM_REPLAY_DEV_CACHE"] = flag
+        replay_mod.replay_segment = watching if flag == "1" else kernel
+        try:
+            res, drv, wall, what = churn_run(6000, device_replay=True, exact=False)
+        finally:
+            replay_mod.replay_segment = kernel
+            os.environ.pop("KSIM_REPLAY_DEV_CACHE", None)
+        dc = drv.stats()["dev_const"]
+        triples[flag], walls[flag] = step_triples(res), wall
+        reuse[flag] = {"hits": dc["hits"], "misses": dc["misses"], "bytes": dc["bytes_per_dispatch"]}
+        print(f"  {what}, KSIM_REPLAY_DEV_CACHE={flag}: the lock; wall {wall:.2f} s; dev-const hits {dc['hits']}, "
+              f"misses {dc['misses']}; H2D bytes per window {dc['bytes_per_dispatch']} {card}", flush=True)
+    if triples["0"] != triples["1"]:
+        raise AssertionError("6k churn: the step triples differ between device-buffer reuse off and on")
+    if reuse["1"]["hits"] < 1:
+        raise AssertionError("6k churn: device-buffer reuse on reused no constant tensor")
+    shared = {id(t) for t, _ in seen if sum(u is t for u, _ in seen) > 1}
+    changed = sum(not torch.equal(t, before) for t, before in seen)
+    if changed:
+        raise AssertionError(f"{changed} constant tensors changed after a launch read them")
+    print(f"  reuse off and on: equal step triples; {len(seen)} constant tensors read by the launches, {len(shared)} "
+          f"of them by more than one launch, every one unchanged after the run {card}", flush=True)
+    out["dev_cache"] = {"walls_s": walls, "reuse": reuse, "consts_read": len(seen), "consts_shared": len(shared)}
+    seen.clear()
+
+    # The watchdog: the first dispatch hangs past it.
+    segments = []
+
+    def capture(st, prog, const, ev, state0):
+        held = {k: v.clone() for k, v in state0.items()}
+        final, outs = kernel(st, prog, const, ev, state0)
+        segments.append((st, prog, const, ev, held, final, outs))
+        return final, outs
+
+    os.environ["KSIM_REPLAY_WATCHDOG_S"] = str(WATCHDOG_S)
+    FAULTS.arm("replay.dispatch", f"hang:{HANG_S}:1")
+    replay_mod.replay_segment = capture
+    try:
+        res, drv, wall, what = churn_run(6000, device_replay=True, exact=False)
+        fired = FAULTS.fired("replay.dispatch")
+    finally:
+        replay_mod.replay_segment = kernel
+        FAULTS.reset()
+        os.environ.pop("KSIM_REPLAY_WATCHDOG_S", None)
+    join_abandoned_workers()
+    if fired != 1 or drv.watchdog_timeouts != 1 or drv.unsupported.get("device_error") != 1:
+        raise AssertionError(f"{what}, watchdog: fired {fired}, timeouts {drv.watchdog_timeouts}, {drv.unsupported}")
+    if drv.fallback_steps < 1 or drv.breaker_tripped:
+        raise AssertionError(f"{what}, watchdog: {drv.fallback_steps} per-pass steps, breaker {drv.breaker_tripped}")
+    for i, (st, prog, const, ev, state0, final, outs) in enumerate(segments):
+        want_final, want_outs = replay_segment_plain(st, prog, const, ev, state0)
+        tree_equal(check, "replay_segment", f"watchdog leg segment {i} outputs", outs, want_outs)
+        tree_equal(check, "replay_segment", f"watchdog leg segment {i} final state", final, want_final)
+    print(f"  {what}, {WATCHDOG_S} s watchdog, first dispatch hung {HANG_S} s: the lock; 1 timeout, "
+          f"{drv.fallback_steps} step per-pass, {drv.device_steps} on the card; kernel D equal to its plain version "
+          f"on all {len(segments)} launches (the abandoned worker's included); wall {wall:.2f} s {card}", flush=True)
+    out["watchdog"] = {"timeouts": drv.watchdog_timeouts, "fallback_steps": drv.fallback_steps,
+                       "device_steps": drv.device_steps, "launches_checked": len(segments), "wall_s": wall}
+    segments.clear()
+
+    # The breaker: every dispatch fails.
+    FAULTS.arm("replay.dispatch", "always")
+    try:
+        res, drv, wall, what = churn_run(6000, device_replay=True, exact=False, min_device_steps=0)
+        fired = FAULTS.fired("replay.dispatch")
+    finally:
+        FAULTS.reset()
+    n = drv.breaker_threshold
+    if not (fired == n == drv.device_errors and drv.breaker_tripped and drv.device_steps == 0
+            and drv.fallback_steps == len(res.steps)):
+        raise AssertionError(f"{what}, breaker: fired {fired}, {drv.stats()}")
+    print(f"  {what}, every dispatch failing: the lock; the breaker opened after {fired} dispatches, "
+          f"{drv.unsupported.get('breaker_open', 0)} windows per-pass behind it, all {drv.fallback_steps} steps "
+          f"per-pass; wall {wall:.2f} s {card}", flush=True)
+    out["breaker"] = {"opened_after": fired, "breaker_open_windows": drv.unsupported.get("breaker_open", 0),
+                      "wall_s": wall}
+
+    # Streaming ingest: a synthetic Borg trace onto 2000 nodes.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        path = os.path.join(tmp, "synthetic_borg.jsonl")
+        synthetic_borg(path, STREAM_RECORDS, seed=0)
+        kw = dict(nodes=STREAM_NODES, max_events=STREAM_EVENTS, seed=0, ops_per_step=100)
+        rkw = dict(max_pods_per_pass=1024, pod_bucket_min=128, device_segment_steps=SEGMENT_K)
+        stream = stream_trace_operations(path, "borg", **kw)
+        runner, rs, wall_s = trace_run(stream, device_replay=True, **rkw)
+        sstats = stream.stats()
+        drv_s = runner.replay_driver
+        t = time.perf_counter()
+        ops = trace_operations(path, "borg", **kw)
+        compile_s = time.perf_counter() - t
+        runner_m, rm, wall_m = trace_run(list(ops), device_replay=True, **rkw)
+        drv_m = runner_m.replay_driver
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts_s = (rs.events_applied, rs.pods_scheduled, rs.unschedulable_attempts)
+    counts_m = (rm.events_applied, rm.pods_scheduled, rm.unschedulable_attempts)
+    if counts_s != counts_m or step_triples(rs) != step_triples(rm):
+        raise AssertionError(f"streamed trace {counts_s} differs from materialized {counts_m}")
+    if drv_s.fallback_steps or drv_m.fallback_steps or sstats["fallback"]:
+        raise AssertionError(f"streamed trace: per-pass steps {drv_s.fallback_steps} / {drv_m.fallback_steps}, "
+                             f"{drv_s.unsupported} {drv_m.unsupported}, producer fallback {sstats['fallback']}")
+    pre = drv_s.stats()["prelower"]
+    print(f"  synthetic Borg trace ({STREAM_RECORDS} records, seed 0) on {STREAM_NODES} nodes, {rs.events_applied} "
+          f"events in {len(rs.steps)} steps: streamed {rs.pods_scheduled} scheduled / {rs.unschedulable_attempts} "
+          f"unschedulable, equal to the materialized run step for step, 0 per-pass steps; streamed wall "
+          f"{wall_s:.2f} s ({rs.events_applied / wall_s:.0f} events/s, ingest included), materialized "
+          f"{wall_m:.2f} s after a {compile_s:.2f} s compile; producer windows {sstats['windows']}, queue peak "
+          f"{sstats['queue_peak']}; ingest prefetches {drv_s.ingest_prefetches}; prelower {pre} {card}", flush=True)
+    out["stream"] = {"events": rs.events_applied, "steps": len(rs.steps), "counts": counts_s[1:],
+                     "wall_s": wall_s, "events_per_s": rs.events_applied / wall_s, "materialized_wall_s": wall_m,
+                     "compile_s": compile_s, "windows": sstats["windows"], "queue_peak": sstats["queue_peak"],
+                     "ingest_prefetches": drv_s.ingest_prefetches, "device_round_trips": drv_s.device_round_trips}
+
+    # borg_mini: the trace lock, streamed and materialized.
+    mini = {}
+    for mode in ("streamed", "materialized"):
+        src = (stream_trace_operations(BORG_MINI, "borg", nodes=24, ops_per_step=2, window=8, queue_windows=2)
+               if mode == "streamed" else list(trace_operations(BORG_MINI, "borg", nodes=24, ops_per_step=2)))
+        runner, res, wall = trace_run(src, device_replay=True, pod_bucket_min=64)
+        got = (res.events_applied, res.pods_scheduled, res.unschedulable_attempts)
+        drv = runner.replay_driver
+        if got != BORG_MINI_LOCK or drv.fallback_steps:
+            raise AssertionError(f"borg_mini {mode}: {got} against {BORG_MINI_LOCK}, {drv.fallback_steps} per-pass")
+        mini[mode] = step_triples(res)
+        print(f"  borg_mini on 24 nodes, {mode}: {got[0]} events, {got[1]} scheduled, {got[2]} unschedulable "
+              f"(the lock), {drv.device_steps} steps on the card in {wall:.2f} s {card}", flush=True)
+    if mini["streamed"] != mini["materialized"]:
+        raise AssertionError("borg_mini: streamed and materialized steps differ")
+    print(f"  phase 10 took {time.perf_counter() - t10:.1f} s {card}", flush=True)
+    return out
+
+
 def completed_d_phase(check: Check, card: str) -> dict:
     """Phase 8; returns kernel D's measurements in its preemption +
     full-record form."""
@@ -1170,6 +1433,9 @@ def preemption_churn_phase(check: Check, card: str) -> dict:
     return {"preempt_churn": {"nodes": PREEMPT_NODES, "evictions": evictions, "nominating_segments": len(nominating),
                               "device_steps": drv.device_steps, "fallback_steps": drv.fallback_steps,
                               "preemption_overflow": overflow}}
+
+
+T0 = time.perf_counter()
 
 
 def main() -> int:
@@ -1544,6 +1810,9 @@ def main() -> int:
     phase("9 the chain past its old caps (kernels A-D), and kernel B past the old node bound")
     wide_phase(check, card)
 
+    phase("10 the replay executor (reuse, watchdog, breaker) and streaming trace ingest")
+    executor = executor_phase(check, card)
+
     plain_ms["node_summary"] = ns["plain_ms"]
     measured = {
         "schedule_scan": (ms_a, a_bound, a_by, f"{P}x{N} selection"),
@@ -1575,7 +1844,8 @@ def main() -> int:
              "derive_interpod": {"launches_are": "runs inside replay_segment, counted on the card",
                                  "standalone_launches": 0},
              "replay_segment": {**churn["d_ran"], "kernel_ms": churn["kernel_ms"],
-                                "fullest_50k": churn["fullest_50k"], **completed},
+                                "fullest_50k": churn["fullest_50k"], **completed,
+                                "executor": {**churn["executor"], **executor}},
              "replay_segment_fleet": {"launches_are": "launches on the vmap leg of phase 7", **fleet["extra"]}}
     kernels = [
         {
@@ -1596,6 +1866,7 @@ def main() -> int:
         }
         for name, (source, replaces, rows) in KERNELS.items()
     ]
+    print(f"chip_smoke took {time.perf_counter() - T0:.1f} s, build included [{smi}]")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

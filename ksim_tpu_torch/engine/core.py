@@ -145,6 +145,15 @@ def device_aux(aux: dict, n_padded: int, device: torch.device) -> dict:
     return out
 
 
+def _plugin_sig(plugin: Any) -> tuple:
+    """One plugin's part of ``_Program.sig``: its declared ``static_sig``,
+    or its identity for a plugin that declares none (no sharing across
+    instances, but always safe)."""
+    sig = getattr(plugin, "static_sig", None)
+    sig = sig() if sig is not None else None
+    return ("@id", id(plugin)) if sig is None else tuple(sig)
+
+
 class _Program:
     """The static half of an Engine: plugin chain, record mode, numeric
     mode.  The kernel wrappers take it; its methods are the plain PyTorch
@@ -158,6 +167,17 @@ class _Program:
         self.filters = [sp for sp in plugins if sp.filter_enabled]
         self.scores = [sp for sp in plugins if sp.score_enabled]
         self.dtypes = self._result_dtypes()
+        # The profile's identity for the compile-once gate
+        # (engine/replay.py ``_compile_cache_key``): equal configurations
+        # share a rung, as the reference's ``_Program`` hashes.
+        self.sig = (
+            record,
+            bool(exact),
+            tuple(
+                (_plugin_sig(sp.plugin), sp.weight, sp.filter_enabled, sp.score_enabled)
+                for sp in plugins
+            ),
+        )
         # The kernels' copies of the profile's tables, per device
         # (kernels/chain.py profile_tables).
         self.kernel_tables: dict = {}

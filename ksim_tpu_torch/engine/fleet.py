@@ -28,9 +28,16 @@ lowering and S times the launch.  This module multiplexes them:
   stream imply equal stores, so a lane that stops advancing in lockstep
   is split off (a ``replay.fleet_lane_fallback`` event marks it).
 
+- The group dispatch runs on a watchdogged worker thread (the leader
+  driver's ``KSIM_REPLAY_WATCHDOG_S``) while the leader pre-parses the
+  next window on the main thread, as the solo executor does.  A timeout
+  or an injected fault degrades every ready lane identically: each lane's
+  driver counts it on its own breaker, so the breakers stay in lockstep.
+  Only the plan's owner, the cohort leader, adopts the reused device
+  buffers.
+
 Not ported: ``KSIM_FLEET_DP`` (the lane axis over a device mesh, ROADMAP
-queue 1 item 11) raises NotImplementedError; the dispatch runs inline,
-without the reference's watchdog thread and speculative prelower.
+queue 1 item 9) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -175,7 +182,9 @@ class FleetDriver:
     def _advance_solo(self, ln: FleetLane) -> None:
         """One solo advance: exactly the ScenarioRunner.run loop body."""
         drv = ln.driver
-        batches = [ln.by_step[s] for s in ln.keys[ln.i : ln.i + drv.k]]
+        # Two windows of lookahead: the next one is pre-parsed while this
+        # one dispatches (engine/replay.py _prelower_next).
+        batches = [ln.by_step[s] for s in ln.keys[ln.i : ln.i + 2 * drv.k]]
         seg = drv.try_segment(batches)
         if seg is not None and ln.runner._commit_segment(
             ln.keys[ln.i : ln.i + len(seg.steps)],
@@ -278,7 +287,7 @@ class FleetDriver:
         drv = lead.driver
         keys, by_step = lead.keys, lead.by_step
         i = lead.i
-        batches = [by_step[s] for s in keys[i : i + drv.k]]
+        batches = [by_step[s] for s in keys[i : i + 2 * drv.k]]
         # Reset first, so a None return's reason can only be what this
         # window recorded (the pre-span head screen rejects silently).
         drv._last_reject = None
@@ -306,7 +315,7 @@ class FleetDriver:
                 self._degrade_lane(ln, "device_error")
         if not ready:
             return
-        outcome = self._group_dispatch(ready, lead, plan)
+        outcome = self._group_dispatch(ready, lead, plan, batches)
         if outcome is None:
             return  # every ready lane already degraded identically
         pulled_state, pulled = outcome
@@ -338,13 +347,27 @@ class FleetDriver:
                 # the window start).
                 self._degrade_lane(ln, "reconcile_fault")
 
-    def _group_dispatch(self, ready, lead, plan):
-        """The group dispatch: the lane-stacked launch (vmap mode) or the
-        leader's solo launch (dedupe).  Returns ``(pulled_state, pulled)``
-        or None after degrading every ready lane identically.  A kernel
-        that fails to build or launch raises."""
+    def _group_dispatch(self, ready, lead, plan, batches):
+        """The group dispatch — the lane-stacked launch (vmap mode) or the
+        leader's solo launch (dedupe) — on a watchdogged worker, overlapped
+        with the leader's prelower of the next window.  Returns
+        ``(pulled_state, pulled)`` or None after degrading every ready lane
+        identically.  A kernel that fails to build or launch raises."""
         drv = lead.driver
+        drv.load_kernel()
+        stacked = self.vmap_cohort
         lane_ids = ",".join(str(ln.idx) for ln in ready)
+
+        def work():
+            with TRACE.span("replay.exec", segment=plan.segment, steps=plan.n_steps, lanes=len(ready)):
+                if stacked:
+                    wait_s = drv.watchdog_s if drv.watchdog_s > 0 else 300.0
+                    return _fleet_exec(plan, len(ready), drv.service._device, wait_s=wait_s)
+                # Dedupe: the leader's solo launch (the same reuse); its
+                # outputs ARE every cohort lane's.
+                return drv._device_exec(plan)
+
+        err: "BaseException | None" = None
         try:
             with TRACE.span(
                 "replay.dispatch",
@@ -353,12 +376,15 @@ class FleetDriver:
                 lanes=len(ready),
                 lane=lane_ids,
             ):
-                if self.vmap_cohort:
-                    pulled_state, pulled, ms = _fleet_exec(plan, len(ready), drv.service._device)
-                    self.kernel_ms += ms
-                    out = (pulled_state, pulled)
-                else:
-                    out = drv._device_exec(plan)
+                # Every ready lane counts a timeout, so the cohort's
+                # breakers stay in lockstep.
+                out = drv._watchdogged(
+                    work,
+                    lambda: drv._prelower_next(plan, batches),
+                    label=f"fleet dispatch ({len(ready)} lanes)",
+                    counted=[ln.driver for ln in ready],
+                    lanes=len(ready),
+                )
         except ReplayParityError:
             raise  # a kernel bug, not a degradable condition
         except ReplayFallback as e:
@@ -367,13 +393,22 @@ class FleetDriver:
                 self._per_pass_head(ln)
             return None
         except SimulatorError as e:
-            # A shared device failure (an injected fault): every lane
-            # walks the device_error ladder its solo run would.
+            # An injected fault or a timeout; a RuntimeError (a kernel's
+            # build or launch, a CUDA fault) propagates.
+            err = e
+        if err is not None:
+            # A shared device failure: every lane walks the device_error
+            # ladder its solo run would.
             for ln in ready:
-                ln.driver._note_device_error(e)
+                ln.driver._note_device_error(err)
                 self._per_pass_head(ln)
             return None
+        pulled_state, pulled, info = out
+        if stacked:
+            self.kernel_ms += info["kernel_ms"]
+        else:
+            drv.note_run(info)
         for ln in ready:
-            ln.driver.note_dispatch_healthy()
+            ln.driver.note_dispatch_healthy(plan, adopt=(ln is lead))
         self.group_dispatches += 1
-        return out
+        return pulled_state, pulled

@@ -101,6 +101,24 @@ def build(names=SOURCES) -> dict[str, Path]:
     return targets
 
 
+def load_built(names=SOURCES) -> int:
+    """Load, never build, each source in ``names`` whose hashed library
+    already exists (a warm start from an earlier process's builds);
+    returns how many are loaded now.  A library that will not load here
+    (no CUDA runtime, a foreign or damaged file) is skipped, not removed:
+    the launch that needs it builds or fails on its own."""
+    n = 0
+    for name in names:
+        if name not in _LIBS and not _target(name).exists():
+            continue
+        try:
+            load(name)
+        except (OSError, RuntimeError):
+            continue
+        n += 1
+    return n
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _LOCK:

@@ -49,14 +49,17 @@ occupancy query finds room, else 8; the fleet launch the largest of 16, 8,
 ``CLUSTER_THREADS`` force a size and a block width, for tests and timing;
 what the last launch ran (cluster, threads, shared memory, and the stats
 counted on the card) is kept in ``replay_segment.last`` and
-``replay_segment_fleet.last``.  A kernel that fails to build or launch
-raises, a refused cluster launch included; it never falls back to a
-smaller launch or to the plain version.
+``replay_segment_fleet.last``, and per thread in ``take_launch_notes()``
+(the replay driver's dispatch worker reads its own launch's there).  A
+kernel that fails to build or launch raises, a refused cluster launch
+included; it never falls back to a smaller launch or to the plain
+version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -1040,11 +1043,37 @@ def launch_lanes(lib, st: SegmentStatics, prog, const: dict, ev: dict, state0: d
     return s, outs, ran
 
 
+def load_library() -> None:
+    """Build (or load) kernel D's library now: the replay driver calls it
+    on its main thread before the first watchdogged dispatch, so nvcc's
+    minutes never count against the watchdog."""
+    _load()
+
+
+# What the last launch made on each thread ran: the replay driver's
+# dispatch worker reads its own launch's notes here, which a worker the
+# watchdog abandoned can never overwrite (``replay_segment.last`` is the
+# process-wide last, for callers on one thread).
+_HERE = threading.local()
+
+
+def take_launch_notes() -> "dict | None":
+    """The notes of the last launch THIS thread made (then cleared), or
+    None when it made none (the plain version ran)."""
+    ran = getattr(_HERE, "ran", None)
+    _HERE.ran = None
+    return ran
+
+
 def replay_segment(st: SegmentStatics, prog, const: dict, ev: dict, state0: dict):
+    """Kernel D's solo launch (the plain version on CPU tensors).  What
+    the launch ran goes to ``replay_segment.last`` and to this thread's
+    ``take_launch_notes``."""
     device = _device_of(const, "replay_segment")
     if device.type == "cpu":
         return replay_segment_plain(st, prog, const, ev, state0)
-    s, outs, replay_segment.last = launch_solo(_load(), st, prog, const, ev, state0)
+    s, outs, ran = launch_solo(_load(), st, prog, const, ev, state0)
+    replay_segment.last = _HERE.ran = ran
     replay_segment.launches += 1
     return s, outs
 
@@ -1057,11 +1086,14 @@ def replay_segment_fleet(st: SegmentStatics, prog, const: dict, ev: dict, state0
     """Rows 10-11: S lanes of kernel D in one launch, one cluster per lane.
     ``state0`` carries a leading lane axis on every leaf (``pass_count``
     is [S]); ``const`` and ``ev`` are shared by every lane.  Returns
-    (final state, outs) with the lane axis leading every leaf."""
+    (final state, outs) with the lane axis leading every leaf; what ran
+    goes to ``replay_segment_fleet.last`` and this thread's
+    ``take_launch_notes``."""
     device = _device_of(const, "replay_segment_fleet")
     if device.type == "cpu":
         return replay_segment_fleet_plain(st, prog, const, ev, state0)
-    s, outs, replay_segment_fleet.last = launch_lanes(_load(), st, prog, const, ev, state0)
+    s, outs, ran = launch_lanes(_load(), st, prog, const, ev, state0)
+    replay_segment_fleet.last = _HERE.ran = ran
     replay_segment_fleet.launches += 1
     return s, outs
 

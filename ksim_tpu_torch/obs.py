@@ -58,19 +58,35 @@ __all__ = [
 # Taxonomy: the names the port's modules record
 # ---------------------------------------------------------------------------
 
-#: Interval (span) names.
+#: Interval (span) names, a subset of ``ksim_tpu``'s.  The port records
+#: one span more: ``replay.exec``, the dispatch worker's own interval
+#: (transfer, launch, pull, decode: engine/replay.py ``_run``), against
+#: which the prelower's overlap is measured.
 SPAN_NAMES: tuple[str, ...] = (
     "replay.lower",  # segment lowering (engine/replay.py)
-    "replay.dispatch",  # kernel D's launch and its outputs' copy back
+    "replay.prelower",  # the NEXT window's speculative store-independent
+    #                     parse, overlapped with the in-flight dispatch
+    "replay.dispatch",  # kernel D's transfer, launch, pull and decode on
+    #                     the watchdogged worker, and the main thread's
+    #                     wait for it
     "replay.reconcile",  # staged store reconcile (the segment txn)
     "runner.step",  # one per-pass host step (ops + flush + schedule)
     "service.schedule",  # one scheduling pass (scheduler/service.py)
+    "scenario.ingest",  # one materialized trace ingestion: parse +
+    #                     resample + compile (traces/compile.py)
+    "traces.stream",  # the streaming producer's life (traces/stream.py)
 )
 
 #: Instant event names.
 EVENT_NAMES: tuple[str, ...] = (
     "replay.fallback",  # segment rejected; args.reason is the stable
     #                     reason (ReplayDriver._reject)
+    "replay.watchdog_timeout",  # a dispatch outlived its watchdog
+    "replay.breaker_open",  # the circuit breaker opened (args.cause)
+    "replay.breaker_probe",  # a half-open probe window was admitted
+    "replay.breaker_close",  # a healthy probe closed the breaker
+    "traces.ingest_fallback",  # the streaming producer fell back to the
+    #                            materialized path (traces/stream.py)
     "service.pass",  # pass outcome: attempts/scheduled/unschedulable
     "fault.fired",  # the fault plane injected at args.site
     "store.txn_commit",  # segment transaction committed (args.writes)

@@ -5,12 +5,10 @@ operations carry a step number; all operations of a step are applied,
 then the scheduler runs, then results are recorded.
 
 The port of ``ksim_tpu/scenario/runner.py``: the per-pass loop, the
-solo ``device_replay=True`` loop (engine/replay.py, kernel D on a card)
-and fleet replay (``fleet=S``, engine/fleet.py).  Not ported, each
-refused with an error: streaming ingest (an ``ops`` with
-``streaming_ops``), and the Scenario document loaders of
-``scenario/spec.py`` (only its merge patch, which the ``patch`` op
-applies, is kept here).  The job plane's ``private_faults``,
+solo ``device_replay=True`` loop (engine/replay.py, kernel D on a card),
+the streaming loop over a trace stream (traces/stream.py, ingest
+overlapping the device dispatch) and fleet replay (``fleet=S``,
+engine/fleet.py).  The job plane's ``private_faults``,
 ``checkpoint_hook`` and incremental resume are not ported.
 """
 
@@ -29,24 +27,6 @@ from ksim_tpu_torch.state.cluster import ClusterStore
 from ksim_tpu_torch.state.resources import JSON, name_of, namespace_of
 
 logger = logging.getLogger(__name__)
-
-
-class ScenarioSpecError(ValueError):
-    """Invalid Scenario operation (the KEP's 'the scenario will fail')."""
-
-
-def merge_patch(target: JSON, patch: Any) -> Any:
-    """RFC 7386 JSON merge patch: dicts merge recursively, null deletes,
-    everything else replaces (``ksim_tpu/scenario/spec.py``)."""
-    if not isinstance(patch, dict):
-        return patch
-    out = dict(target) if isinstance(target, dict) else {}
-    for k, v in patch.items():
-        if v is None:
-            out.pop(k, None)
-        else:
-            out[k] = merge_patch(out.get(k, {}), v)
-    return out
 
 
 @dataclass(frozen=True)
@@ -95,6 +75,103 @@ class ScenarioResult:
     @property
     def events_per_second(self) -> float:
         return self.events_applied / self.wall_seconds if self.wall_seconds else 0.0
+
+
+class _StreamFeeder:
+    """Incremental step-grouper over a streaming operation source
+    (traces/stream.py ``TraceOperationStream``): the windowed twin of
+    ``ScenarioRunner._group_by_step``, and the one view ``run``'s loop
+    reads (a materialized list arrives grouped, see ``materialized``).
+
+    ``keys``/``by_step`` grow as windows arrive; a step is COMPLETE (and
+    appended to ``keys``) only once a later step's first operation — or
+    EOF — proves no more operations belong to it.  Batch lists keep
+    their object identity for as long as they are resident: the replay
+    driver's speculative-prelower match (engine/replay.py ``_take_spec``)
+    is identity-based, so ``by_step[s]`` must return the SAME list every
+    iteration.  ``release`` evicts batches the run has committed past;
+    the step keys themselves (small ints) are kept for cursor arithmetic.
+
+    ``ensure`` BLOCKS on the producer queue; ``prefetch`` never blocks
+    and is the replay driver's ingest-hook entry (drain while the
+    device dispatch is in flight).  Both run on the consumer (main)
+    thread only."""
+
+    def __init__(self, stream) -> None:
+        self._stream = stream
+        self._it = iter(stream)
+        self.keys: list[int] = []  # complete steps, ascending
+        self.by_step: dict[int, list[Operation]] = {}
+        self._open_step: "int | None" = None
+        self._open_batch: "list[Operation] | None" = None
+        self._eof = False
+        self._released = 0  # keys-index cursor: everything below is evicted
+
+    @classmethod
+    def materialized(cls, ops: Iterable[Operation]) -> "_StreamFeeder":
+        """A feeder over a whole operation list, grouped up front and
+        already at EOF: ``ensure`` and ``prefetch`` have nothing left to
+        pull, so the windowed loop sees the materialized batches."""
+        feeder = cls(())
+        feeder.by_step, feeder.keys = ScenarioRunner._group_by_step(ops)
+        feeder._eof = True
+        return feeder
+
+    def _accept(self, op: Operation) -> None:
+        if self._open_step is None or op.step > self._open_step:
+            if self._open_step is not None:
+                self._seal()
+            elif self.keys and op.step <= self.keys[-1]:
+                raise ValueError(
+                    f"streaming operations out of step order: step {op.step} "
+                    f"after step {self.keys[-1]} was sealed"
+                )
+            self._open_step = op.step
+            self._open_batch = [op]
+        elif op.step == self._open_step:
+            self._open_batch.append(op)
+        else:
+            raise ValueError(
+                f"streaming operations out of step order: step {op.step} "
+                f"after step {self._open_step}"
+            )
+
+    def _seal(self) -> None:
+        self.by_step[self._open_step] = self._open_batch
+        self.keys.append(self._open_step)
+        self._open_step = None
+        self._open_batch = None
+
+    def ensure(self, n: int) -> None:
+        """Block until ``n`` complete steps exist or the stream ends."""
+        while len(self.keys) < n and not self._eof:
+            try:
+                op = next(self._it)
+            except StopIteration:
+                self._eof = True
+                if self._open_step is not None:
+                    self._seal()
+                return
+            self._accept(op)
+
+    def prefetch(self, n: int) -> int:
+        """Drain whatever the producer has READY toward ``n`` complete
+        steps; never blocks.  Producer-side errors are deferred: they
+        re-raise at the next blocking ``ensure``."""
+        pulled = 0
+        while len(self.keys) < n and not self._eof:
+            op = self._stream.next_nowait()
+            if op is None:
+                break
+            self._accept(op)
+            pulled += 1
+        return pulled
+
+    def release(self, upto: int) -> None:
+        """Evict committed step batches (keys indices below ``upto``)."""
+        while self._released < min(upto, len(self.keys)):
+            self.by_step.pop(self.keys[self._released], None)
+            self._released += 1
 
 
 class ScenarioRunner:
@@ -244,6 +321,8 @@ class ScenarioRunner:
             # Object identity is immutable under patch, like the apiserver:
             # name/namespace/uid survive whatever the patch does to
             # metadata (a patch can't rename or unkey an object).
+            from ksim_tpu_torch.scenario.spec import ScenarioSpecError, merge_patch
+
             def apply_merge(obj: JSON) -> None:
                 merged = merge_patch(obj, op.obj)
                 if not isinstance(merged, dict):
@@ -498,15 +577,21 @@ class ScenarioRunner:
         device path, outside the shared-universe cohort) and the result
         carries the per-lane results on ``.lanes``.
 
-        A STREAMING source (``ops.streaming_ops``) is not ported and
-        raises NotImplementedError."""
-        if getattr(ops, "streaming_ops", False):
-            raise NotImplementedError(
-                "streaming ingest (traces/stream.py) is not ported to ksim_tpu_torch"
-            )
-        if self._fleet is not None:
+        A STREAMING source (``ops.streaming_ops`` — traces/stream.py)
+        takes the windowed loop: operations are consumed as the producer
+        emits them, never materialized whole, with ingest overlapping the
+        in-flight device dispatch.  Streaming is the solo path: a fleet
+        materializes its lanes."""
+        streaming = getattr(ops, "streaming_ops", False)
+        if streaming:
+            if self._fleet is not None or lane_ops:
+                raise ValueError(
+                    "streaming ingest is the solo-run path (fleet replay "
+                    "materializes its lanes)"
+                )
+        elif self._fleet is not None:
             return self._run_fleet(ops, lane_ops)
-        if lane_ops:
+        elif lane_ops:
             raise ValueError("lane_ops requires fleet=S")
         result = ScenarioResult()
         # Per-phase wall-clock split rides on the trace plane's latency
@@ -516,49 +601,83 @@ class ScenarioRunner:
         TRACE.ensure_timing()
         phase0 = TRACE.phase_totals()
         t0 = time.perf_counter()
-        by_step, keys = self._group_by_step(ops)
+        # One windowed loop for both sources: a streaming source fills the
+        # feeder as the producer emits, a materialized one arrives grouped
+        # and at EOF.  Committed step batches are evicted as the cursor
+        # advances, so a stream holds a window and its lookahead in host
+        # memory, not the whole trace.
+        feeder = _StreamFeeder(ops) if streaming else _StreamFeeder.materialized(ops)
         driver = None
-        if self._device_replay:
-            from ksim_tpu_torch.engine.replay import SEGMENT_STEPS, ReplayDriver
+        try:
+            if self._device_replay:
+                from ksim_tpu_torch.engine.replay import SEGMENT_STEPS, ReplayDriver
 
-            driver = ReplayDriver(
-                self.store,
-                self.service,
-                k=self._device_segment_steps or SEGMENT_STEPS,
-                requeue_on_node_delete=self._requeue,
-                lane_faults=self._lane_faults,
-            )
-            self.replay_driver = driver
-        i = 0
-        while i < len(keys):
-            self._check_cancelled()
-            if driver is not None:
-                # Tails shorter than K do not fall back: the driver
-                # consumes the supported PREFIX of the window (possibly
-                # shorter than K for mid-window vocabulary misses) and
-                # pads on-device to the segment's K.
-                batches = [by_step[s] for s in keys[i : i + driver.k]]
-                seg = driver.try_segment(batches)
-                if seg is not None and self._commit_segment(
-                    keys[i : i + len(seg.steps)],
-                    batches[: len(seg.steps)],
-                    seg,
-                    driver,
-                    result,
-                ):
-                    i += len(seg.steps)
-                    continue
-            step = keys[i]
-            if driver is not None:
-                driver.fallback_steps += 1
-            done = self._run_step(step, by_step[step], result)
-            i += 1
-            if done:
-                # KEP-140 DoneOperation: "when finish the step
-                # DoneOperation belongs, this Scenario changes its status
-                # to Succeeded" — later steps are not run.
-                result.succeeded = True
-                break
+                # The hook's prefetch target is re-aimed every iteration:
+                # 4·k steps past the cursor bounds the opportunistic drain
+                # the driver runs while each dispatch is in flight.
+                target = [0]
+                driver = ReplayDriver(
+                    self.store,
+                    self.service,
+                    k=self._device_segment_steps or SEGMENT_STEPS,
+                    requeue_on_node_delete=self._requeue,
+                    lane_faults=self._lane_faults,
+                    ingest_hook=(lambda: feeder.prefetch(target[0])) if streaming else None,
+                )
+                self.replay_driver = driver
+            i = 0
+            while True:
+                self._check_cancelled()
+                if driver is not None:
+                    # Two windows' worth of batches ride along as LOOKAHEAD;
+                    # blocking here is the backpressure point when replay
+                    # outruns ingest.
+                    feeder.ensure(i + 2 * driver.k)
+                    target[0] = i + 4 * driver.k
+                else:
+                    feeder.ensure(i + 1)
+                if i >= len(feeder.keys):
+                    break
+                if driver is not None:
+                    # Tails shorter than K do not fall back: the driver
+                    # consumes the supported PREFIX of the window (possibly
+                    # shorter than K for mid-window vocabulary misses) and
+                    # pads on-device to the segment's K.  While this
+                    # window's dispatch runs on the watchdogged worker, the
+                    # driver pre-parses the next window's store-independent
+                    # prefix on this thread (engine/replay.py
+                    # _prelower_next).  The batch lists are the same objects
+                    # every iteration (feeder.by_step), so the prefix
+                    # matches the window that runs next by identity alone.
+                    batches = [feeder.by_step[s] for s in feeder.keys[i : i + 2 * driver.k]]
+                    seg = driver.try_segment(batches)
+                    if seg is not None and self._commit_segment(
+                        feeder.keys[i : i + len(seg.steps)],
+                        batches[: len(seg.steps)],
+                        seg,
+                        driver,
+                        result,
+                    ):
+                        i += len(seg.steps)
+                        feeder.release(i)
+                        continue
+                step = feeder.keys[i]
+                if driver is not None:
+                    driver.fallback_steps += 1
+                done = self._run_step(step, feeder.by_step[step], result)
+                i += 1
+                feeder.release(i)
+                if done:
+                    # KEP-140 DoneOperation: "when finish the step
+                    # DoneOperation belongs, this Scenario changes its
+                    # status to Succeeded" — later steps are not run.
+                    result.succeeded = True
+                    break
+        finally:
+            if streaming:
+                # An abandoned producer blocked on a full queue would leak;
+                # close() is idempotent and also covers clean exhaustion.
+                ops.close()
         result.wall_seconds = time.perf_counter() - t0
         # The trace plane is process-global: diff its totals around this
         # run so concurrent earlier runs don't bleed into the split.
@@ -598,8 +717,9 @@ class ScenarioRunner:
             if bad:
                 raise ValueError(f"lane_ops lanes {bad} outside the fleet (0..{n - 1})")
             if any(getattr(v, "streaming_ops", False) for v in lane_ops.values()):
-                raise NotImplementedError(
-                    "streaming ingest (traces/stream.py) is not ported to ksim_tpu_torch"
+                raise ValueError(
+                    "streaming ingest is the solo-run path (lane_ops streams "
+                    "must be materialized)"
                 )
         spec = self._fleet_faults
         if spec is None:

@@ -1,0 +1,136 @@
+"""KEP-184 SchedulerSimulation: one-shot scenario runs as documents.
+
+The reference designed (never built) a ``SchedulerSimulation`` CRD whose
+controller boots a simulator, runs a Scenario from a mounted file, and
+stores the result to a file (reference
+keps/184-scheduler-simulation/README.md: SimulatorSpec +
+ScenarioTemplateFilePath + ScenarioResultFilePath).  The TPU-native form
+is a document -> function call: build the in-memory simulator (store +
+scheduler service from the spec's scheduler config and initial
+snapshot), replay the referenced Scenario document
+(scenario/spec.py), and return/persist the ``status``-shaped result.
+
+Document shape (YAML or JSON)::
+
+    kind: SchedulerSimulation
+    spec:
+      simulator:                  # SimulatorSpec analogue
+        schedulerConfig: {...}    # KubeSchedulerConfiguration (optional)
+        initialSnapshotPath: p    # ResourcesForSnap JSON (optional)
+        recordMode: selection     # full | final | selection (optional)
+      scenarioTemplateFilePath: scenario.yaml   # or inline `scenario:`
+      scenarioResultFilePath: out.json          # optional
+
+The port of ``ksim_tpu/scenario/simulation.py``, copied with its
+imports renamed.  The scheduler service runs on the card unless the
+caller passes ``device="cpu"``; ``exact`` picks the numeric mode
+(engine/core.py), as the runner's keywords do.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any
+
+from ksim_tpu_torch.errors import RunCancelled
+from ksim_tpu_torch.scenario.runner import ScenarioResult, ScenarioRunner
+from ksim_tpu_torch.scenario.spec import ScenarioSpecError, load_scenario
+from ksim_tpu_torch.scheduler.service import SchedulerService
+from ksim_tpu_torch.state.cluster import ClusterStore
+from ksim_tpu_torch.state.resources import JSON as JSONObj
+
+
+def _result_status(res: ScenarioResult) -> JSONObj:
+    """ScenarioResult -> the .status.result analogue (KEP-140 collects
+    per-step aggregates in Scenario.status)."""
+    return {
+        # A replay that ran to completion succeeded (the except branch
+        # carries every real failure, with a message); KEP-140's
+        # doneOperation marker is surfaced separately.
+        "phase": "Succeeded",
+        "done": res.succeeded,
+        "result": {
+            "eventsApplied": res.events_applied,
+            "podsScheduled": res.pods_scheduled,
+            "unschedulableAttempts": res.unschedulable_attempts,
+            "wallSeconds": round(res.wall_seconds, 3),
+            "steps": [
+                {
+                    "step": s.step,
+                    "opsApplied": s.ops_applied,
+                    "scheduled": s.scheduled,
+                    "unschedulable": s.unschedulable,
+                    "pendingAfter": s.pending_after,
+                }
+                for s in res.steps
+            ],
+        },
+    }
+
+
+def run_scheduler_simulation(
+    doc: "JSONObj | str | bytes", *, device: "str | None" = None, exact: bool = True
+) -> JSONObj:
+    """Run one SchedulerSimulation document; returns the document with
+    ``status`` filled in (and writes ``scenarioResultFilePath`` if set).
+
+    The simulator spec is operator-owned (the KEP mounts it into the
+    simulator Pod), so its scheduler config may use plugin imports."""
+    if isinstance(doc, (str, bytes)):
+        import yaml
+
+        doc = yaml.safe_load(doc)
+    if not isinstance(doc, dict):
+        raise ScenarioSpecError("SchedulerSimulation document must be a mapping")
+    spec = doc.get("spec") or {}
+    sim_spec = spec.get("simulator") or {}
+
+    store = ClusterStore()
+    if sim_spec.get("initialSnapshotPath"):
+        from ksim_tpu_torch.state.snapshot import SnapshotService
+
+        with open(sim_spec["initialSnapshotPath"]) as f:
+            SnapshotService(store).load(json.load(f))
+    service = SchedulerService(
+        store,
+        config=sim_spec.get("schedulerConfig"),
+        record=sim_spec.get("recordMode", "selection"),
+        preemption=bool(sim_spec.get("preemption", False)),
+        max_pods_per_pass=sim_spec.get("maxPodsPerPass"),
+        allow_plugin_imports=True,  # operator-owned spec (see docstring)
+        exact=exact,
+        device=device,
+    )
+
+    scenario: Any = spec.get("scenario")
+    path = spec.get("scenarioTemplateFilePath")
+    if scenario is None and path:
+        with open(path) as f:
+            scenario = f.read()
+    if scenario is None:
+        raise ScenarioSpecError(
+            "spec needs scenario (inline) or scenarioTemplateFilePath"
+        )
+    ops = load_scenario(scenario)
+
+    runner = ScenarioRunner(store=store, service=service)
+    try:
+        res = runner.run(ops)
+        status = _result_status(res)
+    except RunCancelled:
+        # Cancellation is not a Failed phase: it must reach the job
+        # worker, which owns the cancelled-state transition.
+        raise
+    except Exception as e:  # the KEP's Failed phase with a message
+        status = {"phase": "Failed", "message": f"{type(e).__name__}: {e}"}
+
+    out = dict(doc, status=status)
+    result_path = spec.get("scenarioResultFilePath")
+    if result_path:
+        tmp = f"{result_path}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(out, f, indent=1)
+        import os
+
+        os.replace(tmp, result_path)
+    return out

@@ -1,0 +1,157 @@
+"""Snapshot export/import, JSON-compatible with the reference.
+
+The export shape mirrors ``ResourcesForSnap`` exactly (reference
+simulator/snapshot/snapshot.go:33-42): keys ``pods, nodes, pvs, pvcs,
+storageClasses, priorityClasses, schedulerConfig, namespaces`` — so a file
+exported from the reference simulator loads here and vice versa.
+
+Behavioral parity points:
+- label-selector filtered export (snapshot.go:104-140);
+- system priority classes (name prefixed ``system-``) are excluded on both
+  snap and load (snapshot.go:586-591 isSystemPriorityClass);
+- ``kube-``-prefixed namespaces are excluded (snapshot.go:593-599);
+- load applies in dependency order: namespaces first, then priority
+  classes / storage classes / pvcs / nodes / pods, PVs last so a PV's
+  claimRef UID can be re-resolved to the freshly-created PVC
+  (snapshot.go:158-196 and the fixClaimRef logic in utils.go);
+- IgnoreErr mode logs-and-continues per object (snapshot.go:90-94).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from typing import Any
+
+from ksim_tpu_torch.errors import SimulatorError
+from ksim_tpu_torch.state.cluster import ClusterStore
+from ksim_tpu_torch.state.resources import JSON, labels_of, name_of
+from ksim_tpu_torch.state.selectors import match_label_selector
+
+logger = logging.getLogger(__name__)
+
+# snapshot-JSON key -> cluster-store kind
+_FIELD_KINDS = (
+    ("pods", "pods"),
+    ("nodes", "nodes"),
+    ("pvs", "persistentvolumes"),
+    ("pvcs", "persistentvolumeclaims"),
+    ("storageClasses", "storageclasses"),
+    ("priorityClasses", "priorityclasses"),
+    ("namespaces", "namespaces"),
+)
+
+# Dependency order for load (reference snapshot.go:158-196).
+_LOAD_ORDER = (
+    ("namespaces", "namespaces"),
+    ("priorityClasses", "priorityclasses"),
+    ("storageClasses", "storageclasses"),
+    ("pvcs", "persistentvolumeclaims"),
+    ("nodes", "nodes"),
+    ("pods", "pods"),
+    ("pvs", "persistentvolumes"),
+)
+
+
+def is_system_priority_class(name: str) -> bool:
+    return name.startswith("system-")
+
+
+def is_ignored_namespace(name: str) -> bool:
+    return name.startswith("kube-")
+
+
+class SnapshotService:
+    """Snap/Load against a ClusterStore (reference snapshot.Service)."""
+
+    def __init__(self, store: ClusterStore, scheduler_service: Any = None) -> None:
+        self._store = store
+        self._scheduler_service = scheduler_service
+
+    def snap(self, label_selector: JSON | None = None) -> JSON:
+        out: JSON = {}
+        for field, kind in _FIELD_KINDS:
+            objs = self._store.list(kind)
+            if label_selector:
+                objs = [o for o in objs if match_label_selector(label_selector, labels_of(o))]
+            if field == "priorityClasses":
+                objs = [o for o in objs if not is_system_priority_class(name_of(o))]
+            if field == "namespaces":
+                objs = [o for o in objs if not is_ignored_namespace(name_of(o))]
+            out[field] = objs
+        cfg = None
+        if self._scheduler_service is not None:
+            cfg = self._scheduler_service.get_scheduler_config()
+        out["schedulerConfig"] = cfg
+        return out
+
+    def load(
+        self,
+        resources: JSON,
+        *,
+        ignore_err: bool = False,
+        ignore_scheduler_configuration: bool = False,
+    ) -> None:
+        for field, kind in _LOAD_ORDER:
+            for obj in resources.get(field) or []:
+                if field == "priorityClasses" and is_system_priority_class(name_of(obj)):
+                    continue
+                if field == "namespaces" and is_ignored_namespace(name_of(obj)):
+                    continue
+                try:
+                    obj = dict(obj)
+                    md = dict(obj.get("metadata") or {})
+                    # Apply semantics: never carry a foreign UID in
+                    # (snapshot.go applyPcs: pc.UID = nil).
+                    md.pop("uid", None)
+                    md.pop("resourceVersion", None)
+                    obj["metadata"] = md
+                    if field == "pvs":
+                        obj = self._fix_claim_ref(obj)
+                    self._store.apply(kind, obj)
+                except SimulatorError:
+                    if not ignore_err:
+                        raise
+                    logger.error("failed to apply %s %s", kind, name_of(obj))
+        cfg = resources.get("schedulerConfig")
+        if (
+            cfg is not None
+            and not ignore_scheduler_configuration
+            and self._scheduler_service is not None
+        ):
+            # apply_scheduler_config is the restart analogue: compile-and-
+            # swap with rollback (reference snapshot.go:202-219 calls
+            # RestartScheduler after load).
+            self._scheduler_service.apply_scheduler_config(cfg)
+
+    def _fix_claim_ref(self, pv: JSON) -> JSON:
+        """Re-resolve a Bound PV's claimRef UID to the freshly-loaded PVC —
+        the reason PVs load last (reference snapshot.go applyPvs:
+        source-cluster UIDs are meaningless here).  Matches the reference:
+        only PVs with status.phase == Bound are touched, and a missing PVC
+        clears the UID rather than keeping the stale one."""
+        if (pv.get("status") or {}).get("phase") != "Bound":
+            return pv
+        ref = (pv.get("spec") or {}).get("claimRef")
+        if not ref or not ref.get("name"):
+            return pv
+        try:
+            pvc = self._store.get(
+                "persistentvolumeclaims", ref["name"], ref.get("namespace", "default")
+            )
+            uid = pvc["metadata"].get("uid")
+        except SimulatorError:
+            uid = None
+        pv = dict(pv)
+        spec = dict(pv.get("spec") or {})
+        spec["claimRef"] = {**ref, "uid": uid}
+        pv["spec"] = spec
+        return pv
+
+    # -- file helpers -------------------------------------------------------
+
+    def export_json(self, label_selector: JSON | None = None) -> str:
+        return json.dumps(self.snap(label_selector), separators=(",", ":"))
+
+    def import_json(self, data: str | bytes, **kwargs: Any) -> None:
+        self.load(json.loads(data), **kwargs)

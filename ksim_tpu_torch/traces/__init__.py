@@ -1,0 +1,80 @@
+"""Trace ingestion plane: real cluster traces -> deterministic churn.
+
+Every perf and parity claim before this subsystem was measured on
+synthetic churn (scenario/generate.py); this package compiles the two
+standard public workload datasets of the cluster-scheduling literature
+— the Google Borg ClusterData instance events and the Alibaba
+cluster-trace workload tables — into the same in-vocabulary
+``Operation`` streams the replay engine already locks byte-for-byte
+(ROADMAP "Scenario diversity: real-trace ingestion").
+
+The pipeline (each stage its own module, each independently testable):
+
+    parse (borg.py / alibaba.py)          format -> TraceRecord stream
+      -> resample (resample.py)           seed-deterministic sizing
+      -> compile (compile.py)             records -> Operation stream
+      -> stream (stream.py)               the same pipeline as a bounded
+                                          producer thread: O(window)
+                                          windows overlapping the replay
+                                          that consumes them
+
+plus ``registry.py``, the allowlisted ``KSIM_TRACES_DIR`` name registry
+the tenant job plane resolves trace references through (raw paths are
+refused at the job surface), and ``schema.py``, the normalized record.
+Selection is order-independent by construction (a keyed-hash rank per
+record — resample.py), which is what lets the streaming and batch paths
+emit byte-identical operation sequences.
+
+Wired through the scenario spec (``source: {trace: ...}`` —
+scenario/spec.py), the job plane (docs/jobs.md), and bench
+(``churn_trace`` rung); the whole package is stdlib-only at import
+time — machine-checked by the ksimlint import-boundary rule — so the
+parsers configure and fail cleanly in jax-free processes.
+"""
+
+from ksim_tpu_torch.traces.alibaba import parse_alibaba
+from ksim_tpu_torch.traces.borg import parse_borg
+from ksim_tpu_torch.traces.compile import (
+    PRIORITY_LADDER,
+    TRACE_FORMATS,
+    compile_trace,
+    trace_operations,
+)
+from ksim_tpu_torch.traces.registry import (
+    list_trace_entries,
+    list_traces,
+    open_trace_lines,
+    resolve,
+    trace_dir,
+)
+from ksim_tpu_torch.traces.resample import StreamSelector, estimated_events, resample
+from ksim_tpu_torch.traces.schema import (
+    TraceBoundExceeded,
+    TraceError,
+    TraceParseError,
+    TraceRecord,
+)
+from ksim_tpu_torch.traces.stream import TraceOperationStream, stream_trace_operations
+
+__all__ = [
+    "PRIORITY_LADDER",
+    "TRACE_FORMATS",
+    "StreamSelector",
+    "TraceBoundExceeded",
+    "TraceError",
+    "TraceOperationStream",
+    "TraceParseError",
+    "TraceRecord",
+    "compile_trace",
+    "estimated_events",
+    "list_trace_entries",
+    "list_traces",
+    "open_trace_lines",
+    "parse_alibaba",
+    "parse_borg",
+    "resample",
+    "resolve",
+    "stream_trace_operations",
+    "trace_dir",
+    "trace_operations",
+]

@@ -1,0 +1,292 @@
+"""Trace records -> in-vocabulary ``Operation`` streams.
+
+The last stage of the ingestion plane: normalized records (schema.py)
+become exactly the operation stream the replay engine already speaks —
+create/delete of pods and nodes only, so the device-resident segment
+path (engine/replay.py) lowers a compiled trace with ZERO new fallback
+classes.  The guarantees, each tied to a fallback class it forecloses:
+
+- **Unique pod names** — every pod is ``p<seq>-<sanitized trace id>``;
+  a trace that resubmits an identity still never reuses a simulator
+  name (``pod_name_reuse`` / ``backoff_name_reuse`` cannot fire).
+- **Exact quantities** — requests are emitted as ``<n>m`` / ``<n>Mi``
+  strings straight from the record's integer fields
+  (``inexact_units`` cannot fire).
+- **Plain pods** — no volumes, host ports, scheduling gates, or
+  foreign schedulers; priorities ride as resolved ``spec.priority``
+  integers (state/priorities.py: explicit priority wins), so no
+  PriorityClass objects — an out-of-vocabulary kind — ever enter the
+  stream.
+- **Static node universe** — the whole fleet is created at step 0 and
+  never drained, and deletes only ever name pods the stream created
+  (``delete_unknown_*`` cannot fire).
+
+Priority mapping: record tiers (0..4, the normalized Borg/Alibaba
+bands) land on ``PRIORITY_LADDER`` as pod priorities.  This makes trace
+streams priority-DIVERSE — unlike the synthetic churn, windows are not
+priority-flat, which is exactly the workload property the ROADMAP item
+wanted on record.  (Trace replay runs with preemption disabled by
+default: a preemption-armed trace replay is bounded by
+``KSIM_REPLAY_CMAX``/``VMAX`` and may legitimately discard segments —
+docs/scenario.md.)
+
+Arrival mapping: the records' arrival span is divided into a fixed
+tick chosen so the stream averages ``ops_per_step`` pod events per
+step; each record's create lands at its arrival step and its delete at
+``arrival + lifetime``'s step.  A fixed tick — not a fixed batch —
+preserves the empirical burstiness: a quiet hour is many small steps,
+an arrival spike is one huge step.
+
+``trace_operations`` is the one-call surface (parse -> resample ->
+compile) and wraps the whole ingestion in the ``scenario.ingest`` trace
+span.  Everything here is stdlib at import time; the ``Operation``
+dataclass imports lazily (scenario.runner pulls the scheduler stack).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import TYPE_CHECKING, Iterable, Sequence
+
+from ksim_tpu_torch.obs import TRACE
+from ksim_tpu_torch.traces.resample import StreamSelector
+from ksim_tpu_torch.traces.schema import TraceBoundExceeded, TraceError, TraceRecord
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from ksim_tpu_torch.scenario.runner import Operation
+
+__all__ = ["PRIORITY_LADDER", "TRACE_FORMATS", "compile_trace", "trace_operations"]
+
+#: Pod ``spec.priority`` values per normalized tier (schema.py): free /
+#: best-effort batch / mid / production / monitoring.  Far below the
+#: system-class range (state/priorities.py) on purpose.
+PRIORITY_LADDER: tuple[int, ...] = (0, 1_000, 5_000, 10_000, 100_000)
+
+#: Registered parser entrypoints (the ``format:`` vocabulary of the
+#: scenario spec's ``source.trace`` section).  Values are import paths
+#: resolved lazily so this module stays import-light.
+TRACE_FORMATS: tuple[str, ...] = ("borg", "alibaba")
+
+_NAME_RE = re.compile(r"[^a-z0-9.-]+")
+
+# Node-shape menu for the synthesized universe (the trace tables
+# describe workloads, not machines): sizes drawn seed-deterministically,
+# zones round-robin so topology plugins have real strata to score.
+_NODE_CORES = (8, 16, 32)
+_NODE_MEM_GI = (32, 64)
+_ZONES = ("zone-a", "zone-b", "zone-c")
+
+
+def _parser(fmt: str):
+    if fmt == "borg":
+        from ksim_tpu_torch.traces.borg import parse_borg
+
+        return parse_borg
+    if fmt == "alibaba":
+        from ksim_tpu_torch.traces.alibaba import parse_alibaba
+
+        return parse_alibaba
+    raise TraceError(
+        f"unknown trace format {fmt!r} (supported: {list(TRACE_FORMATS)})"
+    )
+
+
+def _mk_node(rng, name: str, zone: str) -> dict:
+    alloc = {
+        "cpu": str(rng.choice(_NODE_CORES)),
+        "memory": f"{rng.choice(_NODE_MEM_GI)}Gi",
+        "pods": "110",
+        "ephemeral-storage": "100Gi",
+    }
+    return {
+        "apiVersion": "v1",
+        "kind": "Node",
+        "metadata": {
+            "name": name,
+            "labels": {
+                "kubernetes.io/hostname": name,
+                "topology.kubernetes.io/zone": zone,
+            },
+        },
+        "spec": {},
+        "status": {"allocatable": dict(alloc), "capacity": dict(alloc)},
+    }
+
+
+def _mk_pod(name: str, rec: TraceRecord) -> dict:
+    return {
+        "apiVersion": "v1",
+        "kind": "Pod",
+        "metadata": {
+            "name": name,
+            "namespace": "default",
+            "labels": {"app": rec.kind, "trace-tier": str(rec.tier)},
+        },
+        "spec": {
+            "priority": PRIORITY_LADDER[rec.tier],
+            "containers": [
+                {
+                    "name": "main",
+                    "image": "trace",
+                    "resources": {
+                        "requests": {
+                            "cpu": f"{rec.cpu_milli}m",
+                            "memory": f"{rec.mem_mib}Mi",
+                        }
+                    },
+                }
+            ],
+        },
+        "status": {},
+    }
+
+
+def _pod_name(seq: int, rec: TraceRecord) -> str:
+    san = _NAME_RE.sub("-", rec.name.lower()).strip("-.")[:24] or "task"
+    return f"p{seq:05d}-{san}"
+
+
+def _validate_compile_args(
+    records: Sequence[TraceRecord], n_nodes: int, ops_per_step: int
+) -> None:
+    if n_nodes <= 0:
+        raise TraceError("n_nodes must be positive")
+    if ops_per_step <= 0:
+        raise TraceError("ops_per_step must be positive")
+    if not records:
+        raise TraceError("trace compiled to zero records")
+
+
+def _node_ops(n_nodes: int, seed: int) -> "list[Operation]":
+    """The step-0 node bootstrap: the whole fleet, sizes drawn
+    seed-deterministically in node-index order (the rng draw SEQUENCE
+    is part of the byte-identity contract)."""
+    import random
+
+    from ksim_tpu_torch.scenario.runner import Operation
+
+    rng = random.Random(seed)
+    return [
+        Operation(
+            step=0,
+            op="create",
+            kind="nodes",
+            obj=_mk_node(rng, f"node-{i}", _ZONES[i % len(_ZONES)]),
+        )
+        for i in range(n_nodes)
+    ]
+
+
+class _EventLayout:
+    """The (step, phase, seq) grid pod events sort on, factored out of
+    ``compile_trace`` so the streaming producer (traces/stream.py) can
+    materialize the SAME operation list window-by-window: keys are tiny
+    tuples computed up front (O(selected events)), operations are built
+    one window at a time from the key order.  ``records`` must already
+    be in resample's sorted order — ``seq`` indexes into it and names
+    the pods."""
+
+    def __init__(self, records: Sequence[TraceRecord], ops_per_step: int) -> None:
+        self.records = records
+        self.t0 = min(r.arrival_s for r in records)
+        span = max(r.arrival_s for r in records) - self.t0
+        n_pod_events = sum(2 if r.lifetime_s > 0 else 1 for r in records)
+        self.n_steps = max(1, round(n_pod_events / ops_per_step))
+        self.tick = (span / self.n_steps) or 1.0
+
+    def _step_of(self, t: float, horizon: int) -> int:
+        return 1 + min(int((t - self.t0) / self.tick), horizon)
+
+    def keys(self) -> "list[tuple[int, int, int]]":
+        """Sorted (step, phase, seq) keys: creates (phase 0) in arrival
+        order, then deletes (phase 1) in end-time order — a same-step
+        create+delete stays a well-formed net no-op for the window
+        parser."""
+        keyed: list[tuple[int, int, int]] = []
+        for seq, rec in enumerate(self.records):
+            create_step = self._step_of(rec.arrival_s, self.n_steps - 1)
+            keyed.append((create_step, 0, seq))
+            if rec.lifetime_s > 0:
+                # A delete never precedes its create; ends clamp to ONE
+                # step past the creation horizon, so a pod born in the
+                # last step still lives for a scheduling pass before it
+                # leaves.
+                del_step = max(
+                    self._step_of(rec.arrival_s + rec.lifetime_s, self.n_steps),
+                    create_step,
+                )
+                keyed.append((del_step, 1, seq))
+        keyed.sort()
+        return keyed
+
+    def materialize(self, key: "tuple[int, int, int]") -> "Operation":
+        from ksim_tpu_torch.scenario.runner import Operation
+
+        step, phase, seq = key
+        rec = self.records[seq]
+        name = _pod_name(seq, rec)
+        if phase == 0:
+            return Operation(step=step, op="create", kind="pods", obj=_mk_pod(name, rec))
+        return Operation(
+            step=step, op="delete", kind="pods", name=name, namespace="default"
+        )
+
+
+def compile_trace(
+    records: Sequence[TraceRecord],
+    *,
+    n_nodes: int,
+    seed: int = 0,
+    ops_per_step: int = 100,
+) -> "list[Operation]":
+    """Lower sorted records to the runner's ``Operation`` list: the
+    step-0 node bootstrap, then each record's create (and delete, when
+    its lifetime is known) on the fixed arrival-time grid."""
+    _validate_compile_args(records, n_nodes, ops_per_step)
+    ops = _node_ops(n_nodes, seed)
+    layout = _EventLayout(records, ops_per_step)
+    ops.extend(layout.materialize(k) for k in layout.keys())
+    return ops
+
+
+def trace_operations(
+    source: "str | os.PathLike | Iterable[str]",
+    fmt: str,
+    *,
+    nodes: int,
+    max_events: int = 0,
+    seed: int = 0,
+    ops_per_step: int = 100,
+    source_nodes: "int | None" = None,
+    event_bound: int = 0,
+    node_bound: int = 0,
+) -> "list[Operation]":
+    """The one-call ingestion surface: parse ``source`` with the ``fmt``
+    parser, resample to the node count / event budget, compile to the
+    operation stream — all inside a ``scenario.ingest`` span so the
+    ingestion cost shows up on the same timeline as the replay it
+    feeds.  ``event_bound``/``node_bound`` (0 = unbounded) arm EARLY
+    refusal: the single-pass selector raises
+    :class:`~ksim_tpu_torch.traces.schema.TraceBoundExceeded` the moment the
+    compiled size provably passes the bound, so an oversized source
+    stops costing bytes mid-read instead of after full parse+compile
+    (the jobs plane maps it to HTTP 413)."""
+    with TRACE.span("scenario.ingest", format=fmt, nodes=nodes) as span:
+        if node_bound and nodes > node_bound:
+            raise TraceBoundExceeded("nodes", node_bound, nodes)
+        selector = StreamSelector(
+            seed=seed,
+            max_events=max_events,
+            target_nodes=nodes if source_nodes else None,
+            source_nodes=source_nodes,
+            event_bound=event_bound,
+            base_events=nodes,
+        )
+        selector.feed_all(_parser(fmt)(source))
+        records = selector.finish()
+        ops = compile_trace(
+            records, n_nodes=nodes, seed=seed, ops_per_step=ops_per_step
+        )
+        span.set(records=len(records), ops=len(ops))
+        return ops

@@ -1,0 +1,404 @@
+"""Streaming-windowed trace ingest: the materialized pipeline, rebuilt
+as a bounded producer/consumer so ingest overlaps replay.
+
+``trace_operations`` (compile.py) is one synchronous call: parse the
+whole source, select, materialize EVERY ``Operation``, hand the list to
+the runner.  Peak host memory is O(stream) and the replay executor
+idles until the last byte is parsed.  This module keeps the byte-exact
+output contract and changes the shape of time and memory:
+
+- **A producer thread** (``# ksimlint: thread-role(trace-ingest)``)
+  parses the source through the single-pass
+  :class:`~ksim_tpu_torch.traces.resample.StreamSelector` (records held:
+  O(event budget), exact — resample.py proves it), lays the selected
+  records on the :class:`~ksim_tpu_torch.traces.compile._EventLayout` grid,
+  and materializes operations ONE WINDOW AT A TIME
+  (``KSIM_TRACES_WINDOW`` ops per window) into a bounded queue
+  (``KSIM_TRACES_QUEUE`` windows).  A full queue blocks the producer —
+  backpressure, not buffering — so in-flight operation objects are
+  capped at ``window x (queue + 1)`` regardless of stream length.
+- **The consumer** (scenario/runner.py's streaming loop) drains windows
+  as the replay engine commits segments, so ingest of window N+1
+  overlaps device execution of window N — the third stage of the
+  ingest ∥ prelower ∥ dispatch pipeline (engine/replay.py
+  ``ingest_hook``).
+- **Determinism is free, not re-proven per run**: selection is a pure
+  per-record function of ``(seed, record)`` and the layout grid is a
+  pure function of the selected set, so the concatenated windows are
+  byte-identical to ``trace_operations`` output — golden-tested on the
+  bundled fixtures, and the behavior locks (borg_mini 56/19) hold with
+  streaming active.
+- **Chaos degrades, input errors don't.**  An armed fault at the
+  ``traces.stream`` site (or any unexpected SimulatorError) BEFORE the
+  first window is emitted falls back to the materialized batch path —
+  counted (``traces.ingest_fallback`` event, ``stats()["fallback"]``),
+  byte-identical output, only the O(window) memory claim is forfeited.
+  ``TraceError`` (bad input) propagates: it would fail both paths
+  identically, and "degrading" it would just parse the broken file
+  twice.  Errors cross to the consumer through the queue and re-raise
+  at the next ``__next__``.
+
+Bound enforcement rides the selector: ``event_bound``/``node_bound``
+(the jobs plane's ``KSIM_JOBS_MAX_EVENTS``/``_MAX_NODES``) refuse
+mid-read via :class:`~ksim_tpu_torch.traces.schema.TraceBoundExceeded`.
+
+Stdlib-only at import time (machine-checked); the ``Operation``
+dataclass arrives lazily through compile.py's function-scope imports.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import threading
+from collections import deque
+from typing import TYPE_CHECKING, Iterable, Iterator
+
+from ksim_tpu_torch.errors import SimulatorError
+from ksim_tpu_torch.faults import FAULTS
+from ksim_tpu_torch.obs import TRACE
+from ksim_tpu_torch.traces.compile import _EventLayout, _node_ops, _parser, _validate_compile_args
+from ksim_tpu_torch.traces.resample import StreamSelector, resample
+from ksim_tpu_torch.traces.schema import TraceBoundExceeded, TraceError
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from ksim_tpu_torch.scenario.runner import Operation
+
+__all__ = [
+    "DEFAULT_WINDOW_OPS",
+    "DEFAULT_QUEUE_WINDOWS",
+    "TraceOperationStream",
+    "stream_trace_operations",
+]
+
+logger = logging.getLogger(__name__)
+
+#: Default ``KSIM_TRACES_WINDOW``: operations per emitted window.  2048
+#: matches the replay engine's 2K-batch lookahead appetite (a segment
+#: consumes ``2 x k`` step batches; one window comfortably covers one
+#: segment's worth of average-density steps).
+DEFAULT_WINDOW_OPS = 2048
+
+#: Default ``KSIM_TRACES_QUEUE``: windows the bounded queue holds before
+#: the producer blocks.  4 windows of slack absorbs replay's bursty
+#: consumption (a fast segment commit drains several windows at once)
+#: without letting in-flight memory grow past ~5 windows total.
+DEFAULT_QUEUE_WINDOWS = 4
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "")
+    try:
+        value = int(raw) if raw else default
+    except ValueError:
+        return default
+    return value if value > 0 else default
+
+
+class _Cancelled(Exception):
+    """Producer-internal unwind when the consumer closed the stream —
+    never crosses the queue."""
+
+
+class TraceOperationStream:
+    """Iterator of ``Operation`` objects fed by the producer thread.
+
+    Duck-typed by the runner via the ``streaming_ops`` marker; iterate
+    to consume (``__next__`` blocks on the queue), ``next_nowait()``
+    drains without blocking (the replay engine's ingest_hook overlap
+    point), ``close()`` cancels the producer and is idempotent —
+    callers wrap consumption in try/finally so an abandoned run never
+    leaves a producer blocked on a full queue.
+
+    Thread discipline: ``_buf``/``_done``/``_err`` are touched only on
+    the consumer thread; ``_stat_*`` fields are written only by the
+    producer (read-after-join or torn-read-tolerated, like every
+    evidence snapshot); the queue and the ``_cancelled`` event are the
+    only shared edges.
+    """
+
+    #: Marker the runner duck-types on (``getattr(ops, "streaming_ops",
+    #: False)``) — no import edge from scenario/ back into traces/.
+    streaming_ops = True
+
+    def __init__(
+        self,
+        source: "str | os.PathLike | Iterable[str]",
+        fmt: str,
+        *,
+        nodes: int,
+        max_events: int = 0,
+        seed: int = 0,
+        ops_per_step: int = 100,
+        source_nodes: "int | None" = None,
+        event_bound: int = 0,
+        node_bound: int = 0,
+        window: "int | None" = None,
+        queue_windows: "int | None" = None,
+    ) -> None:
+        _parser(fmt)  # unknown-format TraceError raises synchronously
+        if nodes <= 0:
+            raise TraceError("n_nodes must be positive")
+        if ops_per_step <= 0:
+            raise TraceError("ops_per_step must be positive")
+        if node_bound and nodes > node_bound:
+            raise TraceBoundExceeded("nodes", node_bound, nodes)
+        self._source = source
+        self._fmt = fmt
+        self._nodes = nodes
+        self._max_events = max_events
+        self._seed = seed
+        self._ops_per_step = ops_per_step
+        self._source_nodes = source_nodes
+        self._event_bound = event_bound
+        # Synchronous too: rescale node-count validation and the
+        # nothing-can-fit event-bound refusal happen at construction.
+        self._selector = StreamSelector(
+            seed=seed,
+            max_events=max_events,
+            target_nodes=nodes if source_nodes else None,
+            source_nodes=source_nodes,
+            event_bound=event_bound,
+            base_events=nodes,
+        )
+        self._window = window if window else _env_int("KSIM_TRACES_WINDOW", DEFAULT_WINDOW_OPS)
+        self._qcap = (
+            queue_windows
+            if queue_windows
+            else _env_int("KSIM_TRACES_QUEUE", DEFAULT_QUEUE_WINDOWS)
+        )
+        self._q: "queue.Queue[tuple[str, object]]" = queue.Queue(maxsize=self._qcap)
+        self._cancelled = threading.Event()
+        self._thread: "threading.Thread | None" = None
+        # Consumer-side state (consumer thread only).
+        self._buf: "deque[Operation]" = deque()
+        self._done = False
+        self._err: "BaseException | None" = None
+        # Producer-side evidence (producer thread only; plain ints so
+        # torn reads are impossible under the GIL).
+        self._stat_windows = 0
+        self._stat_ops = 0
+        self._stat_records = 0
+        self._stat_fallback = 0
+        self._stat_queue_peak = 0
+        self._parse_started = False
+
+    # -- consumer surface -------------------------------------------------
+
+    def __iter__(self) -> "Iterator[Operation]":
+        return self
+
+    def __next__(self) -> "Operation":
+        self._ensure_started()
+        while True:
+            if self._buf:
+                return self._buf.popleft()
+            if self._err is not None:
+                raise self._err
+            if self._done:
+                raise StopIteration
+            self._handle(*self._q.get())
+
+    def next_nowait(self) -> "Operation | None":
+        """One buffered operation, or None when nothing is ready (the
+        producer is still parsing, or the stream ended) — the replay
+        engine's ingest_hook calls this between prelower and the
+        watchdog join, so a slow device dispatch is when windows drain."""
+        self._ensure_started()
+        if self._buf:
+            return self._buf.popleft()
+        if self._done or self._err is not None:
+            return None  # terminal state surfaces at the blocking path
+        try:
+            item = self._q.get_nowait()
+        except queue.Empty:
+            return None
+        self._handle(*item)
+        return self._buf.popleft() if self._buf else None
+
+    def close(self) -> None:
+        """Cancel the producer and release its backpressure block; safe
+        to call any number of times, including after exhaustion."""
+        self._cancelled.set()
+        while True:  # unblock a producer waiting on a full queue
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        t = self._thread
+        if t is not None and t.is_alive():
+            t.join(timeout=10.0)
+        self._done = True
+        self._buf.clear()
+
+    def stats(self) -> dict:
+        """Producer evidence for bench/tests: window/op/record counts,
+        whether the run degraded to the materialized path, and the
+        deepest the bounded queue ever got."""
+        return {
+            "windows": self._stat_windows,
+            "ops": self._stat_ops,
+            "records": self._stat_records,
+            "fallback": self._stat_fallback,
+            "queue_peak": self._stat_queue_peak,
+            "window_ops": self._window,
+            "queue_windows": self._qcap,
+        }
+
+    def _ensure_started(self) -> None:
+        if self._thread is None:
+            t = threading.Thread(
+                target=self._produce, name="trace-ingest", daemon=True
+            )
+            self._thread = t
+            t.start()
+
+    def _handle(self, kind: str, payload) -> None:
+        if kind == "win":
+            self._buf.extend(payload)
+        elif kind == "eof":
+            self._done = True
+        else:  # "err": re-raise the producer's exception where consumed
+            self._err = payload
+            raise payload
+
+    # -- producer ---------------------------------------------------------
+
+    def _produce(self) -> None:  # ksimlint: thread-role(trace-ingest)
+        item: "tuple[str, object]" = ("eof", None)
+        try:
+            with TRACE.span(
+                "traces.stream", format=self._fmt, nodes=self._nodes
+            ) as span:
+                records = self._ingest()
+                self._stat_records = len(records)
+                self._emit(records)
+                span.set(
+                    records=len(records),
+                    windows=self._stat_windows,
+                    ops=self._stat_ops,
+                    fallback=self._stat_fallback,
+                )
+        except _Cancelled:
+            return
+        except BaseException as e:  # consumer classifies (incl. re-raise)
+            err = e
+            item = ("err", err)
+        try:
+            self._put(item)
+        except _Cancelled:
+            pass
+
+    def _ingest(self) -> list:
+        """Parse + select, bounded memory; armed chaos before the first
+        window degrades to the materialized batch selection (counted,
+        byte-identical), real input errors propagate."""
+        try:
+            FAULTS.check("traces.stream")
+            self._parse_started = True
+            self._selector.feed_all(_parser(self._fmt)(self._source))
+            records = self._selector.finish()
+            _validate_compile_args(records, self._nodes, self._ops_per_step)
+            FAULTS.check("traces.stream")  # last pre-emission fault point
+            return records
+        except TraceError:
+            raise  # fails the batch path identically — nothing to degrade to
+        except SimulatorError as e:
+            if not self._can_restart():
+                raise
+            TRACE.event(
+                "traces.ingest_fallback", reason=type(e).__name__, format=self._fmt
+            )
+            self._stat_fallback = 1
+            logger.warning(
+                "streaming trace ingest degraded to the materialized path: %s", e
+            )
+            records = resample(
+                _parser(self._fmt)(self._source),
+                seed=self._seed,
+                max_events=self._max_events,
+                target_nodes=self._nodes if self._source_nodes else None,
+                source_nodes=self._source_nodes,
+            )
+            _validate_compile_args(records, self._nodes, self._ops_per_step)
+            return records
+
+    def _can_restart(self) -> bool:
+        """Re-reading the source is safe for paths always, and for raw
+        line iterables only while nothing has been consumed."""
+        if isinstance(self._source, (str, bytes, os.PathLike)):
+            return True
+        return not self._parse_started
+
+    def _emit(self, records: list) -> None:
+        """The windowed materialization: node bootstrap first, then pod
+        events in (step, phase, seq) order — the exact concatenation
+        ``compile_trace`` returns, cut into bounded windows."""
+        layout = _EventLayout(records, self._ops_per_step)
+        keys = layout.keys()
+        buf: "list[Operation]" = []
+
+        def flush() -> None:
+            if not buf:
+                return
+            self._put(("win", list(buf)))
+            self._stat_windows += 1
+            self._stat_ops += len(buf)
+            buf.clear()
+
+        for op in _node_ops(self._nodes, self._seed):
+            buf.append(op)
+            if len(buf) >= self._window:
+                flush()
+        for key in keys:
+            buf.append(layout.materialize(key))
+            if len(buf) >= self._window:
+                flush()
+        flush()
+
+    def _put(self, item: "tuple[str, object]") -> None:
+        while True:
+            if self._cancelled.is_set():
+                raise _Cancelled()
+            try:
+                self._q.put(item, timeout=0.1)
+            except queue.Full:
+                continue
+            depth = self._q.qsize()
+            if depth > self._stat_queue_peak:
+                self._stat_queue_peak = depth
+            return
+
+
+def stream_trace_operations(
+    source: "str | os.PathLike | Iterable[str]",
+    fmt: str,
+    *,
+    nodes: int,
+    max_events: int = 0,
+    seed: int = 0,
+    ops_per_step: int = 100,
+    source_nodes: "int | None" = None,
+    event_bound: int = 0,
+    node_bound: int = 0,
+    window: "int | None" = None,
+    queue_windows: "int | None" = None,
+) -> TraceOperationStream:
+    """The streaming twin of :func:`~ksim_tpu_torch.traces.compile.trace_operations`:
+    same arguments, same byte-exact operation sequence, but returned as
+    a lazily-started bounded stream the runner replays window-by-window
+    while the producer is still parsing."""
+    return TraceOperationStream(
+        source,
+        fmt,
+        nodes=nodes,
+        max_events=max_events,
+        seed=seed,
+        ops_per_step=ops_per_step,
+        source_nodes=source_nodes,
+        event_bound=event_bound,
+        node_bound=node_bound,
+        window=window,
+        queue_windows=queue_windows,
+    )

@@ -47,7 +47,7 @@ for name in {modules!r}:
 print("imported", len(sys.modules))
 """
 
-# The modules of the second to fourth slices, which the blocked import
+# The modules of the second and later slices, which the blocked import
 # must reach.
 SLICE_MODULES = (
     "ksim_tpu_torch.plugins.volumes",
@@ -70,6 +70,20 @@ SLICE_MODULES = (
     "ksim_tpu_torch.engine.replay",
     "ksim_tpu_torch.kernels.replay_segment",
     "ksim_tpu_torch.engine.fleet",
+    # The eighth slice: the executor's compile-once gate, the trace
+    # plane, the scenario documents and the snapshot service.
+    "ksim_tpu_torch.engine.compilecache",
+    "ksim_tpu_torch.traces",
+    "ksim_tpu_torch.traces.schema",
+    "ksim_tpu_torch.traces.registry",
+    "ksim_tpu_torch.traces.resample",
+    "ksim_tpu_torch.traces.borg",
+    "ksim_tpu_torch.traces.alibaba",
+    "ksim_tpu_torch.traces.compile",
+    "ksim_tpu_torch.traces.stream",
+    "ksim_tpu_torch.scenario.spec",
+    "ksim_tpu_torch.scenario.simulation",
+    "ksim_tpu_torch.state.snapshot",
 )
 
 
@@ -193,5 +207,7 @@ def test_unported_surfaces_refuse(monkeypatch):
     class _Stream(list):
         streaming_ops = True
 
-    with pytest.raises(NotImplementedError, match="streaming"):
-        ScenarioRunner(device="cpu").run(_Stream())
+    # Streaming ingest is ported as the solo path; a fleet refuses a
+    # streaming source, as ksim_tpu's runner does.
+    with pytest.raises(ValueError, match="streaming"):
+        ScenarioRunner(device="cpu", device_replay=True, fleet=2).run(_Stream())

@@ -123,10 +123,29 @@ Phases, in order; any failure exits non-zero before the last line:
    ScenarioRunner(device_replay=True) and materialized (equal steps, no
    per-pass step), and tests/fixtures/traces/borg_mini.jsonl at 24 nodes
    (126 events, 56 scheduled, 19 unschedulable) streamed and
-   materialized.
+   materialized;
+11. the extension surface: (a) phase 4's cluster with the default
+   profile plus NodeNumber (weight 1) and a DataProviderScore "Renewable"
+   (weight 2, scores 0-100 from --seed) through kernels A, C (whole
+   queue, selection) and B (fused, and the 2048-pod full chunk), each
+   against its plain version (A and C on a 512-pod full-record prefix and
+   the whole queue's selections on it), timed beside this run's default
+   profile and the baseline's (the tree before the samples' rows), the
+   default profile held within 5% of the baseline at a 700 W limit; (b)
+   the 6k churn with NodeNumber through kernel D against the per-pass
+   path (steps, store, nominations), D on one segment against its plain
+   version and timed on the fullest, and one 8-lane vmap fleet leg equal
+   to the solo run; (c) a webhook
+   extender served on 127.0.0.1 (2000 nodes, 64 pods) through the
+   service, equal to the CPU run, with the per-pod split; (d) a hooked
+   profile (a PluginExtender device hook) refused on the card with no
+   launch, the same profile without hooks on kernel A; (e) a profiled pass
+   whose trace names the pass and kernel A's launch, its profile holding
+   the lifecycle samples (FifoSort, NamePrefixGate, PlacementExport).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors, times and bounds.
+the kernels with their launches, errors, times and bounds (each with
+its phase-11 numbers, all measured in this run, under "phase_11").
 """
 
 from __future__ import annotations
@@ -140,6 +159,7 @@ import sys
 import tempfile
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
@@ -148,7 +168,7 @@ import torch
 import ksim_tpu_torch.engine.replay as replay_mod
 import ksim_tpu_torch.kernels.replay_segment as segment_mod
 from ksim_tpu_torch.engine.annotations import ALL_RESULT_KEYS, RenderCtx, render_pod_results
-from ksim_tpu_torch.engine.core import Engine
+from ksim_tpu_torch.engine.core import Engine, PluginExtender, ScoredPlugin
 from ksim_tpu_torch.engine.profiles import default_plugins
 from ksim_tpu_torch.kernels import build, chain
 import ksim_tpu_torch.engine.core as port_core
@@ -171,8 +191,17 @@ from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled, schedule_s
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan, schedule_scan_plain
 from ksim_tpu_torch.faults import FAULTS
 from ksim_tpu_torch.obs import TRACE
+from ksim_tpu_torch.plugins.base import FilterOutput
+from ksim_tpu_torch.plugins.samples import (
+    data_provider_builder,
+    encode_node_number,
+    node_number_builder,
+    provider_encoder,
+)
 from ksim_tpu_torch.scenario.generate import churn_scenario
 from ksim_tpu_torch.scenario.runner import Operation, ScenarioRunner
+from ksim_tpu_torch.scheduler.extender import EXTENDER_FILTER_RESULT_KEY
+from ksim_tpu_torch.scheduler.service import SchedulerService
 from ksim_tpu_torch.state.cluster import ClusterStore
 from ksim_tpu_torch.state.featurizer import Featurizer
 from ksim_tpu_torch.traces import stream_trace_operations, trace_operations
@@ -259,6 +288,30 @@ WATCHDOG_S, HANG_S = 2, 4
 STREAM_RECORDS, STREAM_EVENTS, STREAM_NODES = 12_000, 20_000, 2000
 BORG_MINI = "tests/fixtures/traces/borg_mini.jsonl"
 BORG_MINI_LOCK = (126, 56, 19)
+# Phase 11: kernels A and C with the samples against their plain versions
+# on this full-record prefix of the queue (B on PREFIX); the extender run
+# (2000 nodes, 64 pending pods), the hooked profile (2000 x 512) and the
+# profiled pass (500 nodes, 64 pods).
+SAMPLES_PREFIX = 512
+# Launches per CUDA-event timing of kernel B (2-10 ms per launch): the
+# host's first launch after the start event (building its params) is
+# then a small share of the mean, where 3 launches left it at several
+# percent.
+B_REPS = 20
+EXT_SHAPE = (2000, 64)
+HOOK_SHAPE = (2000, 512)
+PROFILED_SHAPE = (500, 64)
+# The baseline, on the tree before the samples' rows (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md section 6), each measured as this script
+# measures it: A, C's whole queue (2 launches) and kernel D's fullest 6k
+# segment from this script's final run there; B fused and its 2048-pod
+# chunk over B_REPS launches, the mean of that tree's two runs of
+# `chip_scan_timing.py --reps 20` in one call beside this tree's.
+BASELINE_MS = {"A": 382.56, "C queue": 415.87, "B fused": 9.764, "B chunk": 2.144, "D": 48.31}
+# The default profile's times may be at most this share over the
+# baseline's, at the baseline's power limit: a row the samples skip costs
+# nothing.
+BASELINE_TOLERANCE, BASELINE_POWER_W = 0.05, 700.0
 
 
 class PlainEngine(Engine):
@@ -1438,7 +1491,379 @@ def preemption_churn_phase(check: Check, card: str) -> dict:
 T0 = time.perf_counter()
 
 
+def renewable_provider(seed: int):
+    """Phase 11's data provider: a per-node value in 0..100, made from
+    ``seed`` with numpy, in the order of the nodes it is given."""
+
+    def provide(nodes):
+        return np.random.default_rng(seed).integers(0, 101, size=len(nodes))
+
+    return provide
+
+
+def sample_profile(feats, provider):
+    """The default profile plus NodeNumber (weight 1) and one
+    DataProviderScore "Renewable" (weight 2)."""
+    return default_plugins(feats) + (
+        node_number_builder(weight=1)(feats, {}),
+        data_provider_builder("Renewable", provider, weight=2)(feats, {}),
+    )
+
+
+def _suffix(name: str) -> int:
+    digits = name[len(name.rstrip("0123456789")):]
+    return int(digits) if digits else 0
+
+
+class ParityExtender(BaseHTTPRequestHandler):
+    """Phase 11's webhook: its filter drops the nodes whose name ends in an
+    odd digit, its prioritize gives int(suffix) % 11."""
+
+    def log_message(self, *a):
+        pass
+
+    def do_POST(self):
+        body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+        names = body.get("nodenames") or [n["metadata"]["name"] for n in (body.get("nodes") or {}).get("items", [])]
+        if self.path.endswith("/filter"):
+            odd = [n for n in names if n[-1:].isdigit() and int(n[-1]) % 2 == 1]
+            out = {"nodenames": [n for n in names if n not in set(odd)],
+                   "failedNodes": {n: "odd digit suffix" for n in odd}}
+        else:
+            out = [{"host": n, "score": _suffix(n) % 11} for n in names]
+        data = json.dumps(out).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+
+def _launches() -> dict:
+    return {"schedule_scan": schedule_scan.launches, "schedule_sampled": schedule_sampled.launches,
+            "batch_eval": batch_eval.launches, "replay_segment": replay_segment.launches,
+            "replay_segment_fleet": replay_segment_fleet.launches}
+
+
+def _zero_launches() -> None:
+    for wrapper in (schedule_scan, schedule_sampled, batch_eval, node_summary, replay_segment, replay_segment_fleet):
+        wrapper.launches = 0
+
+
+def extension_phase(check: Check, card: str, smi: str, nodes, pods, default_ms: dict, seed: int) -> dict:
+    """Phase 11: (a) the main path's pass with the samples through kernels
+    A, C and B, each against its plain version, timed beside the default
+    profile's times and the baseline's; (b) the 6k churn with NodeNumber
+    through kernel D against the per-pass path, and an 8-lane fleet leg;
+    (c) a webhook extender on 127.0.0.1 through the service (kernel B per
+    pod) against the CPU run; (d) a hooked profile refused on the card;
+    (e) a profiled pass.  Returns each kernel's phase-11 notes."""
+    t11 = time.perf_counter()
+    notes: dict = {}
+
+    # -- (a) the pass with the samples ------------------------------------
+    provider = renewable_provider(seed)
+    encoders = {"nodenumber": encode_node_number, "provider:Renewable": provider_encoder(provider)}
+    t = time.perf_counter()
+    feats = Featurizer(extra_encoders=encoders).featurize(nodes, pods)
+    feats_pre = Featurizer(extra_encoders=encoders).featurize(nodes, pods[:SAMPLES_PREFIX])
+    feats_2k = Featurizer(extra_encoders=encoders).featurize(nodes, pods[:PREFIX])
+    plugins, plugins_pre, plugins_2k = (sample_profile(f, provider) for f in (feats, feats_pre, feats_2k))
+    print(f"  featurized the samples' snapshots in {time.perf_counter() - t:.1f} s (NodeNumber weight 1, "
+          f"Renewable weight 2, scores 0-100 from seed {seed})", flush=True)
+    sched = Engine(feats, plugins, record="selection", exact=True, device=DEVICE)
+    sampled = Engine(feats, plugins, record="selection", exact=True, device=DEVICE, sampling_k=SAMPLING_K)
+    fused = Engine(feats, plugins, record="final", exact=True, device=DEVICE)
+    chunk = Engine(feats_2k, plugins_2k, record="full", exact=True, device=DEVICE)
+    full_pre = Engine(feats_pre, plugins_pre, record="full", exact=True, device=DEVICE)
+    full_pre_s = Engine(feats_pre, plugins_pre, record="full", exact=True, device=DEVICE, sampling_k=SAMPLING_K)
+    torch.cuda.synchronize()
+    _zero_launches()
+    res_a, _ = sched.schedule()
+    res_c, _ = sampled.schedule(sampling_start=0)
+    res_b = fused.evaluate_batch_fused()
+    res_chunk = chunk.evaluate_batch()
+    res_pre_a, _ = full_pre.schedule()
+    res_pre_c, _ = full_pre_s.schedule(sampling_start=0)
+    launched = _launches()
+    print(f"  the samples' pass ran; launches {launched}", flush=True)
+    for name in ("schedule_scan", "schedule_sampled", "batch_eval"):
+        if launched[name] < 1:
+            raise AssertionError(f"{name} was not launched on the samples' pass")
+    n_pre = len(feats_pre.pods.keys)
+    plain_pre = PlainEngine(feats_pre, plugins_pre, record="full", exact=True, device=DEVICE)
+    want_a, _ = plain_pre.schedule()
+    check.results("schedule_scan", f"samples: schedule full, {SAMPLES_PREFIX} pods", res_pre_a, want_a)
+    check.equal("schedule_scan", f"samples: whole-queue selected, first {SAMPLES_PREFIX} pods",
+                res_a.selected[:n_pre], want_a.selected[:n_pre])
+    plain_pre_s = PlainEngine(feats_pre, plugins_pre, record="full", exact=True, device=DEVICE,
+                              sampling_k=SAMPLING_K)
+    want_c, _ = plain_pre_s.schedule(sampling_start=0)
+    check.results("schedule_sampled", f"samples: sampled full, {SAMPLES_PREFIX} pods", res_pre_c, want_c)
+    check.equal("schedule_sampled", f"samples: whole-queue sampled selected, first {SAMPLES_PREFIX} pods",
+                res_c.selected[:n_pre], want_c.selected[:n_pre])
+    plain_2k = PlainEngine(feats_2k, plugins_2k, record="full", exact=True, device=DEVICE)
+    check.results("batch_eval", f"samples: evaluate_batch full, {PREFIX} pods", res_chunk, plain_2k.evaluate_batch())
+    fprog = fused._prog
+    fcarries = fprog.init_carries(fused._aux)
+    plain_fused = batch_eval_plain(fprog, fused._node_state, fused._pods, fused._aux, fcarries)
+    for key, name in (("selected", "selected"), ("total", "total"), ("final", "final_scores")):
+        check.equal("batch_eval", f"samples: fused {key}", getattr(res_b, name), plain_fused[key].cpu().numpy())
+    del plain_fused
+    si = res_pre_a.plugin_names.index("NodeNumber")
+    if set(np.unique(res_pre_a.scores[:n_pre, si])) != {0, 10}:
+        raise AssertionError("NodeNumber scored no match, or only matches, on the prefix")
+    print(f"  A (whole queue, {SAMPLES_PREFIX}-pod full prefix), C (likewise) and B (fused whole queue, "
+          f"{PREFIX}-pod full chunk) equal their plain versions with the sample rows", flush=True)
+    prog, state0, pods0, aux = sched._prog, sched._node_state, sched._pods, sched._aux
+    carries0 = prog.init_carries(aux)
+    sprog = sampled._prog
+    start0 = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    n_real = len(feats.nodes.names)
+    cprog = chunk._prog
+    ccarries = cprog.init_carries(chunk._aux)
+    ms = {
+        "A": cuda_ms(lambda: schedule_scan(prog, state0, pods0, aux, carries0), reps=2),
+        "C queue": cuda_ms(lambda: schedule_sampled(sprog, state0, pods0, aux, carries0, start0, n_real,
+                                                    SAMPLING_K), reps=2),
+        "B fused": cuda_ms(lambda: batch_eval(fprog, fused._node_state, fused._pods, fused._aux, fcarries),
+                           reps=B_REPS),
+        "B chunk": cuda_ms(lambda: batch_eval(cprog, chunk._node_state, chunk._pods, chunk._aux, ccarries),
+                           reps=B_REPS),
+    }
+    for key, val in ms.items():
+        print(f"  with the samples, {key}: {val:.3f} ms; the default profile {default_ms[key]:.3f} ms in this run; "
+              f"baseline {BASELINE_MS[key]} ms {card}", flush=True)
+    power = float(smi.rsplit(",", 1)[1].strip().split()[0])
+    if abs(power - BASELINE_POWER_W) < 0.5:
+        for key in ("A", "C queue", "B fused", "B chunk"):
+            ratio = default_ms[key] / BASELINE_MS[key]
+            print(f"  the default profile's {key}: {ratio:.4f} x the baseline")
+            if ratio > 1 + BASELINE_TOLERANCE:
+                raise AssertionError(f"the default profile's {key} took {default_ms[key]:.3f} ms, more than "
+                                     f"{BASELINE_TOLERANCE:.0%} over the baseline's {BASELINE_MS[key]} ms")
+    else:
+        print(f"  the default profile's times not held against the baseline's: power limit {power} W, "
+              f"the baseline ran at {BASELINE_POWER_W} W")
+    notes["schedule_scan"] = {"launches": launched["schedule_scan"], "ms": ms["A"], "default_ms": default_ms["A"],
+                              "shape": f"{pods0.valid.shape[0]}x{state0.valid.shape[0]} selection"}
+    notes["schedule_sampled"] = {"launches": launched["schedule_sampled"], "queue_ms": ms["C queue"],
+                                 "default_queue_ms": default_ms["C queue"],
+                                 "shape": f"{pods0.valid.shape[0]}x{state0.valid.shape[0]} selection, k={SAMPLING_K}"}
+    notes["batch_eval"] = {"launches": launched["batch_eval"], "ms": ms["B fused"], "chunk_ms": ms["B chunk"],
+                           "default_ms": default_ms["B fused"], "default_chunk_ms": default_ms["B chunk"]}
+    del sched, sampled, fused, chunk, full_pre, full_pre_s, plain_pre, plain_pre_s, plain_2k
+    print(f"  (a) took {time.perf_counter() - t11:.1f} s", flush=True)
+
+    # -- (b) the churn with NodeNumber ------------------------------------
+    tb = time.perf_counter()
+    cfg = {"profiles": [{
+        "plugins": {"multiPoint": {"enabled": [{"name": "NodeNumber", "weight": 1}]}},
+        "pluginConfig": [{"name": "NodeNumber", "args": {
+            "builderImport": "ksim_tpu_torch.plugins.samples.nodenumber:NODE_NUMBER_PLUGIN"}}],
+    }]}
+    ops = list(churn_scenario(0, n_nodes=CHURN_NODES, n_events=6000, ops_per_step=100))
+    kw = dict(max_pods_per_pass=1024, pod_bucket_min=128, exact=False, device=DEVICE, config=cfg)
+    segments = []
+    kernel = replay_mod.replay_segment
+
+    def capture(st, prog_, const, ev, s0):
+        held = {k: v.clone() for k, v in s0.items()}
+        final, outs = kernel(st, prog_, const, ev, s0)
+        segments.append((st, prog_, const, ev, held, final, outs))
+        return final, outs
+
+    replay_mod.replay_segment = capture
+    try:
+        _zero_launches()
+        dev = ScenarioRunner(device_replay=True, device_segment_steps=SEGMENT_K, **kw)
+        t = time.perf_counter()
+        dev_res = dev.run(list(ops))
+        dev_wall = time.perf_counter() - t
+        d_launches = replay_segment.launches
+    finally:
+        replay_mod.replay_segment = kernel
+    drv = dev.replay_driver
+    if d_launches < 1 or drv.device_steps < MIN_DEVICE_STEPS:
+        raise AssertionError(f"the NodeNumber churn: {d_launches} launches of kernel D, {drv.device_steps} steps "
+                             f"on the card ({drv.unsupported})")
+    per = ScenarioRunner(**kw)
+    t = time.perf_counter()
+    per_res = per.run(list(ops))
+    per_wall = time.perf_counter() - t
+    if step_triples(dev_res) != step_triples(per_res) or store_view(dev) != store_view(per):
+        raise AssertionError("the NodeNumber churn: the device path differs from the per-pass path")
+    attempts = [int((seg[6]["idx"] < seg[2]["pods"]["requests"].shape[0]).sum()) for seg in segments]
+    st, prog_d, const, ev, s0, final, outs = segments[max(range(len(segments)), key=attempts.__getitem__)]
+    ms_d = cuda_ms(lambda: kernel(st, prog_d, const, ev, s0), reps=3)
+    small = min((i for i, a in enumerate(attempts) if a > 0), key=attempts.__getitem__)
+    st2, prog2, const2, ev2, s02, final2, outs2 = segments[small]
+    want_final, want_outs = replay_segment_plain(st2, prog2, const2, ev2, s02)
+    tree_equal(check, "replay_segment", f"NodeNumber churn segment {small} outputs", outs2, want_outs)
+    tree_equal(check, "replay_segment", f"NodeNumber churn segment {small} final state", final2, want_final)
+    print(f"  6k churn with NodeNumber: {per_res.pods_scheduled} scheduled, {per_res.unschedulable_attempts} "
+          f"unschedulable; the device path (kernel D, {d_launches} launches, {drv.device_steps} steps on the card, "
+          f"{drv.fallback_steps} per-pass, {drv.unsupported or 'no fallback'}) equals the per-pass path step for "
+          f"step (triples, store, nominations); walls {dev_wall:.2f} s device, {per_wall:.2f} s per-pass {card}",
+          flush=True)
+    print(f"  kernel D with NodeNumber, fullest segment ({max(attempts)} attempts): {ms_d:.3f} ms per launch "
+          f"(the default profile: baseline {BASELINE_MS['D']} ms, this run {default_ms['D']:.3f} ms); "
+          f"segment {small} ({attempts[small]} attempts) equals D's plain version {card}", flush=True)
+    segments.clear()
+    os.environ["KSIM_FLEET_VMAP"] = "1"
+    try:
+        replay_segment_fleet.launches = 0
+        fleet = ScenarioRunner(device_replay=True, device_segment_steps=SEGMENT_K, fleet=FLEET_LANES, **kw)
+        t = time.perf_counter()
+        fleet.run(list(ops))
+        fleet_wall = time.perf_counter() - t
+        f_launches = replay_segment_fleet.launches
+    finally:
+        os.environ.pop("KSIM_FLEET_VMAP", None)
+    if f_launches < 1 or fleet.fleet_driver.stats()["lanes_on_device"] != 1.0:
+        raise AssertionError(f"the NodeNumber fleet: {f_launches} launches, {fleet.fleet_driver.stats()}")
+    for ln in fleet.fleet_lanes:
+        if step_triples(ln.result) != step_triples(dev_res) or store_view(ln.runner) != store_view(dev):
+            raise AssertionError(f"the NodeNumber fleet: lane {ln.idx} differs from the solo run")
+    print(f"  {FLEET_LANES}-lane fleet (vmap cohort) with NodeNumber: every lane equals the solo run; "
+          f"{f_launches} launches; wall {fleet_wall:.2f} s {card}", flush=True)
+    notes["replay_segment"] = {"launches": d_launches, "ms": ms_d, "default_ms": default_ms["D"], "attempts": max(attempts),
+                               "device_wall_s": dev_wall, "per_pass_wall_s": per_wall}
+    notes["replay_segment_fleet"] = {"launches": f_launches, "wall_s": fleet_wall}
+    print(f"  (b) took {time.perf_counter() - tb:.1f} s", flush=True)
+
+    # -- (c) a webhook extender ------------------------------------------
+    tc = time.perf_counter()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), ParityExtender)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        ext_cfg = {"extenders": [{"urlPrefix": url, "filterVerb": "filter", "prioritizeVerb": "prioritize",
+                                  "weight": 3, "ignorable": False, "nodeCacheCapable": True}]}
+        nodes_e, pods_e = random_cluster(0, *EXT_SHAPE, bound_fraction=0.0)
+        runs = {}
+        for where in (DEVICE, "cpu"):
+            store = ClusterStore()
+            for n in nodes_e:
+                store.create("nodes", json.loads(json.dumps(n)))
+            for p in pods_e:
+                store.create("pods", json.loads(json.dumps(p)))
+            svc = SchedulerService(store, config=ext_cfg, device=where)
+            _zero_launches()
+            t = time.perf_counter()
+            placed = svc.schedule_pending()
+            wall = time.perf_counter() - t
+            annos = {p["metadata"]["name"]: p["metadata"].get("annotations", {}) for p in store.list("pods")}
+            runs[where] = (placed, annos, wall, svc.metrics.snapshot()["timings"], batch_eval.launches)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    (placed, annos, wall, timings, b_launches), (cpu_placed, cpu_annos, cpu_wall, _, _) = runs[DEVICE], runs["cpu"]
+    n_e = len(pods_e)
+    if placed != cpu_placed or annos != cpu_annos:
+        raise AssertionError("the extender run on the card differs from the CPU run")
+    if b_launches < n_e:
+        raise AssertionError(f"the extender run launched kernel B {b_launches} times for {n_e} pods")
+    bound = sum(v is not None for v in placed.values())
+    # A pod no node fits never reaches the extender (nor its annotations).
+    if not all(EXTENDER_FILTER_RESULT_KEY in annos[key.split("/", 1)[1]] for key, v in placed.items() if v):
+        raise AssertionError("a bound pod lacks the extender filter-result annotation")
+    if bound == 0 or any(v is not None and int(v[-1]) % 2 for v in placed.values()):
+        raise AssertionError("the extender's filter was not honoured")
+    split = {k: timings[k]["total_seconds"] / n_e * 1e3 for k in ("featurize", "engine", "extender_http")}
+    split["bind and annotations"] = wall / n_e * 1e3 - sum(split.values())
+    print(f"  extender (weight 3) on {EXT_SHAPE[0]} nodes x {n_e} pods: {bound} bound, placements and the four "
+          f"extender annotations equal the CPU run; kernel B {b_launches} launches; per pod "
+          f"{', '.join(f'{k} {v:.2f} ms' for k, v in split.items())}; wall {wall:.2f} s (CPU {cpu_wall:.2f} s) "
+          f"{card}", flush=True)
+    notes["batch_eval"]["extender"] = {"launches": b_launches, "per_pod_ms": split, "wall_s": wall}
+
+    # -- (d) a hooked profile: no kernel runs a Python hook, so the card
+    #    refuses it when its Engine is built ---------------------------------
+    td = time.perf_counter()
+    feats_h = Featurizer().featurize(*random_cluster(2, *HOOK_SHAPE))
+
+    def veto(state, pods_, aux_, out):
+        first = torch.arange(out.ok.shape[-1], device=out.ok.device) == 0
+        return FilterOutput(ok=out.ok & ~first, reason_bits=torch.where(first, 1, out.reason_bits).to(torch.int32))
+
+    hook = PluginExtender(after_filter=veto, after_score=lambda state, pods_, aux_, scores: scores + 7)
+    hooked = tuple(
+        ScoredPlugin(sp.plugin, sp.weight, sp.filter_enabled, sp.score_enabled,
+                     extender=hook if sp.plugin.name == "NodeResourcesFit" else None)
+        for sp in default_plugins(feats_h)
+    )
+    _zero_launches()
+    try:
+        Engine(feats_h, hooked, record="full", exact=True, device=DEVICE)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("the hooked profile was not refused on the card")
+    if any(_launches().values()):
+        raise AssertionError(f"the refused profile launched a kernel: {_launches()}")
+    unhooked = Engine(feats_h, default_plugins(feats_h), record="selection", device=DEVICE)
+    unhooked.schedule()
+    if schedule_scan.launches < 1:
+        raise AssertionError("the profile without hooks did not run on kernel A")
+    print(f"  hooked profile ({HOOK_SHAPE[0]} nodes x {len(feats_h.pods.keys)} pods, after_filter veto of node 0 and "
+          f"after_score +7 on NodeResourcesFit): refused on the card ({refusal!r}), no launch; the same profile "
+          f"without hooks ran on kernel A ({schedule_scan.launches} launches); (d) took "
+          f"{time.perf_counter() - td:.1f} s {card}", flush=True)
+
+    # -- (e) the profiler, over a pass of a profile with the lifecycle
+    #    samples (markers the kernels skip: the pass stays on kernel A) --
+    nodes_p, pods_p = random_cluster(0, *PROFILED_SHAPE, bound_fraction=0.0)
+    store = ClusterStore()
+    for n in nodes_p:
+        store.create("nodes", n)
+    for p in pods_p:
+        store.create("pods", p)
+    store.create("pods", {**pods_p[0], "metadata": {**pods_p[0]["metadata"], "name": "hold-0"}})
+    lifecycle = "ksim_tpu_torch.plugins.samples.lifecycle:"
+    with tempfile.TemporaryDirectory() as log_dir:
+        binds = Path(log_dir) / "binds.jsonl"
+        cfg_e = {"profiles": [{
+            "plugins": {"queueSort": {"enabled": [{"name": "FifoSort"}]},
+                        "preEnqueue": {"enabled": [{"name": "NamePrefixGate"}]},
+                        "postBind": {"enabled": [{"name": "PlacementExport"}]}},
+            "pluginConfig": [
+                {"name": "FifoSort", "args": {"builderImport": lifecycle + "FIFO_SORT_PLUGIN"}},
+                {"name": "NamePrefixGate", "args": {"builderImport": lifecycle + "NAME_PREFIX_GATE_PLUGIN"}},
+                {"name": "PlacementExport", "args": {"builderImport": lifecycle + "PLACEMENT_EXPORT_PLUGIN",
+                                                     "sinkPath": str(binds)}},
+            ],
+        }]}
+        svc = SchedulerService(store, config=cfg_e, record="selection", device=DEVICE)
+        _zero_launches()
+        svc.start_profiling(log_dir)
+        placed_e = svc.schedule_pending()
+        path = svc.stop_profiling()
+        a_launches = schedule_scan.launches
+        events = json.loads(Path(path).read_text())["traceEvents"]
+        exported = binds.read_text().splitlines() if binds.exists() else []
+    names = {str(e.get("name")) for e in events}
+    if a_launches < 1 or "scheduling-pass" not in names or "ksim_schedule_scan" not in names:
+        raise AssertionError(f"the profiler trace lacks kernel A's launch or the pass ({a_launches} launches)")
+    n_bound = sum(v is not None for v in placed_e.values())
+    if "default/hold-0" in placed_e or n_bound == 0 or len(exported) != n_bound:
+        raise AssertionError(f"the lifecycle samples: {n_bound} bound, {len(exported)} exported, "
+                             f"hold-0 {'queued' if 'default/hold-0' in placed_e else 'gated'}")
+    cupti = sorted({e["name"] for e in events if e.get("cat") == "kernel" and "cluster_scan_kernel" in str(e.get("name"))})
+    print(f"  profiler: one pass traced ({len(events)} events): 'scheduling-pass' and kernel A's launch "
+          f"('ksim_schedule_scan', {a_launches} launches); the card's kernel records name "
+          f"{cupti[:1] or 'no cluster_scan_kernel (CUPTI recorded no kernel)'}; the pass's profile holds FifoSort, "
+          f"NamePrefixGate (hold-0 kept out) and PlacementExport ({len(exported)} binds exported) {card}", flush=True)
+    print(f"  phase 11 took {time.perf_counter() - t11:.1f} s {card}", flush=True)
+    return {"samples": notes}
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0, help="the seed of phase 11's provided scores")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1720,7 +2145,7 @@ def main() -> int:
     ms_a = by_cluster[auto_cs]["a_ms"]
     ms_c_queue = by_cluster[auto_cs]["c_queue_ms"]
     ms_c = by_cluster[auto_cs]["c_ms"]
-    ms_b = cuda_ms(lambda: batch_eval(fprog, fused._node_state, fused._pods, fused._aux, fcarries), reps=3)
+    ms_b = cuda_ms(lambda: batch_eval(fprog, fused._node_state, fused._pods, fused._aux, fcarries), reps=B_REPS)
     inputs = tensor_bytes(state0) + tensor_bytes(pods0) + tensor_bytes(aux)
     carry_out = tensor_bytes([state0.requested, state0.nonzero_requested, state0.pod_count, carries0])
     a_bytes = inputs + P * 4 + carry_out
@@ -1777,7 +2202,7 @@ def main() -> int:
     # Kernel B at evaluate_batch's per-chunk launch: 2048 pods, full record.
     cprog, cstate, cpods, caux = full_2k._prog, full_2k._node_state, full_2k._pods, full_2k._aux
     ccarries = cprog.init_carries(caux)
-    ms_bc = cuda_ms(lambda: batch_eval(cprog, cstate, cpods, caux, ccarries), reps=3)
+    ms_bc = cuda_ms(lambda: batch_eval(cprog, cstate, cpods, caux, ccarries), reps=B_REPS)
     plain_bc = cuda_ms(lambda: batch_eval_plain(cprog, cstate, cpods, caux, ccarries), reps=1)
     Pc = cpods.valid.shape[0]
     bc_out = tensor_bytes(batch_eval(cprog, cstate, cpods, caux, ccarries))
@@ -1813,6 +2238,10 @@ def main() -> int:
     phase("10 the replay executor (reuse, watchdog, breaker) and streaming trace ingest")
     executor = executor_phase(check, card)
 
+    phase("11 the extension surface: the samples in kernels A-D, a webhook extender, hooks, the profiler")
+    default_ms = {"A": ms_a, "C queue": ms_c_queue, "B fused": ms_b, "B chunk": ms_bc, "D": churn["replay_segment"][0]}
+    ext = extension_phase(check, card, smi, nodes, pods, default_ms, args.seed)
+
     plain_ms["node_summary"] = ns["plain_ms"]
     measured = {
         "schedule_scan": (ms_a, a_bound, a_by, f"{P}x{N} selection"),
@@ -1847,6 +2276,8 @@ def main() -> int:
                                 "fullest_50k": churn["fullest_50k"], **completed,
                                 "executor": {**churn["executor"], **executor}},
              "replay_segment_fleet": {"launches_are": "launches on the vmap leg of phase 7", **fleet["extra"]}}
+    for name, note in ext["samples"].items():
+        notes.setdefault(name, {})["phase_11"] = note
     kernels = [
         {
             "name": name,

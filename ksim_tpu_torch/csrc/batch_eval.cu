@@ -480,6 +480,7 @@ __device__ inline int eval_pod_batch(const ChainParams& P, const SummaryParams& 
   const long long rowS = p * P.S * N;
   const bool use_spread = P.f_row[SPREAD] >= 0 || P.s_row[SPREAD] >= 0;
   const bool use_ipa = P.f_row[INTERPOD] >= 0 || P.s_row[INTERPOD] >= 0;
+  const bool use_samples = P.s_row[NODENUMBER] >= 0 || P.dp_n > 0;
 
   // -- phase 0: setup --
   team.mark(PH_SETUP);
@@ -571,6 +572,7 @@ __device__ inline int eval_pod_batch(const ChainParams& P, const SummaryParams& 
       if (full) store_int(P.raw_out, rowS + P.s_row[IMAGE] * N + n, raw, P.raw_size);
       if (finals) store_int(P.final_out, rowS + P.s_row[IMAGE] * N + n, fin, P.final_size);
     }
+    if (use_samples) partial = wrap_add(partial, sample_scores(P, j, n, rowS, full, finals));
     s.partial[n] = partial;
   }
   team.mark(PH_EX_REDUCE);

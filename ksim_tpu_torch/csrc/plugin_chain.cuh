@@ -103,7 +103,12 @@ enum Plugin : int {
   VOLZONE = 11,
   SPREAD = 12,
   INTERPOD = 13,
-  NPLUGINS = 14,
+  // The score samples (plugins/samples/nodenumber.py).  DataProviderScore
+  // may be enabled under several names: its instances are the dp_* table,
+  // and its s_row / weight entries stay unset.
+  NODENUMBER = 14,
+  DATAPROVIDER = 15,
+  NPLUGINS = 16,
 };
 
 enum FitStrategy : int { LEAST = 0, MOST = 1, RTCR = 2 };
@@ -224,6 +229,11 @@ struct ChainParams {
   void* final_out;
   void* bits_out;
   void* raw_out;
+  // NodeNumber: the trailing digits (-1 = no digit suffix).
+  const int32_t* nn_node;  // [N]
+  const int32_t* nn_pod;  // [P]
+  // DataProviderScore: each instance's provided score, in dp_row order.
+  const int32_t* dp_score;  // [dp_n, N]
   // Shapes.
   long long N, R, W, T, V, I, Pc, F, S;
   long long record;  // 0 = selection, 1 = final, 2 = full
@@ -233,6 +243,7 @@ struct ChainParams {
   long long TK, SS, MC, DMAX, sp_smem;
   long long T2, TKI;
   long long n_real, samp_k;
+  long long nn_reverse, dp_n;
   // Per plugin id: its row in bits (-1 = filter off; NodeVolumeLimits'
   // instances have theirs in nvl_row), its row in raw/final (-1 = score
   // off), its weight.
@@ -257,6 +268,10 @@ struct ChainParams {
   // PodTopologySpread: per topology key, singleton or not, domain count.
   const int32_t* tk_singleton;  // [sp_ntk]
   const int32_t* tk_size;  // [sp_ntk]
+  // DataProviderScore instances in score order: each one's row in
+  // raw/final and its weight.
+  const int32_t* dp_row;  // [dp_n]
+  const int32_t* dp_w;  // [dp_n]
   long long fit_base_count, fit_strategy, fit_nspec, fit_nshape, bal_nspec, nvl_ninst, sp_ntk;
 };
 
@@ -343,6 +358,37 @@ __device__ inline int wrap_sub(int a, int b) {
 }
 __device__ inline int wrap_mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// The score samples of node n for pod row j (ksim_tpu/plugins/samples/
+// nodenumber.py): NodeNumber scores 10 when the pod's and the node's
+// trailing digits match (-1, no digit, never matches), 0 otherwise,
+// swapped under reverse; a DataProviderScore instance scores its provided
+// value.  Neither normalizes (ksim_tpu/engine/core.py _final_from_raw):
+// final = raw x weight in int32 with the reference's wrap-around.  Stores
+// their records and returns the sum of their finals.  The callers skip
+// the call, once per pod, for a profile without them (use_samples).
+__device__ inline int sample_scores(const ChainParams& P, long long j, long long n, long long rowS, bool full,
+                                    bool finals) {
+  const long long N = P.N;
+  int partial = 0;
+  if (P.s_row[NODENUMBER] >= 0) {
+    const int pd = P.nn_pod[j], nd = P.nn_node[n];
+    const bool match = pd >= 0 && nd >= 0 && pd == nd;
+    const int raw = (match != (P.nn_reverse != 0)) ? 10 : 0;
+    const int fin = wrap_mul(raw, static_cast<int>(P.weight[NODENUMBER]));
+    partial = wrap_add(partial, fin);
+    if (full) store_int(P.raw_out, rowS + P.s_row[NODENUMBER] * N + n, raw, P.raw_size);
+    if (finals) store_int(P.final_out, rowS + P.s_row[NODENUMBER] * N + n, fin, P.final_size);
+  }
+  for (long long q = 0; q < P.dp_n; ++q) {
+    const int raw = P.dp_score[q * N + n];
+    const int fin = wrap_mul(raw, P.dp_w[q]);
+    partial = wrap_add(partial, fin);
+    if (full) store_int(P.raw_out, rowS + P.dp_row[q] * N + n, raw, P.raw_size);
+    if (finals) store_int(P.final_out, rowS + P.dp_row[q] * N + n, fin, P.final_size);
+  }
+  return partial;
 }
 
 // The reference's `//` for any signs (b != 0).
@@ -1226,6 +1272,7 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
   const long long rowS = o * P.S * N;
   const bool use_spread = P.f_row[SPREAD] >= 0 || P.s_row[SPREAD] >= 0;
   const bool use_ipa = P.f_row[INTERPOD] >= 0 || P.s_row[INTERPOD] >= 0;
+  const bool use_samples = P.s_row[NODENUMBER] >= 0 || P.dp_n > 0;
 
   // -- phase 0: setup; the barrier also orders the previous pod's commit --
   team.mark(PH_SETUP);
@@ -1358,6 +1405,7 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
       if (full) store_int(P.raw_out, rowS + P.s_row[IMAGE] * N + n, raw, P.raw_size);
       if (finals) store_int(P.final_out, rowS + P.s_row[IMAGE] * N + n, fin, P.final_size);
     }
+    if (use_samples) partial = wrap_add(partial, sample_scores(P, j, n, rowS, full, finals));
     s.partial[li] = partial;
   }
   team.mark(PH_EX_REDUCE);

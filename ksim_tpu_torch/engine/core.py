@@ -14,10 +14,16 @@ The port of ``ksim_tpu/engine/core.py``, with its two entry points:
 
 On a CUDA device they run in hand-written kernels (kernels/schedule_scan,
 kernels/schedule_sampled, kernels/batch_eval); on the CPU they run the
-kernels' plain PyTorch versions.  ``record`` bounds what is kept per pod:
-"selection" keeps the chosen node, "final" adds the weighted normalized
-scores and their total, "full" adds the filter reason codes and the raw
-scores (and, under sampling, the visited nodes).
+kernels' plain PyTorch versions.  A profile no kernel can run — a
+``PluginExtender`` device hook (a Python callable on tensors), or a
+filter or score with no kernel code — is refused on a CUDA device when
+the Engine is built (``kernel_refusal``, decided from the profile
+alone); it runs with ``device="cpu"``.
+
+``record`` bounds what is kept per pod: "selection" keeps the chosen
+node, "final" adds the weighted normalized scores and their total,
+"full" adds the filter reason codes and the raw scores (and, under
+sampling, the visited nodes).
 
 ``exact`` stands in for the reference's ``jax_enable_x64``: True computes
 BalancedAllocation in int64 and ImageLocality in float64 (bit-exact with
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from ksim_tpu_torch.kernels.batch_eval import batch_eval
-from ksim_tpu_torch.kernels.chain import check_chain
+from ksim_tpu_torch.kernels.chain import check_chain, has_kernel_code
 from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan
 from ksim_tpu_torch.plugins.base import NodeStateView, PodBatch, PodView
@@ -43,12 +49,107 @@ from ksim_tpu_torch.plugins.nodeaffinity import term_matches
 from ksim_tpu_torch.plugins.podtopologyspread import log_weights
 from ksim_tpu_torch.state.featurizer import FeaturizedSnapshot
 
-# The aux families the plugins read.
+# The aux families the in-tree plugins read; a snapshot may hold more
+# (the featurizer's extra encoders: the samples' "nodenumber" and
+# "provider:<name>"), which follow in key order (``aux_families``).
 AUX_KEYS = (
     "affinity", "taints", "nodename", "nodeports", "imagelocality", "spread", "interpod", "volumes",
 )
 
 _INT32_MIN = torch.iinfo(torch.int32).min
+
+
+def aux_families(aux: dict) -> list[str]:
+    """The snapshot's aux families in canonical order: AUX_KEYS, then
+    every extra encoder's family by key."""
+    return list(AUX_KEYS) + sorted(k for k in aux if k not in AUX_KEYS)
+
+
+@dataclass(frozen=True)
+class PluginExtender:
+    """Before/After hooks around one plugin's extension points — the
+    reference's PluginExtender surface (simulator/scheduler/plugin/
+    wrappedplugin.go:47-171), ``ksim_tpu``'s dataclass with the same
+    fields.
+
+    Device-side hooks, Python callables over the port's batched tensors
+    (a block of B pods: every pod tensor leads with B, every result is
+    [B, N]).  No kernel can run them: an Engine whose profile holds one
+    runs on the CPU (``kernel_refusal``).
+
+    - before_filter(state, pods, aux) -> (state, pods): rewrite inputs;
+    - after_filter(state, pods, aux, out: FilterOutput) -> FilterOutput;
+    - before_score(state, pods, aux) -> (state, pods);
+    - after_score(state, pods, aux, scores) -> scores (pre-normalize);
+    - before_normalize(state, pods, aux, raw, ok) -> raw;
+      after_normalize(state, pods, aux, normalized, ok) -> normalized
+      (the NormalizeScore extender pair, wrappedplugin.go:388-418;
+      weight applies after).
+
+    Host-side hooks (plain Python over pod JSON, run by the scheduler
+    service around the corresponding host extension points, the
+    reference's Permit/PreBind/Bind/PostBind/PostFilter extender
+    interfaces).  ``before_*`` returning a non-None string is a
+    non-success status: the original plugin hook is skipped and the
+    message becomes the point's result (for post_bind the original is
+    skipped silently, matching wrappedplugin.go:728-738).  ``after_*``
+    receives the point's outcome and may replace it:
+
+    - before_post_filter(pod) -> str | None;
+      after_post_filter(pod, nominated, msg) -> (nominated, msg);
+    - before_reserve(pod, node) -> str | None;
+      after_reserve(pod, node, msg) -> str | None;
+    - before_unreserve(pod, node) -> str | None (non-None skips the
+      original unreserve, like BeforePostBind);
+      after_unreserve(pod, node) -> None;
+    - before_permit(pod, node) -> str | None;
+      after_permit(pod, node, result) -> result (a PermitResult);
+    - before_pre_bind(pod, node) -> str | None;
+      after_pre_bind(pod, node, msg) -> str | None;
+    - before_bind(pod, node) -> str | None;
+      after_bind(pod, node, outcome) -> outcome;
+    - before_post_bind(pod, node) -> str | None;
+      after_post_bind(pod, node) -> None.
+
+    Implement ``static_sig()`` for programs of equal hooks to share a
+    compile-once rung; without it the program keys by extender identity.
+    """
+
+    before_filter: Any = None
+    after_filter: Any = None
+    before_score: Any = None
+    after_score: Any = None
+    before_normalize: Any = None
+    after_normalize: Any = None
+    before_post_filter: Any = None
+    after_post_filter: Any = None
+    before_reserve: Any = None
+    after_reserve: Any = None
+    before_unreserve: Any = None
+    after_unreserve: Any = None
+    before_permit: Any = None
+    after_permit: Any = None
+    before_pre_bind: Any = None
+    after_pre_bind: Any = None
+    before_bind: Any = None
+    after_bind: Any = None
+    before_post_bind: Any = None
+    after_post_bind: Any = None
+
+    def static_sig(self) -> tuple | None:
+        return None
+
+
+# The PluginExtender fields the engine's chain applies (the rest are the
+# service's host hooks).
+DEVICE_HOOKS = (
+    "before_filter", "after_filter", "before_score", "after_score", "before_normalize", "after_normalize",
+)
+
+
+def has_device_hook(sp) -> bool:
+    ext = getattr(sp, "extender", None)
+    return ext is not None and any(getattr(ext, h, None) is not None for h in DEVICE_HOOKS)
 
 
 @dataclass(frozen=True)
@@ -59,8 +160,9 @@ class ScoredPlugin:
     weight: int = 1
     filter_enabled: bool = True
     score_enabled: bool = True
-    # Before/After hooks (ksim_tpu's PluginExtender) are not ported: the
-    # Engine refuses a plugin that carries one.
+    # Before/After hooks (a PluginExtender): its device fields run in the
+    # plain chain (a profile holding one runs on the CPU), its host fields
+    # in the scheduler service.
     extender: Any = None
     # Host-side hints (not part of the device computation): is the plugin
     # active at the Reserve / PreBind / Permit / PostFilter / Bind /
@@ -131,18 +233,23 @@ def device_aux(aux: dict, n_padded: int, device: torch.device) -> dict:
     pod-independent derived tables, once per snapshot: the term-match
     product and PodTopologySpread's log-weight tables."""
     out = {}
-    for key in AUX_KEYS:
-        v = aux[key]
-        out[key] = {
-            f.name: _to_device(getattr(v, f.name), device)
-            for f in dataclasses.fields(v)
-            if isinstance(getattr(v, f.name), np.ndarray)
-        }
+    for key in aux_families(aux):
+        out[key] = {name: _to_device(a, device) for name, a in aux_arrays(aux[key])}
     out["affinity"]["term_ok"] = term_matches(out["affinity"])
     w64, w32 = log_weights(n_padded)
     out["spread"]["log_w64"] = _to_device(w64, device)
     out["spread"]["log_w32"] = _to_device(w32, device)
     return out
+
+
+def aux_arrays(family: Any) -> list[tuple[str, np.ndarray]]:
+    """One aux family's array fields, in field order: a featurizer
+    dataclass's, or a mapping's."""
+    if dataclasses.is_dataclass(family):
+        items = [(f.name, getattr(family, f.name)) for f in dataclasses.fields(family)]
+    else:
+        items = list(family.items())
+    return [(name, a) for name, a in items if isinstance(a, np.ndarray)]
 
 
 def _plugin_sig(plugin: Any) -> tuple:
@@ -174,7 +281,13 @@ class _Program:
             record,
             bool(exact),
             tuple(
-                (_plugin_sig(sp.plugin), sp.weight, sp.filter_enabled, sp.score_enabled)
+                (
+                    _plugin_sig(sp.plugin),
+                    sp.weight,
+                    sp.filter_enabled,
+                    sp.score_enabled,
+                    _plugin_sig(sp.extender) if sp.extender is not None else None,
+                )
                 for sp in plugins
             ),
         )
@@ -196,7 +309,13 @@ class _Program:
         bits = []
         for sp in self.filters:
             kw = {"carry": carries[sp.plugin.name]} if sp.plugin.name in carries else {}
-            out = sp.plugin.filter(state, pods, aux, **kw)
+            ext = sp.extender
+            f_state, f_pods = state, pods
+            if ext is not None and ext.before_filter is not None:
+                f_state, f_pods = ext.before_filter(f_state, f_pods, aux)
+            out = sp.plugin.filter(f_state, f_pods, aux, **kw)
+            if ext is not None and ext.after_filter is not None:
+                out = ext.after_filter(f_state, f_pods, aux, out)
             bits.append(out.reason_bits)
             ok = ok & out.ok
         return ok, bits
@@ -211,11 +330,22 @@ class _Program:
         for sp in self.scores:
             p = sp.plugin
             kw = {"carry": carries[p.name]} if p.name in carries else {}
-            raw = p.score(state, pods, aux, ok, exact=self.exact, **kw)
+            ext = sp.extender
+            s_state, s_pods = state, pods
+            if ext is not None and ext.before_score is not None:
+                s_state, s_pods = ext.before_score(s_state, s_pods, aux)
+            raw = p.score(s_state, s_pods, aux, ok, exact=self.exact, **kw)
+            if ext is not None and ext.after_score is not None:
+                raw = ext.after_score(s_state, s_pods, aux, raw)
+            # The reference's _final_from_raw: the normalize pair's hooks
+            # around the plugin's normalize, then the weight.
+            norm = raw
+            if ext is not None and ext.before_normalize is not None:
+                norm = ext.before_normalize(s_state, s_pods, aux, norm, ok)
             if hasattr(p, "normalize"):
-                norm = p.normalize(raw, ok, pods=pods, aux=aux, exact=self.exact)
-            else:
-                norm = raw
+                norm = p.normalize(norm, ok, pods=s_pods, aux=aux, exact=self.exact)
+            if ext is not None and ext.after_normalize is not None:
+                norm = ext.after_normalize(s_state, s_pods, aux, norm, ok)
             final = norm * sp.weight
             raw_scores.append(raw)
             final_scores.append(final)
@@ -288,11 +418,25 @@ class _Program:
         return out
 
 
+def kernel_refusal(plugins: Sequence[ScoredPlugin]) -> str | None:
+    """Why no kernel can run this profile (a plugin carrying a
+    PluginExtender device hook, or enabling a filter or score the kernels
+    have no code for), or None."""
+    for sp in plugins:
+        if has_device_hook(sp):
+            return f"{sp.plugin.name} carries a PluginExtender device hook"
+        if (sp.filter_enabled or sp.score_enabled) and not has_kernel_code(sp.plugin):
+            return f"plugin {sp.plugin.name} has no kernel code in ksim_tpu_torch"
+    return None
+
+
 class Engine:
     """The plugin chain bound to one featurized snapshot on one device.
 
     ``device=None`` means CUDA and raises when there is no CUDA device;
     pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
+    On a CUDA device a profile no kernel can run raises
+    NotImplementedError here (``kernel_refusal``).
     """
 
     # Pod-axis chunk of the recording modes (one kernel launch each): it
@@ -339,6 +483,10 @@ class Engine:
                 )
             device = "cuda"
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            why = kernel_refusal(plugins)
+            if why is not None:
+                raise NotImplementedError(f"{why}: no kernel can run it; pass device='cpu' to run the plain chain")
         self._feats = feats
         self._prog = _Program(tuple(plugins), record, bool(exact))
         n, p = feats.nodes, feats.pods

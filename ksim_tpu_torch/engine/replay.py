@@ -89,7 +89,6 @@ from __future__ import annotations
 
 import bisect
 import contextlib
-import dataclasses
 import functools
 import logging
 import os
@@ -102,7 +101,7 @@ import numpy as np
 import torch
 
 from ksim_tpu_torch.engine.compilecache import COMPILE_CACHE
-from ksim_tpu_torch.engine.core import AUX_KEYS, _Program, _pull_tree_to_host
+from ksim_tpu_torch.engine.core import _Program, _pull_tree_to_host, aux_arrays, aux_families
 from ksim_tpu_torch.errors import DeviceUnavailableError, ReplayFallback, RunCancelled, SimulatorError
 from ksim_tpu_torch.faults import FAULTS
 from ksim_tpu_torch.kernels import build
@@ -120,7 +119,7 @@ logger = logging.getLogger(__name__)
 FALLBACK_REASONS: frozenset[str] = frozenset(
     {
         # service/profile configuration outside the vocabulary
-        "record_mode", "pnts_emulation",
+        "record_mode", "extenders", "pnts_emulation",
         "featurizer_override", "multi_profile", "no_profile",
         "queue_hooks", "permit_waiters", "plugin_extender",
         # object vocabulary misses
@@ -417,13 +416,10 @@ def _const_leaves(const: dict) -> tuple[list[tuple], list[np.ndarray]]:
     paths += [("extra", k) for k in ("empty_start_rank", "resolv") if k in const]
     leaves = [np.asarray(const[a][b]) if a != "extra" else np.asarray(const[b]) for a, b in paths]
     aux = _port_aux(const["aux"])
-    for key in AUX_KEYS:
-        v = aux[key]
-        for f in dataclasses.fields(v):
-            a = getattr(v, f.name)
-            if isinstance(a, np.ndarray):
-                paths.append(("aux", key, f.name))
-                leaves.append(a)
+    for key in aux_families(aux):
+        for name, a in aux_arrays(aux[key]):
+            paths.append(("aux", key, name))
+            leaves.append(a)
     w64, w32 = _log_weight_tables(n_padded)
     paths += [("aux", "spread", "log_w64"), ("aux", "spread", "log_w32")]
     leaves += [w64, w32]
@@ -518,12 +514,12 @@ def _pack_segment(const: dict, ev: dict, state0: dict, device, *, lanes: "int | 
     for pos, i in enumerate(miss):
         dev_c[i] = sent[pos]
     t_dev = sent[len(miss) :]
-    const_t: dict = {"node": {}, "pods": {}, "aux": {key: {} for key in AUX_KEYS}}
+    const_t: dict = {"node": {}, "pods": {}, "aux": {}}
     for path, t in zip(paths, dev_c):
         if path[0] == "extra":
             const_t[path[1]] = t
         elif path[0] == "aux":
-            const_t["aux"][path[1]][path[2]] = t
+            const_t["aux"].setdefault(path[1], {})[path[2]] = t
         else:
             const_t[path[0]][path[1]] = t
     const_t["aux"]["affinity"]["term_ok"] = term_matches(const_t["aux"]["affinity"])
@@ -945,6 +941,9 @@ class ReplayDriver:
         svc = self.service
         if svc._record not in ("selection", "full"):
             self._reject("record_mode")
+            return False
+        if getattr(svc, "_extenders", None):
+            self._reject("extenders")
             return False
         if svc._pnts_emulation:
             self._reject("pnts_emulation")

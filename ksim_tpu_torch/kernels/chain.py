@@ -26,8 +26,13 @@ PLUGIN_IDS = {
     "PodTopologySpread": 12,
     "InterPodAffinity": 13,
 }
+# The score samples (plugins/samples/nodenumber.py), known by their static
+# signature, not their name (``sample_id``): DataProviderScore may be
+# enabled more than once, under its instances' own names (ChainParams'
+# dp_* table).
+SAMPLE_IDS = {"NodeNumber": 14, "DataProviderScore": 15}
 STRATEGY_IDS = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
-NPLUGINS = 14
+NPLUGINS = 16
 # Per-domain scratch that fits this many bytes lives in shared memory,
 # more in a global buffer.
 DOMAIN_SMEM_BYTES = 16384
@@ -78,6 +83,7 @@ _POINTERS = (
     "ipa_qm", "ipa_raff", "ipa_ranti", "ipa_self_aff", "ipa_pref_w", "ipa_vw", "ipa_eat",
     "samp_start", "visited_out",
     "selected", "total", "final_out", "bits_out", "raw_out",
+    "nn_node", "nn_pod", "dp_score",
 )
 _SHAPES = (
     "N", "R", "W", "T", "V", "I", "Pc", "F", "S",
@@ -86,13 +92,14 @@ _SHAPES = (
     "TK", "SS", "MC", "DMAX", "sp_smem",
     "T2", "TKI",
     "n_real", "samp_k",
+    "nn_reverse", "dp_n",
 )
 
 
 # The profile's tables (device arrays, profile_tables) and their sizes.
 _TABLES = (
     "fit_spec_idx", "fit_spec_w", "shape_u", "shape_s", "bal_spec",
-    "nvl_row", "nvl_pool_off", "nvl_pools", "tk_singleton", "tk_size",
+    "nvl_row", "nvl_pool_off", "nvl_pools", "tk_singleton", "tk_size", "dp_row", "dp_w",
 )
 _TABLE_SIZES = ("fit_base_count", "fit_strategy", "fit_nspec", "fit_nshape", "bal_nspec", "nvl_ninst", "sp_ntk")
 
@@ -109,16 +116,14 @@ class ChainParams(ctypes.Structure):
 
 def check_chain(plugins) -> None:
     """Raise NotImplementedError for a chain the engine cannot run on any
-    device: hooks it does not port, a plugin without the stage it is
-    enabled at, a plugin name twice (the carries are keyed by name)."""
+    device: a plugin without the stage it is enabled at, a plugin name
+    twice (the carries are keyed by name)."""
     seen = set()
     for sp in plugins:
         name = sp.plugin.name
         if name in seen:
             raise NotImplementedError(f"plugin {name} appears twice in the profile")
         seen.add(name)
-        if getattr(sp, "extender", None) is not None:
-            raise NotImplementedError(f"PluginExtender hooks ({name}) are not ported")
         if sp.filter_enabled and not hasattr(sp.plugin, "filter"):
             raise NotImplementedError(f"{name} has no filter")
         if sp.score_enabled and not hasattr(sp.plugin, "score"):
@@ -137,12 +142,67 @@ def volume_limits_carry(prog) -> str | None:
     return next((sp.plugin.name for sp in prog.plugins if is_volume_limits(sp.plugin)), None)
 
 
+def sample_id(plugin) -> int | None:
+    """The kernel id of a score sample (NodeNumber, DataProviderScore),
+    from its static signature, else None."""
+    sig = getattr(plugin, "static_sig", None)
+    sig = sig() if sig is not None else None
+    if sig and sig[0] in SAMPLE_IDS and hasattr(plugin, "score"):
+        return SAMPLE_IDS[sig[0]]
+    return None
+
+
+def provider_rows(prog) -> list:
+    """The DataProviderScore instances among the profile's scores, as
+    (row in raw/final, ScoredPlugin)."""
+    return [(row, sp) for row, sp in enumerate(prog.scores) if sample_id(sp.plugin) == SAMPLE_IDS["DataProviderScore"]]
+
+
+def kernel_id(plugin) -> int:
+    """The plugin's id in csrc/plugin_chain.cuh ``enum Plugin``."""
+    sid = sample_id(plugin)
+    return sid if sid is not None else PLUGIN_IDS[plugin.name]
+
+
+def has_kernel_code(plugin) -> bool:
+    """Whether the kernels run this plugin's filter and score."""
+    return sample_id(plugin) is not None or is_volume_limits(plugin) or plugin.name in PLUGIN_IDS
+
+
 def check_kernel_chain(prog) -> None:
-    """Raise NotImplementedError for a plugin the kernels have no code for
-    (the plain path runs any plugin with a filter or score)."""
-    for sp in prog.plugins:
-        if sp.plugin.name not in PLUGIN_IDS and not is_volume_limits(sp.plugin):
+    """Raise NotImplementedError for a filter or score the kernels have no
+    code for (the plain path runs any plugin with a filter or score; a
+    plugin enabled at neither point, a host-only one, costs the kernels
+    nothing)."""
+    for sp in prog.filters + prog.scores:
+        if not has_kernel_code(sp.plugin):
             raise NotImplementedError(f"plugin {sp.plugin.name} has no kernel code in ksim_tpu_torch")
+
+
+def chain_rows(prog) -> dict:
+    """ChainParams' per-plugin rows of ``prog``, made once per program
+    (after ``check_kernel_chain``): each kernel id's row among the filters
+    (-1: off; NodeVolumeLimits' instances have theirs in nvl_row) and
+    among the scores (-1: off; DataProviderScore's are in dp_row), its
+    weight, and NodeNumber's reverse flag (None: NodeNumber off)."""
+    rows = prog.kernel_tables.get("rows")
+    if rows is not None:
+        return rows
+    check_kernel_chain(prog)
+    f_row, s_row, weight = [-1] * NPLUGINS, [-1] * NPLUGINS, [0] * NPLUGINS
+    nn_reverse = None
+    for row, sp in enumerate(prog.filters):
+        if not is_volume_limits(sp.plugin):
+            f_row[kernel_id(sp.plugin)] = row
+    for row, sp in enumerate(prog.scores):
+        kid = kernel_id(sp.plugin)
+        if kid == SAMPLE_IDS["NodeNumber"]:
+            nn_reverse = int(sp.plugin.reverse)
+        if kid != SAMPLE_IDS["DataProviderScore"]:
+            s_row[kid], weight[kid] = row, sp.weight
+    rows = {"f_row": f_row, "s_row": s_row, "weight": weight, "nn_reverse": nn_reverse}
+    prog.kernel_tables["rows"] = rows
+    return rows
 
 
 def profile_tables(prog, device) -> dict:
@@ -151,7 +211,8 @@ def profile_tables(prog, device) -> dict:
     score resources, weights and shape points, BalancedAllocation's
     resources, the NodeVolumeLimits instances (each one's row among the
     filters and its pools) and PodTopologySpread's per-key singleton flags
-    and domain counts.  Sized by the profile: no cap."""
+    and domain counts, and the DataProviderScore instances (each one's row
+    among the scores and its weight).  Sized by the profile: no cap."""
     key = str(device)
     if key in prog.kernel_tables:
         return prog.kernel_tables[key]
@@ -174,6 +235,8 @@ def profile_tables(prog, device) -> dict:
         "nvl_pools": [k for _, pools in inst for k in pools],
         "tk_singleton": [int(x) for x in spread.tk_singleton] if spread else [],
         "tk_size": list(spread.tk_sizes) if spread else [],
+        "dp_row": [row for row, _ in provider_rows(prog)],
+        "dp_w": [sp.weight for _, sp in provider_rows(prog)],
     }
     tables = {name: torch.tensor(v, dtype=torch.int32, device=device) for name, v in lists.items()}
     prog.kernel_tables[key] = tables
@@ -242,23 +305,29 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
     put("phas", pods.has_requests, b, (Pc,))
     put("pindex", pods.index, i32, (Pc,))
 
-    check_kernel_chain(prog)
-    for k in range(NPLUGINS):
-        prm.f_row[k] = -1
-        prm.s_row[k] = -1
-        prm.weight[k] = 0
-    for row, sp in enumerate(prog.filters):
-        if not is_volume_limits(sp.plugin):  # their rows are in nvl_row
-            prm.f_row[PLUGIN_IDS[sp.plugin.name]] = row
-    for row, sp in enumerate(prog.scores):
-        prm.s_row[PLUGIN_IDS[sp.plugin.name]] = row
-        prm.weight[PLUGIN_IDS[sp.plugin.name]] = sp.weight
+    kr = chain_rows(prog)
+    prm.f_row[:] = kr["f_row"]
+    prm.s_row[:] = kr["s_row"]
+    prm.weight[:] = kr["weight"]
     names = {sp.plugin.name: sp.plugin for sp in prog.plugins}
     tables = profile_tables(prog, dev)
     for name, t in tables.items():
         put(name, t, i32, tuple(t.shape))
     prm.nvl_ninst = tables["nvl_row"].shape[0]
     prm.sp_ntk = tables["tk_size"].shape[0]
+    prm.dp_n = tables["dp_row"].shape[0]
+    keep = []
+
+    # The score samples: the node and pod digits, the provided scores.
+    if kr["nn_reverse"] is not None:
+        a = aux["nodenumber"]
+        put("nn_node", a["node_digit"], i32, (N,))
+        put("nn_pod", a["pod_digit"], i32, (P_all,))
+        prm.nn_reverse = kr["nn_reverse"]
+    if prm.dp_n:
+        dp = provider_scores(prog, aux)
+        put("dp_score", dp, i32, (prm.dp_n, N))
+        keep.append(dp)
 
     # Every aux family goes in whole: PodTopologySpread reads the
     # NodeAffinity and TaintToleration tables whether or not those
@@ -346,7 +415,6 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
     ):
         put("con_" + field, a["con_" + field], dtype, (P_all, MC))
     put("has_score_con", a["has_score_con"], b, (P_all,))
-    keep = []
     if "PodTopologySpread" in names:
         sp = names["PodTopologySpread"]
         prm.DMAX = max((size for size, single in zip(sp.tk_sizes, sp.tk_singleton) if not single), default=0)
@@ -397,6 +465,19 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
         put("raw_out", out["raw"], raw_dtype, (rows, prm.S, N))
     prm.keep = keep + [tables]
     return prm
+
+
+def provider_scores(prog, aux: dict) -> torch.Tensor:
+    """The DataProviderScore instances' provided scores as one int32
+    [instances, N] array, in the profile's score order: stacked once per
+    device aux (a snapshot's) and profile, kept on the aux."""
+    names = tuple(sp.plugin.name for _, sp in provider_rows(prog))
+    stacks = aux.setdefault("provider_stack", {})
+    t = stacks.get(names)
+    if t is None:
+        t = torch.stack([aux[f"provider:{n}"]["provided_score"].to(torch.int32) for n in names]).contiguous()
+        stacks[names] = t
+    return t
 
 
 def domain_ints(prm: ChainParams) -> int:
@@ -524,8 +605,11 @@ def launch_cluster(lib, entry: str, prm: ChainParams) -> dict:
     stats = torch.zeros(2 + len(CLUSTER_PHASES), dtype=torch.int64, device="cuda")
     info = (ctypes.c_longlong * 3)()
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, entry)(ctypes.byref(prm), ctypes.c_void_p(stream), size, threads,
-                              ctypes.c_void_p(stats.data_ptr()), info)
+    # A profiler range named after the entry: a torch.profiler trace
+    # (SchedulerService.start_profiling) names the launch by it.
+    with torch.profiler.record_function(entry):
+        err = getattr(lib, entry)(ctypes.byref(prm), ctypes.c_void_p(stream), size, threads,
+                                  ctypes.c_void_p(stats.data_ptr()), info)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}: {lib.ksim_error_string(err).decode()}")
     return {"cluster": info[0], "threads": info[1], "smem_bytes": info[2], "stats": stats}

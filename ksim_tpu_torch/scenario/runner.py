@@ -202,6 +202,7 @@ class ScenarioRunner:
         cancel: "Any | None" = None,
         exact: bool = True,
         device: "str | torch.device | None" = None,
+        config: "dict | None" = None,
     ) -> None:
         """``device_replay=True`` routes supported step segments through
         the device-resident path (engine/replay.py): K steps of event
@@ -211,8 +212,10 @@ class ScenarioRunner:
         non-pod/node kinds, pods with host ports or volumes, ...) fall
         back to this per-pass path automatically; DefaultPreemption and
         record="full" segments stay on the device (the victim search and
-        the streamed records are in kernel D).  ``exact`` and ``device``
-        configure the service the runner builds (SchedulerService).
+        the streamed records are in kernel D).  ``exact``, ``device`` and
+        ``config`` (a KubeSchedulerConfiguration: its profiles and its
+        ``extenders``) configure the service the runner builds, and every
+        fleet lane's (SchedulerService).
 
         ``cancel`` (a ``threading.Event``-like object) makes the run
         cooperatively cancellable: the flag is checked before every
@@ -254,6 +257,7 @@ class ScenarioRunner:
                 pod_bucket_min=pod_bucket_min,
                 exact=exact,
                 device=device,
+                config=config,
             )
         )
         self._requeue = requeue_on_node_delete
@@ -271,6 +275,7 @@ class ScenarioRunner:
             pod_bucket_min=pod_bucket_min,
             exact=exact,
             device=device,
+            config=config,
         )
         # Fleet-lane identity and private fault plane (set per lane by
         # _run_fleet): the lane's spans carry it, its reconcile checks it.

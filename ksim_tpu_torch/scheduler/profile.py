@@ -237,13 +237,25 @@ def load_plugin_import(spec: str) -> tuple[Builder, dict, dict]:
     prefixes) narrows the trust gate from all-or-nothing to an operator
     allowlist: only modules equal to or under a listed prefix may load
     (the closest Python analogue to the reference confining wasm guests
-    to the configured guestURL sandbox, wasm.go:14-58)."""
+    to the configured guestURL sandbox, wasm.go:14-58).
+
+    A module of ``ksim_tpu`` (the JAX package) is refused with
+    ``InvalidConfigError`` naming this package's counterpart, before any
+    import: the port never imports it."""
     import importlib
 
     mod, sep, attr = spec.partition(":")
     if not sep or not mod or not attr:
         raise ValueError(
             f"plugin import {spec!r} must look like 'pkg.module:attr'"
+        )
+    if mod.split(".")[0] == "ksim_tpu":
+        from ksim_tpu_torch.errors import InvalidConfigError
+
+        port = "ksim_tpu_torch" + mod[len("ksim_tpu"):]
+        raise InvalidConfigError(
+            f"plugin import {spec!r} names a module of ksim_tpu, which "
+            f"ksim_tpu_torch never imports: use '{port}:{attr}'"
         )
     allowlist = [
         p.strip()

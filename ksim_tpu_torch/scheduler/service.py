@@ -20,10 +20,11 @@ whole cycle is one service over the ClusterStore:
 The port of ``ksim_tpu/scheduler/service.py`` onto the port's Engine.
 ``exact`` stands in for the reference's process-wide ``jax_enable_x64``
 and ``device`` for its default backend: the engines run on CUDA unless
-the caller passes ``device="cpu"`` (the plain PyTorch versions).  Not
-ported, each refused with NotImplementedError: scheduler extenders (a
-config with ``extenders``), ``shard_mesh``, and the device-profiler hooks
-(``start_profiling`` / ``stop_profiling``).
+the caller passes ``device="cpu"`` (the plain PyTorch versions).  A
+profile with scheduler extenders is evaluated pod by pod through kernel B
+(``_schedule_queue_with_extenders``); the device profiler is
+``torch.profiler`` (``start_profiling`` / ``stop_profiling``).  Not
+ported, refused with NotImplementedError: ``shard_mesh``.
 
 Self-triggering guard: our own pod updates emit MODIFIED events; the run
 loop skips events whose resourceVersion we just wrote, so an unschedulable
@@ -372,21 +373,20 @@ class SchedulerService:
     def apply_scheduler_config(self, cfg: JSON, *, trusted: bool = False) -> None:
         """Compile-and-swap — the reference's RestartScheduler with
         rollback (scheduler.go:90-111): a config that fails to compile
-        leaves the previous profiles in place and raises.  A config
-        with scheduler extenders is refused: they are not ported."""
-        if (cfg or {}).get("extenders"):
-            raise NotImplementedError(
-                "scheduler extenders are not ported to ksim_tpu_torch"
-            )
+        leaves the previous profiles in place and raises."""
+        from ksim_tpu_torch.scheduler.extender import ExtenderService
+
         profiles = compile_configuration(
             cfg,
             registry=self._registry,
             allow_plugin_imports=trusted or self._allow_plugin_imports,
         )
+        extenders = ExtenderService((cfg or {}).get("extenders"))
         self._profiles = {p.scheduler_name: p for p in profiles}
         # New kernel set -> fresh featurizers (drops incremental state).
         if getattr(self, "_featurizers", None):
             self._featurizers.clear()
+        self._extenders = extenders
         self._config = copy.deepcopy(cfg) or {}
         # Persist the applied config like the reference rewrites the
         # mounted scheduler.yaml (scheduler/config/config.go:33-60
@@ -410,6 +410,10 @@ class SchedulerService:
     def reset_scheduler_config(self) -> None:
         """Back to the boot-time config (reference di.go initial cfg)."""
         self.apply_scheduler_config(copy.deepcopy(self._initial_config), trusted=True)
+
+    @property
+    def extender_service(self):
+        return self._extenders
 
     @property
     def _scheduler_names(self) -> tuple[str, ...]:
@@ -465,17 +469,52 @@ class SchedulerService:
     # -- one scheduling pass ------------------------------------------------
 
     def start_profiling(self, log_dir: str) -> None:
-        """The reference's per-pass device-profiler trace: not ported."""
-        raise NotImplementedError("start_profiling: the device-profiler hooks are not ported")
+        """Start a ``torch.profiler`` trace (CPU and, on a card, CUDA
+        activities: every kernel launch and its device time) with a
+        "scheduling-pass" range per ``schedule_pending`` pass, its pass
+        number as the range's argument — the counterpart of the
+        reference's ``jax.profiler.start_trace`` with a
+        ``StepTraceAnnotation`` per pass.  ``stop_profiling`` writes the
+        Chrome trace into ``log_dir``."""
+        from torch.profiler import ProfilerActivity, profile
 
-    def stop_profiling(self) -> None:
-        raise NotImplementedError("stop_profiling: the device-profiler hooks are not ported")
+        activities = [ProfilerActivity.CPU]
+        if self._device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        self._profiler = prof
+        self._profile_dir = log_dir
+        self._profiling = True
+
+    def stop_profiling(self) -> str | None:
+        """Stop the trace ``start_profiling`` started and write it to
+        ``<log_dir>/ksim_tpu_torch.<pid>.<n>.pt.trace.json``; returns the
+        file's path (None when no trace was running)."""
+        if not getattr(self, "_profiling", False):
+            return None
+        import os
+
+        prof = self._profiler
+        self._profiling = False
+        self._profiler = None
+        prof.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        self._profile_traces = getattr(self, "_profile_traces", 0) + 1
+        path = os.path.join(
+            self._profile_dir, f"ksim_tpu_torch.{os.getpid()}.{self._profile_traces}.pt.trace.json"
+        )
+        prof.export_chrome_trace(path)
+        return path
 
     def schedule_pending(self) -> dict[str, str | None]:
         """Schedule every pending pod once (per profile group); returns
         namespace/name -> node name (None = unschedulable this pass).
         Results are recorded on the pods' annotations either way (the
         reference records every attempt; history accumulates)."""
+        if getattr(self, "_profiling", False):
+            with torch.profiler.record_function("scheduling-pass", str(self._pass_count)):
+                return self._schedule_pending_inner()
         return self._schedule_pending_inner()
 
     # Machine-checked acquisition order (tools/ksimlint lock-order —
@@ -577,6 +616,28 @@ class SchedulerService:
                 factory: PluginsFactory = self._plugins_factory
             else:
                 factory = prof.plugins
+            if self._extenders:
+                # Webhook extenders need per-pod HTTP round-trips between
+                # filtering and scoring — exact upstream semantics require
+                # pod-at-a-time evaluation (the reference's scheduler is
+                # per-pod anyway; extenders are the slow path by design).
+                if self._pnts_emulation and not getattr(
+                    self, "_pnts_extender_warned", False
+                ):
+                    # Sampling emulation does not apply on this path (it
+                    # lives in the scan program) — say so once instead of
+                    # silently scoring every node under the flag.
+                    self._pnts_extender_warned = True
+                    logger.warning(
+                        "KSIM_PNTS_EMULATION=1 is inert for profiles "
+                        "with extenders (per-pod evaluation path scores "
+                        "all nodes)"
+                    )
+                self._schedule_queue_with_extenders(
+                    queue, featurizer, factory, namespaces, volume_kw, placements,
+                    prof=prof,
+                )
+                continue
             with self.metrics.timer("featurize"):
                 feats = featurizer.featurize(
                     nodes,
@@ -642,6 +703,205 @@ class SchedulerService:
                     k: v for k, v in self._backoff.items() if k in alive
                 }
         return placements
+
+    def _schedule_queue_with_extenders(
+        self, queue, featurizer, factory, namespaces, volume_kw, placements,
+        prof=None,
+    ) -> None:
+        """Per-pod cycle with extender webhooks (upstream
+        findNodesThatPassExtenders + prioritizeNodes extender scores):
+        engine filters/scores the pod batch-style against all nodes, then
+        each configured extender filters the feasible set and adds
+        prioritize scores before selectHost.  Each pod's evaluation is one
+        ``evaluate_batch`` (kernel B on a card).  The service's metrics
+        time "featurize", "engine" (the Engine and its evaluation,
+        transfers included) and "extender_http" (each webhook round trip)
+        per pod."""
+        import numpy as np
+
+        for pod in queue:
+            nodes = self._store.list("nodes", copy_objs=False)
+            pods = self._assume_waiting(self._store.list("pods", copy_objs=False))
+            with self.metrics.timer("featurize"):
+                feats = featurizer.featurize(
+                    nodes, pods, queue_pods=[pod], namespaces=namespaces, **volume_kw
+                )
+            plugins = tuple(factory(feats))
+            with self.metrics.timer("engine"):
+                eng = Engine(feats, plugins, record="full", exact=self._exact, device=self._device)
+                res = eng.evaluate_batch()
+            n_valid = feats.nodes.count
+            ok = np.asarray(res.reason_bits[0] == 0).all(axis=0)[:n_valid]
+            feasible = [feats.nodes.names[i] for i in range(n_valid) if ok[i]]
+            node_objs = {name_of(n): n for n in nodes}
+            failed = False
+            for idx, ext in enumerate(self._extenders.extenders):
+                if not feasible:
+                    break
+                if not ext.filter_verb:
+                    continue
+                # managedResources gate (extender.go:99-112): extenders
+                # managing specific resources only see pods requesting them.
+                if not ext.is_interested(pod):
+                    continue
+                args = {"pod": pod}
+                if ext.node_cache_capable:
+                    args["nodenames"] = list(feasible)
+                else:
+                    args["nodes"] = {"items": [node_objs[n] for n in feasible]}
+                try:
+                    with self.metrics.timer("extender_http"):
+                        result = self._extenders.filter(idx, args)
+                except Exception:
+                    logger.exception("extender %s filter failed", ext.name)
+                    if ext.ignorable:
+                        continue
+                    failed = True
+                    break
+                if result.get("error"):
+                    if ext.ignorable:
+                        continue
+                    failed = True
+                    break
+                if result.get("nodenames") is not None:
+                    keep = set(result["nodenames"])
+                    feasible = [n for n in feasible if n in keep]
+                elif result.get("nodes") is not None:
+                    keep = {
+                        name_of(item) for item in result["nodes"].get("items") or []
+                    }
+                    feasible = [n for n in feasible if n in keep]
+            selected = None
+            if feasible and not failed:
+                feasible_set = set(feasible)
+                totals = {
+                    feats.nodes.names[i]: int(res.total[0, i])
+                    for i in range(n_valid)
+                    if feats.nodes.names[i] in feasible_set
+                }
+                for idx, ext in enumerate(self._extenders.extenders):
+                    if not ext.prioritize_verb:
+                        continue
+                    if not ext.is_interested(pod):
+                        continue
+                    args = {"pod": pod}
+                    if ext.node_cache_capable:
+                        args["nodenames"] = list(feasible)
+                    else:
+                        args["nodes"] = {"items": [node_objs[n] for n in feasible]}
+                    try:
+                        with self.metrics.timer("extender_http"):
+                            prioritized = self._extenders.prioritize(idx, args)
+                        for hp in prioritized:
+                            host = hp.get("host")
+                            if host in totals:
+                                totals[host] += int(hp.get("score") or 0)
+                    except Exception:
+                        logger.exception("extender %s prioritize failed", ext.name)
+                # selectHost: max score, lowest node index on ties.
+                order = {n: i for i, n in enumerate(feats.nodes.names)}
+                selected = max(feasible, key=lambda n: (totals[n], -order[n]))
+            # PostFilter still runs when nothing fit (the batch path's
+            # preemption applies identically; extenders may further have a
+            # preemptVerb — the proxy route records it when an external
+            # scheduler drives it).
+            nominated, victims, postfilter = None, [], None
+            # An aborted cycle (non-ignorable extender error) never runs
+            # PostFilter — upstream gives up on the pod for this pass.
+            if selected is None and not failed:
+                nominated, victims, postfilter = self._run_post_filter(
+                    pod, feats, plugins, res, 0, prof=prof
+                )
+            # Reserve -> Permit -> PreBind/Bind on this path too
+            # (upstream's cycle is identical with or without extenders).
+            reserve_extra: dict[str, str] = {}
+            reserve_failed = False
+            if selected is not None:
+                reserve_extra, reserve_failed = self._run_reserve(
+                    plugins, pod, selected
+                )
+                if reserve_failed:
+                    self._run_unreserve(plugins, pod, selected)
+            permit_maps = None
+            permit_verdict = SUCCESS
+            wait_deadlines: dict[str, float] = {}
+            if selected is not None and not reserve_failed:
+                permit_verdict, permit_maps, wait_deadlines = self._run_permit(
+                    plugins, pod, selected
+                )
+                if permit_verdict == REJECT:
+                    self._run_unreserve(plugins, pod, selected)
+            prebind_extra: dict[str, str] = {}
+            bind_map = None
+            bind_ok = not reserve_failed
+            if selected is not None and not reserve_failed and permit_verdict == SUCCESS:
+                prebind_extra, prebind_failed = self._run_pre_bind(
+                    plugins, pod, selected
+                )
+                if prebind_failed:
+                    bind_ok = False
+                    bind_map = {}
+                else:
+                    bind_map, bind_ok = self._run_bind(
+                        plugins, pod, selected, prof=prof
+                    )
+                if not bind_ok:
+                    self._run_unreserve(plugins, pod, selected)
+            anno = render_pod_results(
+                feats,
+                plugins,
+                res,
+                0,
+                postfilter=postfilter,
+                permit=permit_maps,
+                bound=permit_verdict != REJECT and bind_ok,
+                reserve_extra=reserve_extra,
+                prebind_extra=prebind_extra,
+                bind_map=bind_map,
+                visited=None if res.visited is None else res.visited[0],
+            )
+            anno.update(self._extenders.store.get_stored_result(pod))
+            selected_settle = None if reserve_failed else selected
+            selected, parked = self._settle_permit(
+                pod, selected_settle, permit_verdict, wait_deadlines, anno,
+                placements, plugins=plugins, prof=prof,
+            )
+            if parked:
+                self._extenders.store.delete_data(pod)
+                continue
+            if not bind_ok:
+                selected = None
+
+            def mutate(obj: JSON) -> None:
+                annos = obj.setdefault("metadata", {}).setdefault("annotations", {})
+                apply_results_to_pod(annos, anno)
+                if selected:
+                    obj.setdefault("spec", {})["nodeName"] = selected
+                    obj.setdefault("status", {})["phase"] = "Running"
+                    obj.get("status", {}).pop("nominatedNodeName", None)
+                elif nominated:
+                    obj.setdefault("status", {})["nominatedNodeName"] = nominated
+
+            try:
+                updated = self._store.patch(
+                    "pods", name_of(pod), namespace_of(pod), mutate
+                )
+            except NotFoundError:
+                # Deleted mid-cycle: fail just this pod (see _bind_results).
+                logger.info(
+                    "pod %s/%s deleted mid-cycle; skipping its bind",
+                    namespace_of(pod), name_of(pod),
+                )
+                self._extenders.store.delete_data(pod)
+                continue
+            self._extenders.store.delete_data(pod)
+            with self._own_rvs_lock:
+                self._own_rvs.add(updated["metadata"]["resourceVersion"])
+            if selected is not None:
+                self._run_post_bind(plugins, updated, selected)
+            for v in victims:
+                self._evict_victim(v)
+            placements[f"{namespace_of(pod)}/{name_of(pod)}"] = selected
 
     # Upstream sampling constants (schedule_one.go).
     _MIN_FEASIBLE_NODES_TO_FIND = 100
@@ -1553,6 +1813,7 @@ class SchedulerService:
             if rv in self._own_rvs:
                 self._own_rvs.discard(rv)
                 return False
+        self._flush_extender_results(ev)
         from ksim_tpu_torch.state.cluster import DELETED
 
         # Drop the pod's backoff either way: a user-driven create/update
@@ -1623,3 +1884,51 @@ class SchedulerService:
                     logger.exception("scheduling pass failed")
         finally:
             stream.close()
+
+    def _flush_extender_results(self, ev: WatchEvent) -> None:
+        """Reflector behavior for proxy-driven EXTERNAL schedulers
+        (reference storereflector.go:78-146 merges extender stores onto
+        the pod on update events): the in-process path flushes
+        synchronously, so anything left here came through the HTTP proxy
+        routes."""
+        if not self._extenders:
+            return
+        from ksim_tpu_torch.state.cluster import DELETED
+
+        pod = ev.obj
+        if ev.event_type == DELETED:
+            self._extenders.store.delete_data(pod)
+            return
+        anno = self._extenders.store.get_stored_result(pod)
+        if not anno:
+            return
+        from ksim_tpu_torch.errors import ConflictError, NotFoundError
+        from ksim_tpu_torch.util import retry_with_exponential_backoff
+
+        try:
+            # Conflict-retried like the reference's reflector writes
+            # (storereflector.go:124-136 + util/retry.go).  Scoped to
+            # ConflictError only: ClusterStore.patch is an atomic RMW so
+            # conflicts can't actually occur in-process, and a NotFound
+            # (pod deleted meanwhile) must drop straight through instead
+            # of stalling the watch loop through the backoff sleeps.
+            updated = retry_with_exponential_backoff(
+                lambda: self._store.patch(
+                    "pods",
+                    name_of(pod),
+                    namespace_of(pod),
+                    lambda obj: obj.setdefault("metadata", {})
+                    .setdefault("annotations", {})
+                    .update(anno),
+                ),
+                retriable=(ConflictError,),
+            )
+        except NotFoundError:
+            self._extenders.store.delete_data(pod)
+            return
+        except Exception:
+            logger.exception("failed to flush extender results")
+            return
+        with self._own_rvs_lock:
+            self._own_rvs.add(updated["metadata"]["resourceVersion"])
+        self._extenders.store.delete_data(pod)

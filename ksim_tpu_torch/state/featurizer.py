@@ -606,7 +606,8 @@ def _copy_into(cls: type, src: Any) -> Any:
 def _aux_from_arrays(aux: dict) -> dict:
     """This package's aux families from a mapping shaped like a
     snapshot's ``aux`` (``ksim_tpu``'s dataclasses, duck-typed, or
-    mappings of arrays), every array an owned copy.  Families this
+    mappings of arrays), every array an owned copy: the samples'
+    families ("nodenumber", "provider:<name>") included.  Families this
     package has no encoder type for are left out."""
     from ksim_tpu_torch.state.encoding import AffinityTensors, SpreadTensors, TaintTensors
     from ksim_tpu_torch.state.extras import ImageTensors, NodeNameTensors, NodePortTensors
@@ -623,7 +624,14 @@ def _aux_from_arrays(aux: dict) -> dict:
         "imagelocality": ImageTensors,
         "volumes": VolumeTensors,
     }
-    return {key: _copy_into(aux_types[key], val) for key, val in aux.items() if key in aux_types}
+    from ksim_tpu_torch.plugins.samples.nodenumber import NodeNumberTensors, ProvidedTensors
+
+    aux_types["nodenumber"] = NodeNumberTensors
+
+    def aux_type(key: str):
+        return ProvidedTensors if key.startswith("provider:") else aux_types.get(key)
+
+    return {key: _copy_into(aux_type(key), val) for key, val in aux.items() if aux_type(key) is not None}
 
 
 def snapshot_from_arrays(obj: Any) -> FeaturizedSnapshot:

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import random
 
+import numpy as np
+
 from helpers import make_node, make_pod, random_cluster
 
 MB = 1024 * 1024
@@ -550,6 +552,35 @@ CLUSTERS_KW = {
     "volumes": lambda: volume_cluster(9),
     "volumes2": lambda: volume_cluster(10, n_nodes=9, n_pods=30),
 }
+
+
+# The DataProviderScore instances of the samples' tests: a renewable
+# share in 0..100 and an arbitrary int32 value (negatives included).
+PROVIDERS = ("Renewable", "Carbon")
+
+
+def provider_fn(name: str, seed: int = 0):
+    """A data provider: a per-node value made from ``seed`` and the node's
+    name with numpy (the same value wherever the node sits)."""
+
+    def provide(nodes):
+        out = []
+        for n in nodes:
+            key = sum(map(ord, n["metadata"]["name"])) + 7919 * seed
+            rng = np.random.default_rng(key)
+            out.append(rng.integers(0, 101) if name == "Renewable" else rng.integers(-50000, 50000))
+        return np.asarray(out, dtype=np.int64)
+
+    return provide
+
+
+def sample_cluster(seed: int = 0):
+    """About 24 nodes and 64 pods: the random cluster plus nodes and pods
+    whose names carry no digit suffix (NodeNumber's -1 code)."""
+    nodes, pods = random_cluster(seed, 22, 60)
+    nodes += [make_node("edge-a", cpu="8", memory="16Gi"), make_node("edge-b", cpu="4", memory="8Gi")]
+    pods += [make_pod(f"job-{c}", cpu="200m") for c in "wxyz"]
+    return nodes, pods
 
 
 def case_inputs(case: str):

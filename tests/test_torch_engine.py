@@ -140,9 +140,12 @@ def test_engine_refuses_unported_options():
     from ksim_tpu_torch.engine.core import ScoredPlugin
     from ksim_tpu_torch.plugins.volumes import NodeVolumeLimits
 
-    hooked = (ScoredPlugin(port._plugins[0].plugin, score_enabled=False, extender=object()),)
-    with pytest.raises(NotImplementedError):
-        Engine(port._feats, hooked, device="cpu")
+    # PluginExtender hooks are ported (tests/test_torch_hooks.py); a
+    # plugin enabled at a stage it has no code for is still refused.
+    no_score = (ScoredPlugin(port._plugins[0].plugin, score_enabled=True),)
+    assert not hasattr(no_score[0].plugin, "score")
+    with pytest.raises(NotImplementedError, match="has no score"):
+        Engine(port._feats, no_score, device="cpu")
     # A second, pool-restricted NodeVolumeLimits instance (the legacy
     # EBSLimits et al.) is taken, and the port equals ksim_tpu with it.
     from ksim_tpu.engine.core import ScoredPlugin as JaxScoredPlugin

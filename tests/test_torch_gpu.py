@@ -6,7 +6,9 @@ profile table past its old fixed width, EBSLimits and GCEPDLimits beside
 NodeVolumeLimits; kernel D on it through a churn).  Kernels A and C run on
 a thread-block cluster: their tests run at cluster sizes 2, 8 and 16
 (kernels/chain.py CLUSTER_SIZE); kernel B's persistent grid at forced
-sizes (kernels/batch_eval.py GRID) and past the old node bound.
+sizes (kernels/batch_eval.py GRID) and past the old node bound.  The
+score samples' rows (NodeNumber, DataProviderScore) in A, B, C and D, and
+the refusal of a hooked profile on the card.
 
 Marked ``gpu``; each test skips when there is no CUDA device.  This file
 imports neither jax nor ksim_tpu, so it runs on a machine with a card
@@ -315,3 +317,124 @@ def test_wide_config_kernel_d_matches_plain(cuda, monkeypatch):
     _assert_plain_equal(segments)
     base = wide_runner("cpu", device_replay=False).run(list(wide_stream()))
     assert _steps(res) == _steps(base)
+
+
+# ---------------------------------------------------------------------------
+# The score samples' rows (NodeNumber, DataProviderScore) and the refusal
+# of a hooked profile.
+# ---------------------------------------------------------------------------
+
+
+def _sample_engines(record, exact, device, *, reverse, sampling_k=None, cls=Engine):
+    from ksim_tpu_torch.plugins.samples import (
+        data_provider_builder, encode_node_number, node_number_builder, provider_encoder,
+    )
+    from test_torch_clusters import PROVIDERS, provider_fn, sample_cluster
+
+    enc = {"nodenumber": encode_node_number}
+    enc.update({f"provider:{n}": provider_encoder(provider_fn(n)) for n in PROVIDERS})
+    feats = Featurizer(extra_encoders=enc).featurize(*sample_cluster())
+    plugins = default_plugins(feats) + (node_number_builder(reverse=reverse, weight=3)(feats, {}),) + tuple(
+        data_provider_builder(n, provider_fn(n), weight=w)(feats, {}) for n, w in zip(PROVIDERS, (2, 1))
+    )
+    kw = dict(record=record, exact=exact, device=device, sampling_k=sampling_k)
+    return cls(feats, plugins, **kw), PlainEngine(feats, plugins, **kw)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["plain", "reverse"])
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+def test_sample_rows_kernels_match_plain(cuda, cluster, exact, reverse):
+    """Kernels A, C and B with NodeNumber and two DataProviderScore
+    instances: every record equal to the plain versions on the card."""
+    launches = schedule_scan.launches, schedule_sampled.launches, batch_eval.launches
+    kernel, plain = _sample_engines("full", exact, cuda, reverse=reverse)
+    got, state = kernel.schedule(chunk=24)
+    want, want_state = plain.schedule(chunk=24)
+    _assert_equal(got, want)
+    for name in state._fields:
+        np.testing.assert_array_equal(getattr(state, name), getattr(want_state, name), err_msg=name)
+    _assert_equal(kernel.evaluate_batch(chunk=16), plain.evaluate_batch(chunk=16))
+    kernel, plain = _sample_engines("full", exact, cuda, reverse=reverse, sampling_k=7)
+    _assert_equal(kernel.schedule(sampling_start=5)[0], plain.schedule(sampling_start=5)[0])
+    for record in ("final", "selection"):
+        kernel, plain = _sample_engines(record, exact, cuda, reverse=reverse)
+        _assert_equal(kernel.evaluate_batch_fused(), plain.evaluate_batch_fused())
+        _assert_equal(kernel.schedule()[0], plain.schedule()[0])
+    now = schedule_scan.launches, schedule_sampled.launches, batch_eval.launches
+    assert all(b > a for a, b in zip(launches, now))
+
+
+def test_node_number_churn_kernel_d_matches_plain(cuda, monkeypatch):
+    """Kernel D over a churn under a profile with NodeNumber: every
+    segment equal to its plain version, the run equal to the per-pass
+    path's."""
+    from ksim_tpu_torch.scenario.generate import churn_scenario
+    from ksim_tpu_torch.scenario.runner import ScenarioRunner
+
+    cfg = {"profiles": [{
+        "plugins": {"multiPoint": {"enabled": [{"name": "NodeNumber", "weight": 5}]}},
+        "pluginConfig": [{"name": "NodeNumber", "args": {
+            "builderImport": "ksim_tpu_torch.plugins.samples.nodenumber:NODE_NUMBER_PLUGIN"}}],
+    }]}
+    kw = dict(max_pods_per_pass=1024, pod_bucket_min=128, exact=False, config=cfg)
+    ops = list(churn_scenario(0, n_nodes=200, n_events=1200, ops_per_step=60))
+    segments = _capture(monkeypatch)
+    runner = ScenarioRunner(device_replay=True, device_segment_steps=8, device=cuda, **kw)
+    res = runner.run(list(ops))
+    assert runner.replay_driver.fallback_steps == 0, runner.replay_driver.unsupported
+    _assert_plain_equal(segments)
+    base = ScenarioRunner(device="cpu", **kw).run(list(ops))
+    assert _steps(res) == _steps(base)
+
+
+def test_hooked_profile_is_refused_on_the_card(cuda):
+    """A profile with a device hook raises NotImplementedError on the card
+    before any launch (no kernel runs a Python hook); the CPU runs it, and
+    the profile without the hook stays on the kernels."""
+    from ksim_tpu_torch.engine.core import PluginExtender, ScoredPlugin
+
+    feats = Featurizer().featurize(*random_cluster(3, 40, 64))
+    ext = PluginExtender(after_score=lambda state, pods, aux, scores: scores + 7)
+    plugins = tuple(
+        ScoredPlugin(sp.plugin, sp.weight, sp.filter_enabled, sp.score_enabled,
+                     extender=ext if sp.plugin.name == "NodeResourcesFit" else None)
+        for sp in default_plugins(feats)
+    )
+    launches = schedule_scan.launches, batch_eval.launches
+    with pytest.raises(NotImplementedError, match="device='cpu'"):
+        Engine(feats, plugins, record="full", device=cuda)
+    Engine(feats, plugins, record="full", device="cpu").evaluate_batch()
+    assert (schedule_scan.launches, batch_eval.launches) == launches
+    Engine(feats, default_plugins(feats), device=cuda).schedule()
+    assert schedule_scan.launches > launches[0]
+
+
+def test_lifecycle_markers_stay_on_the_kernels(cuda, tmp_path):
+    """A profile with FifoSort, NamePrefixGate and PlacementExport (no
+    filter, no score) schedules through kernel A on the card."""
+    from ksim_tpu_torch.scheduler.service import SchedulerService
+    from ksim_tpu_torch.state.cluster import ClusterStore
+
+    nodes, pods = random_cluster(1, 40, 32, bound_fraction=0.0)
+    store = ClusterStore()
+    for obj in nodes:
+        store.create("nodes", obj)
+    for obj in pods:
+        store.create("pods", obj)
+    lifecycle = "ksim_tpu_torch.plugins.samples.lifecycle:"
+    cfg = {"profiles": [{
+        "plugins": {"queueSort": {"enabled": [{"name": "FifoSort"}]},
+                    "preEnqueue": {"enabled": [{"name": "NamePrefixGate"}]},
+                    "postBind": {"enabled": [{"name": "PlacementExport"}]}},
+        "pluginConfig": [
+            {"name": "FifoSort", "args": {"builderImport": lifecycle + "FIFO_SORT_PLUGIN"}},
+            {"name": "NamePrefixGate", "args": {"builderImport": lifecycle + "NAME_PREFIX_GATE_PLUGIN"}},
+            {"name": "PlacementExport", "args": {"builderImport": lifecycle + "PLACEMENT_EXPORT_PLUGIN",
+                                                 "sinkPath": str(tmp_path / "binds.jsonl")}},
+        ],
+    }]}
+    before = schedule_scan.launches
+    placed = SchedulerService(store, config=cfg, device=cuda).schedule_pending()
+    assert schedule_scan.launches > before
+    bound = sum(v is not None for v in placed.values())
+    assert bound > 0 and len((tmp_path / "binds.jsonl").read_text().splitlines()) == bound

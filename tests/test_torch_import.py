@@ -84,6 +84,11 @@ SLICE_MODULES = (
     "ksim_tpu_torch.scenario.spec",
     "ksim_tpu_torch.scenario.simulation",
     "ksim_tpu_torch.state.snapshot",
+    # The ninth slice: the samples, the webhook extenders.
+    "ksim_tpu_torch.plugins.samples",
+    "ksim_tpu_torch.plugins.samples.nodenumber",
+    "ksim_tpu_torch.plugins.samples.lifecycle",
+    "ksim_tpu_torch.scheduler.extender",
 )
 
 
@@ -98,6 +103,41 @@ def test_port_imports_with_jax_and_ksim_tpu_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("imported")
+
+
+_BUILDER_IMPORT = """
+import sys
+from ksim_tpu_torch.scheduler.service import SchedulerService
+from ksim_tpu_torch.state.cluster import ClusterStore
+from ksim_tpu_torch.scenario.generate import make_node, make_pod
+
+store = ClusterStore()
+store.create("nodes", make_node("node-3", cpu="8", memory="16Gi"))
+store.create("nodes", make_node("node-7", cpu="8", memory="16Gi"))
+store.create("pods", make_pod("app-7", cpu="100m", memory="128Mi"))
+cfg = {"profiles": [{
+    "plugins": {"multiPoint": {"enabled": [{"name": "NodeNumber", "weight": 100}]}},
+    "pluginConfig": [{"name": "NodeNumber", "args": {
+        "builderImport": "ksim_tpu_torch.plugins.samples.nodenumber:NODE_NUMBER_PLUGIN"}}],
+}]}
+placed = SchedulerService(store, config=cfg, device="cpu").schedule_pending()
+assert placed == {"default/app-7": "node-7"}, placed
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ksim_tpu"))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_builder_import_of_the_port_sample_loads_no_ksim_tpu():
+    """A KubeSchedulerConfiguration that loads the port's NodeNumber by
+    ``builderImport`` schedules with it, and no module of ksim_tpu (or
+    jax) is in ``sys.modules`` afterwards."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BUILDER_IMPORT], cwd=ROOT, env=sanitized_cpu_env(), capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -166,18 +206,27 @@ def test_service_and_runner_need_a_card_unless_the_cpu_is_asked_for():
     assert ScenarioRunner(device="cpu").service._device.type == "cpu"
 
 
-def test_unported_surfaces_refuse(monkeypatch):
+def test_unported_surfaces_refuse(monkeypatch, tmp_path):
     from ksim_tpu_torch.scenario.runner import ScenarioRunner
     from ksim_tpu_torch.scheduler.service import SchedulerService
     from ksim_tpu_torch.state.cluster import ClusterStore
 
     store = ClusterStore()
-    with pytest.raises(NotImplementedError, match="extenders"):
-        SchedulerService(store, config={"extenders": [{"urlPrefix": "http://localhost:1"}]}, device="cpu")
     with pytest.raises(NotImplementedError, match="shard_mesh"):
         SchedulerService(store, shard_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="profiler"):
-        SchedulerService(store, device="cpu").start_profiling("unused")
+    # Scheduler extenders and the profiler are ported: a config with
+    # extenders compiles, and a profiled pass writes a Chrome trace
+    # holding its "scheduling-pass" range.
+    svc = SchedulerService(store, config={"extenders": [{"urlPrefix": "http://localhost:1"}]}, device="cpu")
+    assert len(svc.extender_service.extenders) == 1
+    store.create("nodes", make_node("n1"))
+    store.create("pods", make_pod("p1"))
+    svc = SchedulerService(store, device="cpu")
+    svc.start_profiling(str(tmp_path))
+    assert svc.schedule_pending() == {"default/p1": "n1"}
+    path = svc.stop_profiling()
+    assert svc.stop_profiling() is None
+    assert path is not None and str(tmp_path) in path and "scheduling-pass" in open(path).read()
     # Fleet replay is ported; its lane mesh (KSIM_FLEET_DP) is not.
     monkeypatch.setenv("KSIM_FLEET_DP", "2")
     with pytest.raises(NotImplementedError, match="KSIM_FLEET_DP"):

@@ -94,7 +94,7 @@ def test_segment_smem_per_block_of_a_cluster(size):
     assert chain_part == chain.cluster_smem_bytes(prm.chain, size, threads)
     prm.derive.dsmem = 0  # the scratch in global memory, a row pair per rank
     assert seg.segment_smem_bytes(prm, size) == chain_part
-    assert seg.STATIC_SMEM_BYTES == ((2072 + 15) & ~15) + ((seg.SEARCH_SMEM_BYTES + 15) & ~15)
+    assert seg.STATIC_SMEM_BYTES == ((2176 + 15) & ~15) + ((seg.SEARCH_SMEM_BYTES + 15) & ~15)
     assert seg.SEARCH_SMEM_BYTES == 4 * 251
 
 

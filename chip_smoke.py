@@ -58,7 +58,7 @@ Phases, in order; any failure exits non-zero before the last line:
    (kernel D, 16 steps per launch, device_steps >= 32; its launch count,
    and the runs of row 6 inside it, which the kernel counts on the card,
    are read around that run), in f32 and exact modes; kernel D equals its
-   plain version on every segment of the f32 run (every output and the
+   plain version on the f32 run's fullest segment (every output and the
    final state) and on the first segment of the exact run, and row 6's
    standalone entry (derive_interpod) equals its plain version on the
    first segment's state; then the 50k flagship (52781 / 42829) through
@@ -90,7 +90,8 @@ Phases, in order; any failure exits non-zero before the last line:
    equals its plain version on every segment of those runs; D's time in
    its preemption + full-record form is taken on the strata churn's
    fullest searching segment.  Then a preemption-heavy churn at 2000
-   nodes (tests/test_torch_gpu_replay.py preemption_churn_stream) on the
+   nodes (tests/test_torch_gpu_replay.py preemption_churn_stream, 4 waves
+   of preempting arrivals) on the
    device path equals the per-pass path (steps, store with nominations,
    evictions in order), at least one device segment's kernel D nominated,
    that segment equals D's plain version, and the count of windows the
@@ -141,7 +142,28 @@ Phases, in order; any failure exits non-zero before the last line:
    profile (a PluginExtender device hook) refused on the card with no
    launch, the same profile without hooks on kernel A; (e) a profiled pass
    whose trace names the pass and kernel A's launch, its profile holding
-   the lifecycle samples (FifoSort, NamePrefixGate, PlacementExport).
+   the lifecycle samples (FifoSort, NamePrefixGate, PlacementExport);
+12. the front door: the port's commands as processes on the card, on
+   random_cluster(0, 200 nodes, 1000 pods, bound_fraction=0) (BASELINE.json
+   config 2's shape, the whole default profile, record="full"; the
+   export is about 235 MB of JSON): (a) `python -m
+   ksim_tpu_torch.cmd.scheduler` writes the same bytes as its `--device
+   cpu` run; (b) `python -m ksim_tpu_torch.cmd.simulator` with the
+   snapshot one-shot imported before its loop starts: after the first
+   pass every pod's node and first attempt's result annotations equal
+   (a)'s, `PUT /api/v1/reset` answers 202 and re-exports the boot state,
+   and SIGTERM ends it with exit 0; (c) (b) under KSIM_PNTS_EMULATION=1
+   (kernel C, k = 100) against cmd.scheduler's CPU run under the same
+   env; (d) (b) with a KubeSchedulerConfiguration naming one webhook
+   extender served here (kernel B pod by pod) against the CPU run; (e)
+   `python -m ksim_tpu_torch.cmd.simulation` on the 6k churn (inline,
+   per-pass) ends Succeeded with the lock; (f) the servers of (b)-(d) run
+   with `--profile-dir`, and each trace holds the card's launches of A, C
+   and B respectively, with the card's kernel, copy and busy time and its
+   idle share.  The three `--device cpu` runs start after phase 2, on the
+   last two CPU cores beside phases 3-4; (a) and (e) run alone and
+   unprofiled (the commands' front-door walls); (b)-(d) run at once, each
+   on its own cores (a correctness run under load).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds (each with
@@ -150,15 +172,21 @@ its phase-11 numbers, all measured in this run, under "phase_11").
 
 from __future__ import annotations
 
+import atexit
+import http.client
 import json
 import os
 import random
+import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
@@ -167,7 +195,7 @@ import torch
 
 import ksim_tpu_torch.engine.replay as replay_mod
 import ksim_tpu_torch.kernels.replay_segment as segment_mod
-from ksim_tpu_torch.engine.annotations import ALL_RESULT_KEYS, RenderCtx, render_pod_results
+from ksim_tpu_torch.engine.annotations import ALL_RESULT_KEYS, RESULT_HISTORY_KEY, RenderCtx, render_pod_results
 from ksim_tpu_torch.engine.core import Engine, PluginExtender, ScoredPlugin
 from ksim_tpu_torch.engine.profiles import default_plugins
 from ksim_tpu_torch.kernels import build, chain
@@ -200,10 +228,12 @@ from ksim_tpu_torch.plugins.samples import (
 )
 from ksim_tpu_torch.scenario.generate import churn_scenario
 from ksim_tpu_torch.scenario.runner import Operation, ScenarioRunner
+from ksim_tpu_torch.scenario.spec import spec_from_operations
 from ksim_tpu_torch.scheduler.extender import EXTENDER_FILTER_RESULT_KEY
 from ksim_tpu_torch.scheduler.service import SchedulerService
 from ksim_tpu_torch.state.cluster import ClusterStore
 from ksim_tpu_torch.state.featurizer import Featurizer
+from ksim_tpu_torch.state.snapshot import SnapshotService
 from ksim_tpu_torch.traces import stream_trace_operations, trace_operations
 
 # The cluster builders live in tests/ (stdlib only).  They are imported
@@ -265,6 +295,10 @@ FLEET_LANES = 8
 FLEET_PLAIN_LANES = 2
 # Phase 8: the preemption-heavy churn's node count.
 PREEMPT_NODES = 2000
+# Its waves of preempting arrivals (tests/test_torch_gpu_replay.py
+# preemption_churn_stream; 8 there): the per-pass leg's host
+# DefaultPreemption sets the phase's time.
+PREEMPT_WAVES = 4
 
 # Each kernel: its source, the ksim_tpu function it replaces, and the
 # rows of PERF.md's table of ksim_tpu's 11 device programs it carries.
@@ -312,6 +346,14 @@ BASELINE_MS = {"A": 382.56, "C queue": 415.87, "B fused": 9.764, "B chunk": 2.14
 # baseline's, at the baseline's power limit: a row the samples skip costs
 # nothing.
 BASELINE_TOLERANCE, BASELINE_POWER_W = 0.05, 700.0
+# Phase 12: the front door, the port's commands run as processes on the
+# card: BASELINE.json config 2's shape (200 nodes, 1000 pods) with the
+# whole default profile, record="full".  A wait on one of its processes
+# lasts at most FRONT_WAIT_S.
+FRONT_SHAPE = (200, 1000)
+FRONT_WAIT_S = 300
+FRONT_KERNELS = {"A": "cluster_scan_kernel<false", "C": "cluster_scan_kernel<true", "B": "batch_eval_kernel"}
+FRONT_PNTS = {"KSIM_PNTS_EMULATION": "1"}
 
 
 class PlainEngine(Engine):
@@ -564,7 +606,7 @@ def print_build_log(names) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def commit_invariant(feats, res, state, what: str) -> int:
@@ -711,22 +753,28 @@ def churn_phase(check: Check, card: str) -> dict:
         replay_mod.replay_segment = kernel
 
     segments, launches, kernel_ms_6k, solo_steps = runs[False]
+    # D against its plain version on the f32 run's fullest segment (the
+    # one timed below) and the exact run's first: a plain segment takes
+    # 15-20 s, and phase 10's watchdog leg holds every launch of another
+    # f32 run against it.
+    pick = max(range(len(segments)), key=lambda i: int((segments[i][6]["idx"] < segments[i][2]["pods"]["requests"].shape[0]).sum()))
     t = time.perf_counter()
-    plain_seg_ms, seg_pairs = [], []
-    for i, (st, prog, const, ev, state0, final, outs) in enumerate(segments + runs[True][0][:1]):
-        mode = "f32" if i < len(segments) else "exact"
+    plain_seg_ms, seg_pairs = {}, {}
+    for mode, i, (st, prog, const, ev, state0, final, outs) in (("f32", pick, segments[pick]),
+                                                                ("exact", 0, runs[True][0][0])):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with PairCount(prog, const["pods"]["requests"].shape[0]) as count:
             start.record()
             want_final, want_outs = replay_segment_plain(st, prog, const, ev, state0)
             end.record()
             torch.cuda.synchronize()
-        plain_seg_ms.append(start.elapsed_time(end))
-        seg_pairs.append((count.pairs, count.feasible))
+        if mode == "f32":
+            plain_seg_ms[i] = start.elapsed_time(end)
+            seg_pairs[i] = (count.pairs, count.feasible)
         tree_equal(check, "replay_segment", f"6k {mode} segment {i} outputs", outs, want_outs)
         tree_equal(check, "replay_segment", f"6k {mode} segment {i} final state", final, want_final)
-    print(f"  kernel D equals its plain version on the {len(segments)} segments of the f32 run and the "
-          f"first of the exact run ({time.perf_counter() - t:.1f} s)", flush=True)
+    print(f"  kernel D equals its plain version on segment {pick} of the {len(segments)} of the f32 run (the "
+          f"fullest) and on the first of the exact run ({time.perf_counter() - t:.1f} s)", flush=True)
     # Row 6 alone on every segment's starting state (the first segment
     # starts before any pod is bound: its counts are all zero).
     views = []
@@ -779,7 +827,6 @@ def churn_phase(check: Check, card: str) -> dict:
           f"D's plain version {card}", flush=True)
 
     # Timings on one segment of the 6k f32 run: the fullest one.
-    pick = max(range(len(segments)), key=lambda i: int((segments[i][6]["idx"] < segments[i][2]["pods"]["requests"].shape[0]).sum()))
     st, prog, const, ev, state0, final, outs = segments[pick]
     P = const["pods"]["requests"].shape[0]
     N = const["node"]["allocatable"].shape[0]
@@ -1457,7 +1504,7 @@ def preemption_churn_phase(check: Check, card: str) -> dict:
         replay_mod.replay_segment = capture if device_replay else kernel
         t0 = time.perf_counter()
         try:
-            res = runner.run(preemption_churn_stream(n_nodes=PREEMPT_NODES))
+            res = runner.run(preemption_churn_stream(n_nodes=PREEMPT_NODES, n_waves=PREEMPT_WAVES))
         finally:
             replay_mod.replay_segment = kernel
         walls[device_replay] = time.perf_counter() - t0
@@ -1858,6 +1905,330 @@ def extension_phase(check: Check, card: str, smi: str, nodes, pods, default_ms: 
     return {"samples": notes}
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, method: str, path: str, timeout: float = 120.0) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+class FrontProcess:
+    """One of the port's commands as a child process: its output goes to
+    a log file, and it is killed if it outlives ``FRONT_WAIT_S`` or the
+    phase.  ``cores`` pins it (every thread it has and will start) to
+    those CPU cores."""
+
+    def __init__(self, label: str, args: list, work: Path, env: "dict | None" = None,
+                 cores: "set[int] | None" = None) -> None:
+        self.label = label
+        self.log_path = work / f"{label}.log"
+        self._log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", *args], stdout=self._log, stderr=subprocess.STDOUT,
+                                     env={**os.environ, **(env or {})})
+        if cores:
+            # The child has just exec'd the interpreter: the threads it
+            # starts later inherit its affinity.  One that has already
+            # exited shows its code in ``wait``.
+            try:
+                for tid in os.listdir(f"/proc/{self.proc.pid}/task"):
+                    os.sched_setaffinity(int(tid), cores)
+            except (FileNotFoundError, ProcessLookupError):
+                pass
+
+    def wait(self, timeout: float = FRONT_WAIT_S) -> float:
+        """Wait at most ``timeout`` more seconds for exit 0; returns the
+        process's wall seconds."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"{self.label} outlived {timeout} s:\n{self.tail()}") from None
+        finally:
+            self._log.close()
+        if rc != 0:
+            raise AssertionError(f"{self.label} exited {rc}:\n{self.tail()}")
+        return time.perf_counter() - self.t0
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._log.close()
+
+    def tail(self, n: int = 30) -> str:
+        return "\n".join(self.log_path.read_text(errors="replace").splitlines()[-n:])
+
+
+def trace_device(prof_dir: Path) -> dict:
+    """The card's records in the torch.profiler traces a server wrote into
+    ``prof_dir`` (CUPTI's kernel, copy and memset records of the whole
+    process, every pass in it): the launches and milliseconds of A, C and
+    B by kernel name, every kernel's and every copy's milliseconds, the
+    card's busy milliseconds (the union of those records) and the traced
+    window in seconds (the first complete event's start to the last's
+    end)."""
+    launches = dict.fromkeys(FRONT_KERNELS, 0)
+    named_ms = dict.fromkeys(FRONT_KERNELS, 0.0)
+    kernel_us = copy_us = 0.0
+    busy, lo, hi = [], float("inf"), float("-inf")
+    paths = sorted(prof_dir.glob("*.pt.trace.json"))
+    if not paths:
+        raise AssertionError(f"no torch.profiler trace in {prof_dir}")
+    for path in paths:
+        for e in json.loads(path.read_text())["traceEvents"]:
+            if e.get("ph") != "X" or "dur" not in e:
+                continue
+            ts, dur = float(e["ts"]), float(e["dur"])
+            lo, hi = min(lo, ts), max(hi, ts + dur)
+            cat = e.get("cat")
+            if cat == "kernel":
+                kernel_us += dur
+                for key, name in FRONT_KERNELS.items():
+                    if name in str(e.get("name")):
+                        launches[key] += 1
+                        named_ms[key] += dur / 1e3
+            elif cat in ("gpu_memcpy", "gpu_memset"):
+                copy_us += dur
+            else:
+                continue
+            busy.append((ts, ts + dur))
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted(busy):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return {"launches": launches, "named_ms": named_ms, "kernel_ms": kernel_us / 1e3, "copy_ms": copy_us / 1e3,
+            "busy_ms": busy_us / 1e3, "window_s": (hi - lo) / 1e6}
+
+
+def first_attempts(doc: dict) -> dict:
+    """Pod -> (nodeName, the result annotations of its first attempt)."""
+    out = {}
+    for p in doc["pods"]:
+        md = p["metadata"]
+        history = json.loads((md.get("annotations") or {}).get(RESULT_HISTORY_KEY, "[]"))
+        out[f"{md.get('namespace', 'default')}/{md['name']}"] = (p["spec"].get("nodeName"), history[:1])
+    return out
+
+
+def simulator_leg(label: str, work: Path, snap_path: Path, want, card: str, *, env: "dict | None" = None,
+                  sched_config: "Path | None" = None, cores: "set[int] | None" = None) -> dict:
+    """Phase 12 (b)-(d): the simulator on the card with ``snap_path``
+    imported before its loop starts, its torch.profiler on; waits for the
+    first pass over every pod, then checks the export against ``want()``
+    (the one-pass run's first attempts, read once the server has started),
+    the reset and the clean exit on SIGTERM, and reads the card's records
+    in the server's trace."""
+    port = _free_port()
+    prof_dir = work / f"{label}-profile"
+    cfg = {"port": port, "externalImportEnabled": True, "externalSnapshotPath": str(snap_path)}
+    if sched_config is not None:
+        cfg["kubeSchedulerConfigPath"] = str(sched_config)
+    cfg_path = work / f"{label}-config.yaml"
+    cfg_path.write_text(json.dumps(cfg))
+    sim = FrontProcess(label, ["ksim_tpu_torch.cmd.simulator", "--config", str(cfg_path),
+                               "--profile-dir", str(prof_dir)], work, env, cores)
+    try:
+        n_pods = FRONT_SHAPE[1]
+        metrics = None
+        while time.perf_counter() - sim.t0 < FRONT_WAIT_S:
+            if sim.proc.poll() is not None:
+                raise AssertionError(f"{label}: the simulator exited {sim.proc.returncode}:\n{sim.tail()}")
+            try:
+                status, body = _http(port, "GET", "/api/v1/metrics", timeout=30)
+            except OSError:
+                status = None
+            if status == 200:
+                metrics = json.loads(body)
+                if metrics["counters"].get("scheduling_attempts", 0) >= n_pods:
+                    break
+            time.sleep(0.25)
+        else:
+            raise AssertionError(f"{label}: the first pass did not end in {FRONT_WAIT_S} s:\n{sim.tail()}")
+        first_pass_s = time.perf_counter() - sim.t0
+        t = time.perf_counter()
+        status, body = _http(port, "GET", "/api/v1/export")
+        export_s = time.perf_counter() - t
+        if status != 200:
+            raise AssertionError(f"{label}: export answered {status}")
+        got = first_attempts(json.loads(body))
+        want = want()
+        if got.keys() != want.keys():
+            raise AssertionError(f"{label}: exported pods differ from the one-pass run's")
+        bad = [k for k in want if got[k] != want[k]]
+        if bad:
+            raise AssertionError(f"{label}: {len(bad)} pods differ from the one-pass run, e.g. {bad[:3]}")
+        placed = sum(node is not None for node, _ in got.values())
+        status, _ = _http(port, "PUT", "/api/v1/reset")
+        _, after = _http(port, "GET", "/api/v1/export")
+        after = json.loads(after)
+        if status != 202 or after["pods"] or after["nodes"]:
+            raise AssertionError(f"{label}: reset answered {status}; {len(after['pods'])} pods and "
+                                 f"{len(after['nodes'])} nodes left (the boot state holds none)")
+        sim.proc.send_signal(signal.SIGTERM)
+        wall = sim.wait()
+    except BaseException:
+        sim.kill()
+        raise
+    dev = trace_device(prof_dir)
+    timings = {k: (v.get("total_seconds"), v.get("count")) for k, v in metrics["timings"].items()}
+    split = ", ".join(f"{k} {tot:.3f} s / {n}" for k, (tot, n) in sorted(timings.items()) if tot is not None)
+    # The first pass's timed sections run one after another inside it, so
+    # their sum is at most the pass's wall; the trace's busy time covers
+    # every pass (the retries too), so it is at least the first pass's.
+    timed_s = sum(tot for tot, _ in timings.values() if tot is not None)
+    idle_window = 1 - dev["busy_ms"] / 1e3 / dev["window_s"]
+    idle_pass_min = 1 - dev["busy_ms"] / 1e3 / timed_s
+    print(f"  ({label}) simulator: first pass over {n_pods} pods done {first_pass_s:.1f} s after start "
+          f"({placed} placed, each pod's node and first attempt equal to the one-pass run); export "
+          f"{len(body)} bytes in {export_s:.2f} s; reset 202 and the boot state (no pods, no nodes) "
+          f"re-exported; SIGTERM -> exit 0, {wall:.1f} s in all {card}\n"
+          f"    the service's split at the first pass (seconds / calls; bind = the binds and the annotations "
+          f"rendered and written): {split}\n"
+          f"    the card in the server's torch.profiler trace (every pass): launches {dev['launches']}, "
+          f"{ {k: round(v, 3) for k, v in dev['named_ms'].items()} } ms; all kernels {dev['kernel_ms']:.3f} ms, "
+          f"copies and memsets {dev['copy_ms']:.3f} ms; busy {dev['busy_ms']:.3f} ms of the "
+          f"{dev['window_s']:.2f} s traced window (idle {100 * idle_window:.2f}%); the first pass's timed "
+          f"sections sum to {timed_s:.3f} s, so the card idled at least {100 * idle_pass_min:.2f}% of that "
+          f"pass {card}", flush=True)
+    return {"wall_s": wall, "first_pass_s": first_pass_s, "export_s": export_s, "export_bytes": len(body),
+            "timings": timings, "trace_launches": dev["launches"], "device": dev, "idle_window": idle_window,
+            "idle_first_pass_min": idle_pass_min, "placed": placed}
+
+
+class FrontRefs:
+    """Phase 12's inputs and its three --device cpu runs of cmd.scheduler,
+    made and started as soon as the kernels are built: (a)'s, (c)'s (under
+    KSIM_PNTS_EMULATION=1) and (d)'s (behind the webhook extender served
+    here).  They run on the last two CPU cores beside phases 3-4, whose
+    work is on the card, and are done when phase 12 reads them; ``close``
+    (also at exit) stops them and the extender."""
+
+    def __init__(self) -> None:
+        self.work = Path(tempfile.mkdtemp(prefix="ksim-front-"))
+        nodes, pods = random_cluster(0, *FRONT_SHAPE, bound_fraction=0.0)
+        store = ClusterStore()
+        for obj in nodes:
+            store.create("nodes", obj)
+        for obj in pods:
+            store.create("pods", obj)
+        self.snap_path = self.work / "snapshot.json"
+        self.snap_path.write_text(SnapshotService(store).export_json())
+        self.ext = ThreadingHTTPServer(("127.0.0.1", 0), ParityExtender)
+        self.ext_thread = threading.Thread(target=self.ext.serve_forever, daemon=True)
+        self.ext_thread.start()
+        self.ext_cfg = self.work / "extender.yaml"
+        self.ext_cfg.write_text(json.dumps({"extenders": [{
+            "urlPrefix": f"http://127.0.0.1:{self.ext.server_address[1]}", "filterVerb": "filter",
+            "prioritizeVerb": "prioritize", "weight": 3, "nodeCacheCapable": True}]}))
+        self.sched = ["ksim_tpu_torch.cmd.scheduler", "--snapshot", str(self.snap_path)]
+        cores = sorted(os.sched_getaffinity(0))
+        self.ref_cores = set(cores[-2:]) if len(cores) >= 4 else None
+        env = {"CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+        extra = {"a": ((), {}), "c": ((), FRONT_PNTS), "d": (("--config", str(self.ext_cfg)), {})}
+        self.procs = {leg: FrontProcess(f"{leg}-cpu", self.sched + ["--out", str(self.out(leg)), "--device", "cpu",
+                                                                     *args], self.work, {**env, **leg_env},
+                                        self.ref_cores)
+                      for leg, (args, leg_env) in extra.items()}
+        atexit.register(self.close)
+
+    def out(self, leg: str) -> Path:
+        return self.work / f"{leg}-cpu.json"
+
+    def read(self, leg: str) -> dict:
+        """The first attempts of ``leg``'s CPU run, once it has ended."""
+        self.procs[leg].wait()
+        return first_attempts(json.loads(self.out(leg).read_text()))
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            proc.kill()
+        if self.ext is not None:
+            self.ext.shutdown()
+            self.ext.server_close()
+            self.ext_thread.join(timeout=10)
+            self.ext = None
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def front_door_phase(card: str, refs: FrontRefs) -> dict:
+    """Phase 12: the port's front door on the card, each command as a
+    process: (a) cmd.scheduler, byte-equal to its --device cpu run; (b)
+    cmd.simulator with a one-shot import, its first attempts equal to (a);
+    (c) (b) under KSIM_PNTS_EMULATION=1 (kernel C), against the CPU run
+    under the same env; (d) (b) with a webhook extender (kernel B per
+    pod), against the CPU run; (e) cmd.simulation on the 6k churn lock;
+    (f) the launches of A, C and B in the servers' torch.profiler
+    traces.  (a) and (e) run first, each alone on the machine with no
+    profiler: their walls are what a user of the command waits for.  Then
+    (b)-(d), profiled, run at once, each on its own CPU cores: their walls
+    are a correctness run under load."""
+    t12 = time.perf_counter()
+    work = refs.work
+    n_pods = FRONT_SHAPE[1]
+    ops = list(churn_scenario(0, n_nodes=CHURN_NODES, n_events=6000, ops_per_step=100))
+    doc_path = work / "churn-6k.json"
+    doc_path.write_text(json.dumps({"kind": "SchedulerSimulation", "metadata": {"name": "churn-6k"}, "spec": {
+        "simulator": {"maxPodsPerPass": 1024}, "scenario": {"kind": "Scenario", "spec": spec_from_operations(ops)}}}))
+    out = {}
+    # (a) and (e), each alone: one pass on the card, and the 6k churn.
+    out["a_wall_s"] = FrontProcess("a-card", refs.sched + ["--out", str(work / "a-card.json")], work).wait()
+    refs.procs["a"].wait()
+    card_bytes = (work / "a-card.json").read_bytes()
+    if card_bytes != refs.out("a").read_bytes():
+        raise AssertionError("(a) cmd.scheduler on the card differs from its --device cpu run")
+    want_a = first_attempts(json.loads(card_bytes))
+    placed_a = sum(node is not None for node, _ in want_a.values())
+    print(f"  (a) cmd.scheduler, alone: {placed_a} of {n_pods} pods placed; {len(card_bytes)} bytes, byte-equal to "
+          f"--device cpu; process wall {out['a_wall_s']:.1f} s {card}", flush=True)
+    del card_bytes
+    sim = FrontProcess("e-card", ["ksim_tpu_torch.cmd.simulation", str(doc_path)], work)
+    out["e_wall_s"] = sim.wait()
+    # The status is the last JSON document of the output (indent=1: its
+    # first line is a lone "{"); log lines come before it.
+    text = sim.log_path.read_text()
+    status = json.loads(text[[m.start() for m in re.finditer(r"(?m)^\{$", text)][-1]:])
+    result = status.get("result", {})
+    got = (result.get("eventsApplied"), result.get("podsScheduled"), result.get("unschedulableAttempts"))
+    if status.get("phase") != "Succeeded" or got != CHURN_LOCKS[6000]:
+        raise AssertionError(f"(e) cmd.simulation: {status.get('phase')} {got} against the lock {CHURN_LOCKS[6000]}")
+    out["e_replay_s"] = result["wallSeconds"]
+    print(f"  (e) cmd.simulation, alone: 6k churn ({len(ops)} operations, {len(result['steps'])} steps, per-pass): "
+          f"Succeeded, {got} = the lock; replay {result['wallSeconds']} s, process wall {out['e_wall_s']:.1f} s "
+          f"{card}", flush=True)
+    # (b)-(d) at once: the simulator on the card, plain, sampled (C) and
+    # behind the webhook (B pod by pod), each on its own cores.
+    cores = sorted(os.sched_getaffinity(0))
+    groups = ([set(cores[:2]), set(cores[2:4]), set(cores[4:])] if len(cores) >= 6 else [None] * 3)
+    legs = {"b": dict(want=lambda: want_a), "c": dict(want=lambda: refs.read("c"), env=FRONT_PNTS),
+            "d": dict(want=lambda: refs.read("d"), sched_config=refs.ext_cfg)}
+    with ThreadPoolExecutor(max_workers=len(legs)) as pool:
+        futures = {leg: pool.submit(simulator_leg, leg, work, refs.snap_path, card=card, cores=group, **kw)
+                   for (leg, kw), group in zip(legs.items(), groups)}
+    for leg, future in futures.items():
+        out[leg] = future.result()
+    # (f) each leg's kernel ran on the card.
+    for leg, kernel in (("b", "A"), ("c", "C"), ("d", "B")):
+        if out[leg]["trace_launches"][kernel] < 1:
+            raise AssertionError(f"({leg}): kernel {kernel} launched no time in the server's trace: "
+                                 f"{out[leg]['trace_launches']}")
+    print(f"  (f) launches in the servers' traces: (b) A {out['b']['trace_launches']['A']}, (c) C "
+          f"{out['c']['trace_launches']['C']}, (d) B {out['d']['trace_launches']['B']}", flush=True)
+    refs.close()
+    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s {card}", flush=True)
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -1890,6 +2261,9 @@ def main() -> int:
     print(f"built {', '.join(early)} in {time.perf_counter() - t0:.1f}s; "
           f"{', '.join(late.names)} building beside phases 3-5")
     print_build_log(early)
+    # Phase 12's CPU runs go beside phases 3-4 on two cores of their own.
+    front_refs = FrontRefs()
+    print(f"  phase 12's --device cpu runs of cmd.scheduler started on cores {sorted(front_refs.ref_cores or ())}")
 
     phase(f"3 kernel vs plain ({SMALL[0]} nodes x {SMALL[1]} pods)")
     n_small, p_small = SMALL
@@ -2242,6 +2616,9 @@ def main() -> int:
     default_ms = {"A": ms_a, "C queue": ms_c_queue, "B fused": ms_b, "B chunk": ms_bc, "D": churn["replay_segment"][0]}
     ext = extension_phase(check, card, smi, nodes, pods, default_ms, args.seed)
 
+    phase("12 the front door: the port's commands as processes on the card")
+    front = front_door_phase(card, front_refs)
+
     plain_ms["node_summary"] = ns["plain_ms"]
     measured = {
         "schedule_scan": (ms_a, a_bound, a_by, f"{P}x{N} selection"),
@@ -2278,6 +2655,12 @@ def main() -> int:
              "replay_segment_fleet": {"launches_are": "launches on the vmap leg of phase 7", **fleet["extra"]}}
     for name, note in ext["samples"].items():
         notes.setdefault(name, {})["phase_11"] = note
+    # Phase 12's launches ran in the servers' processes: their count is
+    # the card's kernel records in each server's torch.profiler trace.
+    for name, leg, key in (("schedule_scan", "b", "A"), ("schedule_sampled", "c", "C"), ("batch_eval", "d", "B")):
+        notes.setdefault(name, {})["phase_12"] = {"leg": leg, "trace_launches": front[leg]["trace_launches"][key],
+                                                  "trace_ms": front[leg]["device"]["named_ms"][key],
+                                                  "leg_wall_s": front[leg]["wall_s"]}
     kernels = [
         {
             "name": name,

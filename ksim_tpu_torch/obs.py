@@ -1,6 +1,7 @@
-"""Process-global trace plane: spans, latency histograms, event ring.
+"""Process-global trace plane: spans, latency histograms, event ring,
+and the fleet observability plane's merging and Prometheus exposition.
 
-The port's share of ksim_tpu/obs.py: what its modules call.
+The port of ksim_tpu/obs.py.
 
 - **Spans** -- named intervals on a monotonic clock (``TRACE.span``),
   one per pipeline phase (segment lower / dispatch / reconcile, the
@@ -13,7 +14,13 @@ The port's share of ksim_tpu/obs.py: what its modules call.
 - **Providers** -- ``register_provider``: named evidence snapshots (the
   replay driver's ``stats()``).
 - **Export** -- ``KSIM_TRACE_OUT=path`` writes the ring as Chrome
-  trace-event JSON at process exit.
+  trace-event JSON at process exit; ``/api/v1/trace`` serves the same
+  document live.
+- **Fleet documents** -- ``merge_fleet_docs`` / ``merge_chrome_traces``
+  fold many processes' evidence; ``render_prometheus`` /
+  ``parse_prometheus`` speak the Prometheus text format (``GET
+  /metrics``).  The scoped planes, the record sink and the publishing
+  of ``ksim_tpu``'s obs.py come with its job plane, not ported yet.
 
 Nothing here reads or writes scheduling state, so the churn behavior
 locks hold with tracing enabled.  With the plane disabled every site
@@ -50,8 +57,15 @@ __all__ = [
     "LatencyHistogram",
     "SPAN_NAMES",
     "EVENT_NAMES",
+    "METRIC_NAMES",
     "register_provider",
     "provider_snapshots",
+    "process_identity",
+    "merge_latency_snapshots",
+    "merge_fleet_docs",
+    "merge_chrome_traces",
+    "render_prometheus",
+    "parse_prometheus",
 ]
 
 # ---------------------------------------------------------------------------
@@ -75,6 +89,10 @@ SPAN_NAMES: tuple[str, ...] = (
     "scenario.ingest",  # one materialized trace ingestion: parse +
     #                     resample + compile (traces/compile.py)
     "traces.stream",  # the streaming producer's life (traces/stream.py)
+    "writeback.push",  # live-cluster write-back push (syncer/writeback.py)
+    "kubeapi.request",  # any kube-apiserver HTTP request (syncer/kubeapi.py)
+    "obs.fleet_merge",  # one fleet-scope aggregation (merge_fleet_docs /
+    #                     merge_chrome_traces)
 )
 
 #: Instant event names.
@@ -97,6 +115,91 @@ EVENT_NAMES: tuple[str, ...] = (
     #                                cohort (args.lane, args.reason) and
     #                                continues on the solo device path
     #                                (engine/fleet.py)
+    "obs.snapshot_stale",  # fleet aggregation found a worker snapshot
+    #                        older than its publish cadence allows
+    #                        (args: worker / stale_s; the worker is
+    #                        flagged in the merged document, not dropped)
+)
+
+
+_KNOWN_NAMES = frozenset(SPAN_NAMES) | frozenset(EVENT_NAMES)
+
+#: Prometheus exposition metric FAMILY names (``GET /metrics``), the
+#: same as ``ksim_tpu``'s: every ``_expo_family("...")`` literal below
+#: is registered here.  Individual counter/timer/site names become LABELS (``name`` /
+#: ``site``), not families, so the family set stays a static literal.
+METRIC_NAMES: tuple[str, ...] = (
+    "ksim_counter_total",
+    "ksim_event_total",
+    "ksim_fault_calls_total",
+    "ksim_fault_fired_total",
+    "ksim_latency_seconds",
+    "ksim_queue_depth",
+    "ksim_queue_capacity",
+    "ksim_workers_pool",
+    "ksim_workers_active",
+    "ksim_breaker_open",
+    "ksim_uptime_seconds",
+    "ksim_snapshot_age_seconds",
+    "ksim_up",
+    "ksim_trace_ring_evicted_total",
+)
+
+
+def _expo_family(name: str, kind: str, help_: str) -> dict:
+    """Declare one exposition family.  The first argument MUST be a
+    string literal — the registry-literals rule scans these calls the
+    same way it scans ``TRACE.span("...")`` sites."""
+    return {"name": name, "kind": kind, "help": help_}
+
+
+#: The exposition surface, in render order.  ``kind`` is the Prometheus
+#: TYPE; histogram families render ``_bucket``/``_sum``/``_count``
+#: samples with ``le`` labels from the fixed LatencyHistogram edges.
+_EXPO_FAMILIES: tuple[dict, ...] = (
+    _expo_family(
+        "ksim_counter_total", "counter",
+        "Scheduler counters (label: name).",
+    ),
+    _expo_family(
+        "ksim_event_total", "counter",
+        "Trace-plane instant events (label: name).",
+    ),
+    _expo_family(
+        "ksim_fault_calls_total", "counter",
+        "Fault-plane site traversals (label: site).",
+    ),
+    _expo_family(
+        "ksim_fault_fired_total", "counter",
+        "Fault-plane injections fired (label: site).",
+    ),
+    _expo_family(
+        "ksim_latency_seconds", "histogram",
+        "Latency histograms over the fixed log-spaced edges "
+        "(label: site = span or timer name).",
+    ),
+    _expo_family("ksim_queue_depth", "gauge", "Job queue depth."),
+    _expo_family("ksim_queue_capacity", "gauge", "Job queue capacity."),
+    _expo_family("ksim_workers_pool", "gauge", "Local worker pool size."),
+    _expo_family(
+        "ksim_workers_active", "gauge", "Local workers running a job.",
+    ),
+    _expo_family(
+        "ksim_breaker_open", "gauge",
+        "Replay circuit breaker state (1 = open).",
+    ),
+    _expo_family("ksim_uptime_seconds", "gauge", "Process uptime."),
+    _expo_family(
+        "ksim_snapshot_age_seconds", "gauge",
+        "Age of a worker's published snapshot (fleet scope).",
+    ),
+    _expo_family(
+        "ksim_up", "gauge", "1 = snapshot fresh, 0 = stale.",
+    ),
+    _expo_family(
+        "ksim_trace_ring_evicted_total", "counter",
+        "Trace ring records evicted.",
+    ),
 )
 
 
@@ -182,6 +285,62 @@ class LatencyHistogram:
             "p99_seconds": round(self.quantile(0.99), 6),
             "buckets": buckets,
         }
+
+    def merge_snapshot(self, snap: dict) -> None:
+        """Fold one ``snapshot()`` document into this histogram,
+        bucket-for-bucket.  EXACT by construction: the edges are fixed
+        (never adaptive), so two snapshots' buckets are the same
+        partition of the real line and addition loses nothing — the
+        merged quantiles are as honest as solo ones.  A bucket edge
+        that is not one of ours means the snapshot came from a
+        different (future?) edge layout: fail loudly rather than fold
+        counts into the wrong bucket."""
+        count = int(snap.get("count") or 0)
+        if count <= 0:
+            return
+        for edge, c in snap.get("buckets") or ():
+            if edge is None:
+                i = len(self.EDGES)
+            else:
+                i = _EDGE_INDEX.get(edge)
+                if i is None:
+                    raise ValueError(
+                        f"snapshot bucket edge {edge!r} is not one of the "
+                        f"fixed histogram edges"
+                    )
+            self.counts[i] += int(c)
+        self.count += count
+        self.total += float(snap.get("total_seconds") or 0.0)
+        vmin = snap.get("min_seconds")
+        if vmin is not None and float(vmin) < self.vmin:
+            self.vmin = float(vmin)
+        vmax = snap.get("max_seconds")
+        if vmax is not None and float(vmax) > self.vmax:
+            self.vmax = float(vmax)
+
+    @classmethod
+    def from_snapshot(cls, snap: dict) -> "LatencyHistogram":
+        h = cls()
+        h.merge_snapshot(snap)
+        return h
+
+
+#: Serialized-edge -> bucket index (snapshots round edges to 9 digits;
+#: JSON round-trips floats exactly, so dict lookup is safe).
+_EDGE_INDEX: dict[float, int] = {
+    round(e, 9): i for i, e in enumerate(LatencyHistogram.EDGES)
+}
+
+
+def merge_latency_snapshots(snaps: "list[dict]") -> dict:
+    """Bucket-wise merge of K ``LatencyHistogram.snapshot()`` documents
+    into one merged snapshot (the fleet aggregation primitive; the
+    property test in tests/test_obs_fleet.py pins merge == histogram of
+    the concatenated observations)."""
+    h = LatencyHistogram()
+    for snap in snaps:
+        h.merge_snapshot(snap)
+    return h.snapshot()
 
 
 # ---------------------------------------------------------------------------
@@ -419,7 +578,8 @@ class TracePlane:
             return {n: (h.total, h.count) for n, h in self._hist.items()}
 
     def snapshot(self) -> dict:
-        """Histograms + event counters + ring pressure, JSON-ready."""
+        """Histograms + event counters + ring pressure, JSON-ready (the
+        ``trace`` section of /api/v1/metrics)."""
         with self._lock:
             return {
                 "enabled": self._active,
@@ -475,10 +635,15 @@ class TracePlane:
         object format, so Perfetto metadata can ride along); write it
         to ``path`` when given.  Returns the document either way.
 
-        The ``otherData`` metadata carries what the ring cannot: the
-        per-phase histogram totals (``phase_totals``), the eviction
-        count, and ``epoch_unix_s``, the wall-clock instant of this
-        plane's perf_counter epoch."""
+        The ``otherData`` metadata carries what the RING cannot: the
+        per-phase histogram totals (``phase_totals``) and the eviction
+        count, so a consumer of an export whose ring wrapped knows
+        exactly how many records were dropped and what the aggregate
+        timings were anyway; and ``epoch_unix_s``, the wall-clock
+        instant of this plane's perf_counter epoch, which is what lets
+        ``merge_chrome_traces`` align exports from different processes
+        (each plane's ``ts`` values are relative to its own epoch) on
+        one timeline."""
         now_wall = time.time()
         now_ns = time.perf_counter_ns()
         with self._lock:
@@ -505,7 +670,8 @@ class TracePlane:
             },
         }
         if path:
-            # Crash-atomic: a reader never sees a torn file.
+            # Crash-atomic, same discipline as lease/journal compaction:
+            # a reader (the fleet trace merge) never sees a torn file.
             tmp = f"{path}.tmp{os.getpid()}"
             with open(tmp, "w") as f:
                 json.dump(doc, f)
@@ -556,6 +722,578 @@ def provider_snapshots() -> dict[str, dict]:
 #: the environment.
 TRACE = TracePlane()
 TRACE.configure_from_env()
+
+
+# ---------------------------------------------------------------------------
+# Fleet observability plane
+#
+# ``merge_fleet_docs`` folds workers' evidence documents into one
+# fleet-scope document (counters sum, histograms merge bucket-wise
+# exactly) and ``render_prometheus`` renders either scope as Prometheus
+# text exposition.  Publishing and reading workers' snapshots come with
+# the job plane (``ksim_tpu``'s jobs/fleet.py), not ported yet.
+# Everything here is stdlib-only, like the rest of the module.
+# ---------------------------------------------------------------------------
+
+_STARTED_AT = time.time()
+
+
+def process_identity(
+    *, role: "str | None" = None, worker_id: "str | None" = None
+) -> dict:
+    """The process-identity block every metrics document carries (solo
+    ``/api/v1/metrics`` and published fleet snapshots alike): who
+    produced this evidence, from which process, alive since when."""
+    return {
+        "role": role or "solo",
+        "worker_id": worker_id or f"w{os.getpid()}",
+        "pid": os.getpid(),
+        "started_at": round(_STARTED_AT, 3),
+        "uptime_s": round(time.time() - _STARTED_AT, 3),
+    }
+
+
+def merge_fleet_docs(
+    docs: "dict[str, dict]",
+    *,
+    now: "float | None" = None,
+    stale_after: "float | None" = None,
+) -> dict:
+    """Fold per-worker snapshot documents into ONE fleet document:
+    counters and event/fault counts SUM; latency histograms (Metrics
+    timings and trace-plane span histograms alike) merge bucket-wise
+    exactly into ``timings``; each worker's full document survives
+    under ``workers[<id>]`` with its identity block plus ``stale_s`` /
+    ``stale`` — a dead worker is FLAGGED (and an ``obs.snapshot_stale``
+    event fires), never silently dropped.  A snapshot is stale past
+    ``stale_after`` seconds (default: 3x its own published cadence,
+    floored at 1 s)."""
+    with TRACE.span("obs.fleet_merge", workers=len(docs)):
+        if now is None:
+            now = time.time()
+        workers: dict[str, dict] = {}
+        counters: dict[str, float] = {}
+        events: dict[str, int] = {}
+        faults: dict[str, dict] = {}
+        hists: dict[str, LatencyHistogram] = {}
+        for wid in sorted(docs):
+            doc = docs[wid]
+            ident = doc.get("process") or {}
+            published = float(ident.get("published_at") or 0.0)
+            cadence = float(ident.get("publish_s") or 0.0) or 10.0
+            stale_s = max(0.0, now - published) if published else None
+            limit = (
+                stale_after
+                if stale_after is not None
+                else max(3.0 * cadence, 1.0)
+            )
+            stale = stale_s is None or stale_s > limit
+            if stale:
+                TRACE.event(
+                    "obs.snapshot_stale",
+                    worker=wid,
+                    stale_s=None if stale_s is None else round(stale_s, 3),
+                )
+            wdoc = dict(doc)
+            wdoc["stale"] = stale
+            wdoc["stale_s"] = (
+                None if stale_s is None else round(stale_s, 3)
+            )
+            workers[wid] = wdoc
+            for name, v in (doc.get("counters") or {}).items():
+                if isinstance(v, (int, float)):
+                    counters[name] = counters.get(name, 0) + v
+            trace = doc.get("trace") or {}
+            for name, v in (trace.get("events") or {}).items():
+                if isinstance(v, (int, float)):
+                    events[name] = events.get(name, 0) + int(v)
+            for section in (
+                doc.get("timings") or {},
+                trace.get("histograms") or {},
+            ):
+                for name, snap in section.items():
+                    if isinstance(snap, dict):
+                        hists.setdefault(
+                            name, LatencyHistogram()
+                        ).merge_snapshot(snap)
+            for site, c in (doc.get("faults") or {}).items():
+                if not isinstance(c, dict):
+                    continue
+                agg = faults.setdefault(site, {"calls": 0, "fired": 0})
+                agg["calls"] += int(c.get("calls") or 0)
+                agg["fired"] += int(c.get("fired") or 0)
+        return {
+            "scope": "fleet",
+            "generated_at": round(now, 3),
+            "workers": workers,
+            "counters": counters,
+            "timings": {n: h.snapshot() for n, h in sorted(hists.items())},
+            "trace": {"events": events},
+            "faults": faults,
+        }
+
+
+def _flow_events(events: "list[dict]") -> "list[dict]":
+    """Chrome flow events (``s``/``t``/``f`` phases) stitching each
+    job's ``jobs.enqueue`` -> ``jobs.fleet_claim`` -> ``jobs.run``
+    records into one arrow across process lanes.  Only COMPLETE triples
+    emit — a partial chain (job still queued, ring evicted an anchor)
+    draws no arrow rather than a misleading stub."""
+    anchors: dict[str, dict] = {}
+    want = {
+        "jobs.enqueue": "s",
+        "jobs.fleet_claim": "t",
+        "jobs.run": "f",
+    }
+    for ev in events:
+        ph = want.get(ev.get("name") or "")
+        if ph is None:
+            continue
+        args = ev.get("args") or {}
+        jid = args.get("job")
+        if not isinstance(jid, str):
+            continue
+        anchors.setdefault(jid, {}).setdefault(ph, ev)
+    out: list[dict] = []
+    for idx, jid in enumerate(sorted(anchors)):
+        chain = anchors[jid]
+        if len(chain) != 3:
+            continue
+        for ph in ("s", "t", "f"):
+            ev = chain[ph]
+            rec = {
+                "ph": ph,
+                "name": "jobs.flow",
+                "cat": "jobs",
+                "id": idx + 1,
+                "ts": ev.get("ts", 0),
+                "pid": ev.get("pid"),
+                "tid": ev.get("tid"),
+                "args": {"job": jid},
+            }
+            if ph == "f":
+                rec["bp"] = "e"  # bind the arrow end to the run slice
+            out.append(rec)
+    return out
+
+
+def merge_chrome_traces(
+    docs: "dict[str, dict]", *, flows: bool = False
+) -> dict:
+    """Merge per-process Chrome trace exports into ONE document with
+    one process lane per worker.  Each export's ``ts`` values are
+    relative to its own plane's perf_counter epoch; the exports'
+    ``epoch_unix_s`` anchors rebase them all onto the EARLIEST epoch,
+    so cross-process ordering is honest to wall-clock sync.  The
+    merged document records its own base epoch, so merges compose
+    (a worker's local global+per-job merge feeds the frontdoor's
+    fleet merge).  ``flows=True`` additionally synthesizes the
+    submit->claim->run flow arrows (``_flow_events``)."""
+    with TRACE.span("obs.fleet_merge", traces=len(docs)):
+        epochs: dict[str, float] = {}
+        for wid, doc in docs.items():
+            od = doc.get("otherData") or {}
+            try:
+                epochs[wid] = float(od.get("epoch_unix_s") or 0.0)
+            except (TypeError, ValueError):
+                epochs[wid] = 0.0
+        known = [e for e in epochs.values() if e]
+        base = min(known) if known else 0.0
+        merged: list[dict] = []
+        lane_names: dict = {}  # pid -> worker id (first wins)
+        named: set = set()  # pids already carrying process_name metadata
+        for wid in sorted(docs):
+            doc = docs[wid]
+            od = doc.get("otherData") or {}
+            doc_pid = od.get("pid")
+            off_us = (epochs[wid] - base) * 1e6 if epochs[wid] else 0.0
+            for ev in doc.get("traceEvents") or ():
+                ev = dict(ev)
+                pid = ev.get("pid", doc_pid)
+                if ev.get("ph") == "M" and ev.get("name") == "process_name":
+                    named.add(pid)
+                elif pid is not None and pid not in lane_names:
+                    lane_names[pid] = wid
+                if "ts" in ev and off_us:
+                    ev["ts"] = ev["ts"] + off_us
+                merged.append(ev)
+        meta = [
+            {
+                "ph": "M",
+                "name": "process_name",
+                "pid": pid,
+                "tid": 0,
+                "args": {"name": wid},
+            }
+            for pid, wid in lane_names.items()
+            if pid not in named
+        ]
+        events = meta + merged
+        if flows:
+            events = events + _flow_events(merged)
+        return {
+            "traceEvents": events,
+            "displayTimeUnit": "ms",
+            "otherData": {
+                "producer": "ksim_tpu_torch.obs",
+                "pid": os.getpid(),
+                "merged": sorted(docs),
+                "epoch_unix_s": base,
+            },
+        }
+
+
+# -- Prometheus text exposition ---------------------------------------------
+
+
+def _escape_label(value) -> str:
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _fmt_value(v) -> str:
+    f = float(v)
+    if f != f:
+        return "NaN"
+    if f == float("inf"):
+        return "+Inf"
+    if f == float("-inf"):
+        return "-Inf"
+    return format(f, ".10g")
+
+
+def _fmt_edge(edge: float) -> str:
+    return format(edge, ".9g")
+
+
+def _sample_line(name: str, labels: dict, value) -> str:
+    if labels:
+        body = ",".join(
+            f'{k}="{_escape_label(v)}"' for k, v in labels.items()
+        )
+        return f"{name}{{{body}}} {_fmt_value(value)}"
+    return f"{name} {_fmt_value(value)}"
+
+
+def _emit_histogram(
+    out: "list[tuple[str, dict, Any]]", family: str, labels: dict, snap: dict
+) -> None:
+    """Expand one LatencyHistogram snapshot into cumulative ``_bucket``
+    samples over EVERY fixed edge (plus ``+Inf``), ``_sum`` and
+    ``_count`` — the native Prometheus histogram shape, ``le``
+    semantics matching ``observe``'s bisect_left exactly."""
+    counts = [0] * (len(LatencyHistogram.EDGES) + 1)
+    for edge, c in snap.get("buckets") or ():
+        i = len(LatencyHistogram.EDGES) if edge is None else _EDGE_INDEX[edge]
+        counts[i] += int(c)
+    cum = 0
+    for i, edge in enumerate(LatencyHistogram.EDGES):
+        cum += counts[i]
+        out.append(
+            (f"{family}_bucket", {**labels, "le": _fmt_edge(edge)}, cum)
+        )
+    cum += counts[-1]
+    out.append((f"{family}_bucket", {**labels, "le": "+Inf"}, cum))
+    out.append((f"{family}_sum", labels, snap.get("total_seconds") or 0.0))
+    out.append((f"{family}_count", labels, snap.get("count") or 0))
+
+
+def _expose_section(
+    samples: "dict[str, list]", doc: dict, labels: dict
+) -> None:
+    """Render one solo-shaped metrics document (a worker snapshot or
+    the serving process's own document) into per-family samples."""
+    for name, v in sorted((doc.get("counters") or {}).items()):
+        if isinstance(v, (int, float)):
+            samples["ksim_counter_total"].append(
+                ("ksim_counter_total", {**labels, "name": name}, v)
+            )
+    trace = doc.get("trace") or {}
+    for name, v in sorted((trace.get("events") or {}).items()):
+        if isinstance(v, (int, float)):
+            samples["ksim_event_total"].append(
+                ("ksim_event_total", {**labels, "name": name}, v)
+            )
+    ring = trace.get("ring") or {}
+    if ring:
+        samples["ksim_trace_ring_evicted_total"].append(
+            (
+                "ksim_trace_ring_evicted_total",
+                labels,
+                ring.get("evicted") or 0,
+            )
+        )
+    merged_hists = dict(doc.get("timings") or {})
+    merged_hists.update(trace.get("histograms") or {})
+    for name in sorted(merged_hists):
+        snap = merged_hists[name]
+        if isinstance(snap, dict):
+            _emit_histogram(
+                samples["ksim_latency_seconds"],
+                "ksim_latency_seconds",
+                {**labels, "site": name},
+                snap,
+            )
+    for site, c in sorted((doc.get("faults") or {}).items()):
+        if not isinstance(c, dict):
+            continue
+        samples["ksim_fault_calls_total"].append(
+            (
+                "ksim_fault_calls_total",
+                {**labels, "site": site},
+                c.get("calls") or 0,
+            )
+        )
+        samples["ksim_fault_fired_total"].append(
+            (
+                "ksim_fault_fired_total",
+                {**labels, "site": site},
+                c.get("fired") or 0,
+            )
+        )
+    jobs = doc.get("jobs") or {}
+    q = jobs.get("queue") or {}
+    if q:
+        samples["ksim_queue_depth"].append(
+            ("ksim_queue_depth", labels, q.get("depth") or 0)
+        )
+        samples["ksim_queue_capacity"].append(
+            ("ksim_queue_capacity", labels, q.get("capacity") or 0)
+        )
+    w = jobs.get("workers") or {}
+    if w:
+        samples["ksim_workers_pool"].append(
+            ("ksim_workers_pool", labels, w.get("pool") or 0)
+        )
+        samples["ksim_workers_active"].append(
+            ("ksim_workers_active", labels, w.get("active") or 0)
+        )
+    replay = doc.get("replay") or {}
+    if isinstance(replay, dict) and "breaker_tripped" in replay:
+        samples["ksim_breaker_open"].append(
+            (
+                "ksim_breaker_open",
+                labels,
+                1.0 if replay["breaker_tripped"] else 0.0,
+            )
+        )
+    ident = doc.get("process") or {}
+    if "uptime_s" in ident:
+        samples["ksim_uptime_seconds"].append(
+            ("ksim_uptime_seconds", labels, ident["uptime_s"])
+        )
+
+
+def render_prometheus(doc: dict) -> str:
+    """Render a metrics document — solo (``/api/v1/metrics`` shape) or
+    fleet (``merge_fleet_docs`` shape) — as Prometheus text exposition.
+    Fleet scope renders PER-WORKER series only (``worker``/``role``
+    labels); a scraper's ``sum()`` re-derives the fleet totals, so
+    nothing is double-counted.  ``parse_prometheus`` round-trips and
+    validates this output in-suite."""
+    samples: dict[str, list] = {f["name"]: [] for f in _EXPO_FAMILIES}
+    if doc.get("scope") == "fleet":
+        for wid, wdoc in sorted((doc.get("workers") or {}).items()):
+            ident = wdoc.get("process") or {}
+            labels = {
+                "worker": str(ident.get("worker_id") or wid),
+                "role": str(ident.get("role") or ""),
+            }
+            _expose_section(samples, wdoc, labels)
+            stale_s = wdoc.get("stale_s")
+            if stale_s is not None:
+                samples["ksim_snapshot_age_seconds"].append(
+                    ("ksim_snapshot_age_seconds", labels, stale_s)
+                )
+            samples["ksim_up"].append(
+                ("ksim_up", labels, 0.0 if wdoc.get("stale") else 1.0)
+            )
+    else:
+        ident = doc.get("process") or {}
+        labels = {
+            "worker": str(ident.get("worker_id") or f"w{os.getpid()}"),
+            "role": str(ident.get("role") or "solo"),
+        }
+        _expose_section(samples, doc, labels)
+        samples["ksim_up"].append(("ksim_up", labels, 1.0))
+    lines: list[str] = []
+    for fam in _EXPO_FAMILIES:
+        rows = samples[fam["name"]]
+        if not rows:
+            continue
+        lines.append(f"# HELP {fam['name']} {fam['help']}")
+        lines.append(f"# TYPE {fam['name']} {fam['kind']}")
+        for name, labels, value in rows:
+            lines.append(_sample_line(name, labels, value))
+    return "\n".join(lines) + "\n"
+
+
+_NAME_START = frozenset(
+    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ_:"
+)
+_NAME_CHARS = _NAME_START | frozenset("0123456789")
+
+
+def _parse_sample(line: str) -> "tuple[str, dict, float]":
+    """Strict parse of one exposition sample line."""
+    i = 0
+    n = len(line)
+    if not line or line[0] not in _NAME_START:
+        raise ValueError(f"bad metric name: {line!r}")
+    while i < n and line[i] in _NAME_CHARS:
+        i += 1
+    name = line[:i]
+    labels: dict[str, str] = {}
+    if i < n and line[i] == "{":
+        i += 1
+        while True:
+            if i >= n:
+                raise ValueError(f"unterminated label set: {line!r}")
+            if line[i] == "}":
+                i += 1
+                break
+            j = i
+            while j < n and line[j] in _NAME_CHARS:
+                j += 1
+            key = line[i:j]
+            if (
+                not key
+                or j + 1 >= n
+                or line[j] != "="
+                or line[j + 1] != '"'
+            ):
+                raise ValueError(f"bad label at col {i}: {line!r}")
+            j += 2
+            buf: list[str] = []
+            while j < n and line[j] != '"':
+                if line[j] == "\\":
+                    if j + 1 >= n:
+                        raise ValueError(f"bad escape: {line!r}")
+                    esc = line[j + 1]
+                    buf.append(
+                        {"n": "\n", "\\": "\\", '"': '"'}.get(esc, esc)
+                    )
+                    j += 2
+                else:
+                    buf.append(line[j])
+                    j += 1
+            if j >= n:
+                raise ValueError(f"unterminated label value: {line!r}")
+            labels[key] = "".join(buf)
+            j += 1
+            if j < n and line[j] == ",":
+                j += 1
+            i = j
+    rest = line[i:].strip()
+    if not rest:
+        raise ValueError(f"sample has no value: {line!r}")
+    value_str = rest.split()[0]
+    if value_str == "+Inf":
+        value = float("inf")
+    elif value_str == "-Inf":
+        value = float("-inf")
+    else:
+        value = float(value_str)
+    return name, labels, value
+
+
+def parse_prometheus(text: str) -> "dict[str, dict]":
+    """Stdlib validator for the exposition format: every sample must
+    follow a ``# TYPE`` for its family, histogram samples must carry
+    coherent ``le`` labels (cumulative, non-decreasing, ``+Inf``
+    present and equal to ``_count``).  Returns families with their
+    parsed samples; raises ``ValueError`` on any violation — the
+    golden test pins the format by parser, not by hope."""
+    families: dict[str, dict] = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("# HELP "):
+            name, _, help_ = line[len("# HELP "):].partition(" ")
+            families.setdefault(
+                name, {"kind": None, "help": None, "samples": []}
+            )["help"] = help_
+            continue
+        if line.startswith("# TYPE "):
+            name, _, kind = line[len("# TYPE "):].partition(" ")
+            fam = families.setdefault(
+                name, {"kind": None, "help": None, "samples": []}
+            )
+            if fam["samples"]:
+                raise ValueError(
+                    f"line {lineno}: TYPE for {name!r} after its samples"
+                )
+            fam["kind"] = kind.strip()
+            continue
+        if line.startswith("#"):
+            continue  # free comment
+        try:
+            name, labels, value = _parse_sample(line)
+        except ValueError as e:
+            raise ValueError(f"line {lineno}: {e}") from None
+        base = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix):
+                cand = name[: -len(suffix)]
+                if families.get(cand, {}).get("kind") == "histogram":
+                    base = cand
+                    break
+        fam = families.get(base)
+        if fam is None or not fam["kind"]:
+            raise ValueError(
+                f"line {lineno}: sample {name!r} has no preceding # TYPE"
+            )
+        if (
+            fam["kind"] == "histogram"
+            and name.endswith("_bucket")
+            and "le" not in labels
+        ):
+            raise ValueError(
+                f"line {lineno}: histogram bucket without le label"
+            )
+        fam["samples"].append({"name": name, "labels": labels, "value": value})
+    for fname, fam in families.items():
+        if fam["kind"] != "histogram":
+            continue
+        series: dict[tuple, dict] = {}
+        for sample in fam["samples"]:
+            name, labels, value = (
+                sample["name"], sample["labels"], sample["value"]
+            )
+            key = tuple(
+                sorted((k, v) for k, v in labels.items() if k != "le")
+            )
+            ent = series.setdefault(key, {"buckets": [], "count": None})
+            if name.endswith("_bucket"):
+                le = labels["le"]
+                ent["buckets"].append(
+                    (float("inf") if le == "+Inf" else float(le), value)
+                )
+            elif name.endswith("_count"):
+                ent["count"] = value
+        for key, ent in series.items():
+            buckets = sorted(ent["buckets"])
+            if not buckets or buckets[-1][0] != float("inf"):
+                raise ValueError(
+                    f"{fname}{dict(key)}: histogram missing +Inf bucket"
+                )
+            prev = -1.0
+            for le, v in buckets:
+                if v < prev:
+                    raise ValueError(
+                        f"{fname}{dict(key)}: bucket counts decrease at "
+                        f"le={le}"
+                    )
+                prev = v
+            if ent["count"] is not None and buckets[-1][1] != ent["count"]:
+                raise ValueError(
+                    f"{fname}{dict(key)}: +Inf bucket != _count"
+                )
+    return families
 
 
 @atexit.register

@@ -133,13 +133,11 @@ class SchedulerService:
             raise NotImplementedError(
                 "shard_mesh: the node-axis mesh is not ported to ksim_tpu_torch"
             )
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "no CUDA device: pass device='cpu' to run the plain PyTorch versions"
-                )
-            device = "cuda"
-        self._device = torch.device(device)
+        self._device = torch.device("cuda" if device is None else device)
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain PyTorch versions"
+            )
         self._exact = bool(exact)
         self._store = store
         # Preemption-eviction observers (add_eviction_listener): notified

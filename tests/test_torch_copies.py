@@ -10,23 +10,32 @@ originals: the same inputs give equal outputs.
   rewrap, delete, transactions committed and rolled back, watches, the
   nodeName partitions) gives the same objects, events and epochs;
 - ``state/priorities.py`` and ``scenario/generate.py``: equal outputs;
-- ``obs.py`` (the part the port keeps): the same spans, events and
-  environment give the same histograms, counters and ring."""
+- ``obs.py``: the same spans, events and environment give the same
+  histograms, counters and ring; histogram merging, the fleet documents'
+  merge, the Chrome-trace merge and the Prometheus text give the same on
+  the same documents;
+- ``config.py``: the same config.yaml and environment give the same
+  SimulatorConfig, and the same refusals."""
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import json
+import random
 
 import pytest
 import torch
+import yaml
 
+from ksim_tpu import config as jax_config
 from ksim_tpu import obs as jax_obs
 from ksim_tpu.plugins import oracle as jax_oracle
 from ksim_tpu.scenario import churn_scenario as jax_churn
 from ksim_tpu.scheduler import preemption as jax_preemption
 from ksim_tpu.state import priorities as jax_priorities
 from ksim_tpu.state.cluster import ClusterStore as JaxStore
-from ksim_tpu_torch import obs
+from ksim_tpu_torch import config, obs
 from ksim_tpu_torch.plugins import oracle
 from ksim_tpu_torch.scenario.generate import churn_scenario
 from ksim_tpu_torch.scheduler import preemption
@@ -235,3 +244,110 @@ def test_trace_plane_equals_original(environ):
         ref.observe(x)
         got.observe(x)
     assert got.snapshot() == ref.snapshot()
+
+
+def _sans_producer(doc: dict) -> dict:
+    doc = json.loads(json.dumps(doc))
+    doc["otherData"].pop("producer")
+    return doc
+
+
+def test_fleet_documents_and_prometheus_equal_original():
+    from tests.test_obs_fleet import _solo_doc, _worker_doc
+
+    rng = random.Random(1234)
+    parts = []
+    for k in range(4):
+        h = jax_obs.LatencyHistogram()
+        for _ in range(10 * k):
+            h.observe(10 ** rng.uniform(-7.5, 2.5))
+        parts.append(h.snapshot())
+    assert obs.merge_latency_snapshots(parts) == jax_obs.merge_latency_snapshots(parts)
+    assert obs.LatencyHistogram.from_snapshot(parts[3]).snapshot() == parts[3]
+    foreign = dict(parts[3], buckets=[[0.123456, 1]])
+    for mod in (obs, jax_obs):
+        with pytest.raises(ValueError, match="fixed histogram edges"):
+            mod.LatencyHistogram().merge_snapshot(foreign)
+    now = 1_000_000.0
+    docs = {"wa": _worker_doc("wa", published_at=now, claims=2),
+            "wb": _worker_doc("wb", published_at=now - 300, claims=3)}
+    merged = obs.merge_fleet_docs(copy.deepcopy(docs), now=now)
+    assert merged == jax_obs.merge_fleet_docs(copy.deepcopy(docs), now=now)
+    for doc in (merged, _solo_doc()):
+        text = obs.render_prometheus(doc)
+        assert text == jax_obs.render_prometheus(doc)
+        assert obs.parse_prometheus(text) == jax_obs.parse_prometheus(text)
+    for bad in ("ksim_up 1\n", "# TYPE h histogram\nh_bucket{le=\"1\"} 2\nh_bucket{le=\"+Inf\"} 1\n"):
+        for mod in (obs, jax_obs):
+            with pytest.raises(ValueError):
+                mod.parse_prometheus(bad)
+    ident, ref_ident = obs.process_identity(role="worker"), jax_obs.process_identity(role="worker")
+    assert ident.keys() == ref_ident.keys()
+    assert (ident["role"], ident["worker_id"], ident["pid"]) == (ref_ident["role"], ref_ident["worker_id"],
+                                                                 ref_ident["pid"])
+    assert obs.METRIC_NAMES == jax_obs.METRIC_NAMES
+    assert [f["name"] for f in obs._EXPO_FAMILIES] == list(obs.METRIC_NAMES)
+
+
+def test_chrome_trace_merge_equals_original():
+    def trace(pid, epoch, events):
+        return {"traceEvents": [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+                                 "args": {"name": f"seed{pid}"}}, *events],
+                "displayTimeUnit": "ms", "otherData": {"epoch_unix_s": epoch}}
+
+    def ev(name, pid, ts, job):
+        return {"name": name, "ph": "X", "pid": pid, "tid": 1, "ts": ts, "dur": 1.0, "args": {"job": job}}
+
+    traces = {"fd": trace(1, 100.0, [ev("jobs.enqueue", 1, 5.0, "j1"), ev("jobs.enqueue", 1, 7.0, "j2")]),
+              "w1": trace(2, 102.0, [ev("jobs.fleet_claim", 2, 10.0, "j1"), ev("jobs.run", 2, 30.0, "j1")]),
+              "w2": {"traceEvents": [ev("service.schedule", 3, 1.0, "j3")], "otherData": {"pid": 3}}}
+    for flows in (False, True):
+        got = obs.merge_chrome_traces(copy.deepcopy(traces), flows=flows)
+        want = jax_obs.merge_chrome_traces(copy.deepcopy(traces), flows=flows)
+        assert _sans_producer(got) == _sans_producer(want)
+        assert got["otherData"]["producer"] == "ksim_tpu_torch.obs"
+
+
+CONFIG_CASES = {
+    "defaults": ({}, {}),
+    "yaml": ({"port": 1313, "host": "0.0.0.0", "corsAllowedOriginList": ["http://a", "http://b"],
+              "kubeSchedulerConfigPath": "{dir}/sched.yaml", "externalImportEnabled": True,
+              "externalSnapshotPath": "{dir}/snap.json", "resourceImportLabelSelector": {"matchLabels": {"a": "b"}},
+              "etcdURL": "ignored"}, {}),
+    "env over yaml": ({"port": 1313, "resourceSyncEnabled": True, "kubeConfig": "{dir}/kube.yaml"},
+                      {"PORT": "2424", "KSIM_HOST": "10.1.2.3", "CORS_ALLOWED_ORIGIN_LIST": "http://x,http://y",
+                       "RESOURCE_SYNC_ENABLED": "false", "EXTERNAL_IMPORT_ENABLED": "yes",
+                       "KUBE_SCHEDULER_CONFIG_PATH": "{dir}/sched.yaml"}),
+    "ambient kubeconfig": ({"resourceSyncEnabled": True}, {"KUBECONFIG": "{dir}/missing:{dir}/kube.yaml"}),
+    "bad port": ({}, {"PORT": "eighty"}),
+    "both sources": ({"externalImportEnabled": True, "externalSnapshotPath": "{dir}/snap.json",
+                      "kubeConfig": "{dir}/kube.yaml"}, {}),
+    "no source": ({"resourceSyncEnabled": True}, {}),
+    "import and sync": ({"externalImportEnabled": True, "resourceSyncEnabled": True,
+                         "externalSnapshotPath": "{dir}/snap.json"}, {}),
+}
+CONFIG_ENV = ("PORT", "KSIM_HOST", "CORS_ALLOWED_ORIGIN_LIST", "KUBE_SCHEDULER_CONFIG_PATH", "EXTERNAL_IMPORT_ENABLED",
+              "RESOURCE_SYNC_ENABLED", "EXTERNAL_SNAPSHOT_PATH", "KUBE_CONFIG", "KUBECONFIG")
+
+
+@pytest.mark.parametrize("case", CONFIG_CASES, ids=list(CONFIG_CASES))
+def test_load_config_equals_original(case, tmp_path, monkeypatch):
+    raw, env = (json.loads(json.dumps(x).replace("{dir}", str(tmp_path))) for x in CONFIG_CASES[case])
+    (tmp_path / "sched.yaml").write_text(yaml.safe_dump({"profiles": [{"schedulerName": "from-yaml"}]}))
+    (tmp_path / "kube.yaml").write_text("{}")
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(raw))
+    for name in CONFIG_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    out = []
+    for mod in (config, jax_config):
+        try:
+            out.append(dataclasses.asdict(mod.load_config(str(tmp_path / "config.yaml"))))
+        except Exception as e:  # the refusals must match too
+            out.append((type(e).__name__, str(e)))
+    assert out[0] == out[1]
+    for mod in (config, jax_config):
+        with pytest.raises(Exception, match="not found") as err:
+            mod.load_config(str(tmp_path / "absent.yaml"))
+        assert type(err.value).__name__ == "InvalidConfigError"

@@ -5,6 +5,7 @@ plain version quietly in place of a kernel."""
 from __future__ import annotations
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -89,6 +90,24 @@ SLICE_MODULES = (
     "ksim_tpu_torch.plugins.samples.nodenumber",
     "ksim_tpu_torch.plugins.samples.lifecycle",
     "ksim_tpu_torch.scheduler.extender",
+    # The tenth slice: the front door.
+    "ksim_tpu_torch.config",
+    "ksim_tpu_torch.oneshotimporter",
+    "ksim_tpu_torch.externalscheduler",
+    "ksim_tpu_torch.syncer",
+    "ksim_tpu_torch.syncer.syncer",
+    "ksim_tpu_torch.syncer.kubeapi",
+    "ksim_tpu_torch.syncer.writeback",
+    "ksim_tpu_torch.server",
+    "ksim_tpu_torch.server.params",
+    "ksim_tpu_torch.server.reset",
+    "ksim_tpu_torch.server.di",
+    "ksim_tpu_torch.server.ui",
+    "ksim_tpu_torch.server.http",
+    "ksim_tpu_torch.cmd",
+    "ksim_tpu_torch.cmd.scheduler",
+    "ksim_tpu_torch.cmd.simulator",
+    "ksim_tpu_torch.cmd.simulation",
 )
 
 
@@ -204,6 +223,44 @@ def test_service_and_runner_need_a_card_unless_the_cpu_is_asked_for():
         with pytest.raises(RuntimeError, match="CUDA"):
             ScenarioRunner()
     assert ScenarioRunner(device="cpu").service._device.type == "cpu"
+
+
+def test_front_door_needs_a_card_unless_the_cpu_is_asked_for(tmp_path):
+    """The DI container and the three commands run on CUDA unless the CPU
+    is asked for; without a card they refuse before serving or writing
+    anything (the service's "no CUDA device")."""
+    from ksim_tpu_torch.cmd.scheduler import run_scheduler
+    from ksim_tpu_torch.cmd.simulation import run_simulation
+    from ksim_tpu_torch.cmd.simulator import start_simulator
+    from ksim_tpu_torch.server import DIContainer
+
+    snap = tmp_path / "snap.json"
+    snap.write_text(json.dumps({"nodes": [make_node("n0")], "pods": [make_pod("p0")]}))
+    sim = tmp_path / "sim.json"
+    sim.write_text(json.dumps({"spec": {"scenario": {"spec": {"operations": [
+        {"step": 0, "createOperation": {"object": {"kind": "Node", **make_node("n1")}}}]}}}}))
+    out = tmp_path / "out.json"
+    (tmp_path / "config.yaml").write_text("port: 0\n")
+    entries = {
+        "DIContainer": lambda *device: DIContainer(device=device[0] if device else None),
+        "run_scheduler": lambda *device: run_scheduler(
+            ["--snapshot", str(snap), "--out", str(out), *(["--device", device[0]] if device else [])]),
+        "start_simulator": lambda *device: start_simulator(
+            ["--config", str(tmp_path / "config.yaml"), *(["--device", device[0]] if device else [])]),
+        "run_simulation": lambda *device: run_simulation([str(sim), *(["--device", device[0]] if device else [])]),
+    }
+    if torch.cuda.is_available():
+        assert DIContainer().scheduler_service._device.type == "cuda"
+        return
+    for name, entry in entries.items():
+        for device in ((), ("cuda",)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                entry(*device)
+    assert not out.exists()
+    assert DIContainer(device="cpu").scheduler_service._device.type == "cpu"
+    assert run_scheduler(["--snapshot", str(snap), "--out", str(out), "--device", "cpu"]) == 0
+    assert json.loads(out.read_text())["pods"][0]["spec"]["nodeName"] == "n0"
+    assert run_simulation([str(sim), "--device", "cpu"]) == 0
 
 
 def test_unported_surfaces_refuse(monkeypatch, tmp_path):

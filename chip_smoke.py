@@ -28,19 +28,25 @@ Phases, in order; any failure exits non-zero before the last line:
    the first 2048 pods.  The kernels' launch counts are read around
    exactly that; then the results are held against the plain versions
    and the commit invariant: kernel A's whole-queue pass against the
-   plain scan over the whole queue, kernel C's against the plain sampled
-   scan over the first 2048 pods (a sequential scan's prefix is the
-   whole run's prefix; the plain sampled scan over the whole queue would
-   take a third of the run's time limit).  Kernels A and C run on one
+   plain scan over the first 2048 pods on the card (the record="full"
+   one, timed) and over the whole queue on the CPU (selections and final node state: a child
+   process, `--plain-queue`, started after phase 2 on two cores beside
+   phases 3-9, no CUDA context; its result and the pairs it counted,
+   for A's bound, are read at the end, its inputs' digest held equal to
+   the main path's), kernel C's against the plain sampled scan over the
+   first 2048 pods (a sequential scan's prefix is the whole run's
+   prefix; the plain scans over the whole queue on the card would take
+   a third of the run's time limit).  Kernels A and C run on one
    thread-block cluster whose size the launch picks (16 blocks where the
    card has room, else 8); the main path must get at least 8;
 5. timings with CUDA events, beside each kernel's bound.  Kernels A and C
-   at clusters of 8 and of 16 blocks, each size held equal to the plain
-   versions again (A's whole queue, C's 2048-pod full-record pass and its
-   whole queue's prefix) and timed, with the microseconds per real pod,
+   at clusters of 8 and of 16 blocks, each size held equal again (A's
+   whole queue to the main path's launch, C's 2048-pod full-record pass
+   and its whole queue's prefix to the plain versions) and timed, with the microseconds per real pod,
    the cluster barriers per evaluated pod and block 0's cycles by phase
    of a pod (counted by the kernel).  Each kernel's ms, plain_ms and
-   bound_ms are taken on one shape: A over the whole queue (selection),
+   bound_ms are taken on one shape: A over the whole queue (selection;
+   its plain_ms over the first 2048 pods, record="full", "plain_shape"),
    B fused over the whole queue (final), C on the 2048-pod full-record
    pass; C's whole-queue selection time is printed on its own line and
    kept as the kernel's "queue_ms", beside its bound ("queue_bound_ms")
@@ -163,7 +169,25 @@ Phases, in order; any failure exits non-zero before the last line:
    idle share.  The three `--device cpu` runs start after phase 2, on the
    last two CPU cores beside phases 3-4; (a) and (e) run alone and
    unprofiled (the commands' front-door walls); (b)-(d) run at once, each
-   on its own cores (a correctness run under load).
+   on its own cores (a correctness run under load);
+13. the job plane: the simulator as a process on the card with
+   KSIM_JOBS_DIR (a fresh directory) and KSIM_JOBS_CHECKPOINT_EVERY=1,
+   its torch.profiler on: (a) the 6k churn document (seed 0, 2000 nodes,
+   100 operations per step) POSTed to /api/v1/jobs with deviceReplay:
+   true, its SSE stream followed to the end, its result Succeeded with
+   the lock 6430 / 2524 / 471; (b) the same document with fleet: 2
+   (KSIM_FLEET_VMAP=1: kernel D's lanes entry), each lane [2524, 471];
+   SIGTERM, and the server's trace holds replay_segment and
+   replay_segment_fleet launches; (c) a second server on the same
+   directory takes the (a) document again; once the journal holds the job's
+   first checkpoint record it is SIGKILLed (its KSIM_JOBS_FAULTS holds
+   that job's first two dispatches 3 s each, so the kill lands while the
+   second waits), and a third, with KSIM_JOBS_RESUME=1, resumes the job
+   from that checkpoint (fromSegment >= 1, fewer than 6430 events
+   replayed, on kernel D) to the same lock, and serves (a)'s result as
+   the first server did (equal in canonical JSON: the journal stores
+   sorted keys) and byte for byte as the second did.  Phase 13 runs at
+   the same time as phase 12's (b)-(d), each leg on two cores of its own.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds (each with
@@ -173,6 +197,7 @@ its phase-11 numbers, all measured in this run, under "phase_11").
 from __future__ import annotations
 
 import atexit
+import hashlib
 import http.client
 import json
 import os
@@ -354,6 +379,9 @@ FRONT_SHAPE = (200, 1000)
 FRONT_WAIT_S = 300
 FRONT_KERNELS = {"A": "cluster_scan_kernel<false", "C": "cluster_scan_kernel<true", "B": "batch_eval_kernel"}
 FRONT_PNTS = {"KSIM_PNTS_EMULATION": "1"}
+# Phase 13: kernel D's two entries by their names in a CUDA trace.
+JOB_KERNELS = {"D": "replay_segment_kernel", "D lanes": "replay_segment_lanes_kernel"}
+JOB_WAIT_S = 240
 
 
 class PlainEngine(Engine):
@@ -574,6 +602,94 @@ def sampled_queue_bound(prog, state, pods, aux, carries, start, n_real: int, who
     n_ops = (ops["sample"] + ops["commit"]) * n_pods * n_real + ops["filter"] * visited + ops["score"] * scored
     bound, by = bound_ms(n_bytes, n_ops)
     return bound, by, f"{visited} visited pairs, {scored} scored, {n_bytes} bytes"
+
+
+def tensor_digest(tree, h=None) -> str:
+    """A sha256 over every tensor of ``tree`` (shape, dtype and values, in
+    traversal order, dict keys sorted): the same inputs in two processes
+    hash alike, whatever device holds them."""
+    top = h is None
+    h = hashlib.sha256() if top else h
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu().contiguous()
+        h.update(f"{tuple(t.shape)} {t.dtype}".encode())
+        h.update(t.numpy().tobytes())
+    elif isinstance(tree, dict):
+        for key in sorted(tree):
+            h.update(str(key).encode())
+            tensor_digest(tree[key], h)
+    else:
+        for v in tree:
+            tensor_digest(v, h)
+    return h.hexdigest() if top else ""
+
+
+def main_path_inputs(device):
+    """Phase 4's cluster, featurized, its plugins, and the
+    record="selection" engine on ``device`` that kernel A's whole-queue
+    pass runs in."""
+    nodes, pods = random_cluster(0, *MAIN, bound_fraction=0.0)
+    feats = Featurizer().featurize(nodes, pods)
+    plugins = default_plugins(feats)
+    sched = Engine(feats, plugins, record="selection", exact=True, device=device)
+    return nodes, pods, feats, plugins, sched
+
+
+def plain_queue_child(out: str) -> int:
+    """``chip_smoke.py --plain-queue OUT.npz`` (started by ``PlainQueue``):
+    kernel A's plain version over phase 4's whole queue on the CPU, with
+    the pairs it evaluates counted; writes the selections, the final node
+    state, the counts, the wall and the inputs' digest."""
+    global DEVICE
+    DEVICE = "cpu"
+    torch.set_num_threads(2)
+    _, _, feats, _, sched = main_path_inputs("cpu")
+    prog, state0, pods0, aux = sched._prog, sched._node_state, sched._pods, sched._aux
+    carries0 = prog.init_carries(aux)
+    digest = tensor_digest((state0, pods0, aux, carries0))
+    t = time.perf_counter()
+    with PairCount(prog, len(feats.pods.keys)) as count:
+        state, _, outs = schedule_scan_plain(prog, state0, pods0, aux, carries0)
+    wall = time.perf_counter() - t
+    np.savez(out, selected=outs["selected"].numpy(), pairs=count.pairs, feasible=count.feasible, wall_s=wall,
+             digest=digest, **{f"state_{f}": getattr(state, f).numpy() for f in state._fields})
+    return 0
+
+
+class PlainQueue:
+    """``plain_queue_child`` as a child process on the CPU (no CUDA
+    context, so it takes nothing from the card's timings), pinned to two
+    cores beside the phases that follow; ``result()`` waits for it."""
+
+    def __init__(self, cores: "set[int] | None") -> None:
+        self.work = Path(tempfile.mkdtemp(prefix="ksim-plain-"))
+        self.out = self.work / "plain-queue.npz"
+        self.log_path = self.work / "plain-queue.log"
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--plain-queue", str(self.out)],
+            stdout=self._log, stderr=subprocess.STDOUT,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "2"})
+        if cores:
+            os.sched_setaffinity(self.proc.pid, cores)
+        atexit.register(self.close)
+
+    def result(self, timeout: float = 900.0) -> dict:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the CPU plain scan outlived {timeout} s") from None
+        if rc != 0:
+            raise AssertionError(f"the CPU plain scan exited {rc}:\n{self.log_path.read_text()[-3000:]}")
+        with np.load(self.out) as z:
+            return {k: z[k] for k in z.files}
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._log.close()
+        shutil.rmtree(self.work, ignore_errors=True)
 
 
 class LateBuild:
@@ -1969,7 +2085,7 @@ class FrontProcess:
         return "\n".join(self.log_path.read_text(errors="replace").splitlines()[-n:])
 
 
-def trace_device(prof_dir: Path) -> dict:
+def trace_device(prof_dir: Path, names: "dict[str, str]" = FRONT_KERNELS) -> dict:
     """The card's records in the torch.profiler traces a server wrote into
     ``prof_dir`` (CUPTI's kernel, copy and memset records of the whole
     process, every pass in it): the launches and milliseconds of A, C and
@@ -1977,8 +2093,8 @@ def trace_device(prof_dir: Path) -> dict:
     card's busy milliseconds (the union of those records) and the traced
     window in seconds (the first complete event's start to the last's
     end)."""
-    launches = dict.fromkeys(FRONT_KERNELS, 0)
-    named_ms = dict.fromkeys(FRONT_KERNELS, 0.0)
+    launches = dict.fromkeys(names, 0)
+    named_ms = dict.fromkeys(names, 0.0)
     kernel_us = copy_us = 0.0
     busy, lo, hi = [], float("inf"), float("-inf")
     paths = sorted(prof_dir.glob("*.pt.trace.json"))
@@ -1993,7 +2109,7 @@ def trace_device(prof_dir: Path) -> dict:
             cat = e.get("cat")
             if cat == "kernel":
                 kernel_us += dur
-                for key, name in FRONT_KERNELS.items():
+                for key, name in names.items():
                     if name in str(e.get("name")):
                         launches[key] += 1
                         named_ms[key] += dur / 1e3
@@ -2161,7 +2277,7 @@ class FrontRefs:
         shutil.rmtree(self.work, ignore_errors=True)
 
 
-def front_door_phase(card: str, refs: FrontRefs) -> dict:
+def front_door_phase(card: str, refs: FrontRefs, beside) -> dict:
     """Phase 12: the port's front door on the card, each command as a
     process: (a) cmd.scheduler, byte-equal to its --device cpu run; (b)
     cmd.simulator with a one-shot import, its first attempts equal to (a);
@@ -2172,7 +2288,8 @@ def front_door_phase(card: str, refs: FrontRefs) -> dict:
     traces.  (a) and (e) run first, each alone on the machine with no
     profiler: their walls are what a user of the command waits for.  Then
     (b)-(d), profiled, run at once, each on its own CPU cores: their walls
-    are a correctness run under load."""
+    are a correctness run under load.  ``beside(cores)`` (phase 13) runs
+    at the same time on cores of its own; its value is ``out["beside"]``."""
     t12 = time.perf_counter()
     work = refs.work
     n_pods = FRONT_SHAPE[1]
@@ -2207,14 +2324,17 @@ def front_door_phase(card: str, refs: FrontRefs) -> dict:
           f"Succeeded, {got} = the lock; replay {result['wallSeconds']} s, process wall {out['e_wall_s']:.1f} s "
           f"{card}", flush=True)
     # (b)-(d) at once: the simulator on the card, plain, sampled (C) and
-    # behind the webhook (B pod by pod), each on its own cores.
+    # behind the webhook (B pod by pod), and phase 13 beside them, each on
+    # cores of its own.
     cores = sorted(os.sched_getaffinity(0))
-    groups = ([set(cores[:2]), set(cores[2:4]), set(cores[4:])] if len(cores) >= 6 else [None] * 3)
+    groups = ([set(cores[:2]), set(cores[2:4]), set(cores[4:6]), set(cores[6:])] if len(cores) >= 8
+              else [None] * 4)
     legs = {"b": dict(want=lambda: want_a), "c": dict(want=lambda: refs.read("c"), env=FRONT_PNTS),
             "d": dict(want=lambda: refs.read("d"), sched_config=refs.ext_cfg)}
-    with ThreadPoolExecutor(max_workers=len(legs)) as pool:
+    with ThreadPoolExecutor(max_workers=len(legs) + 1) as pool:
         futures = {leg: pool.submit(simulator_leg, leg, work, refs.snap_path, card=card, cores=group, **kw)
                    for (leg, kw), group in zip(legs.items(), groups)}
+        out["beside"] = pool.submit(beside, groups[3]).result()
     for leg, future in futures.items():
         out[leg] = future.result()
     # (f) each leg's kernel ran on the card.
@@ -2229,12 +2349,239 @@ def front_door_phase(card: str, refs: FrontRefs) -> dict:
     return out
 
 
+def _post_json(port: int, path: str, doc: dict, timeout: float = 120.0) -> tuple[int, dict]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, json.dumps(doc), {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read() or b"{}")
+    finally:
+        conn.close()
+
+
+def follow_sse(port: int, jid: str, timeout: float = JOB_WAIT_S) -> list:
+    """A job's SSE stream, read to its end (the terminal state event)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", f"/api/v1/jobs/{jid}/events")
+        r = conn.getresponse()
+        if r.status != 200:
+            raise AssertionError(f"SSE of {jid} answered {r.status}")
+        events = []
+        while line := r.readline():
+            if line.startswith(b"data: "):
+                events.append(json.loads(line[6:]))
+        return events
+    finally:
+        conn.close()
+
+
+class JobServer(FrontProcess):
+    """The simulator with the job plane on (phase 13): ``env`` on top of
+    the phase's, ``--profile-dir`` when ``profile``; ready once its job
+    routes answer."""
+
+    def __init__(self, label: str, work: Path, env: dict, profile: bool, cores: "set[int] | None") -> None:
+        self.port = _free_port()
+        cfg_path = work / f"{label}-config.yaml"
+        cfg_path.write_text(json.dumps({"port": self.port}))
+        self.prof_dir = work / f"{label}-profile" if profile else None
+        args = ["ksim_tpu_torch.cmd.simulator", "--config", str(cfg_path)]
+        if profile:
+            args += ["--profile-dir", str(self.prof_dir)]
+        super().__init__(label, args, work, env, cores)
+        while time.perf_counter() - self.t0 < JOB_WAIT_S:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{label}: the simulator exited {self.proc.returncode}:\n{self.tail()}")
+            try:
+                if _http(self.port, "GET", "/api/v1/jobs", timeout=10)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        else:
+            raise AssertionError(f"{label}: no answer in {JOB_WAIT_S} s:\n{self.tail()}")
+        self.ready_s = time.perf_counter() - self.t0
+
+    def run_job(self, doc: dict) -> tuple[str, dict, float, list]:
+        """POST ``doc``, follow its SSE stream to the end, GET its result:
+        (job id, result document, seconds from the POST to the terminal
+        state, the SSE events)."""
+        t = time.perf_counter()
+        status, body = _post_json(self.port, "/api/v1/jobs", doc)
+        if status != 202:
+            raise AssertionError(f"{self.label}: POST /api/v1/jobs answered {status}: {body}")
+        events = follow_sse(self.port, body["id"])
+        wall = time.perf_counter() - t
+        return body["id"], self.result(body["id"]), wall, events
+
+    def result(self, jid: str) -> dict:
+        status, raw = _http(self.port, "GET", f"/api/v1/jobs/{jid}/result")
+        if status != 200:
+            raise AssertionError(f"{self.label}: GET the result of {jid} answered {status}")
+        doc = json.loads(raw)
+        doc["_raw"] = raw
+        return doc
+
+    def stop(self) -> dict:
+        """SIGTERM -> exit 0; the card's records in its trace."""
+        self.proc.send_signal(signal.SIGTERM)
+        self.wait()
+        return trace_device(self.prof_dir, JOB_KERNELS) if self.prof_dir else {}
+
+
+def lock_of(doc: dict) -> tuple:
+    res = doc.get("result") or {}
+    return (res.get("eventsApplied"), res.get("podsScheduled"), res.get("unschedulableAttempts"))
+
+
+def wait_for_checkpoint(path: Path, jid: str, proc: subprocess.Popen, timeout: float = JOB_WAIT_S) -> float:
+    """Read the journal as it grows until it holds ``jid``'s first
+    checkpoint record (a whole line); returns the seconds waited."""
+    t0 = time.perf_counter()
+    needle, offset, buf = f'"id":"{jid}"'.encode(), 0, b""
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            raise AssertionError(f"the server exited {proc.returncode} before {jid}'s first checkpoint")
+        try:
+            size = path.stat().st_size
+        except FileNotFoundError:
+            size = 0
+        if size < offset:  # compacted: read it again from the start
+            offset, buf = 0, b""
+        if size > offset:
+            with open(path, "rb") as f:
+                f.seek(offset)
+                buf += f.read(size - offset)
+            offset = size
+            *lines, buf = buf.split(b"\n")
+            if any(b'"t":"checkpoint"' in line and needle in line for line in lines):
+                return time.perf_counter() - t0
+        time.sleep(0.02)
+    raise AssertionError(f"no checkpoint record of {jid} in {timeout} s")
+
+
+def job_plane_phase(card: str, cores: "set[int] | None" = None, log=print) -> dict:
+    """Phase 13: the tenant job plane in the simulator on the card, three
+    server processes over one KSIM_JOBS_DIR (module docstring, item 13),
+    pinned to ``cores``; its lines go to ``log``."""
+    t13 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="ksim-jobs-"))
+    jobs_dir = work / "jobs"
+    jobs_dir.mkdir()
+    journal = jobs_dir / "jobs.journal.jsonl"
+    env = {"KSIM_JOBS_DIR": str(jobs_dir), "KSIM_JOBS_CHECKPOINT_EVERY": "1", "KSIM_FLEET_VMAP": "1"}
+    ops = list(churn_scenario(0, n_nodes=CHURN_NODES, n_events=6000, ops_per_step=100))
+    sim = {"deviceReplay": True, "maxPodsPerPass": 1024, "podBucketMin": 128}
+    doc = {"spec": {"simulator": sim, "scenario": spec_from_operations(ops)}}
+    lane_doc = {"spec": {"simulator": {**sim, "fleet": 2}, "scenario": doc["spec"]["scenario"]}}
+    want = CHURN_LOCKS[6000]
+    out: dict = {}
+    servers: list = []
+    try:
+        # (a) and (b): one profiled server, one job after the other.
+        srv = JobServer("jobs-1", work, env, profile=True, cores=cores)
+        servers.append(srv)
+        out["start_s"] = srv.ready_s
+        jid_a, res_a, wall_a, sse_a = srv.run_job(doc)
+        if res_a.get("phase") != "Succeeded" or lock_of(res_a) != want:
+            raise AssertionError(f"(a) solo job: {res_a.get('state')} {res_a.get('message')} {lock_of(res_a)} "
+                                 f"against the lock {want}")
+        rep_a = res_a["replay"]
+        if rep_a["device_steps"] < MIN_DEVICE_STEPS or rep_a["unsupported"]:
+            raise AssertionError(f"(a) left the device path: {rep_a['device_steps']} device steps, "
+                                 f"{rep_a['unsupported']}")
+        progress = [e["steps_done"] for e in sse_a if e.get("event") == "progress"]
+        states = [e["state"] for e in sse_a if e.get("event") == "state"]
+        if states[-1] != "succeeded" or progress != sorted(progress) or progress[-1] != res_a["result"]["steps"]:
+            raise AssertionError(f"(a) SSE: states {states}, progress {progress}")
+        log(f"  (a) solo job (deviceReplay, {len(ops)} operations): Succeeded, {lock_of(res_a)} = the lock; "
+              f"submit to terminal {wall_a:.2f} s, replay wallSeconds {res_a['result']['wallSeconds']}; "
+              f"{rep_a['device_steps']} device steps in {rep_a['device_round_trips']} launches; SSE "
+              f"{len(sse_a)} events, states {states} {card}")
+        jid_b, res_b, wall_b, _ = srv.run_job(lane_doc)
+        lanes = res_b.get("lanes")
+        if res_b.get("phase") != "Succeeded" or lanes != [list(want[1:])] * 2:
+            raise AssertionError(f"(b) lane job: {res_b.get('state')} {res_b.get('message')} lanes {lanes}")
+        log(f"  (b) lane job (fleet: 2, KSIM_FLEET_VMAP=1): Succeeded, lanes {lanes}; submit to terminal "
+              f"{wall_b:.2f} s, replay wallSeconds {res_b['result']['wallSeconds']} {card}")
+        body_a1 = res_a["_raw"]
+        dev = srv.stop()
+        for key, leg in (("D", "a"), ("D lanes", "b")):
+            if dev["launches"][key] < 1:
+                raise AssertionError(f"({leg}): {JOB_KERNELS[key]} launched no time in the server's trace: "
+                                     f"{dev['launches']}")
+        log(f"    the card in the server's torch.profiler trace ((a) and (b)): launches {dev['launches']}, "
+              f"{ {k: round(v, 3) for k, v in dev['named_ms'].items()} } ms; all kernels {dev['kernel_ms']:.3f} ms, "
+              f"copies and memsets {dev['copy_ms']:.3f} ms; busy {dev['busy_ms']:.3f} ms of the "
+              f"{dev['window_s']:.2f} s traced window (idle {100 * (1 - dev['busy_ms'] / 1e3 / dev['window_s']):.2f}%); "
+              f"server ready {out['start_s']:.1f} s after its start {card}")
+        out.update(a={"wall_s": wall_a, "replay_s": res_a["result"]["wallSeconds"]},
+                   b={"wall_s": wall_b, "replay_s": res_b["result"]["wallSeconds"]}, device=dev)
+        # (c) SIGKILL after the first checkpoint record, then resume.
+        srv = JobServer("jobs-2", work, {**env, "KSIM_JOBS_FAULTS": "2:replay.dispatch=hang:3:2"}, profile=False,
+                        cores=cores)
+        servers.append(srv)
+        body_a2 = srv.result(jid_a)["_raw"]
+        t = time.perf_counter()
+        status, body = _post_json(srv.port, "/api/v1/jobs", doc)
+        if status != 202:
+            raise AssertionError(f"(c): POST answered {status}: {body}")
+        jid_c = body["id"]
+        waited = wait_for_checkpoint(journal, jid_c, srv.proc)
+        srv.kill()
+        killed_s = time.perf_counter() - t
+        # Unprofiled: the resumed job runs as the server starts, before a
+        # profiler would (the service starts it after the container).
+        srv = JobServer("jobs-3", work, {**env, "KSIM_JOBS_RESUME": "1"}, profile=False, cores=cores)
+        servers.append(srv)
+        events = follow_sse(srv.port, jid_c)
+        res_c = srv.result(jid_c)
+        wall_c = time.perf_counter() - srv.t0
+        resume = res_c.get("resume") or {}
+        if res_c.get("phase") != "Succeeded" or lock_of(res_c) != want:
+            raise AssertionError(f"(c) resumed job: {res_c.get('state')} {res_c.get('message')} {lock_of(res_c)}")
+        if resume.get("fromSegment", 0) < 1 or not resume.get("eventsReplayed", want[0]) < want[0]:
+            raise AssertionError(f"(c) did not resume from a checkpoint: {resume}")
+        rep_c = res_c["replay"]
+        if rep_c["device_steps"] < 1 or rep_c["unsupported"]:
+            raise AssertionError(f"(c) the suffix left the device path: {rep_c['device_steps']} device steps, "
+                                 f"{rep_c['unsupported']}")
+        body_a3 = srv.result(jid_a)["_raw"]
+        canonical = [json.dumps(json.loads(b), sort_keys=True) for b in (body_a1, body_a3)]
+        if canonical[0] != canonical[1] or body_a2 != body_a3:
+            raise AssertionError("(c): (a)'s result document changed across the restarts")
+        srv.stop()
+        log(f"  (c) the (a) document again: its first checkpoint record {waited:.2f} s after the POST, the "
+              f"server SIGKILLed and gone {killed_s:.2f} s after the POST; the restarted server (KSIM_JOBS_RESUME=1, ready {srv.ready_s:.1f} s "
+              f"after its start) resumed it from segment {resume['fromSegment']} (cursor {resume['cursor']}, "
+              f"{resume['eventsReplayed']} of {want[0]} events replayed): Succeeded, {lock_of(res_c)} = the lock; "
+              f"start to terminal {wall_c:.2f} s, suffix replay wallSeconds {res_c['result']['wallSeconds']}; "
+              f"SSE {len(events)} events; (a)'s result served equal ({len(body_a3)} bytes, byte for byte as the "
+              f"second server served it); the suffix: {rep_c['device_steps']} device steps in "
+              f"{rep_c['device_round_trips']} launches of replay_segment, {rep_c['kernel_ms']:.1f} ms by CUDA "
+              f"events {card}")
+        out["c"] = {"wall_s": wall_c, "replay_s": res_c["result"]["wallSeconds"], "resume": resume,
+                    "checkpoint_wait_s": waited, "device_steps": rep_c["device_steps"],
+                    "launches": rep_c["device_round_trips"], "kernel_ms": rep_c["kernel_ms"]}
+    finally:
+        for proc in servers:
+            proc.kill()
+    shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t13
+    log(f"  phase 13 took {out['phase_s']:.1f} s {card}")
+    return out
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="the seed of phase 11's provided scores")
+    parser.add_argument("--plain-queue", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.plain_queue:
+        return plain_queue_child(args.plain_queue)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2264,6 +2611,11 @@ def main() -> int:
     # Phase 12's CPU runs go beside phases 3-4 on two cores of their own.
     front_refs = FrontRefs()
     print(f"  phase 12's --device cpu runs of cmd.scheduler started on cores {sorted(front_refs.ref_cores or ())}")
+    # Kernel A's whole-queue plain scan on phase 4's inputs runs on the CPU
+    # beside phases 3-9 on two more cores; its result is read at the end.
+    cores = sorted(os.sched_getaffinity(0))
+    plain_queue = PlainQueue(set(cores[-4:-2]) if len(cores) >= 8 else None)
+    print(f"  phase 4's whole-queue plain scan of kernel A started on the CPU, cores {cores[-4:-2]}")
 
     phase(f"3 kernel vs plain ({SMALL[0]} nodes x {SMALL[1]} pods)")
     n_small, p_small = SMALL
@@ -2317,14 +2669,11 @@ def main() -> int:
     n_nodes_main, n_pods_main = MAIN
     phase(f"4 main path: random_cluster(0, {n_nodes_main}, {n_pods_main}, bound_fraction=0.0)")
     t0 = time.perf_counter()
-    nodes, pods = random_cluster(0, n_nodes_main, n_pods_main, bound_fraction=0.0)
-    feats = Featurizer().featurize(nodes, pods)
+    nodes, pods, feats, plugins, sched = main_path_inputs(DEVICE)
     feats_2k = Featurizer().featurize(nodes, pods[:PREFIX])
     print(f"  featurized {feats.pods.valid.shape[0]} x {feats.nodes.valid.shape[0]} "
           f"(padded) in {time.perf_counter() - t0:.1f}s")
-    plugins = default_plugins(feats)
     plugins_2k = default_plugins(feats_2k)
-    sched = Engine(feats, plugins, record="selection", exact=True, device=DEVICE)
     fused = Engine(feats, plugins, record="final", exact=True, device=DEVICE)
     full_2k = Engine(feats_2k, plugins_2k, record="full", exact=True, device=DEVICE)
     sampled = Engine(feats, plugins, record="selection", exact=True, device=DEVICE, sampling_k=SAMPLING_K)
@@ -2400,6 +2749,7 @@ def main() -> int:
     # The plain versions on the main path's inputs, each timed once.
     prog, state0, pods0, aux = sched._prog, sched._node_state, sched._pods, sched._aux
     carries0 = prog.init_carries(aux)
+    main_digest = tensor_digest((state0, pods0, aux, carries0))
     start0 = torch.zeros((), dtype=torch.int32, device=DEVICE)
     plain_ms = {}
 
@@ -2413,15 +2763,6 @@ def main() -> int:
         plain_ms[name] = start.elapsed_time(end)
         return out
 
-    schedule_scan_plain(prog, state0, pods0.rows(0, 16), aux, carries0)  # warm-up
-    with PairCount(prog, n_pods) as count_a:
-        plain_state, _, plain_out = plain_timed(
-            "schedule_scan", lambda: schedule_scan_plain(prog, state0, pods0, aux, carries0)
-        )
-    plain_sel_a = plain_out["selected"].cpu().numpy()
-    check.equal("schedule_scan", "main-path selected, whole queue", res.selected, plain_sel_a)
-    same_state("schedule_scan", "main-path schedule", check, state, plain_state)
-    del plain_out
     fprog, fcarries = fused._prog, fused._prog.init_carries(fused._aux)
     batch_eval_plain(fprog, fused._node_state, fused._pods.rows(0, 16), fused._aux, fcarries)
     with PairCount(fprog, n_pods) as count_b:
@@ -2449,7 +2790,16 @@ def main() -> int:
                 res_samp.selected[:PREFIX], want_s2k.selected[:PREFIX])
     plain_2k = PlainEngine(feats_2k, plugins_2k, record="full", exact=True, device=DEVICE)
     check.results("batch_eval", f"main-path evaluate_batch full {PREFIX}", res_full_2k, plain_2k.evaluate_batch())
-    check.results("schedule_scan", f"main-path schedule full {PREFIX}", res_sched_2k, plain_2k.schedule()[0])
+    # Kernel A's plain version on the card, timed: the first PREFIX pods,
+    # record="full" (a sequential commit's first selections depend on
+    # nothing after them, so they are also the whole queue's first ones).
+    # The whole queue is held against the plain version on the CPU at the
+    # end (PlainQueue).
+    want_sched_2k = plain_timed("schedule_scan", lambda: plain_2k.schedule()[0])
+    check.results("schedule_scan", f"main-path schedule full {PREFIX}", res_sched_2k, want_sched_2k)
+    check.equal("schedule_scan", f"main-path selected, first {PREFIX} pods of the whole queue",
+                res.selected[:PREFIX], want_sched_2k.selected[:PREFIX])
+    del want_sched_2k
     print("  kernels equal the plain versions on the main path")
 
     phase("5 timings (CUDA events)")
@@ -2480,8 +2830,10 @@ def main() -> int:
         chain.CLUSTER_SIZE = cs
         st_a, _, out_a = run_a()
         what = f"cluster of {cs}"
-        check.equal("schedule_scan", f"{what}: selected, whole queue", out_a["selected"].cpu().numpy(), plain_sel_a)
-        same_state("schedule_scan", f"{what}: whole queue", check, host_state(st_a), plain_state)
+        # Against the main path's launch, which the end holds against the
+        # plain version over the whole queue.
+        check.equal("schedule_scan", f"{what}: selected, whole queue", out_a["selected"].cpu().numpy(), res.selected)
+        same_state("schedule_scan", f"{what}: whole queue", check, host_state(st_a), state)
         bar_a, ev_a, share_a = stats(schedule_scan)
         shape_a = {k: schedule_scan.last[k] for k in ("threads", "smem_bytes")}
         _, _, nxt_q, out_q = run_c_queue()
@@ -2529,9 +2881,7 @@ def main() -> int:
     # The work the functions need: the real pods against the valid nodes;
     # a selection scores only the feasible pairs, while B's final record
     # holds every real pair's scores.
-    a_ops = (ops_a["filter"] + ops_a["commit"]) * count_a.pairs + ops_a["score"] * count_a.feasible
     b_ops = (ops_b["filter"] + ops_b["score"]) * count_b.pairs
-    a_bound, a_by = bound_ms(a_bytes, a_ops)
     b_bound, b_by = bound_ms(b_bytes, b_ops)
     # Kernel C filters only the nodes its window visits and scores only
     # the sampled feasible ones.
@@ -2554,10 +2904,7 @@ def main() -> int:
     pairs = n_pods * n_real
     print(f"  schedule_scan (kernel A), {P} x {N} selection: {ms_a:.3f} ms per pass, "
           f"{pairs / (ms_a / 1e3):.4g} real pod-node pairs/s {card}")
-    print(f"  schedule_scan plain, whole queue: {plain_ms['schedule_scan']:.1f} ms {card}")
-    print(f"  schedule_scan bound: {a_bound:.4f} ms by {a_by} ({a_bytes} bytes; "
-          f"{ops_a['filter'] + ops_a['commit']:.1f} ops on each of {count_a.pairs} real pairs, "
-          f"{ops_a['score']:.1f} more on each of {count_a.feasible} feasible ones)")
+    print(f"  schedule_scan plain, first {PREFIX} pods, record=full: {plain_ms['schedule_scan']:.1f} ms {card}")
     print(f"  batch_eval (kernel B), {P} x {N} final, one launch: {ms_b:.3f} ms, "
           f"{pairs / (ms_b / 1e3):.4g} real pairs/s {card}")
     print(f"  batch_eval plain: {plain_ms['batch_eval']:.1f} ms {card}")
@@ -2616,9 +2963,33 @@ def main() -> int:
     default_ms = {"A": ms_a, "C queue": ms_c_queue, "B fused": ms_b, "B chunk": ms_bc, "D": churn["replay_segment"][0]}
     ext = extension_phase(check, card, smi, nodes, pods, default_ms, args.seed)
 
-    phase("12 the front door: the port's commands as processes on the card")
-    front = front_door_phase(card, front_refs)
+    phase("12 the front door: the port's commands as processes on the card (13 beside (b)-(d))")
+    # Phase 13 runs beside phase 12's (b)-(d) on cores of its own; its
+    # lines print after phase 12's.
+    job_lines: list = []
+    front = front_door_phase(card, front_refs, beside=lambda cores: job_plane_phase(card, cores, job_lines.append))
+    phase("13 the job plane: jobs on kernel D through the server, journaled, resumed after SIGKILL "
+          "(ran beside phase 12's (b)-(d))")
+    print("\n".join(job_lines), flush=True)
+    jobs = front["beside"]
 
+    # Kernel A's whole queue against its plain version on the CPU (started
+    # after phase 2), and the bound from the pairs that run counted.
+    pq = plain_queue.result()
+    if str(pq["digest"]) != main_digest:
+        raise AssertionError("the CPU plain scan's inputs differ from the main path's")
+    check.equal("schedule_scan", "main-path selected, whole queue (plain version on the CPU)", res.selected,
+                pq["selected"])
+    same_state("schedule_scan", "main-path schedule, whole queue (plain version on the CPU)", check, state,
+               state._replace(**{f: pq[f"state_{f}"] for f in state._fields}))
+    a_pairs, a_feasible = int(pq["pairs"]), int(pq["feasible"])
+    a_ops = (ops_a["filter"] + ops_a["commit"]) * a_pairs + ops_a["score"] * a_feasible
+    a_bound, a_by = bound_ms(a_bytes, a_ops)
+    print(f"  schedule_scan (kernel A) whole queue ({P} x {N} selection) equals its plain version on the CPU "
+          f"(selections and final node state; the plain scan took {float(pq['wall_s']):.1f} s there, in a "
+          f"process started after phase 2); bound {a_bound:.4f} ms by {a_by} ({a_bytes} bytes; "
+          f"{ops_a['filter'] + ops_a['commit']:.1f} ops on each of {a_pairs} real pairs, "
+          f"{ops_a['score']:.1f} more on each of {a_feasible} feasible ones)", flush=True)
     plain_ms["node_summary"] = ns["plain_ms"]
     measured = {
         "schedule_scan": (ms_a, a_bound, a_by, f"{P}x{N} selection"),
@@ -2632,6 +3003,9 @@ def main() -> int:
     # the kernel counted them; its standalone entry ran no time on the path.
     cluster_keys = ("threads", "smem_bytes")
     notes = {"schedule_scan": {"cluster": auto_cs, **{k: by_cluster[auto_cs][k] for k in cluster_keys},
+                               "plain_shape": f"the first {PREFIX} pods of the queue, record=full, on the card; "
+                                              f"the whole queue is held against the plain version on the CPU",
+                               "plain_cpu_whole_queue_s": float(pq["wall_s"]),
                                "us_per_real_pod": by_cluster[auto_cs]["a_us_per_real_pod"],
                                "barriers_per_pod": by_cluster[auto_cs]["a_barriers_per_pod"],
                                "phase_share": by_cluster[auto_cs]["a_phase_share"],
@@ -2661,6 +3035,13 @@ def main() -> int:
         notes.setdefault(name, {})["phase_12"] = {"leg": leg, "trace_launches": front[leg]["trace_launches"][key],
                                                   "trace_ms": front[leg]["device"]["named_ms"][key],
                                                   "leg_wall_s": front[leg]["wall_s"]}
+    # Phase 13's launches ran in the servers' processes too: (a)'s and
+    # (b)'s server's trace.
+    for name, key, leg in (("replay_segment", "D", "a"), ("replay_segment_fleet", "D lanes", "b")):
+        notes.setdefault(name, {})["phase_13"] = {
+            "leg": leg, "trace_launches": jobs["device"]["launches"][key],
+            "trace_ms": jobs["device"]["named_ms"][key], "job_wall_s": jobs[leg]["wall_s"],
+            "replay_wall_s": jobs[leg]["replay_s"]}
     kernels = [
         {
             "name": name,

@@ -21,8 +21,17 @@ The port of ``ksim_tpu/cmd/simulator.py``, with these differences:
 - ``--profile-dir`` starts the service's ``torch.profiler`` hooks: the
   scheduling passes' Chrome trace (TensorBoard's trace format) is written
   there when the server stops.
-- The tenant job plane is not ported: its routes answer 501, and
-  ``KSIM_JOBS_DIR`` makes the DI container refuse to start."""
+- The tenant job plane (``/api/v1/jobs``, jobs/manager.py) runs its
+  jobs on the same ``--device``.  Its knobs reach the server through
+  the environment alone, read when the DI container builds the
+  ``JobManager``: eagerly at startup when ``KSIM_JOBS_DIR`` is set (the
+  journal is replayed before the first request; ``KSIM_JOBS_RESUME=1``
+  re-runs interrupted jobs from their newest checkpoint), else at the
+  first job request.  ``KSIM_JOBS_WORKERS``, ``KSIM_JOBS_QUEUE``,
+  ``KSIM_JOBS_CHECKPOINT_EVERY`` and the rest are listed in the
+  manager's docstring; ``KSIM_WORKERS_ROLE=frontdoor`` makes this server
+  the front door of a fleet of ``python -m ksim_tpu_torch.jobs``
+  workers sharing ``KSIM_JOBS_DIR``."""
 
 from __future__ import annotations
 

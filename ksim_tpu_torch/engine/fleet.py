@@ -36,8 +36,9 @@ lowering and S times the launch.  This module multiplexes them:
   Only the plan's owner, the cohort leader, adopts the reused device
   buffers.
 
-Not ported: ``KSIM_FLEET_DP`` (the lane axis over a device mesh, ROADMAP
-queue 1 item 9) raises NotImplementedError.
+Not ported: ``KSIM_FLEET_DP`` (the lane axis over a device mesh, which
+comes with the port of ``engine/sharding.py``) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -115,7 +116,7 @@ class FleetDriver:
         if os.environ.get("KSIM_FLEET_DP"):
             raise NotImplementedError(
                 "KSIM_FLEET_DP (fleet lanes over a device mesh) is not ported to "
-                "ksim_tpu_torch (ROADMAP queue 1 item 11)"
+                "ksim_tpu_torch (it comes with the port of engine/sharding.py)"
             )
         self.lanes = lanes
         # Cohort dispatch mode (module docstring): the lane-stacked

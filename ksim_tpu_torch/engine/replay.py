@@ -759,6 +759,7 @@ def _fleet_exec(plan: "_SegmentPlan", lanes: int, device, *, wait_s: float = 300
         _compile_cache_key("lanes", plan, packed),
         lambda: replay_segment_fleet(plan.statics, plan.prog, packed.const, packed.ev, packed.state),
         wait_s=wait_s,
+        owner=TRACE.scope_tags().get("job"),
     )
     clock.stop()
     launch = segment_kernels.take_launch_notes()
@@ -1129,7 +1130,7 @@ class ReplayDriver:
             return
         self.prelower_windows += 1
         try:
-            with TRACE.span("replay.prelower", segment=self._segment_seq, steps=len(nxt), **self._span_tags):
+            with TRACE.span("replay.prelower", segment=self._segment_seq, steps=len(nxt)):
                 FAULTS.check("replay.prelower")
                 spec = self._parse_window(nxt)
                 self._warm_spec(spec)
@@ -1406,10 +1407,14 @@ class ReplayDriver:
             return out
         box: dict[str, Any] = {}
         ctx = self._device_context()
+        # A job-scoped caller's trace override is thread-local: carry it
+        # onto the worker so dispatch-side spans and events (fault.fired,
+        # the private plane's checks) stay attributed to the owning job.
+        scope = TRACE.scope()
 
         def run() -> None:
             try:
-                with ctx:
+                with ctx, TRACE.scoped(scope):
                     box["out"] = work()
             except BaseException as e:  # classified by the caller
                 box["err"] = e
@@ -2100,6 +2105,7 @@ class ReplayDriver:
             _compile_cache_key("solo", plan, packed),
             lambda: replay_segment(plan.statics, plan.prog, packed.const, packed.ev, packed.state),
             wait_s=self.watchdog_s if self.watchdog_s > 0 else 300.0,
+            owner=TRACE.scope_tags().get("job"),
         )
         clock.stop()
         launch = segment_kernels.take_launch_notes()

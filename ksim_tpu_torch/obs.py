@@ -19,8 +19,14 @@ The port of ksim_tpu/obs.py.
 - **Fleet documents** -- ``merge_fleet_docs`` / ``merge_chrome_traces``
   fold many processes' evidence; ``render_prometheus`` /
   ``parse_prometheus`` speak the Prometheus text format (``GET
-  /metrics``).  The scoped planes, the record sink and the publishing
-  of ``ksim_tpu``'s obs.py come with its job plane, not ported yet.
+  /metrics``); ``publish_snapshot`` / ``read_fleet_snapshots`` /
+  ``read_fleet_traces`` write and read the workers' snapshots under
+  ``KSIM_JOBS_DIR/obs/`` (jobs/fleet.py publishes, the server folds).
+- **Scoped planes** -- ``TRACE.scoped(plane)`` makes a private plane the
+  calling thread's recording target; the job plane gives each job one
+  (tagged ``job=<id>``, its records fed to the job's SSE log through
+  ``set_sink``), and the replay executor carries the scope onto its
+  dispatch worker.
 
 Nothing here reads or writes scheduling state, so the churn behavior
 locks hold with tracing enabled.  With the plane disabled every site
@@ -61,6 +67,11 @@ __all__ = [
     "register_provider",
     "provider_snapshots",
     "process_identity",
+    "OBS_DIR",
+    "next_publish_seq",
+    "publish_snapshot",
+    "read_fleet_snapshots",
+    "read_fleet_traces",
     "merge_latency_snapshots",
     "merge_fleet_docs",
     "merge_chrome_traces",
@@ -93,6 +104,16 @@ SPAN_NAMES: tuple[str, ...] = (
     "kubeapi.request",  # any kube-apiserver HTTP request (syncer/kubeapi.py)
     "obs.fleet_merge",  # one fleet-scope aggregation (merge_fleet_docs /
     #                     merge_chrome_traces)
+    "jobs.run",  # one tenant job on a job-plane worker (jobs/manager.py;
+    #              recorded on the job's private plane)
+    "jobs.journal_append",  # one durable append to the job journal
+    "jobs.journal_replay",  # one startup journal replay
+    "jobs.checkpoint_append",  # one segment checkpoint built and appended
+    "jobs.checkpoint_restore",  # one restore attempt from a checkpoint
+    "jobs.lease_claim",  # one fleet claim attempt (jobs/fleet.py)
+    "jobs.lease_renew",  # one heartbeat batch renewing this worker's leases
+    "obs.publish",  # one crash-atomic snapshot written to
+    #                 KSIM_JOBS_DIR/obs/<worker_id>.json
 )
 
 #: Instant event names.
@@ -119,6 +140,13 @@ EVENT_NAMES: tuple[str, ...] = (
     #                        older than its publish cadence allows
     #                        (args: worker / stale_s; the worker is
     #                        flagged in the merged document, not dropped)
+    "jobs.enqueue",  # a tenant job entered the job queue
+    "job.cancelled",  # a tenant job was cancelled (queued or mid-run)
+    "jobs.journal_recover",  # startup journal replay rebuilt the registry
+    "jobs.checkpoint",  # checkpoint cadence outcome (written or skipped)
+    "jobs.checkpoint_restore",  # restore-from-checkpoint outcome
+    "jobs.fleet_claim",  # a fleet member won a job lease
+    "jobs.lease_expired",  # a lease aged out and a survivor took the job
 )
 
 
@@ -419,15 +447,50 @@ class _Span:
         return False
 
 
+class _PlaneScope:
+    """Context manager installing an override plane for the current
+    thread (``TracePlane.scoped``); restores the previous override on
+    exit, so scopes nest."""
+
+    __slots__ = ("_plane", "_override", "_prev")
+
+    def __init__(self, plane: "TracePlane", override: "TracePlane | None") -> None:
+        self._plane = plane
+        self._override = override
+        self._prev = None
+
+    def __enter__(self):
+        tls = self._plane._tls
+        self._prev = getattr(tls, "scope", None)
+        tls.scope = self._override
+        return self._override
+
+    def __exit__(self, *exc):
+        self._plane._tls.scope = self._prev
+        return False
+
+
 class TracePlane:
-    """Bounded, thread-safe trace storage.
+    """Bounded, thread-safe trace storage; the process-global ``TRACE``
+    is the default instance, and each tenant job has its own.
 
     Three layers behind one ``_active`` gate: per-name latency
     histograms and event counters (``timing``), the structured event
     ring (``ring``), and the Chrome-trace exporter over the ring.  One
-    leaf lock guards all storage (nothing under it calls out)."""
+    leaf lock guards all storage (nothing under it calls out).
 
-    def __init__(self) -> None:
+    **Scoped override**: ``TRACE.scoped(plane)`` installs ``plane`` as
+    the current thread's recording target: every ``span`` / ``event`` /
+    ``ensure_timing`` / ``phase_totals`` call on the default plane
+    delegates to it until the scope exits, so a job worker gets a
+    private ring and histograms without a call-site change.  Reads of a
+    specific plane's storage (``snapshot`` / ``ring_records`` /
+    ``export_chrome``) never delegate.  ``tags`` merge into every
+    recorded span's and event's args (the job id); the ``sink`` set by
+    ``set_sink`` receives each record after the storage lock is
+    released (a raising sink is swallowed)."""
+
+    def __init__(self, *, tags: "dict | None" = None) -> None:
         self._lock = threading.Lock()
         self._tls = threading.local()
         self._active = False
@@ -438,6 +501,10 @@ class TracePlane:
         self._ring_on = False  # guarded-by: _lock
         self._prof_bridge = False
         self.out_path: str | None = None
+        # Constant after construction (read unlocked on the hot path):
+        # args merged into every record, and the out-of-lock callback.
+        self._tags: dict = dict(tags or {})
+        self._sink: "Callable[[dict], None] | None" = None
         self._epoch_ns = time.perf_counter_ns()  # guarded-by: _lock
         self._hist: dict[str, LatencyHistogram] = {}  # guarded-by: _lock
         self._counters: dict[str, int] = {}  # guarded-by: _lock
@@ -509,6 +576,33 @@ class TracePlane:
     def active(self) -> bool:
         return self._active
 
+    def set_sink(self, sink: "Callable[[dict], None] | None") -> None:
+        """Install (or clear) the record callback.  Set before the plane
+        starts receiving records: the hot path reads it unlocked."""
+        self._sink = sink
+
+    # -- scoped override -------------------------------------------------
+
+    def scoped(self, plane: "TracePlane | None") -> _PlaneScope:
+        """Install ``plane`` as the current thread's recording target for
+        ``span`` / ``event`` / ``ensure_timing`` / ``phase_totals`` calls
+        on this plane (``None`` = a no-op scope); the previous scope
+        restores on exit."""
+        return _PlaneScope(self, plane)
+
+    def scope(self) -> "TracePlane | None":
+        """The current thread's override plane, if any: captured by the
+        replay executor before it hands work to its dispatch worker, so
+        the scope survives the thread hop."""
+        return getattr(self._tls, "scope", None)
+
+    def scope_tags(self) -> dict:
+        """The effective record tags for the calling thread (the override
+        plane's, else this plane's): e.g. the owning job id for the
+        compile-once gate's per-tenant sharing evidence."""
+        ov = getattr(self._tls, "scope", None)
+        return (ov if ov is not None else self)._tags
+
     def ensure_timing(self) -> None:
         """Idempotent timing-only activation.  ScenarioRunner calls this
         so per-phase wall-clock totals always exist (the histogram cost
@@ -517,13 +611,22 @@ class TracePlane:
         operator armed it, and an explicit ``disable()`` /
         ``KSIM_TRACE=off`` wins — convenience activation never
         overrides a stated opt-out."""
+        ov = getattr(self._tls, "scope", None)
+        if ov is not None:
+            ov.ensure_timing()
+            return
         if not self._active and not self._user_disabled:
             self.enable(ring=False)
 
     # -- the hot path ----------------------------------------------------
 
     def span(self, name: str, **args):
-        """Open a named span; a no-op singleton when the plane is off."""
+        """Open a named span; a no-op singleton when the plane is off.  A
+        thread-scoped override plane (``scoped``) takes the record
+        instead."""
+        ov = getattr(self._tls, "scope", None)
+        if ov is not None:
+            return ov.span(name, **args)
         if not self._active:
             return _NOOP
         return _Span(self, name, args)
@@ -531,30 +634,47 @@ class TracePlane:
     def event(self, name: str, **args) -> None:
         """Record one instant event (counted always; stored when the
         ring is on)."""
+        ov = getattr(self._tls, "scope", None)
+        if ov is not None:
+            ov.event(name, **args)
+            return
         if not self._active:
             return
         now = time.perf_counter_ns()
         tid = threading.get_ident()
+        if self._tags:
+            args = {**self._tags, **args}
+        sink = self._sink
+        rec = None
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + 1
-            if self._ring_on:
-                self._note_thread(tid)
-                self._appended += 1
-                self._ring.append({"ph": "i", "name": name, "t": now, "tid": tid, "args": args})
+            if self._ring_on or sink is not None:
+                rec = {"ph": "i", "name": name, "t": now, "tid": tid, "args": args}
+                if self._ring_on:
+                    self._note_thread(tid)
+                    self._appended += 1
+                    self._ring.append(rec)
+        if rec is not None and sink is not None:
+            try:
+                sink(rec)
+            except Exception:  # a broken sink must not break the plane
+                pass
 
     def _record_span(
         self, name: str, t0: int, t1: int, depth: int, args: dict
     ) -> None:
         tid = threading.get_ident()
+        if self._tags:
+            args = {**self._tags, **args}
+        sink = self._sink
+        rec = None
         with self._lock:
             hist = self._hist.get(name)
             if hist is None:
                 hist = self._hist[name] = LatencyHistogram()
             hist.observe((t1 - t0) / 1e9)
-            if self._ring_on:
-                self._note_thread(tid)
-                self._appended += 1
-                self._ring.append({
+            if self._ring_on or sink is not None:
+                rec = {
                     "ph": "X",
                     "name": name,
                     "t": t0,
@@ -562,7 +682,16 @@ class TracePlane:
                     "tid": tid,
                     "depth": depth,
                     "args": args,
-                })
+                }
+                if self._ring_on:
+                    self._note_thread(tid)
+                    self._appended += 1
+                    self._ring.append(rec)
+        if rec is not None and sink is not None:
+            try:
+                sink(rec)
+            except Exception:  # a broken sink must not break the plane
+                pass
 
     def _note_thread(self, tid: int) -> None:  # ksimlint: lock-held(_lock)
         if tid not in self._thread_names:
@@ -573,7 +702,12 @@ class TracePlane:
 
     def phase_totals(self) -> dict[str, tuple[float, int]]:
         """Per-span-name ``(total_seconds, count)`` — the runner diffs
-        two of these around a run for its per-phase breakdown."""
+        two of these around a run for its per-phase breakdown.  Follows
+        the thread's scoped override, so a job's run reads the job's
+        histograms."""
+        ov = getattr(self._tls, "scope", None)
+        if ov is not None:
+            return ov.phase_totals()
         with self._lock:
             return {n: (h.total, h.count) for n, h in self._hist.items()}
 
@@ -727,15 +861,34 @@ TRACE.configure_from_env()
 # ---------------------------------------------------------------------------
 # Fleet observability plane
 #
-# ``merge_fleet_docs`` folds workers' evidence documents into one
-# fleet-scope document (counters sum, histograms merge bucket-wise
-# exactly) and ``render_prometheus`` renders either scope as Prometheus
-# text exposition.  Publishing and reading workers' snapshots come with
-# the job plane (``ksim_tpu``'s jobs/fleet.py), not ported yet.
-# Everything here is stdlib-only, like the rest of the module.
+# Each fleet member publishes its merged evidence document
+# crash-atomically to KSIM_JOBS_DIR/obs/<worker_id>.json on a cadence
+# (KSIM_OBS_PUBLISH_S; the obs-publisher thread in jobs/fleet.py) and
+# once at clean shutdown; the front door folds every published snapshot
+# into one fleet-scope document (``merge_fleet_docs``: counters sum,
+# histograms merge bucket-wise exactly) and ``render_prometheus``
+# renders either scope as Prometheus text exposition.  Everything here
+# is stdlib-only, like the rest of the module.
 # ---------------------------------------------------------------------------
 
+#: Subdirectory of KSIM_JOBS_DIR holding published worker snapshots.
+#: Created lazily by the first publish: with publishing off
+#: (KSIM_OBS_PUBLISH_S=0) it never appears.
+OBS_DIR = "obs"
+
 _STARTED_AT = time.time()
+_seq_lock = threading.Lock()
+_publish_seq = 0  # guarded-by: _seq_lock
+
+
+def next_publish_seq() -> int:
+    """Monotonic per-process snapshot sequence number: lets a consumer
+    of ``obs/<worker_id>.json`` tell "worker restarted" (seq reset) from
+    "worker stalled" (seq frozen, published_at aging)."""
+    global _publish_seq
+    with _seq_lock:
+        _publish_seq += 1
+        return _publish_seq
 
 
 def process_identity(
@@ -751,6 +904,70 @@ def process_identity(
         "started_at": round(_STARTED_AT, 3),
         "uptime_s": round(time.time() - _STARTED_AT, 3),
     }
+
+
+def _atomic_json(path: str, doc: dict) -> None:
+    """tmp + fsync + os.replace: a crashed writer leaves the previous
+    snapshot intact, never a torn file."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def publish_snapshot(
+    jobs_dir: str,
+    doc: dict,
+    *,
+    worker_id: str,
+    trace_doc: "dict | None" = None,
+) -> str:
+    """Write one worker's telemetry snapshot (and optionally its merged
+    Chrome trace export) crash-atomically under ``<jobs_dir>/obs/``.
+    Returns the snapshot path."""
+    with TRACE.span("obs.publish", worker=worker_id):
+        obs_dir = os.path.join(jobs_dir, OBS_DIR)
+        os.makedirs(obs_dir, exist_ok=True)
+        path = os.path.join(obs_dir, f"{worker_id}.json")
+        _atomic_json(path, doc)
+        if trace_doc is not None:
+            _atomic_json(os.path.join(obs_dir, f"{worker_id}.trace.json"), trace_doc)
+        return path
+
+
+def _read_json_docs(obs_dir: str, suffix: str) -> "dict[str, dict]":
+    out: dict[str, dict] = {}
+    try:
+        names = sorted(os.listdir(obs_dir))
+    except OSError:
+        return out
+    for name in names:
+        if not name.endswith(suffix):
+            continue
+        if suffix == ".json" and name.endswith(".trace.json"):
+            continue
+        try:
+            with open(os.path.join(obs_dir, name), "r", encoding="utf-8") as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            continue  # mid-replace or torn: the previous read stands
+        if isinstance(doc, dict):
+            out[name[: -len(suffix)]] = doc
+    return out
+
+
+def read_fleet_snapshots(jobs_dir: str) -> "dict[str, dict]":
+    """All published worker snapshots, by worker id.  Unreadable files
+    are skipped (a concurrent os.replace can lose the race with
+    listdir); staleness is judged by ``merge_fleet_docs``."""
+    return _read_json_docs(os.path.join(jobs_dir, OBS_DIR), ".json")
+
+
+def read_fleet_traces(jobs_dir: str) -> "dict[str, dict]":
+    """All published worker Chrome-trace exports, by worker id."""
+    return _read_json_docs(os.path.join(jobs_dir, OBS_DIR), ".trace.json")
 
 
 def merge_fleet_docs(

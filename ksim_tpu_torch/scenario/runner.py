@@ -7,9 +7,9 @@ then the scheduler runs, then results are recorded.
 The port of ``ksim_tpu/scenario/runner.py``: the per-pass loop, the
 solo ``device_replay=True`` loop (engine/replay.py, kernel D on a card),
 the streaming loop over a trace stream (traces/stream.py, ingest
-overlapping the device dispatch) and fleet replay (``fleet=S``,
-engine/fleet.py).  The job plane's ``private_faults``,
-``checkpoint_hook`` and incremental resume are not ported.
+overlapping the device dispatch), fleet replay (``fleet=S``,
+engine/fleet.py), and what the job plane passes: a private fault plane,
+a post-commit checkpoint hook and incremental resume (jobs/manager.py).
 """
 
 from __future__ import annotations
@@ -200,6 +200,8 @@ class ScenarioRunner:
         fleet: int | None = None,
         fleet_faults: str | None = None,
         cancel: "Any | None" = None,
+        private_faults: "Any | None" = None,
+        checkpoint_hook: "Any | None" = None,
         exact: bool = True,
         device: "str | torch.device | None" = None,
         config: "dict | None" = None,
@@ -223,6 +225,22 @@ class ScenarioRunner:
         flag raises ``errors.RunCancelled`` inside the store transaction,
         rolling the in-flight segment back before it propagates.
 
+        ``private_faults`` (a ``FaultPlane``) is this run's private fault
+        plane (the job plane's ``KSIM_JOBS_FAULTS`` and ``spec.faults``):
+        checked next to the process-global ``FAULTS`` at the replay sites
+        (``replay.lower`` / ``replay.dispatch`` / ``replay.reconcile``)
+        like a fleet lane's plane, so a chaos schedule degrades this run
+        alone.  Mutually exclusive with ``fleet`` (use ``fleet_faults``
+        there).
+
+        ``checkpoint_hook`` (the job plane's incremental-resume cadence)
+        is called as ``hook(cursor, driver, result)`` after every
+        committed device segment: ``cursor`` is the index into the sorted
+        step keys the next iteration starts from, the ``resume_cursor`` a
+        later ``run`` needs to replay only the remaining suffix.  It runs
+        outside the store transaction and must not raise for policy
+        reasons.
+
         ``fleet=S`` (requires ``device_replay=True``) replays S
         independent trajectories, each with its own store, service and
         replay driver, advancing the fleet K steps per launch with the
@@ -245,6 +263,11 @@ class ScenarioRunner:
         elif fleet_faults is not None:
             # A lane fault spec with no fleet would be silently dropped.
             raise ValueError("fleet_faults requires fleet=S")
+        if fleet is not None and private_faults is not None:
+            raise ValueError(
+                "private_faults is the solo-run chaos surface; fleet lanes "
+                "arm per-lane planes via fleet_faults/KSIM_FLEET_FAULTS"
+            )
         self.store = store if store is not None else ClusterStore()
         self.service = (
             service
@@ -277,11 +300,17 @@ class ScenarioRunner:
             device=device,
             config=config,
         )
-        # Fleet-lane identity and private fault plane (set per lane by
-        # _run_fleet): the lane's spans carry it, its reconcile checks it.
+        # Fleet-lane identity (set per lane by _run_fleet): the lane's
+        # spans carry it.  One private-plane slot serves both chaos
+        # surfaces, fleet lanes (set per lane) and solo job runs
+        # (private_faults): the reconcile and driver checks are the same.
         self._lane: int | None = None
-        self._lane_faults = None
+        self._lane_faults = private_faults
         self._cancel = cancel
+        # Post-commit segment callback (job-plane checkpoints).  None for
+        # fleet lanes: cohort segments commit lane by lane, and a per-lane
+        # cursor is not a resume point.
+        self._checkpoint_hook = checkpoint_hook
         # The last run's ReplayDriver (evidence counters: device_steps,
         # fallback_steps, device_round_trips, unsupported reasons).
         self.replay_driver = None
@@ -570,12 +599,23 @@ class ScenarioRunner:
         ops: Iterable[Operation],
         *,
         lane_ops: "dict[int, Iterable[Operation]] | None" = None,
+        resume_cursor: int = 0,
+        resume_result: "ScenarioResult | None" = None,
     ) -> ScenarioResult:
         """Apply operations grouped by step; one scheduling pass per step
         (every pending pod is attempted each pass, like the upstream
         queue's flush on cluster events).  With ``device_replay`` on,
         supported K-step segments run as single device dispatches (see
         engine/replay.py); everything else takes this per-pass loop.
+
+        ``resume_cursor``/``resume_result`` are the incremental-resume
+        entry: replay starts at sorted-step-key index ``resume_cursor``
+        (the cursor a ``checkpoint_hook`` reported), accumulating into
+        ``resume_result`` (the checkpoint's partial accounting) instead of
+        a fresh result.  The caller restores the matching store and
+        service state first; the suffix then replays exactly as the
+        uninterrupted run's tail.  ``wall_seconds`` covers only this
+        process's replay.
 
         With ``fleet=S`` the stream replays on every lane (``lane_ops``
         overrides individual lanes' streams: those lanes run the solo
@@ -585,8 +625,9 @@ class ScenarioRunner:
         A STREAMING source (``ops.streaming_ops`` — traces/stream.py)
         takes the windowed loop: operations are consumed as the producer
         emits them, never materialized whole, with ingest overlapping the
-        in-flight device dispatch.  Streaming is the solo path: a fleet
-        materializes its lanes."""
+        in-flight device dispatch.  Streaming is the solo fresh-run path:
+        fleet replays and incremental resume both need the full sorted
+        step-key index up front."""
         streaming = getattr(ops, "streaming_ops", False)
         if streaming:
             if self._fleet is not None or lane_ops:
@@ -594,11 +635,26 @@ class ScenarioRunner:
                     "streaming ingest is the solo-run path (fleet replay "
                     "materializes its lanes)"
                 )
+            if resume_cursor or resume_result is not None:
+                raise ValueError(
+                    "incremental resume needs materialized operations "
+                    "(a resume cursor indexes the full sorted step-key list)"
+                )
+            if self._checkpoint_hook is not None:
+                raise ValueError(
+                    "checkpoint_hook needs materialized operations (its "
+                    "cursor must stay valid for a later resume)"
+                )
         elif self._fleet is not None:
+            if resume_cursor or resume_result is not None:
+                raise ValueError(
+                    "incremental resume is the solo-run path; fleet runs "
+                    "restart from scratch (no per-lane cursor yet)"
+                )
             return self._run_fleet(ops, lane_ops)
         elif lane_ops:
             raise ValueError("lane_ops requires fleet=S")
-        result = ScenarioResult()
+        result = resume_result if resume_result is not None else ScenarioResult()
         # Per-phase wall-clock split rides on the trace plane's latency
         # histograms; timing-only mode costs two clock reads per span at
         # segment/pass granularity and never touches scheduling state
@@ -630,7 +686,7 @@ class ScenarioRunner:
                     ingest_hook=(lambda: feeder.prefetch(target[0])) if streaming else None,
                 )
                 self.replay_driver = driver
-            i = 0
+            i = resume_cursor
             while True:
                 self._check_cancelled()
                 if driver is not None:
@@ -665,6 +721,8 @@ class ScenarioRunner:
                     ):
                         i += len(seg.steps)
                         feeder.release(i)
+                        if self._checkpoint_hook is not None:
+                            self._checkpoint_hook(i, driver, result)
                         continue
                 step = feeder.keys[i]
                 if driver is not None:

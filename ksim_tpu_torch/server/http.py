@@ -22,19 +22,37 @@ simulator/server/server.go:44-54, handlers under server/handler/):
 Beyond the reference surface: /api/v1/resources/* CRUD (the role the
 KWOK apiserver plays for the reference UI), GET /api/v1/metrics (the
 merged evidence document: scheduler counters + latency histograms +
-fault-plane counters + replay driver stats, with the job plane's
-section empty), GET /metrics (the same as Prometheus text), GET
+fault-plane counters + replay driver stats + the job plane's queue/
+worker/per-job section), GET /metrics (the same as Prometheus text), GET
 /api/v1/trace (the trace plane's event ring as Chrome trace-event
 JSON), GET /api/v1/traces (the traces registered in the operator's
-KSIM_TRACES_DIR), and the Permit waiting-pod view/ops (GET
+KSIM_TRACES_DIR), the Permit waiting-pod view/ops (GET
 /api/v1/waitingpods, POST /api/v1/waitingpods/<ns>/<name>/{allow,reject}
 — the framework handle's WaitingPod surface for external permit
-controllers).
+controllers), and the tenant job plane (jobs/manager.py):
 
-The port of ``ksim_tpu/server/http.py``, route for route, with one
-difference: the tenant job plane (``ksim_tpu/jobs``) is not ported yet,
-so ``/api/v1/jobs`` and everything under it answer 501 with a
-``{"message": ...}`` naming it.
+    POST   /api/v1/jobs                 -> submit a scenario job
+                                           (202 {job}, 400 bad spec,
+                                           413 over per-job bounds,
+                                           429 queue full or tenant
+                                           throttled — the throttle
+                                           carries Retry-After)
+    GET    /api/v1/jobs                 -> list job statuses
+    GET    /api/v1/jobs/<id>            -> one job's status
+    GET    /api/v1/jobs/<id>/result     -> final result document
+                                           (409 until terminal)
+    GET    /api/v1/jobs/<id>/events     -> SSE stream of progress +
+                                           trace events
+    GET    /api/v1/jobs/<id>/trace      -> the job's private ring as
+                                           Chrome trace JSON
+    DELETE /api/v1/jobs/<id>            -> cancel (queued: immediate;
+                                           running: cooperative, the
+                                           in-flight segment rolls
+                                           back)
+
+The port of ``ksim_tpu/server/http.py``, route for route: a job's
+replay runs on the container's device (kernel D on the card for a
+device-replay job).
 
 CORS headers come from ``cors_allowed_origins`` (the reference reads them
 from config, server.go:28-32)."""
@@ -57,9 +75,11 @@ from ksim_tpu_torch.obs import (
     merge_fleet_docs,
     process_identity,
     provider_snapshots,
+    read_fleet_snapshots,
+    read_fleet_traces,
     render_prometheus,
 )
-from ksim_tpu_torch.server.di import JOBS_UNPORTED, DIContainer
+from ksim_tpu_torch.server.di import DIContainer
 
 logger = logging.getLogger(__name__)
 
@@ -68,6 +88,20 @@ logger = logging.getLogger(__name__)
 from ksim_tpu_torch.server.params import LRV_PARAMS
 
 EXTENDER_VERBS = ("filter", "prioritize", "preempt", "bind")
+
+
+def _sse_heartbeat_s() -> float:
+    """Idle bound before the job SSE stream emits a ``: keepalive``
+    comment — ``KSIM_JOBS_SSE_HEARTBEAT_S`` (seconds, default 15; 0
+    disables).  Proxies and LBs silently drop idle chunked responses;
+    the comment line is invisible to EventSource consumers but keeps
+    the connection (and the server's disconnect detection) live."""
+    raw = os.environ.get("KSIM_JOBS_SSE_HEARTBEAT_S", "")
+    try:
+        return float(raw) if raw else 15.0
+    except ValueError:
+        return 15.0
+
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -86,11 +120,15 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("Access-Control-Allow-Origin", origin)
             self.send_header("Access-Control-Allow-Credentials", "true")
 
-    def _json(self, code: int, obj) -> None:
+    def _json(
+        self, code: int, obj, headers: "dict[str, str] | None" = None
+    ) -> None:
         body = json.dumps(obj).encode()
         self.send_response(code)
         self._cors()
         self.send_header("Content-Type", "application/json")
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -138,7 +176,7 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._json(code, obj)
 
-    # -- chunked server push (listwatch) --------------------------------------
+    # -- chunked server push (listwatch + the job SSE stream) ---------------
 
     def _write_chunk(self, payload: bytes) -> bool:
         """One HTTP/1.1 chunk, flushed; False when the client is gone.
@@ -190,8 +228,10 @@ class _Handler(BaseHTTPRequestHandler):
         elif url.path == "/api/v1/export":
             self._json(200, self.server.di.snapshot_service.snap())
         elif url.path == "/api/v1/metrics":
-            # ?scope=fleet: the fleet document (merge_fleet_docs) of
-            # this process, the one worker without the job plane.
+            # ?scope=fleet folds every published worker snapshot (plus
+            # this process's live document) into one fleet document —
+            # counters sum, histograms merge bucket-wise exactly, dead
+            # workers surface flagged.
             if (parse_qs(url.query).get("scope") or [""])[0] == "fleet":
                 self._json(200, self._fleet_metrics())
             else:
@@ -205,8 +245,9 @@ class _Handler(BaseHTTPRequestHandler):
             # response body straight into Perfetto (ui.perfetto.dev) or
             # chrome://tracing.  Empty unless the trace plane's ring is
             # on (KSIM_TRACE_OUT / KSIM_TRACE=1 / TRACE.enable()).
-            # ?scope=fleet: the same ring as the one lane of a merged
-            # trace (merge_chrome_traces).
+            # ?scope=fleet merges the frontdoor ring with every
+            # published worker trace export: one process lane per
+            # worker, flow arrows stitching submit -> claim -> run.
             if (parse_qs(url.query).get("scope") or [""])[0] == "fleet":
                 self._json(200, self._fleet_trace())
             else:
@@ -225,7 +266,7 @@ class _Handler(BaseHTTPRequestHandler):
         elif url.path == "/api/v1/listwatchresources":
             self._list_watch(parse_qs(url.query))
         elif url.path == "/api/v1/jobs" or url.path.startswith("/api/v1/jobs/"):
-            self._jobs_unported()
+            self._job_get(url.path)
         elif url.path.startswith("/api/v1/resources/"):
             self._resource("GET", url.path, parse_qs(url.query))
         else:
@@ -235,8 +276,8 @@ class _Handler(BaseHTTPRequestHandler):
         url = urlparse(self.path)
         if url.path == "/api/v1/schedulerconfiguration":
             self._apply_scheduler_config()
-        elif url.path == "/api/v1/jobs" or url.path.startswith("/api/v1/jobs/"):
-            self._jobs_unported()
+        elif url.path == "/api/v1/jobs":
+            self._job_submit()
         elif url.path == "/api/v1/import":
             try:
                 self.server.di.snapshot_service.load(self._body())
@@ -300,8 +341,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_DELETE(self) -> None:
         url = urlparse(self.path)
-        if url.path == "/api/v1/jobs" or url.path.startswith("/api/v1/jobs/"):
-            self._jobs_unported()
+        if url.path.startswith("/api/v1/jobs/"):
+            self._job_cancel(url.path)
         elif url.path.startswith("/api/v1/resources/"):
             self._resource("DELETE", url.path)
         else:
@@ -316,7 +357,8 @@ class _Handler(BaseHTTPRequestHandler):
         calls/fired counters, the registered evidence providers
         (the live run's ``ReplayDriver.stats()`` under ``"replay"``,
         the process-wide ``compile_cache``), and the job plane's
-        ``jobs`` section."""
+        ``jobs`` section (queue depth, worker occupancy, per-job status
+        and private-plane snapshots)."""
         doc = self.server.di.scheduler_service.metrics.snapshot()
         doc["trace"] = TRACE.snapshot()
         doc["faults"] = FAULTS.snapshot()
@@ -324,34 +366,70 @@ class _Handler(BaseHTTPRequestHandler):
         # Present even before any replay ran (the import above also
         # registered it as a provider, so this is a no-op after one).
         doc.setdefault("compile_cache", COMPILE_CACHE.snapshot())
-        # The job plane is not ported: its section is the empty one
-        # ksim_tpu reports before any job.
-        doc["jobs"] = {
-            "queue": {"depth": 0, "capacity": 0, "submitted": 0, "rejected": 0, "bypass_pops": 0},
-            "workers": {"pool": 0, "active": 0},
-            "tenants": {},
-            "jobs": {},
-        }
+        # The jobs section reports WITHOUT forcing the worker pool into
+        # existence: a server never asked to run a job shows the empty
+        # shape, not two idle threads.
+        jm = self.server.di.job_manager_if_built
+        doc["jobs"] = (
+            jm.snapshot()
+            if jm is not None
+            else {
+                "queue": {
+                    "depth": 0,
+                    "capacity": 0,
+                    "submitted": 0,
+                    "rejected": 0,
+                    "bypass_pops": 0,
+                },
+                "workers": {"pool": 0, "active": 0},
+                "tenants": {},
+                "jobs": {},
+            }
+        )
         # The process-identity block (role, worker_id, pid, started_at,
-        # uptime_s): the fleet aggregator attributes every snapshot to
-        # its producer through it.  Set LAST so no provider can shadow it.
-        doc["process"] = process_identity()
+        # uptime_s) — unconditional: the fleet aggregator attributes
+        # every snapshot to its producer through it.  Set LAST so no
+        # provider can shadow it.
+        doc["process"] = process_identity(
+            role=jm.role if jm is not None else None,
+            worker_id=jm.worker_id if jm is not None else None,
+        )
         return doc
 
     def _fleet_metrics(self) -> dict:
-        """``GET /api/v1/metrics?scope=fleet`` — THIS process's live
-        document folded by ``obs.merge_fleet_docs``: the fleet of one a
-        server without the job plane (whose workers publish the other
-        snapshots) is."""
+        """``GET /api/v1/metrics?scope=fleet`` — every published worker
+        snapshot under ``KSIM_JOBS_DIR/obs/`` plus THIS process's live
+        document, folded by ``obs.merge_fleet_docs`` (the live document
+        replaces this process's own published file, so the serving
+        process is never reported stale to itself)."""
+        jm = self.server.di.job_manager_if_built
+        jobs_dir = getattr(jm, "jobs_dir", None)
+        docs = read_fleet_snapshots(jobs_dir) if jobs_dir else {}
         live = self._merged_metrics()
         ident = live["process"]
         ident["published_at"] = round(time.time(), 3)
-        return merge_fleet_docs({ident["worker_id"]: live})
+        docs[ident["worker_id"]] = live
+        return merge_fleet_docs(docs)
 
     def _fleet_trace(self) -> dict:
-        """``GET /api/v1/trace?scope=fleet`` — this process's ring as the
-        one lane of a merged Chrome trace (``obs.merge_chrome_traces``)."""
-        return merge_chrome_traces({f"w{os.getpid()}": TRACE.export_chrome()}, flows=True)
+        """``GET /api/v1/trace?scope=fleet`` — this process's ring (and
+        its jobs' private rings) merged with every published worker
+        trace export: one process lane per worker, submit->claim->run
+        flow arrows across lanes (``obs.merge_chrome_traces``)."""
+        jm = self.server.di.job_manager_if_built
+        jobs_dir = getattr(jm, "jobs_dir", None)
+        docs = read_fleet_traces(jobs_dir) if jobs_dir else {}
+        wid = jm.worker_id if jm is not None else f"w{os.getpid()}"
+        local = {wid: TRACE.export_chrome()}
+        if jm is not None:
+            for job in jm.jobs():
+                plane = getattr(job, "trace", None)
+                if plane is not None:
+                    local[f"{wid}:{job.id}"] = plane.export_chrome()
+        docs[wid] = (
+            merge_chrome_traces(local) if len(local) > 1 else local[wid]
+        )
+        return merge_chrome_traces(docs, flows=True)
 
     def _prometheus(self, query: dict) -> None:
         """``GET /metrics`` — the evidence document as Prometheus text
@@ -375,16 +453,170 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    # -- the job plane (not ported) ----------------------------------------
+    # -- the job plane ------------------------------------------------------
 
-    def _jobs_unported(self) -> None:
-        """Every /api/v1/jobs route: 501, the body drained first so a
-        pooled HTTP/1.1 connection stays in step."""
+    def _job_submit(self) -> None:
+        """POST /api/v1/jobs: validate + enqueue a tenant scenario job.
+        202 with the job status on success; 400 on a bad spec; 429 when
+        the bounded queue refuses or the submitting tenant
+        (``X-Ksim-Tenant`` header, else ``spec.tenant``) is over its
+        quota/rate — the throttle response carries a ``Retry-After``
+        header with the token bucket's computed wait."""
+        from ksim_tpu_torch.jobs import JobLimitExceeded, JobQueueFull, JobThrottled
+        from ksim_tpu_torch.scenario.spec import ScenarioSpecError
+
         try:
-            self._body()
+            doc = self._body()
         except Exception:
-            pass
-        self._json(501, {"message": JOBS_UNPORTED})
+            self._json(400, {"message": "Bad Request"})
+            return
+        try:
+            jm = self.server.di.job_manager
+        except Exception:
+            # Lazy construction can fail on operator config (e.g. a
+            # malformed KSIM_JOBS_FAULTS) — that is a server-side 500,
+            # not the tenant's spec, and must never escape the handler.
+            logger.exception("job manager construction failed")
+            self._json(500, {"message": "Internal Server Error"})
+            return
+        try:
+            job = jm.submit(doc, tenant=self.headers.get("X-Ksim-Tenant"))
+        except ScenarioSpecError as e:
+            self._json(400, {"message": str(e)})
+            return
+        except JobLimitExceeded as e:
+            # Payload-too-large, with the bound in the reason body so
+            # the tenant can resize instead of guessing.
+            self._json(413, {"message": str(e)})
+            return
+        except JobThrottled as e:
+            # Retry-After is whole seconds (RFC 9110), rounded UP so an
+            # obedient client never retries into the same empty bucket.
+            self._json(
+                429,
+                {"message": str(e)},
+                headers={"Retry-After": str(max(1, int(e.retry_after + 0.999)))},
+            )
+            return
+        except JobQueueFull as e:
+            self._json(429, {"message": str(e)})
+            return
+        except Exception:
+            logger.exception("job submission failed")
+            self._json(500, {"message": "Internal Server Error"})
+            return
+        self._json(202, job.status())
+
+    def _job_parts(self, path: str) -> "tuple[str, str] | None":
+        parts = [p for p in path.split("/") if p]  # api v1 jobs [id [sub]]
+        if len(parts) == 3:
+            return "", ""
+        if len(parts) == 4:
+            return parts[3], ""
+        if len(parts) == 5 and parts[4] in ("result", "events", "trace"):
+            return parts[3], parts[4]
+        return None
+
+    def _job_get(self, path: str) -> None:
+        parsed = self._job_parts(path)
+        if parsed is None:
+            self._json(404, {"message": "Not Found"})
+            return
+        job_id, sub = parsed
+        jm = self.server.di.job_manager_if_built
+        if not job_id:
+            self._json(
+                200,
+                {"items": [j.status() for j in jm.jobs()] if jm else []},
+            )
+            return
+        job = jm.get(job_id) if jm else None
+        if job is None:
+            self._json(404, {"message": f"no job {job_id}"})
+            return
+        if sub == "":
+            self._json(200, job.status())
+        elif sub == "result":
+            state, result, error = job.result_view()
+            if state == "succeeded":
+                self._json(200, {"id": job.id, "state": state, **(result or {})})
+            elif state in ("failed", "cancelled", "interrupted"):
+                self._json(
+                    200,
+                    {"id": job.id, "state": state, "phase": "Failed", "message": error},
+                )
+            else:
+                self._json(
+                    409, {"message": f"job {job_id} is {state}; result not ready"}
+                )
+        elif sub == "trace":
+            # The JOB's private ring — the isolation story made visible:
+            # only this tenant's spans/events, every record job-tagged.
+            self._json(200, job.trace.export_chrome())
+        else:  # events: the SSE stream
+            self._job_events(job)
+
+    def _job_events(self, job) -> None:  # ksimlint: thread-role(sse-handler)
+        """Server push of one job's progress + trace events as
+        Server-Sent Events on a flushed chunked response — the
+        listwatchresources streaming pattern (eventproxy.go:66-80)
+        wearing SSE framing, so a browser EventSource consumes it
+        directly.  The event log replays from the start (late joiners
+        see the whole history) and the stream ends after the terminal
+        state event.
+
+        Hardened (round 15): the listener is COUNTED on the job
+        (``sse_listeners`` in the status document) and the count is
+        released in a ``finally`` no matter how the reader goes away —
+        an aborted EventSource must never leak a phantom listener.  An
+        idle stream emits a ``: keepalive`` SSE comment every
+        ``KSIM_JOBS_SSE_HEARTBEAT_S`` seconds, which both defeats
+        idle-connection reaping by proxies and turns a silently dead
+        socket into a detected disconnect (the chunk write fails)."""
+        self.send_response(200)
+        self._cors()
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        heartbeat_s = _sse_heartbeat_s()
+        idx = 0
+        last_write = time.monotonic()
+        job.sse_attach()
+        try:
+            while not self.server.stopping.is_set():
+                events, idx, done = job.events_since(idx, timeout=0.25)
+                for ev in events:
+                    if not self._write_chunk(
+                        f"data: {json.dumps(ev)}\n\n".encode()
+                    ):
+                        return
+                    last_write = time.monotonic()
+                if done:
+                    break
+                if (
+                    heartbeat_s > 0
+                    and time.monotonic() - last_write >= heartbeat_s
+                ):
+                    if not self._write_chunk(b": keepalive\n\n"):
+                        return
+                    last_write = time.monotonic()
+            self._end_chunks()
+        finally:
+            job.sse_detach()
+
+    def _job_cancel(self, path: str) -> None:
+        parsed = self._job_parts(path)
+        if parsed is None or not parsed[0] or parsed[1]:
+            self._json(404, {"message": "Not Found"})
+            return
+        jm = self.server.di.job_manager_if_built
+        state = jm.cancel(parsed[0]) if jm else None
+        if state is None:
+            self._json(404, {"message": f"no job {parsed[0]}"})
+            return
+        self._json(200, {"id": parsed[0], "state": state})
 
     def _resource(self, method: str, path: str, query: dict | None = None) -> None:
         """Per-resource CRUD.  The reference UI talks straight to the

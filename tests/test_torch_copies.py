@@ -15,7 +15,12 @@ originals: the same inputs give equal outputs.
   merge, the Chrome-trace merge and the Prometheus text give the same on
   the same documents;
 - ``config.py``: the same config.yaml and environment give the same
-  SimulatorConfig, and the same refusals."""
+  SimulatorConfig, and the same refusals;
+- the job plane's parts of ``obs.py`` (scoped planes with tags and a
+  sink, the published snapshots and their readers) give the same
+  records and documents; ``jobs/queue.py``'s pop order and bypass bound,
+  and ``jobs/journal.py``'s line format and compaction fold, give the
+  same on the same inputs."""
 
 from __future__ import annotations
 
@@ -30,12 +35,16 @@ import yaml
 
 from ksim_tpu import config as jax_config
 from ksim_tpu import obs as jax_obs
+from ksim_tpu.jobs import journal as jax_journal
+from ksim_tpu.jobs.queue import JobQueue as JaxJobQueue
 from ksim_tpu.plugins import oracle as jax_oracle
 from ksim_tpu.scenario import churn_scenario as jax_churn
 from ksim_tpu.scheduler import preemption as jax_preemption
 from ksim_tpu.state import priorities as jax_priorities
 from ksim_tpu.state.cluster import ClusterStore as JaxStore
 from ksim_tpu_torch import config, obs
+from ksim_tpu_torch.jobs import journal
+from ksim_tpu_torch.jobs.queue import JobQueue
 from ksim_tpu_torch.plugins import oracle
 from ksim_tpu_torch.scenario.generate import churn_scenario
 from ksim_tpu_torch.scheduler import preemption
@@ -351,3 +360,127 @@ def test_load_config_equals_original(case, tmp_path, monkeypatch):
         with pytest.raises(Exception, match="not found") as err:
             mod.load_config(str(tmp_path / "absent.yaml"))
         assert type(err.value).__name__ == "InvalidConfigError"
+
+
+def _scoped_script(mod) -> dict:
+    """Drive ``mod``'s global plane inside a job's scoped private plane
+    (tags and a sink, as jobs/manager.py installs them), with a scope
+    carried onto a second thread as the replay executor does; return
+    what the private plane, the sink and the global plane saw."""
+    root = mod.TracePlane()
+    job = mod.TracePlane(tags={"job": "job-000007"})
+    job.configure_from_env({"KSIM_TRACE": "1", "KSIM_TRACE_RING": "64"})
+    sunk = []
+    job.set_sink(lambda rec: sunk.append((rec["ph"], rec["name"], rec["args"])))
+    import threading
+
+    with root.scoped(job):
+        root.ensure_timing()
+        with root.span("runner.step", step=0):
+            root.event("service.pass", attempts=2)
+        scope, tags = root.scope(), root.scope_tags()
+
+        def worker():
+            with root.scoped(scope):
+                with root.span("replay.dispatch", segment=1):
+                    root.event("fault.fired", site="replay.dispatch")
+
+        t = threading.Thread(target=worker)
+        t.start()
+        t.join()
+        totals = {name: count for name, (_total, count) in root.phase_totals().items()}
+    root.event("jobs.enqueue", job="job-000008")  # outside the scope: the root's
+    return {
+        "scope_after": root.scope(),
+        "tags": tags,
+        "root_tags": root.scope_tags(),
+        "sunk": sunk,
+        "ring": [(r["ph"], r["name"], r.get("depth"), r["args"]) for r in job.ring_records()],
+        "phase_counts": totals,
+        "root_events": root.snapshot()["events"],
+        "job_events": job.snapshot()["events"],
+    }
+
+
+def test_scoped_planes_and_publishing_equal_original(tmp_path):
+    assert _scoped_script(obs) == _scoped_script(jax_obs)
+    assert obs.OBS_DIR == jax_obs.OBS_DIR
+    seqs = [obs.next_publish_seq() for _ in range(3)]
+    assert seqs == sorted(seqs) and len(set(seqs)) == 3
+    for mod, name in ((obs, "port"), (jax_obs, "jax")):
+        d = tmp_path / name
+        mod.publish_snapshot(str(d), {"process": {"worker_id": "w1"}, "counters": {"a": 1}}, worker_id="w1",
+                             trace_doc={"traceEvents": []})
+        mod.publish_snapshot(str(d), {"process": {"worker_id": "w2"}}, worker_id="w2")
+        (d / "obs" / "torn.json").write_text('{"half": ')
+    for d in ("port", "jax"):
+        for reader in ("read_fleet_snapshots", "read_fleet_traces"):
+            got = getattr(obs, reader)(str(tmp_path / d))
+            assert got == getattr(jax_obs, reader)(str(tmp_path / d))
+            assert got == getattr(obs, reader)(str(tmp_path / ("jax" if d == "port" else "port")))
+    assert sorted(obs.read_fleet_snapshots(str(tmp_path / "port"))) == ["w1", "w2"]
+    assert obs.read_fleet_snapshots(str(tmp_path / "nowhere")) == {}
+
+
+QUEUE_SCRIPTS = {
+    # (priority, cost) per put, pops interleaved where a put is None.
+    "priority_then_fifo": [(0, 0), (5, 0), (0, 0), (5, 0), (1, 0)],
+    "sjf_within_band": [(0, 50), (0, 10), (0, 30), (1, 90), (0, 10)],
+    "starvation_bound": [(0, 1000)] + [(0, 1)] * 3 + [None] * 3 + [(0, 1)] * 6 + [None] * 4,
+}
+
+
+@pytest.mark.parametrize("script", sorted(QUEUE_SCRIPTS))
+@pytest.mark.parametrize("max_bypass", [1, 2, None])
+def test_job_queue_equals_original(script, max_bypass):
+    """The same puts and pops give the same pop order, the same refusal
+    at the limit and the same counters (``bypass_pops`` included)."""
+    outs = []
+    for cls in (JobQueue, JaxJobQueue):
+        q = cls(8, max_bypass=max_bypass)
+        order, n = [], 0
+        for step in QUEUE_SCRIPTS[script]:
+            if step is None:
+                order.append(q.get(timeout=0))
+                continue
+            try:
+                q.put(n, priority=step[0], cost=step[1])
+            except Exception as e:
+                order.append(type(e).__name__)
+            n += 1
+        while (item := q.get(timeout=0)) is not None:
+            order.append(item)
+        q.close()
+        outs.append((order, q.stats(), q.get(timeout=0)))
+    assert outs[0] == outs[1]
+
+
+def test_journal_line_and_fold_equal_original():
+    """``_line`` writes the same bytes, ``_decode_line`` accepts and
+    refuses the same lines, and ``_fold_compact`` folds the same record
+    stream (live and terminal jobs, checkpoints, cancels, foreign
+    records) to the same compact stream."""
+    recs = [
+        {"t": "submit", "id": "a", "ordinal": 0, "priority": 0, "doc": {"x": [1, 2]}, "created": 1.0},
+        {"t": "submit", "id": "b", "ordinal": 1, "priority": 3, "doc": {}, "created": 2.0},
+        {"t": "state", "id": "a", "state": "running", "ts": 3.0},
+        {"t": "checkpoint", "id": "a", "seq": 1, "cursor": 16, "segment": 1, "store": {}, "ts": 4.0},
+        {"t": "cancel", "id": "b", "ts": 4.5},
+        {"t": "checkpoint", "id": "a", "seq": 2, "cursor": 32, "segment": 2, "store": {}, "ts": 5.0},
+        {"t": "state", "id": "b", "state": "cancelled", "ts": 6.0},
+        {"t": "lease", "id": "a", "worker": "w1"},
+        {"t": "state", "id": "ghost", "state": "running"},
+        {"t": "submit", "id": "c", "ordinal": 2, "priority": 0, "doc": {}},
+        {"t": "result", "id": "c", "result": {"podsScheduled": 3}},
+        {"t": "state", "id": "c", "state": "succeeded", "ts": 7.0},
+    ]
+    lines = [journal._line(r) for r in recs]
+    assert lines == [jax_journal._line(r) for r in recs]
+    bad = [lines[0][:-1], lines[1].replace('"ordinal":1', '"ordinal":9'), "not json\n", '{"crc": 1}\n']
+    for line in lines + bad:
+        assert journal._decode_line(line) == jax_journal._decode_line(line)
+    assert [journal._decode_line(line) for line in lines] == recs
+    assert all(journal._decode_line(line) is None for line in bad)
+    for prefix in range(len(recs) + 1):
+        assert journal._fold_compact(copy.deepcopy(recs[:prefix])) == jax_journal._fold_compact(
+            copy.deepcopy(recs[:prefix]))

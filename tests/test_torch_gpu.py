@@ -438,3 +438,36 @@ def test_lifecycle_markers_stay_on_the_kernels(cuda, tmp_path):
     assert schedule_scan.launches > before
     bound = sum(v is not None for v in placed.values())
     assert bound > 0 and len((tmp_path / "binds.jsonl").read_text().splitlines()) == bound
+
+
+def test_job_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A small solo device-replay job through ``JobManager(device="cuda")``
+    (kernel D per segment) ends with the same result document as the same
+    job on ``device="cpu"``, but for its times and its kernel evidence,
+    and journals the same checkpoint records: store, service carries and
+    the per-step results, segment for segment."""
+    import json
+
+    from ksim_tpu_torch.jobs import JobJournal, JobManager
+    from ksim_tpu_torch.jobs.journal import JOURNAL_NAME
+    from ksim_tpu_torch.scenario.generate import churn_scenario
+    from ksim_tpu_torch.scenario.spec import spec_from_operations
+
+    ops = list(churn_scenario(0, n_nodes=24, n_events=300, ops_per_step=8))
+    doc = {"spec": {"simulator": {"deviceReplay": True, "podBucketMin": 64}, "scenario": spec_from_operations(ops)}}
+    seen = {}
+    for device in ("cuda", "cpu"):
+        jm = JobManager(workers=1, queue_limit=4, jobs_dir=str(tmp_path / device), checkpoint_every=1, device=device)
+        try:
+            job = jm.submit(json.loads(json.dumps(doc)))
+            assert job.wait_done(600)
+            state, result, error = job.result_view()
+            assert state == "succeeded", error
+        finally:
+            jm.shutdown()
+        cks = [{k: v for k, v in r.items() if k != "ts"}
+               for r in JobJournal(str(tmp_path / device / JOURNAL_NAME)).replay() if r["t"] == "checkpoint"]
+        result["result"].pop("wallSeconds")
+        seen[device] = (result["result"], result["replay"]["device_steps"], result["replay"]["unsupported"], cks)
+    assert seen["cuda"] == seen["cpu"]
+    assert len(seen["cuda"][3]) == 3 and seen["cuda"][3][-1]["result"]["steps"]

@@ -108,6 +108,13 @@ SLICE_MODULES = (
     "ksim_tpu_torch.cmd.scheduler",
     "ksim_tpu_torch.cmd.simulator",
     "ksim_tpu_torch.cmd.simulation",
+    # The eleventh slice: the tenant job plane.
+    "ksim_tpu_torch.jobs",
+    "ksim_tpu_torch.jobs.queue",
+    "ksim_tpu_torch.jobs.journal",
+    "ksim_tpu_torch.jobs.manager",
+    "ksim_tpu_torch.jobs.fleet",
+    "ksim_tpu_torch.jobs.__main__",
 )
 
 
@@ -122,6 +129,35 @@ def test_port_imports_with_jax_and_ksim_tpu_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("imported")
+
+
+_BLOCKED_WORKER_HELP = """
+import runpy, sys
+for name in list(sys.modules):
+    if name.split(".")[0] in {forbidden!r}:
+        del sys.modules[name]
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {forbidden!r}:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+sys.argv = ["ksim_tpu_torch.jobs", "--help"]
+runpy.run_module("ksim_tpu_torch.jobs", run_name="__main__", alter_sys=True)
+"""
+
+
+def test_worker_command_runs_with_jax_and_ksim_tpu_blocked():
+    """``python -m ksim_tpu_torch.jobs --help`` (the fleet worker's
+    command) parses its arguments with jax and ksim_tpu unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_WORKER_HELP.format(forbidden=set(FORBIDDEN))],
+        cwd=ROOT, env=sanitized_cpu_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "--dir" in proc.stdout and "--device" in proc.stdout
 
 
 _BUILDER_IMPORT = """
@@ -261,6 +297,24 @@ def test_front_door_needs_a_card_unless_the_cpu_is_asked_for(tmp_path):
     assert run_scheduler(["--snapshot", str(snap), "--out", str(out), "--device", "cpu"]) == 0
     assert json.loads(out.read_text())["pods"][0]["spec"]["nodeName"] == "n0"
     assert run_simulation([str(sim), "--device", "cpu"]) == 0
+
+
+def test_job_plane_needs_a_card_unless_the_cpu_is_asked_for(tmp_path):
+    """A JobManager that runs jobs, and the worker command, refuse to
+    start without a card unless ``device="cpu"`` is asked for; a fleet's
+    front door runs no job and needs none."""
+    from ksim_tpu_torch.jobs import JobManager
+    from ksim_tpu_torch.jobs.fleet import main
+
+    if torch.cuda.is_available():
+        return
+    for kw in ({}, {"device": "cuda"}, {"jobs_dir": str(tmp_path), "role": "worker"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            JobManager(workers=0, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--dir", str(tmp_path)])
+    JobManager(workers=0, jobs_dir=str(tmp_path), role="frontdoor").shutdown()
+    JobManager(workers=0, device="cpu").shutdown()
 
 
 def test_unported_surfaces_refuse(monkeypatch, tmp_path):

@@ -9,8 +9,7 @@ cadence, so the clusters here place every pod in the first pass: the
 export after the loop is then one pass's, in both.  (The unschedulable
 path is held exactly by tests/test_torch_cmd.py's one-pass runs.)
 
-The job routes are the one difference: the port answers 501, and
-``KSIM_JOBS_DIR`` makes its container refuse to start."""
+The job routes are held the same way in tests/test_torch_jobs.py."""
 
 from __future__ import annotations
 
@@ -280,25 +279,3 @@ def test_extender_proxy(fake_extender):
         assert _both(servers, "POST", "/api/v1/extender/nope/0", {})[0] == 404
         stored = [s.di.extender_service.store.get_stored_result(pod) for s in servers]
         assert stored[1] == stored[0] and stored[1]
-
-
-def test_job_routes_answer_501_and_jobs_dir_refused(monkeypatch, tmp_path):
-    di = DIContainer(device="cpu")
-    srv = SimulatorServer(di, port=0).start()
-    try:
-        for method, path, body in (("POST", "/api/v1/jobs", {"spec": {}}), ("GET", "/api/v1/jobs", None),
-                                   ("GET", "/api/v1/jobs/j-1/result", None), ("DELETE", "/api/v1/jobs/j-1", None)):
-            status, _, data = _req(srv, method, path, body)
-            assert status == 501, (method, path)
-            assert "ksim_tpu_torch/jobs" in json.loads(data)["message"]
-        assert di.job_manager_if_built is None
-        with pytest.raises(NotImplementedError, match="ksim_tpu_torch/jobs"):
-            di.job_manager
-        metrics = json.loads(_req(srv, "GET", "/api/v1/metrics")[2])
-        assert metrics["jobs"]["workers"] == {"pool": 0, "active": 0}
-    finally:
-        srv.shutdown_server()
-        di.shutdown(timeout=30)
-    monkeypatch.setenv("KSIM_JOBS_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="KSIM_JOBS_DIR"):
-        DIContainer(device="cpu")

@@ -1,9 +1,10 @@
 // The default profile's plugin chain, one pod against every node, for sm_90a.
 //
 // Shared by batch_eval.cu (kernel B, batch evaluation), replay_segment.cu
-// (kernel D) and, through cluster_scan.cuh, schedule_scan.cu (kernel A, the
-// sequential-commit scan) and schedule_sampled.cu (kernel C, the scan with
-// percentageOfNodesToScore sampling).  A "team" evaluates one pod at a
+// (kernel D), chain_stages.cu (kernel E, the chain in stages for hooked
+// and kernel-less profiles) and, through cluster_scan.cuh, schedule_scan.cu
+// (kernel A, the sequential-commit scan) and schedule_sampled.cu (kernel C,
+// the scan with percentageOfNodesToScore sampling).  A "team" evaluates one pod at a
 // time, and its type says how the node axis is owned and reduced:
 //  - BatchTeam (B; batch_eval.cu): one thread block; thread t owns nodes
 //    t, t + blockDim.x, ..., the reductions run in-block, and the
@@ -1092,6 +1093,109 @@ __device__ inline int interpod_norm(const ChainParams& P, int raw, int mn, int m
   return static_cast<int>(floorf(__fmul_rn(100.0f, __fdiv_rn(static_cast<float>(shifted), static_cast<float>(diff)))));
 }
 
+// ---- TaintToleration / NodeAffinity scores and the normalizes ----------------
+//
+// The phases of a pod that eval_pod_team (kernels A, C, D) and kernel E
+// (chain_stages.cu) both run, one node or one value at a time.
+
+// TaintToleration's raw score at node n: the node's PreferNoSchedule taints
+// the pod does not tolerate.
+__device__ inline int taint_prefer_count(const ChainParams& P, long long j, long long n) {
+  const int32_t* order = P.taint_order + n * P.W;
+  const uint8_t* tolp = P.pod_tolerated_prefer + j * P.W;
+  int c = 0;
+  for (long long w = 0; w < P.W; ++w) c += (order[w] > 0 && P.prefer[w] && !tolp[w]) ? 1 : 0;
+  return c;
+}
+
+// NodeAffinity's raw score at node n: the weights of the preferred and
+// added terms the node satisfies.  The weight sum is at most 100 per term:
+// it fits in 32 bits.
+__device__ inline long long affinity_pref_sum(const ChainParams& P, long long j, long long n) {
+  const uint8_t* tok = P.term_ok + n * P.T;
+  const int32_t* pw = P.preferred_weights + j * P.T;
+  long long sc = 0;
+  for (long long t = 0; t < P.T; ++t)
+    if (tok[t]) sc += pw[t] + P.added_pref[t];
+  return sc;
+}
+
+// TaintToleration's normalize, the reverse DefaultNormalizeScore over the
+// maximum mx of the feasible raw scores; DIVISION: raw >= 0, max > 0.
+__device__ inline int taint_norm(int raw, int mx) {
+  return mx > 0 ? MAX_NODE_SCORE - (MAX_NODE_SCORE * raw) / mx : MAX_NODE_SCORE;
+}
+
+// NodeAffinity's normalize, DefaultNormalizeScore; DIVISION: raw >= 0, max > 0.
+__device__ inline int affinity_norm(long long raw, long long mx) {
+  return static_cast<int>(mx > 0 ? (static_cast<long long>(MAX_NODE_SCORE) * raw) / mx : raw);
+}
+
+// PodTopologySpread's normalize at a node that is not ignored, given the
+// maximum and minimum over the scoreable nodes: WRAP, then a real floor
+// division, the reference's int32 math.
+__device__ inline int spread_norm(int raw, int mx, int mn) {
+  return mx == 0 ? MAX_NODE_SCORE
+                 : floordiv(wrap_mul(MAX_NODE_SCORE, wrap_sub(wrap_add(mx, mn), raw)), max(mx, 1));
+}
+
+// PodTopologySpread scores node n: the pod has a ScheduleAnyway
+// constraint and the node carries every one of their keys.
+__device__ inline bool spread_scoreable(const ChainParams& P, const Spread& sp, long long n) {
+  return sp.has_score && sp_allkeys(P, sp, CF_S, n);
+}
+
+// One pod's extrema the normalizes read, folded a node at a time by each
+// thread and reduced over the team (eval_pod_team's phases 4-5 and kernel
+// E's normalize stage): taint max, affinity max, spread max / min / any
+// over the scoreable nodes, interpod max / min / any over the feasible
+// nodes, interpod any nonzero over all nodes.
+struct NormExtrema {
+  int v[9] = {0, 0, INT_MIN, INT_MAX, 0, INT_MIN, INT_MAX, 0, 0};
+
+  __device__ void taint(int raw, bool ok) {
+    if (ok) v[0] = max(v[0], raw);
+  }
+  __device__ void affinity(int raw, bool ok) {
+    if (ok) v[1] = max(v[1], raw);
+  }
+  // `counted`: a feasible node that is scoreable.
+  __device__ void spread(int raw, bool counted) {
+    if (counted) {
+      v[2] = max(v[2], raw);
+      v[3] = min(v[3], raw);
+      v[4] = 1;
+    }
+  }
+  __device__ void interpod(int raw, bool ok) {
+    if (ok) {
+      v[5] = max(v[5], raw);
+      v[6] = min(v[6], raw);
+      v[7] = 1;
+    }
+    if (raw != 0) v[8] = 1;
+  }
+  template <class Team>
+  __device__ void reduce(Team& team, Smem& s) {
+    const int op[9] = {RMAX, RMAX, RMAX, RMIN, RMAX, RMAX, RMIN, RMAX, RMAX};
+    team.reduce(v, op, 9, s);
+  }
+
+  // The normalizes, before the weight (after reduce).  The spread and
+  // interpod ones take their raw score as a callable, evaluated only at
+  // the nodes they normalize.
+  __device__ int taint_norm(int raw) const { return ksim::taint_norm(raw, v[0]); }
+  __device__ int affinity_norm(long long raw) const { return ksim::affinity_norm(raw, v[1]); }
+  template <class Raw>
+  __device__ int spread_norm(const ChainParams& P, const Spread& sp, long long n, Raw raw) const {
+    return spread_scoreable(P, sp, n) ? ksim::spread_norm(raw(), v[4] ? v[2] : 0, v[4] ? v[3] : 0) : 0;
+  }
+  template <class Raw>
+  __device__ int interpod_norm(const ChainParams& P, bool ok, Raw raw) const {
+    return (v[8] && ok) ? ksim::interpod_norm(P, raw(), v[7] ? v[6] : 0, v[7] ? v[5] : 0) : 0;
+  }
+};
+
 // ---- sampling (kernel C) ------------------------------------------------------
 
 __device__ inline long long floormod(long long a, long long m) { return ((a % m) + m) % m; }
@@ -1328,41 +1432,30 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
   team.mark(PH_SPREAD_S);
   if (P.s_row[SPREAD] >= 0 && sp.has_score) spread_score_stats(P, sp, j, s, team, SAMPLED && sparse);
 
-  // -- phase 4: scores; the unnormalized finals are summed right away --
-  // Extrema: taint max, affinity max, spread max / min / any over the
-  // scoreable nodes, interpod max / min / any over the feasible nodes,
-  // interpod any nonzero over all nodes.
+  // -- phase 4: scores and the normalizes' extrema; the unnormalized
+  //    finals are summed right away --
   team.mark(PH_SCORE);
-  int ex[9] = {0, 0, INT_MIN, INT_MAX, 0, INT_MIN, INT_MAX, 0, 0};
-  const int ex_op[9] = {RMAX, RMAX, RMAX, RMIN, RMAX, RMAX, RMIN, RMAX, RMAX};
+  NormExtrema ex;
   for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
     const long long n = team.node(li);
     if (n >= N) continue;
     const uint8_t fl = s.flags[li];
     const bool ok = fl & FL_OK;
     if (sparse && !ok) {
-      if (P.s_row[INTERPOD] >= 0 && interpod_raw(P, ip, n) != 0) ex[8] = 1;
+      if (P.s_row[INTERPOD] >= 0) ex.interpod(interpod_raw(P, ip, n), false);
       continue;
     }
     int partial = 0;
     if (P.s_row[TAINT] >= 0) {
-      const int32_t* order = P.taint_order + n * P.W;
-      const uint8_t* tolp = P.pod_tolerated_prefer + j * P.W;
-      int c = 0;
-      for (long long w = 0; w < P.W; ++w) c += (order[w] > 0 && P.prefer[w] && !tolp[w]) ? 1 : 0;
+      const int c = taint_prefer_count(P, j, n);
       s.raw_taint[li] = c;
-      if (ok) ex[0] = max(ex[0], c);
+      ex.taint(c, ok);
       if (full) store_int(P.raw_out, rowS + P.s_row[TAINT] * N + n, c, P.raw_size);
     }
     if (P.s_row[AFFINITY] >= 0) {
-      // The weight sum is at most 100 per term: it fits in 32 bits.
-      const uint8_t* tok = P.term_ok + n * P.T;
-      const int32_t* pw = P.preferred_weights + j * P.T;
-      long long sc = 0;
-      for (long long t = 0; t < P.T; ++t)
-        if (tok[t]) sc += pw[t] + P.added_pref[t];
+      const long long sc = affinity_pref_sum(P, j, n);
       s.raw_aff[li] = static_cast<int>(sc);
-      if (ok) ex[1] = max(ex[1], static_cast<int>(sc));
+      ex.affinity(static_cast<int>(sc), ok);
       if (full) store_int(P.raw_out, rowS + P.s_row[AFFINITY] * N + n, sc, P.raw_size);
     }
     if (P.s_row[FIT] >= 0) {
@@ -1381,21 +1474,12 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
     }
     if (P.s_row[SPREAD] >= 0) {
       const int raw = spread_raw(P, sp, s, n, fl);
-      if (ok && sp.has_score && sp_allkeys(P, sp, CF_S, n)) {  // scoreable
-        ex[2] = max(ex[2], raw);
-        ex[3] = min(ex[3], raw);
-        ex[4] = 1;
-      }
+      ex.spread(raw, ok && spread_scoreable(P, sp, n));
       if (full) store_int(P.raw_out, rowS + P.s_row[SPREAD] * N + n, raw, P.raw_size);
     }
     if (P.s_row[INTERPOD] >= 0) {
       const int raw = interpod_raw(P, ip, n);
-      if (ok) {
-        ex[5] = max(ex[5], raw);
-        ex[6] = min(ex[6], raw);
-        ex[7] = 1;
-      }
-      if (raw != 0) ex[8] = 1;
+      ex.interpod(raw, ok);
       if (full) store_int(P.raw_out, rowS + P.s_row[INTERPOD] * N + n, raw, P.raw_size);
     }
     if (P.s_row[IMAGE] >= 0) {
@@ -1409,11 +1493,7 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
     s.partial[li] = partial;
   }
   team.mark(PH_EX_REDUCE);
-  team.reduce(ex, ex_op, 9, s);
-  const int mx_taint = ex[0], mx_aff = ex[1];
-  const int sp_mx = ex[4] ? ex[2] : 0, sp_mn = ex[4] ? ex[3] : 0;
-  const int ipa_mx = ex[7] ? ex[5] : 0, ipa_mn = ex[7] ? ex[6] : 0;
-  const bool ipa_nonzero = ex[8] != 0;
+  ex.reduce(team, s);
 
   // -- phase 5: normalizes, total, selectHost --
   team.mark(PH_NORMALIZE);
@@ -1425,38 +1505,25 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
     if (sparse && !(fl & FL_OK)) continue;
     int total = s.partial[li];
     if (P.s_row[TAINT] >= 0) {
-      // Reverse DefaultNormalizeScore; DIVISION: raw >= 0, max > 0.
-      const int raw = s.raw_taint[li];
-      const int norm = mx_taint > 0 ? MAX_NODE_SCORE - (MAX_NODE_SCORE * raw) / mx_taint : MAX_NODE_SCORE;
+      const int norm = ex.taint_norm(s.raw_taint[li]);
       const int fin = norm * static_cast<int>(P.weight[TAINT]);
       total += fin;
       if (finals) store_int(P.final_out, rowS + P.s_row[TAINT] * N + n, fin, P.final_size);
     }
     if (P.s_row[AFFINITY] >= 0) {
-      // DefaultNormalizeScore; DIVISION: raw >= 0, max > 0.
-      const long long raw = s.raw_aff[li];
-      const int norm = static_cast<int>(
-          mx_aff > 0 ? (static_cast<long long>(MAX_NODE_SCORE) * raw) / mx_aff : raw);
+      const int norm = ex.affinity_norm(s.raw_aff[li]);
       const int fin = norm * static_cast<int>(P.weight[AFFINITY]);
       total += fin;
       if (finals) store_int(P.final_out, rowS + P.s_row[AFFINITY] * N + n, fin, P.final_size);
     }
     if (P.s_row[SPREAD] >= 0) {
-      int norm = 0;
-      if (sp.has_score && sp_allkeys(P, sp, CF_S, n)) {  // not ignored
-        const int raw = spread_raw(P, sp, s, n, fl);
-        // WRAP, then a real floor division: the reference's int32 math.
-        norm = sp_mx == 0 ? MAX_NODE_SCORE
-                          : floordiv(wrap_mul(MAX_NODE_SCORE, wrap_sub(wrap_add(sp_mx, sp_mn), raw)),
-                                     max(sp_mx, 1));
-      }
+      const int norm = ex.spread_norm(P, sp, n, [&] { return spread_raw(P, sp, s, n, fl); });
       const int fin = norm * static_cast<int>(P.weight[SPREAD]);
       total += fin;
       if (finals) store_int(P.final_out, rowS + P.s_row[SPREAD] * N + n, fin, P.final_size);
     }
     if (P.s_row[INTERPOD] >= 0) {
-      const int norm =
-          (ipa_nonzero && (fl & FL_OK)) ? interpod_norm(P, interpod_raw(P, ip, n), ipa_mn, ipa_mx) : 0;
+      const int norm = ex.interpod_norm(P, fl & FL_OK, [&] { return interpod_raw(P, ip, n); });
       const int fin = norm * static_cast<int>(P.weight[INTERPOD]);
       total += fin;
       if (finals) store_int(P.final_out, rowS + P.s_row[INTERPOD] * N + n, fin, P.final_size);

@@ -12,13 +12,17 @@ The port of ``ksim_tpu/engine/core.py``, with its two entry points:
 - ``evaluate_batch`` / ``evaluate_batch_fused`` — every pod against the
   FIXED snapshot, with no commit.
 
-On a CUDA device they run in hand-written kernels (kernels/schedule_scan,
-kernels/schedule_sampled, kernels/batch_eval); on the CPU they run the
-kernels' plain PyTorch versions.  A profile no kernel can run — a
-``PluginExtender`` device hook (a Python callable on tensors), or a
-filter or score with no kernel code — is refused on a CUDA device when
-the Engine is built (``kernel_refusal``, decided from the profile
-alone); it runs with ``device="cpu"``.
+On a CUDA device they run in hand-written kernels; on the CPU they run the
+kernels' plain PyTorch versions.  The Engine's ``route``, decided from
+the profile alone and the same on every device, says which:
+
+- "fused": kernels A (kernels/schedule_scan), C (kernels/schedule_sampled)
+  and B (kernels/batch_eval) run the whole chain in one launch;
+- "staged": a profile the fused kernels cannot run (``kernel_refusal``: a
+  ``PluginExtender`` device hook, a Python callable on tensors, or a
+  filter or score with no kernel code) runs as kernel E's stages
+  (kernels/chain_stages) with the hooks and the kernel-less plugins' torch
+  code between the launches (engine/staged.py).
 
 ``record`` bounds what is kept per pod: "selection" keeps the chosen
 node, "final" adds the weighted normalized scores and their total,
@@ -40,8 +44,10 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ksim_tpu_torch.engine.staged import StagedProgram
 from ksim_tpu_torch.kernels.batch_eval import batch_eval
 from ksim_tpu_torch.kernels.chain import check_chain, has_kernel_code
+from ksim_tpu_torch.kernels.chain_stages import STAGES
 from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan
 from ksim_tpu_torch.plugins.base import NodeStateView, PodBatch, PodView
@@ -74,8 +80,8 @@ class PluginExtender:
 
     Device-side hooks, Python callables over the port's batched tensors
     (a block of B pods: every pod tensor leads with B, every result is
-    [B, N]).  No kernel can run them: an Engine whose profile holds one
-    runs on the CPU (``kernel_refusal``).
+    [B, N]).  An Engine whose profile holds one takes the "staged" route:
+    the hooks run between kernel E's stage launches (engine/staged.py).
 
     - before_filter(state, pods, aux) -> (state, pods): rewrite inputs;
     - after_filter(state, pods, aux, out: FilterOutput) -> FilterOutput;
@@ -160,9 +166,9 @@ class ScoredPlugin:
     weight: int = 1
     filter_enabled: bool = True
     score_enabled: bool = True
-    # Before/After hooks (a PluginExtender): its device fields run in the
-    # plain chain (a profile holding one runs on the CPU), its host fields
-    # in the scheduler service.
+    # Before/After hooks (a PluginExtender): its device fields run between
+    # kernel E's stages (the "staged" route), its host fields in the
+    # scheduler service.
     extender: Any = None
     # Host-side hints (not part of the device computation): is the plugin
     # active at the Reserve / PreBind / Permit / PostFilter / Bind /
@@ -419,9 +425,10 @@ class _Program:
 
 
 def kernel_refusal(plugins: Sequence[ScoredPlugin]) -> str | None:
-    """Why no kernel can run this profile (a plugin carrying a
+    """Why the fused kernels cannot run this profile (a plugin carrying a
     PluginExtender device hook, or enabling a filter or score the kernels
-    have no code for), or None."""
+    have no code for), or None.  Such a profile takes the "staged" route
+    (``engine_route``)."""
     for sp in plugins:
         if has_device_hook(sp):
             return f"{sp.plugin.name} carries a PluginExtender device hook"
@@ -430,13 +437,18 @@ def kernel_refusal(plugins: Sequence[ScoredPlugin]) -> str | None:
     return None
 
 
+def engine_route(plugins: Sequence[ScoredPlugin]) -> str:
+    """The profile's route on every device: "fused" (kernels A-C) or
+    "staged" (kernel E's stages with the hooks between them)."""
+    return "fused" if kernel_refusal(plugins) is None else "staged"
+
+
 class Engine:
     """The plugin chain bound to one featurized snapshot on one device.
 
     ``device=None`` means CUDA and raises when there is no CUDA device;
     pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
-    On a CUDA device a profile no kernel can run raises
-    NotImplementedError here (``kernel_refusal``).
+    ``route`` is "fused" or "staged" (``engine_route``).
     """
 
     # Pod-axis chunk of the recording modes (one kernel launch each): it
@@ -451,6 +463,8 @@ class Engine:
     _scan_fn = staticmethod(schedule_scan)
     _sampled_fn = staticmethod(schedule_sampled)
     _batch_fn = staticmethod(batch_eval)
+    # Kernel E's stage functions (the staged route).
+    _stages = STAGES
 
     def __init__(
         self,
@@ -483,12 +497,10 @@ class Engine:
                 )
             device = "cuda"
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            why = kernel_refusal(plugins)
-            if why is not None:
-                raise NotImplementedError(f"{why}: no kernel can run it; pass device='cpu' to run the plain chain")
         self._feats = feats
         self._prog = _Program(tuple(plugins), record, bool(exact))
+        self.route = engine_route(plugins)
+        self._staged = StagedProgram(self._prog, self._stages) if self.route == "staged" else None
         n, p = feats.nodes, feats.pods
         dev = self.device
         self._node_state = NodeStateView(
@@ -553,7 +565,11 @@ class Engine:
         outs = []
         for s in range(0, P, chunk):
             pods = self._pods.rows(s, s + chunk)
-            if sampled:
+            if self._staged is not None:
+                sampling = (start, n_real, self.sampling_k) if sampled else None
+                state, carries, *rest = self._staged.scan(state, pods, self._aux, carries, sampling)
+                start, out = rest if sampled else (start, rest[0])
+            elif sampled:
                 state, carries, start, out = self._sampled_fn(
                     self._prog, state, pods, self._aux, carries, start, n_real, self.sampling_k
                 )
@@ -591,9 +607,11 @@ class Engine:
         chunk = min(P, chunk or self._default_batch_chunk())
         carries = self._prog.init_carries(self._aux)
         for s in range(0, P, chunk):
-            out = self._batch_fn(
-                self._prog, self._node_state, self._pods.rows(s, s + chunk), self._aux, carries
-            )
+            pods = self._pods.rows(s, s + chunk)
+            if self._staged is not None:
+                out = self._staged.batch(self._node_state, pods, self._aux, carries)
+            else:
+                out = self._batch_fn(self._prog, self._node_state, pods, self._aux, carries)
             yield (np.arange(s, min(s + chunk, P), dtype=np.int64) if partition else s), out
 
     def evaluate_batch(self, *, chunk: int | None = None, partition: bool = False) -> EngineResult:
@@ -606,7 +624,8 @@ class Engine:
         return self._to_result({k: np.concatenate([o[k] for o in outs]) for k in outs[0]})
 
     def evaluate_batch_fused(self, *, block: int = 256) -> EngineResult:
-        """The whole pod axis in one kernel launch, for the bounded-size
+        """The whole pod axis in one kernel launch (the staged route: one
+        launch of each stage per ``block`` pods), for the bounded-size
         record modes; record="full" must stream through evaluate_batch.
         ``block`` is the reference's pods per vmap block, clamped to the
         pod axis and halved until it divides it: here the plain version's
@@ -619,9 +638,15 @@ class Engine:
         block = max(1, min(block, P))
         while P % block:
             block //= 2
-        out = self._batch_fn(
-            self._prog, self._node_state, self._pods, self._aux, self._prog.init_carries(self._aux), block=block
-        )
+        carries = self._prog.init_carries(self._aux)
+        if self._staged is not None:
+            # Kernel E's stages, ``block`` pods a launch.
+            outs = [self._staged.batch(self._node_state, self._pods.rows(s, s + block), self._aux, carries)
+                    for s in range(0, P, block)]
+            out = ({k: torch.cat([o[k] for o in outs]) for k in outs[0]} if outs
+                   else self._staged.batch(self._node_state, self._pods, self._aux, carries))
+        else:
+            out = self._batch_fn(self._prog, self._node_state, self._pods, self._aux, carries, block=block)
         return self._to_result(_pull_tree_to_host(out))
 
     def _to_result(self, out: dict) -> EngineResult:

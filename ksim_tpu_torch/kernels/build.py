@@ -21,7 +21,7 @@ from ksim_tpu_torch.kernels.chain import ChainParams
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ksim_tpu_torch"
-SOURCES = ("schedule_scan", "schedule_sampled", "batch_eval", "replay_segment")
+SOURCES = ("schedule_scan", "schedule_sampled", "batch_eval", "replay_segment", "chain_stages")
 # --fmad=false: no a*b+c contracted into an FMA where the reference
 # rounds twice (the chain's float paths must match it bit for bit).
 NVCC_FLAGS = (
@@ -29,6 +29,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Per source: kernel D's file holds four large kernel instantiations, which
+# nvcc compiles one after another (about 150-240 s on the H100 machines);
+# --split-compile optimizes and assembles them on up to 4 threads (about
+# 100 s there; the same registers, stack and shared memory per kernel).
+EXTRA_FLAGS = {"replay_segment": ("--split-compile=4",)}
 
 # The entry points' C signatures: (params, stream), and for the cluster
 # launches (kernels A, C and D) also (cluster size, threads, stats, info);
@@ -43,6 +48,8 @@ ARGTYPES = {
     "replay_segment": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p) + _CLUSTER,
     # Kernel B: (params, summary params, stream, grid).
     "batch_eval": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong),
+    # Kernel E: (stage, params, stage params, stream, grid).
+    "chain_stages": (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong),
 }
 
 _LOCK = threading.Lock()
@@ -63,7 +70,7 @@ def _target(name: str) -> Path:
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -80,7 +87,7 @@ def build(names=SOURCES) -> dict[str, Path]:
             BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": []})
             continue
         tmp = out.with_suffix(".tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,

@@ -257,12 +257,74 @@ def _ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple, device) -> in
     return t.data_ptr()
 
 
-def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = False,
+def put_state(prm: ChainParams, state) -> None:
+    """The node state's pointers (the state a stage kernel reads, or the
+    one a scan kernel commits into)."""
+    i32, b = torch.int32, torch.bool
+    dev = state.valid.device
+    N, R = prm.N, prm.R
+    for field, t, dtype, shape in (
+        ("alloc", state.allocatable, i32, (N, R)), ("allowed", state.allowed_pods, i32, (N,)),
+        ("nvalid", state.valid, b, (N,)), ("unsched", state.unschedulable, b, (N,)),
+        ("requested", state.requested, i32, (N, R)), ("nz_requested", state.nonzero_requested, i32, (N, R)),
+        ("pod_count", state.pod_count, i32, (N,)),
+    ):
+        setattr(prm, field, _ptr(t, dtype, shape, dev))
+
+
+def put_pods(prm: ChainParams, pods, valid=None) -> None:
+    """The pod rows' pointers and their count ``Pc``: a PodBatch (its
+    ``valid`` too) or a PodView (``valid`` given apart, or none)."""
+    i32, b = torch.int32, torch.bool
+    dev = pods.index.device
+    Pc = prm.Pc = pods.index.shape[0]
+    R = prm.R
+    if valid is None:
+        valid = getattr(pods, "valid", None)
+    prm.pvalid = _ptr(valid, b, (Pc,), dev)
+    for field, t, dtype, shape in (
+        ("preq", pods.requests, i32, (Pc, R)), ("pnz", pods.nonzero_requests, i32, (Pc, R)),
+        ("ptol", pods.tolerates_unschedulable, b, (Pc,)), ("phas", pods.has_requests, b, (Pc,)),
+        ("pindex", pods.index, i32, (Pc,)),
+    ):
+        setattr(prm, field, _ptr(t, dtype, shape, dev))
+
+
+def put_carries(prm: ChainParams, prog, carries: dict, device) -> None:
+    """The carries' pointers of the plugins in ``prog`` (the scan kernels
+    commit into them), after ``chain_params`` has set the shapes."""
+    names = {sp.plugin.name for sp in prog.plugins}
+    N = prm.N
+
+    def put(field, t, shape):
+        setattr(prm, field, _ptr(t, torch.int32, shape, device))
+
+    if "NodePorts" in names:
+        put("port_counts", carries["NodePorts"], (N, prm.V))
+    nvl = volume_limits_carry(prog)
+    if nvl is not None:
+        put("attached", carries[nvl], (N, prm.VV))
+    if "VolumeRestrictions" in names:
+        c = carries["VolumeRestrictions"]
+        put("rwop", c["rwop"], (N, prm.RW))
+        put("disk_any", c["disk_any"], (N, prm.DD))
+        put("disk_rw", c["disk_rw"], (N, prm.DD))
+    if "PodTopologySpread" in names:
+        put("sp_counts", carries["PodTopologySpread"], (N, prm.SS))
+    if "InterPodAffinity" in names:
+        c = carries["InterPodAffinity"]
+        for field in ("cnt", "ecnt", "ew"):
+            put("ipa_" + field, c[field], (N, prm.T2))
+        put("ipa_total", c["total"], (prm.T2,))
+
+
+def chain_params(prog, state, pods, aux, carries, out: "dict | None", *, cluster: bool = False,
                  sampling: tuple | None = None, rows: int | None = None) -> ChainParams:
     """Fill ChainParams for ``prog`` (engine/core.py _Program) over the
     pod chunk ``pods``.  ``state`` and the carries are the tensors the
     scan kernels update in place; ``out`` holds the output tensors of the
-    record mode (plus ``visited`` under sampling).  ``cluster`` allocates
+    record mode (plus ``visited`` under sampling), or is None for a
+    stage of kernel E (kernels/chain_stages.py), which gives its own.  ``cluster`` allocates
     the spread domain scratch, where it is not in shared memory, for a
     cluster launch (a partial and a combined array for each of up to
     MAX_CLUSTER blocks); else the launch allocates its own per block
@@ -275,10 +337,10 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
     i32, f32, f64, b = torch.int32, torch.float32, torch.float64, torch.bool
     dev = state.valid.device
     N, R = state.allocatable.shape
-    Pc = pods.valid.shape[0]
+    Pc = pods.index.shape[0]
     P_all = aux["nodename"]["pod_req_node"].shape[0]
     prm = ChainParams()
-    prm.N, prm.R, prm.Pc = N, R, Pc
+    prm.N, prm.R = N, R
     prm.F = len(prog.filters)
     prm.S = len(prog.scores)
     prm.record = RECORD_IDS[prog.record]
@@ -291,19 +353,8 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
     def put(field, t, dtype, shape):
         setattr(prm, field, _ptr(t, dtype, shape, dev))
 
-    put("alloc", state.allocatable, i32, (N, R))
-    put("allowed", state.allowed_pods, i32, (N,))
-    put("nvalid", state.valid, b, (N,))
-    put("unsched", state.unschedulable, b, (N,))
-    put("requested", state.requested, i32, (N, R))
-    put("nz_requested", state.nonzero_requested, i32, (N, R))
-    put("pod_count", state.pod_count, i32, (N,))
-    put("preq", pods.requests, i32, (Pc, R))
-    put("pnz", pods.nonzero_requests, i32, (Pc, R))
-    put("pvalid", pods.valid, b, (Pc,))
-    put("ptol", pods.tolerates_unschedulable, b, (Pc,))
-    put("phas", pods.has_requests, b, (Pc,))
-    put("pindex", pods.index, i32, (Pc,))
+    put_state(prm, state)
+    put_pods(prm, pods)
 
     kr = chain_rows(prog)
     prm.f_row[:] = kr["f_row"]
@@ -354,8 +405,6 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
     V = prm.V = a["pod_wants"].shape[1]
     put("pod_wants", a["pod_wants"], b, (P_all, V))
     put("pod_adds", a["pod_adds"], i32, (P_all, V))
-    if "NodePorts" in names:
-        put("port_counts", carries["NodePorts"], i32, (N, V))
     a = aux["imagelocality"]
     I = prm.I = a["image_size"].shape[0]
     put("node_has_image", a["node_has_image"], b, (N, I))
@@ -394,14 +443,6 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
     put("pod_disk_any", a["pod_disk_any"], b, (P_all, DD))
     put("pod_disk_rw", a["pod_disk_rw"], b, (P_all, DD))
     put("disk_shareable", a["disk_ro_shareable"], b, (DD,))
-    nvl = volume_limits_carry(prog)
-    if nvl is not None:
-        put("attached", carries[nvl], i32, (N, VV))
-    if "VolumeRestrictions" in names:
-        c = carries["VolumeRestrictions"]
-        put("rwop", c["rwop"], i32, (N, RW))
-        put("disk_any", c["disk_any"], i32, (N, DD))
-        put("disk_rw", c["disk_rw"], i32, (N, DD))
 
     a = aux["spread"]
     TK = prm.TK = a["node_ldom"].shape[1]
@@ -427,7 +468,6 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
             put("sp_scratch", scratch, i32, shape)
         logw = a["log_w64"] if prog.exact else a["log_w32"]
         put("sp_logw", logw, f64 if prog.exact else f32, (N + 1,))
-        put("sp_counts", carries["PodTopologySpread"], i32, (N, SS))
 
     a = aux["interpod"]
     T2 = prm.T2 = a["dom_t"].shape[1]
@@ -440,11 +480,7 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
     ):
         put(field, a[src], dtype, (P_all, T2))
     put("ipa_self_aff", a["self_aff"], b, (P_all,))
-    if "InterPodAffinity" in names:
-        c = carries["InterPodAffinity"]
-        for field in ("cnt", "ecnt", "ew"):
-            put("ipa_" + field, c[field], i32, (N, T2))
-        put("ipa_total", c["total"], i32, (T2,))
+    put_carries(prm, prog, carries, dev)
 
     if sampling is not None:
         start, n_real, k = sampling
@@ -455,6 +491,9 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
         if prog.record == "full":
             put("visited_out", out["visited"], b, (Pc, N))
 
+    prm.keep = keep + [tables]
+    if out is None:
+        return prm
     rows = Pc if rows is None else rows
     put("selected", out["selected"], i32, (Pc,))
     if prog.record in ("final", "full"):
@@ -463,7 +502,6 @@ def chain_params(prog, state, pods, aux, carries, out: dict, *, cluster: bool = 
     if prog.record == "full":
         put("bits_out", out["bits"], bits_dtype, (rows, prm.F, N))
         put("raw_out", out["raw"], raw_dtype, (rows, prm.S, N))
-    prm.keep = keep + [tables]
     return prm
 
 

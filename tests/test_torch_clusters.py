@@ -1,5 +1,6 @@
-"""Cluster builders for the port's tests and chip_smoke.py (stdlib only:
-no jax, no ksim_tpu), with checks that each exercises what it is for.
+"""Cluster builders for the port's tests and chip_smoke.py (no jax, no
+ksim_tpu), with checks that each exercises what it is for, and the hooked
+profiles of the staged route.
 
 Imported as ``test_torch_clusters``, with tests/ on sys.path (pytest puts
 it there; chip_smoke.py does it itself): the card's machine can carry an
@@ -335,6 +336,67 @@ def wide_profile(case: str, feats, core, res, vol, defaults) -> tuple:
             core.ScoredPlugin(vol.NodeVolumeLimits(vt, name="GCEPDLimits", pools=("gce-pd",)), score_enabled=False),
         ]
     return tuple(plugins)
+
+
+def torch_hooks() -> dict:
+    """The hooked profile's device hooks, the port's half (tests/
+    test_torch_hooks.py pairs each with ksim_tpu's): per plugin name,
+    {PluginExtender field: callable over the port's tensors}.  A veto of
+    node 0 and raw + 7 on NodeResourcesFit, one hook alone on each of four
+    more plugins, and all six on PodTopologySpread."""
+    import torch
+
+    from ksim_tpu_torch.plugins.base import FilterOutput
+
+    def veto(node: int, code: int):
+        def hook(state, pods, aux, out):
+            hit = torch.arange(out.ok.shape[-1], device=out.ok.device) == node
+            return FilterOutput(ok=out.ok & ~hit, reason_bits=torch.where(hit, code, out.reason_bits).to(torch.int32))
+
+        return hook
+
+    return {
+        "NodeResourcesFit": {"after_filter": veto(0, 1), "after_score": lambda s, p, a, x: x + 7},
+        "NodeUnschedulable": {"before_filter": lambda s, p, a: (s._replace(unschedulable=torch.zeros_like(s.unschedulable)), p)},
+        "NodeResourcesBalancedAllocation": {
+            "before_score": lambda s, p, a: (s._replace(requested=torch.div(s.requested, 2, rounding_mode="floor")), p),
+        },
+        "TaintToleration": {"before_normalize": lambda s, p, a, raw, ok: raw + 1},
+        "NodeAffinity": {"after_normalize": lambda s, p, a, norm, ok: torch.div(norm, 2, rounding_mode="floor")},
+        "PodTopologySpread": {
+            "before_filter": lambda s, p, a: (s, p),
+            "after_filter": veto(1, 4),
+            "before_score": lambda s, p, a: (s._replace(pod_count=s.pod_count + 1), p),
+            "after_score": lambda s, p, a, x: x + 3,
+            "before_normalize": lambda s, p, a, raw, ok: raw * 2,
+            "after_normalize": lambda s, p, a, norm, ok: torch.div(norm, 3, rounding_mode="floor"),
+        },
+    }
+
+
+def identity_hooks(plugins) -> dict:
+    """Identity hooks on all six device fields of every plugin."""
+    ident = {
+        "before_filter": lambda s, p, a: (s, p),
+        "after_filter": lambda s, p, a, out: out,
+        "before_score": lambda s, p, a: (s, p),
+        "after_score": lambda s, p, a, x: x,
+        "before_normalize": lambda s, p, a, raw, ok: raw,
+        "after_normalize": lambda s, p, a, norm, ok: norm,
+    }
+    return {sp.plugin.name: dict(ident) for sp in plugins}
+
+
+def hooked_profile(plugins, hooks: dict) -> tuple:
+    """``plugins`` (the port's ScoredPlugins) with ``hooks[name]`` as each
+    named plugin's PluginExtender."""
+    from ksim_tpu_torch.engine.core import PluginExtender, ScoredPlugin
+
+    return tuple(
+        ScoredPlugin(sp.plugin, sp.weight, sp.filter_enabled, sp.score_enabled,
+                     extender=PluginExtender(**hooks[sp.plugin.name]) if sp.plugin.name in hooks else None)
+        for sp in plugins
+    )
 
 
 def _sc(name, *, provisioner="pd.csi.storage.gke.io", mode="WaitForFirstConsumer"):

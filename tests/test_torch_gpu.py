@@ -25,7 +25,8 @@ import torch
 
 from ksim_tpu_torch.engine.core import Engine
 from ksim_tpu_torch.engine.profiles import default_plugins
-from ksim_tpu_torch.kernels import chain
+from ksim_tpu_torch.engine.staged import StagedProgram
+from ksim_tpu_torch.kernels import chain, chain_stages
 import ksim_tpu_torch.engine.core as port_core
 import ksim_tpu_torch.plugins.noderesources as port_res
 import ksim_tpu_torch.plugins.volumes as port_vol
@@ -36,7 +37,7 @@ from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled, schedule_s
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan, schedule_scan_plain
 from ksim_tpu_torch.state.featurizer import Featurizer
 from helpers import random_cluster
-from test_torch_clusters import case_inputs, wide_cluster, wide_profile
+from test_torch_clusters import case_inputs, hooked_profile, torch_hooks, wide_cluster, wide_profile
 from test_torch_gpu_replay import _assert_plain_equal, _capture, _steps, wide_runner, wide_stream
 
 pytestmark = pytest.mark.gpu
@@ -50,6 +51,7 @@ class PlainEngine(Engine):
     _scan_fn = staticmethod(schedule_scan_plain)
     _sampled_fn = staticmethod(schedule_sampled_plain)
     _batch_fn = staticmethod(batch_eval_plain)
+    _stages = chain_stages.PLAIN_STAGES
 
 
 @pytest.fixture
@@ -388,25 +390,105 @@ def test_node_number_churn_kernel_d_matches_plain(cuda, monkeypatch):
 
 
 def test_hooked_profile_is_refused_on_the_card(cuda):
-    """A profile with a device hook raises NotImplementedError on the card
-    before any launch (no kernel runs a Python hook); the CPU runs it, and
-    the profile without the hook stays on the kernels."""
-    from ksim_tpu_torch.engine.core import PluginExtender, ScoredPlugin
-
+    """No longer refused (the name is kept): a profile with device hooks
+    (test_torch_clusters.torch_hooks: each alone on a plugin, all six on
+    PodTopologySpread) builds on the card with the "staged" route and runs
+    through kernel E, never kernels A-C: the scan, the sampled scan, the
+    chunked and the fused batch equal the same profile through kernel E's
+    plain versions on the card.  The profile without hooks stays on kernel
+    A."""
     feats = Featurizer().featurize(*random_cluster(3, 40, 64))
-    ext = PluginExtender(after_score=lambda state, pods, aux, scores: scores + 7)
-    plugins = tuple(
-        ScoredPlugin(sp.plugin, sp.weight, sp.filter_enabled, sp.score_enabled,
-                     extender=ext if sp.plugin.name == "NodeResourcesFit" else None)
-        for sp in default_plugins(feats)
-    )
-    launches = schedule_scan.launches, batch_eval.launches
-    with pytest.raises(NotImplementedError, match="device='cpu'"):
-        Engine(feats, plugins, record="full", device=cuda)
-    Engine(feats, plugins, record="full", device="cpu").evaluate_batch()
-    assert (schedule_scan.launches, batch_eval.launches) == launches
+    hooked = hooked_profile(default_plugins(feats), torch_hooks())
+    fused = schedule_scan.launches, schedule_sampled.launches, batch_eval.launches
+    chain_stages.reset_launches()
+    for record, sampling_k in (("full", None), ("full", 5), ("final", None)):
+        eng = Engine(feats, hooked, record=record, device=cuda, sampling_k=sampling_k)
+        plain = PlainEngine(feats, hooked, record=record, device=cuda, sampling_k=sampling_k)
+        assert eng.route == plain.route == "staged"
+        got, state = eng.schedule(chunk=24, sampling_start=3 if sampling_k else 0)
+        want, want_state = plain.schedule(chunk=24, sampling_start=3 if sampling_k else 0)
+        _assert_equal(got, want)
+        for name in state._fields:
+            np.testing.assert_array_equal(getattr(state, name), getattr(want_state, name), err_msg=name)
+        if sampling_k is None:
+            batch = (lambda e: e.evaluate_batch(chunk=16)) if record == "full" else (
+                lambda e: e.evaluate_batch_fused(block=16))
+            _assert_equal(batch(eng), batch(plain))
+    assert (schedule_scan.launches, schedule_sampled.launches, batch_eval.launches) == fused
+    assert all(n > 0 for n in chain_stages.launches().values()), chain_stages.launches()
     Engine(feats, default_plugins(feats), device=cuda).schedule()
-    assert schedule_scan.launches > launches[0]
+    assert schedule_scan.launches > fused[0]
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("case", ["seed0", "images_ports", "spread_affinity", "volumes"])
+def test_chain_stages_match_plain(cuda, case, exact):
+    """Kernel E's stages E1-E4 against their plain versions on the same
+    inputs, one stage at a time, over the whole default profile (one
+    launch group per stage): every pod of the snapshot in E1-E3 and E4's
+    selection, the visit window and the committing selection for the
+    first pods, the committed state and carries."""
+    nodes, pods, kw = case_inputs(case)
+    feats = Featurizer().featurize(nodes, pods, **kw)
+    eng = Engine(feats, default_plugins(feats), record="full", exact=exact, device=cuda)
+    staged = StagedProgram(eng._prog)
+    fsub, ssub = staged.filter_groups[0].sub, staged.score_groups[0].sub
+    state, batch, aux = eng._node_state, eng._pods, eng._aux
+    carries = eng._prog.init_carries(aux)
+    view = batch.view()
+    before = chain_stages.launches()
+
+    codes, ok = chain_stages.filter_stage(fsub, state, view, aux, carries)
+    want_codes, want_ok = chain_stages.filter_stage_plain(fsub, state, view, aux, carries)
+    torch.testing.assert_close(codes, want_codes, rtol=0, atol=0)
+    torch.testing.assert_close(ok, want_ok, rtol=0, atol=0)
+    raw = chain_stages.score_stage(ssub, state, view, aux, carries, ok)
+    torch.testing.assert_close(raw, chain_stages.score_stage_plain(ssub, state, view, aux, carries, ok), rtol=0, atol=0)
+    norm = chain_stages.normalize_stage(ssub, state, view, aux, carries, raw, ok)
+    torch.testing.assert_close(norm, chain_stages.normalize_stage_plain(ssub, state, view, aux, carries, raw, ok),
+                               rtol=0, atol=0)
+    P, N = ok.shape
+    weights = torch.tensor([sp.weight for sp in eng._prog.scores], dtype=torch.int32, device=cuda)
+
+    def outs(rows, final_dtype=torch.int16):
+        return {"selected": torch.empty(rows, dtype=torch.int32, device=cuda),
+                "total": torch.empty((rows, N), dtype=torch.int32, device=cuda),
+                "final": torch.empty((rows, norm.shape[1], N), dtype=final_dtype, device=cuda)}
+
+    got, want = outs(P), outs(P)
+    chain_stages.select_stage(staged.commit_sub, state, batch, aux, carries, norm, weights, ok, got)
+    chain_stages.select_stage_plain(staged.commit_sub, state, batch, aux, carries, norm, weights, ok, want)
+    for key in got:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+
+    n_real = int(feats.nodes.count)
+    k_state, k_carries = chain.fresh_scan_state(eng._prog, state, carries)
+    p_state, p_carries = chain.fresh_scan_state(eng._prog, state, carries)
+    start_k = torch.tensor([n_real - 2], dtype=torch.int32, device=cuda)
+    start_p = start_k.clone()
+    for i in range(min(P, 8)):
+        pod = batch.rows(i, i + 1)
+        sample, visited, start_k = chain_stages.window_stage(ok[i:i + 1], start_k, pod.valid, n_real, 3)
+        want_sample, want_visited, start_p = chain_stages.window_stage_plain(ok[i:i + 1], start_p, pod.valid,
+                                                                             n_real, 3)
+        torch.testing.assert_close(sample, want_sample, rtol=0, atol=0)
+        torch.testing.assert_close(visited, want_visited, rtol=0, atol=0)
+        torch.testing.assert_close(start_k, start_p, rtol=0, atol=0)
+        got, want = outs(1), outs(1)
+        chain_stages.select_stage(staged.commit_sub, k_state, pod, aux, k_carries, norm[i:i + 1], weights,
+                                  ok[i:i + 1], got, commit=True)
+        chain_stages.select_stage_plain(staged.commit_sub, p_state, pod, aux, p_carries, norm[i:i + 1], weights,
+                                        ok[i:i + 1], want, commit=True)
+        torch.testing.assert_close(got["selected"], want["selected"], rtol=0, atol=0)
+    for name in k_state._fields:
+        torch.testing.assert_close(getattr(k_state, name), getattr(p_state, name), rtol=0, atol=0)
+    for name, want in p_carries.items():
+        got = k_carries[name]
+        for key in (want if isinstance(want, dict) else [None]):
+            torch.testing.assert_close(got if key is None else got[key], want if key is None else want[key],
+                                       rtol=0, atol=0)
+    after = chain_stages.launches()
+    assert all(after[k] > before[k] for k in after), after
 
 
 def test_lifecycle_markers_stay_on_the_kernels(cuda, tmp_path):

@@ -1,14 +1,15 @@
 """PluginExtender device hooks on the port against ksim_tpu, on the CPU,
-and the refusal of a hooked profile on the card.
+and the route a hooked profile takes.
 
 The hooks are Python callables on tensors, written once for each package
 (jax.numpy per pod there, torch over a block of pods here) with the same
 effect.  One profile carries every device hook alone on a plugin of its
 own, and all six together on PodTopologySpread; ``schedule`` and
 ``evaluate_batch`` equal ksim_tpu's record for record (tolerance 0) in
-exact and f32 modes.  A profile with a device hook is refused on a CUDA
-device when its Engine is built; one without, or with host hooks only, is
-not (tests/test_torch_gpu.py holds the refusal on the card)."""
+exact and f32 modes.  A profile with a device hook takes the "staged"
+route (kernel E's stages with the hooks between them; its plain versions
+here, the kernels on the card: tests/test_torch_gpu.py); one without, or
+with host hooks only, takes the "fused" route (kernels A-C)."""
 
 from __future__ import annotations
 
@@ -23,12 +24,12 @@ from ksim_tpu.engine.core import ScoredPlugin as JaxScoredPlugin
 from ksim_tpu.engine.profiles import default_plugins as jax_default_plugins
 from ksim_tpu.plugins.base import FilterOutput as JaxFilterOutput
 from ksim_tpu.state.featurizer import Featurizer as JaxFeaturizer
-from ksim_tpu_torch.engine.core import Engine, PluginExtender, ScoredPlugin, kernel_refusal
+from ksim_tpu_torch.engine.core import Engine, PluginExtender, ScoredPlugin, engine_route, kernel_refusal
 from ksim_tpu_torch.engine.profiles import default_plugins
-from ksim_tpu_torch.plugins.base import FilterOutput
 from ksim_tpu_torch.state.featurizer import Featurizer, snapshot_from_arrays
 from tests.helpers import make_node, make_pod, random_cluster
 from tests.test_torch_engine import assert_results_equal, assert_states_equal, x64
+from test_torch_clusters import torch_hooks
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,64 +41,38 @@ def _one_torch_thread():
 
 
 def _veto(node: int, code: int):
-    """after_filter: node ``node`` fails with reason code ``code``."""
+    """ksim_tpu's after_filter: node ``node`` fails with reason code
+    ``code`` (the port's is test_torch_clusters.torch_hooks')."""
 
     def jax_hook(state, pod, aux, out):
         veto = jnp.arange(out.ok.shape[0]) == node
         return JaxFilterOutput(ok=out.ok & ~veto, reason_bits=jnp.where(veto, code, out.reason_bits).astype(jnp.int32))
 
-    def torch_hook(state, pods, aux, out):
-        veto = torch.arange(out.ok.shape[-1], device=out.ok.device) == node
-        return FilterOutput(ok=out.ok & ~veto, reason_bits=torch.where(veto, code, out.reason_bits).to(torch.int32))
-
-    return jax_hook, torch_hook
+    return jax_hook
 
 
 # Per plugin: {hook field: (ksim_tpu's hook, the port's)}.  Each plugin
 # but PodTopologySpread carries its hooks alone; PodTopologySpread
-# carries all six.
-HOOKS = {
+# carries all six.  The port's half is test_torch_clusters.torch_hooks
+# (chip_smoke.py runs it on the card).
+_JAX_HOOKS = {
     # ksim_tpu's test_plugin_extender_hooks: a veto of node 0, raw + 7.
-    "NodeResourcesFit": {
-        "after_filter": _veto(0, 1),
-        "after_score": (lambda s, p, a, x: x + 7, lambda s, p, a, x: x + 7),
-    },
-    "NodeUnschedulable": {
-        "before_filter": (
-            lambda s, p, a: (s._replace(unschedulable=jnp.zeros_like(s.unschedulable)), p),
-            lambda s, p, a: (s._replace(unschedulable=torch.zeros_like(s.unschedulable)), p),
-        ),
-    },
-    "NodeResourcesBalancedAllocation": {
-        "before_score": (
-            lambda s, p, a: (s._replace(requested=s.requested // 2), p),
-            lambda s, p, a: (s._replace(requested=torch.div(s.requested, 2, rounding_mode="floor")), p),
-        ),
-    },
-    "TaintToleration": {
-        "before_normalize": (lambda s, p, a, raw, ok: raw + 1, lambda s, p, a, raw, ok: raw + 1),
-    },
-    "NodeAffinity": {
-        "after_normalize": (
-            lambda s, p, a, norm, ok: norm // 2,
-            lambda s, p, a, norm, ok: torch.div(norm, 2, rounding_mode="floor"),
-        ),
-    },
+    "NodeResourcesFit": {"after_filter": _veto(0, 1), "after_score": lambda s, p, a, x: x + 7},
+    "NodeUnschedulable": {"before_filter": lambda s, p, a: (s._replace(unschedulable=jnp.zeros_like(s.unschedulable)), p)},
+    "NodeResourcesBalancedAllocation": {"before_score": lambda s, p, a: (s._replace(requested=s.requested // 2), p)},
+    "TaintToleration": {"before_normalize": lambda s, p, a, raw, ok: raw + 1},
+    "NodeAffinity": {"after_normalize": lambda s, p, a, norm, ok: norm // 2},
     "PodTopologySpread": {
-        "before_filter": (lambda s, p, a: (s, p), lambda s, p, a: (s, p)),
+        "before_filter": lambda s, p, a: (s, p),
         "after_filter": _veto(1, 4),
-        "before_score": (
-            lambda s, p, a: (s._replace(pod_count=s.pod_count + 1), p),
-            lambda s, p, a: (s._replace(pod_count=s.pod_count + 1), p),
-        ),
-        "after_score": (lambda s, p, a, x: x + 3, lambda s, p, a, x: x + 3),
-        "before_normalize": (lambda s, p, a, raw, ok: raw * 2, lambda s, p, a, raw, ok: raw * 2),
-        "after_normalize": (
-            lambda s, p, a, norm, ok: norm // 3,
-            lambda s, p, a, norm, ok: torch.div(norm, 3, rounding_mode="floor"),
-        ),
+        "before_score": lambda s, p, a: (s._replace(pod_count=s.pod_count + 1), p),
+        "after_score": lambda s, p, a, x: x + 3,
+        "before_normalize": lambda s, p, a, raw, ok: raw * 2,
+        "after_normalize": lambda s, p, a, norm, ok: norm // 3,
     },
 }
+_TORCH_HOOKS = torch_hooks()
+HOOKS = {name: {f: (fn, _TORCH_HOOKS[name][f]) for f, fn in fields.items()} for name, fields in _JAX_HOOKS.items()}
 
 
 def _hooked(plugins, scored_cls, ext_cls, side: int):
@@ -131,7 +106,7 @@ def test_every_device_hook_matches_reference(exact, scan):
         ref_batch = ref_engine.evaluate_batch()
         if scan:
             ref, ref_state = ref_engine.schedule()
-    assert "PluginExtender device hook" in kernel_refusal(port._plugins)
+    assert "PluginExtender device hook" in kernel_refusal(port._plugins) and port.route == "staged"
     batch = port.evaluate_batch(chunk=16)
     assert_results_equal(ref_batch, batch)
     # The hooks took effect: the vetoes' codes.
@@ -154,7 +129,7 @@ def test_plugin_extender_hooks():
     feats = Featurizer().featurize(nodes, [], queue_pods=queue)
     base = default_plugins(feats)
     seen = {}
-    veto = _veto(0, 1)[1]
+    veto = _TORCH_HOOKS["NodeResourcesFit"]["after_filter"]
 
     def after_filter(state, pods, aux, out):
         seen["filter"] = True
@@ -196,10 +171,12 @@ class _NoKernel:
 
 
 def test_route_is_decided_from_the_profile():
-    """No refusal for the default profile, for host-only hooks and for
-    plugins enabled at no device stage; a refusal on a CUDA device, when
-    the Engine is built and before any transfer, for any device hook and
-    for a filter or score without kernel code.  The CPU runs them all."""
+    """The route comes from the profile alone, the same on every device:
+    "fused" (kernels A-C) for the default profile, for host-only hooks and
+    for plugins enabled at no device stage; "staged" (kernel E's stages)
+    for any device hook and for a filter or score without kernel code.
+    The CPU runs both routes, the staged one through kernel E's plain
+    versions; tests/test_torch_gpu.py runs them on the card."""
     feats = Featurizer().featurize([make_node("n1")], [], queue_pods=[make_pod("p1")])
     base = default_plugins(feats)
     host_only = PluginExtender(before_permit=lambda pod, node: None)
@@ -214,17 +191,19 @@ def test_route_is_decided_from_the_profile():
         )
 
     cases = {
-        "kernel": [base, with_ext(host_only), base + (ScoredPlugin(marker, filter_enabled=False, score_enabled=False),)],
-        "plain": [with_ext(device_hook), base + (ScoredPlugin(_NoKernel(), filter_enabled=False),)],
+        "fused": [base, with_ext(host_only), base + (ScoredPlugin(marker, filter_enabled=False, score_enabled=False),)],
+        "staged": [with_ext(device_hook), base + (ScoredPlugin(_NoKernel(), filter_enabled=False),)],
     }
     for route, profiles in cases.items():
         for plugins in profiles:
-            assert (kernel_refusal(plugins) is None) == (route == "kernel")
-            Engine(feats, plugins, device="cpu").evaluate_batch()
-    for plugins, why in zip(cases["plain"], ("NodeResourcesFit carries a PluginExtender device hook",
-                                             "plugin Custom has no kernel code")):
-        with pytest.raises(NotImplementedError, match=why):
-            Engine(feats, plugins, device="cuda")
-    # The CPU's plain chain scores the custom plugin.
-    res = Engine(feats, cases["plain"][1], device="cpu", record="full").evaluate_batch()
+            assert engine_route(plugins) == route
+            assert (kernel_refusal(plugins) is None) == (route == "fused")
+            eng = Engine(feats, plugins, device="cpu")
+            assert eng.route == route and (eng._staged is not None) == (route == "staged")
+            eng.evaluate_batch()
+    for plugins, why in zip(cases["staged"], ("NodeResourcesFit carries a PluginExtender device hook",
+                                              "plugin Custom has no kernel code")):
+        assert why in kernel_refusal(plugins)
+    # The staged route scores the custom plugin.
+    res = Engine(feats, cases["staged"][1], device="cpu", record="full").evaluate_batch()
     assert res.plugin_names[-1] == "Custom" and np.all(res.scores[:, -1] == 0)

@@ -100,6 +100,22 @@ def _lowered_pair(exact: bool, head_steps: int, k: int = 8):
     return jplan, tplan
 
 
+@pytest.fixture(scope="module")
+def lowered():
+    """``_lowered_pair(exact, head_steps)``, made once per pair of
+    arguments in this module and shared by the tests that ask for it
+    again (they only read the plans)."""
+    pairs = {}
+
+    def get(exact: bool, head_steps: int):
+        if (exact, head_steps) not in pairs:
+            with x64(exact):
+                pairs[exact, head_steps] = _lowered_pair(exact, head_steps)
+        return pairs[exact, head_steps]
+
+    return get
+
+
 def _reference_segment(plan):
     """ksim_tpu's segment program on its own lowered plan: (final state,
     outputs) as numpy."""
@@ -122,9 +138,8 @@ def _assert_equal(ref: np.ndarray, got: torch.Tensor, what: str) -> None:
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
-def test_port_lowers_the_window_as_the_reference_does(exact):
-    with x64(exact):
-        jplan, tplan = _lowered_pair(exact, head_steps=3)
+def test_port_lowers_the_window_as_the_reference_does(exact, lowered):
+    jplan, tplan = lowered(exact, 3)
     js, ts = jplan.statics, tplan.statics
     assert (ts.k, ts.q, ts.cap, ts.n_tk, ts.n_dom) == (js.k, js.q, js.cap, js.n_tk, js.n_dom)
     assert tplan.universe_keys == jplan.universe_keys
@@ -139,9 +154,9 @@ def test_port_lowers_the_window_as_the_reference_does(exact):
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
-def test_replay_segment_plain_equals_segment_body(exact):
+def test_replay_segment_plain_equals_segment_body(exact, lowered):
+    jplan, tplan = lowered(exact, 3)
     with x64(exact):
-        jplan, tplan = _lowered_pair(exact, head_steps=3)
         ref_state, ref_outs = _reference_segment(jplan)
     const, ev, state0 = segment_from_arrays(dict(jplan.const, aux=jplan.aux), jplan.ev, jplan.state0)
     before = replay_segment.launches
@@ -158,9 +173,9 @@ def test_replay_segment_plain_equals_segment_body(exact):
 
 
 @pytest.mark.parametrize("head_steps", [2, 6, 11])
-def test_derive_interpod_plain_equals_reference(head_steps):
+def test_derive_interpod_plain_equals_reference(head_steps, lowered):
+    jplan, _ = lowered(True, head_steps)
     with x64(True):
-        jplan, _ = _lowered_pair(True, head_steps=head_steps)
         ipa = {k: getattr(jplan.aux["interpod"], k) for k in ("node_dom", "term_tk", "dom_t")}
         loc = {k: jplan.state0["ip_" + k] for k in ("cnt", "eat", "vw")}
         ref = jax_derive_interpod(loc, ipa, jplan.statics)
@@ -188,10 +203,9 @@ def test_derive_interpod_plain_equals_reference(head_steps):
 
 
 @pytest.mark.parametrize("head_steps", [2, 11])
-def test_derive_layout_indexes_the_lowered_domains(head_steps):
-    with x64(True):
-        jplan, _ = _lowered_pair(True, head_steps=head_steps)
-        zone = np.array(jplan.aux["interpod"].node_dom)
+def test_derive_layout_indexes_the_lowered_domains(head_steps, lowered):
+    jplan, _ = lowered(True, head_steps)
+    zone = np.array(jplan.aux["interpod"].node_dom)
     # The churn's one inter-pod key is the zone; a hostname-like key (one
     # node per domain, the live nodes only) is added beside it.
     host = np.where(zone[:, 0] >= 0, np.arange(zone.shape[0]), -1).astype(np.int32)

@@ -77,45 +77,8 @@ def assert_wide(case: str, port) -> None:
         assert len(tables["nvl_row"]) == 3
 
 
-@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
-@pytest.mark.parametrize("case", WIDE_CASES)
-def test_wide_profile_schedule_matches_reference(case, exact):
-    with x64(exact):
-        ref_engine, port = wide_engines(case, "full", exact)
-        ref, ref_state = ref_engine.schedule()
-    assert_wide(case, port)
-    got, state = port.schedule(chunk=24)
-    assert_results_equal(ref, got)
-    assert_states_equal(ref_state, state)
-    assert (got.selected >= 0).any()
-
-
-@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
-@pytest.mark.parametrize("case", WIDE_CASES)
-def test_wide_profile_batch_matches_reference(case, exact):
-    with x64(exact):
-        ref_engine, port = wide_engines(case, "full", exact)
-        ref = ref_engine.evaluate_batch()
-    assert_results_equal(ref, port.evaluate_batch(chunk=16))
-
-
-@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
-def test_legacy_volume_limits_record_their_own_rows(exact):
-    """EBSLimits and GCEPDLimits each record their own reason row, in the
-    reference's filter order, and reject where their one pool is full."""
-    with x64(exact):
-        ref_engine, port = wide_engines("legacy_volume_limits", "full", exact)
-        ref = ref_engine.evaluate_batch()
-    got = port.evaluate_batch()
-    assert got.filter_plugin_names == ref.filter_plugin_names
-    names = got.filter_plugin_names
-    assert names.index("EBSLimits") == names.index("NodeVolumeLimits") + 1
-    for name in ("NodeVolumeLimits", "EBSLimits", "GCEPDLimits"):
-        row = got.reason_bits[:, names.index(name)]
-        np.testing.assert_array_equal(row, np.asarray(ref.reason_bits)[:, names.index(name)])
-    assert got.reason_bits[:, names.index("NodeVolumeLimits")].any()
-
-
+# First in the module: ksim_tpu's exact per-pass run here is the suite's
+# longest test, so it starts before the module's short ones.
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
 def test_wide_config_device_path_matches_per_pass(exact):
     """The wide profile compiled from a KubeSchedulerConfiguration (9 Fit
@@ -144,3 +107,60 @@ def test_wide_config_device_path_matches_per_pass(exact):
     assert dev.replay_driver.device_steps >= 8, dev.replay_driver.unsupported
     enabled = {name for prof in dev.service._profiles.values() for name, _ in prof.enabled}
     assert {"EBSLimits", "GCEPDLimits"} <= enabled
+
+
+@pytest.fixture(scope="module")
+def wide_refs() -> dict:
+    """Per (case, mode): the wide snapshot's engines, built once, and
+    ksim_tpu's results on them, each computed once: the parametrisations
+    that ask for the same case and mode share them (engines and results
+    are only read)."""
+    return {}
+
+
+def shared_wide(cache: dict, case: str, exact: bool, entry: str):
+    """(the port's engine, ksim_tpu's ``entry`` result: "schedule" its
+    (result, state), "batch" its evaluate_batch) for ``case`` in mode
+    ``exact``, from ``cache`` (``wide_refs``)."""
+    slot = cache.get((case, exact))
+    if slot is None:
+        with x64(exact):
+            slot = cache[(case, exact)] = {"engines": wide_engines(case, "full", exact)}
+    if entry not in slot:
+        ref_engine = slot["engines"][0]
+        with x64(exact):
+            slot[entry] = ref_engine.schedule() if entry == "schedule" else ref_engine.evaluate_batch()
+    return slot["engines"][1], slot[entry]
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_wide_profile_schedule_matches_reference(wide_refs, case, exact):
+    port, (ref, ref_state) = shared_wide(wide_refs, case, exact, "schedule")
+    assert_wide(case, port)
+    got, state = port.schedule(chunk=24)
+    assert_results_equal(ref, got)
+    assert_states_equal(ref_state, state)
+    assert (got.selected >= 0).any()
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_wide_profile_batch_matches_reference(wide_refs, case, exact):
+    port, ref = shared_wide(wide_refs, case, exact, "batch")
+    assert_results_equal(ref, port.evaluate_batch(chunk=16))
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+def test_legacy_volume_limits_record_their_own_rows(wide_refs, exact):
+    """EBSLimits and GCEPDLimits each record their own reason row, in the
+    reference's filter order, and reject where their one pool is full."""
+    port, ref = shared_wide(wide_refs, "legacy_volume_limits", exact, "batch")
+    got = port.evaluate_batch()
+    assert got.filter_plugin_names == ref.filter_plugin_names
+    names = got.filter_plugin_names
+    assert names.index("EBSLimits") == names.index("NodeVolumeLimits") + 1
+    for name in ("NodeVolumeLimits", "EBSLimits", "GCEPDLimits"):
+        row = got.reason_bits[:, names.index(name)]
+        np.testing.assert_array_equal(row, np.asarray(ref.reason_bits)[:, names.index(name)])
+    assert got.reason_bits[:, names.index("NodeVolumeLimits")].any()

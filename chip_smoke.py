@@ -159,11 +159,16 @@ Phases, in order; any failure exits non-zero before the last line:
    and the fused batch (final) over the whole queue, each equal to the
    same profile through kernel E's plain versions, and E1-E4 each against
    its plain version on 256 pods; (iii) one SchedulerService pass with
-   that profile (2000 x 256) equal to its CPU run; (iv) each stage's
-   kernel time (CUPTI) at one pod of the scan and at 256 pods beside its
-   wrapper's host time, its plain version and its bound (the bytes of
-   its own rows' tables), the launches per pod, and (i)'s wall beside
-   kernel A's; (e) a profiled pass whose trace names the pass and kernel A's launch, its profile holding
+   that profile (2000 x 256) equal to its CPU run; (iv) E1 and E2 (each
+   pod row on a thread-block cluster) against their plain versions at
+   one pod of the scan and at 256 pods, at the cluster size the launch
+   picks there and at a forced size of 1, and each stage's kernel time
+   (CUPTI) at one pod and at 256 pods beside its wrapper's host time, its
+   plain version and its bound (the bytes of its own rows' tables), E1's
+   and E2's also at a forced cluster of one block, the launches per pod,
+   and (i)'s wall beside kernel A's; then a torch.profiler trace of (i)'s
+   first TRACE_PODS pods: the card's busy ms and idle share beside the
+   wall per pod; (e) a profiled pass whose trace names the pass and kernel A's launch, its profile holding
    the lifecycle samples (FifoSort, NamePrefixGate, PlacementExport);
 12. the front door: the port's commands as processes on the card, on
    random_cluster(0, 200 nodes, 1000 pods, bound_fraction=0) (BASELINE.json
@@ -380,6 +385,8 @@ STAGE_KERNELS = {"chain_filter": "filter", "chain_score": "score", "chain_normal
 # launches per timing of a stage at the scan's shape (one pod).
 STAGE_BLOCK = 256
 STAGE_REPS = 50
+# Phase 11 (d): the pods of (i)'s traced stretch.
+TRACE_PODS = 256
 WRAPPERS = {"schedule_scan": schedule_scan, "batch_eval": batch_eval, "schedule_sampled": schedule_sampled,
             "node_summary": node_summary}
 # Phase 9: kernel B past the old one-block node bound (padded to 24,576).
@@ -2116,16 +2123,119 @@ def staged_legs(check: Check, card: str, feats, a_selected, a_ms: float, nodes, 
                "(ii) hooked": engines[f"(ii) scan, {SAMPLES_PREFIX}-pod prefix, full"]._staged.launches_per_pod()}
     log(f"  (i)-(iii) took {time.perf_counter() - td:.1f} s beside phase 12's commands {card}")
     return {"e_main": e_main, "state": state, "aux": aux, "carries": carries, "n_real": n_real, "launched": launched,
-            "walls": walls, "ident": ident, "n_pods": n_pods, "a_ms": a_ms, "per_pod": per_pod}
+            "walls": walls, "ident": ident, "n_pods": n_pods, "a_ms": a_ms, "per_pod": per_pod, "nodes": nodes,
+            "pods": pods}
 
 
-def staged_timings(card: str, legs: dict) -> dict:
-    """Phase 11 (d) (iv), on a card no other process uses: each of kernel
-    E's stages at the scan's shape (one pod, the whole default profile in
-    one launch): its kernel time from CUPTI's records, its wrapper's host
-    time, its plain version and its bound; the same at the chunk's shape
-    (STAGE_BLOCK pods); the launches per pod and the staged pass's wall
-    beside kernel A's.  ``legs`` is ``staged_legs``' value.  Returns the
+def cluster_holds(check: Check, subs, state, view, aux: dict, carries: dict) -> dict:
+    """E1 and E2 against their plain versions on the pod rows of ``view``,
+    at the cluster size the launch picks for them (key 0) and on a forced
+    cluster of one block (key 1); returns what each launch ran."""
+    fsub, ssub = subs
+    B = view.index.shape[0]
+    want_codes, want_ok = chain_stages.filter_stage_plain(fsub, state, view, aux, carries)
+    want_raw = chain_stages.score_stage_plain(ssub, state, view, aux, carries, want_ok)
+    ran = {}
+    for size in (0, 1):
+        chain_stages.STAGE_CLUSTER = size
+        try:
+            codes, ok = chain_stages.filter_stage(fsub, state, view, aux, carries)
+            raw = chain_stages.score_stage(ssub, state, view, aux, carries, ok)
+        finally:
+            chain_stages.STAGE_CLUSTER = 0
+        ran[size] = {"chain_filter": dict(chain_stages.filter_stage.last),
+                     "chain_score": dict(chain_stages.score_stage.last)}
+        on = f"{B} pods, cluster of {ran[size]['chain_filter']['cluster']}"
+        check.equal("chain_filter", f"E1 at {on} codes", codes.cpu().numpy(), want_codes.cpu().numpy())
+        check.equal("chain_filter", f"E1 at {on} ok", ok.cpu().numpy(), want_ok.cpu().numpy())
+        check.equal("chain_score", f"E2 at {B} pods, cluster of {ran[size]['chain_score']['cluster']}",
+                    raw.cpu().numpy(), want_raw.cpu().numpy())
+    if ran[1]["chain_filter"]["cluster"] != 1 or ran[1]["chain_score"]["cluster"] != 1:
+        raise AssertionError(f"E1 and E2 at a forced cluster of one ran {ran[1]}")
+    # What ran is what kernels/chain.py's mirror of the launch says.
+    for size in ran:
+        for (name, last), sub in zip(ran[size].items(), subs):
+            prm = sub.kernel_tables["stage_params"][1]
+            mirror = (chain.stage_threads(prm.N, last["cluster"]),
+                      chain.stage_smem_bytes(prm, last["cluster"], score=name == "chain_score"))
+            if (last["threads"], last["smem_bytes"]) != mirror:
+                raise AssertionError(f"{name} ran {last}; kernels/chain.py's mirror says {mirror}")
+    return ran
+
+
+def ptxas_usage(source: str, kernel: str) -> dict:
+    """The registers, stack (local memory) and spill bytes per thread of
+    ``kernel`` from nvcc's -Xptxas -v lines of ``source``'s build in this
+    process (None where it did not build here)."""
+    lines = build.BUILD_LOG.get(source, {}).get("ptxas", [])
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln and kernel in ln:
+            text = " ".join(lines[i + 1:i + 3])
+            regs = re.search(r"Used (\d+) registers", text)
+            stack = re.search(r"(\d+) bytes cumulative stack size", text)
+            spill = re.search(r"(\d+) bytes spill stores", text)
+            return {"registers": int(regs.group(1)) if regs else None,
+                    "stack_bytes": int(stack.group(1)) if stack else 0,
+                    "spill_store_bytes": int(spill.group(1)) if spill else 0}
+    return {"registers": None, "stack_bytes": None, "spill_store_bytes": None}
+
+
+def hooked_trace(card: str, legs: dict) -> dict:
+    """Phase 11 (d): (i)'s profile (identity hooks on all six fields of
+    every default plugin) over the queue's first TRACE_PODS pods, once
+    untimed, once timed and once traced by torch.profiler (the card's
+    records alone): the card's busy ms (the union of its kernel, copy and
+    memset records) and its idle share over the traced pass's wall,
+    beside the wall per pod untraced.  Runs after (iv)'s CUPTI sessions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    feats = Featurizer().featurize(legs["nodes"], legs["pods"][:TRACE_PODS])
+    plugins = default_plugins(feats)
+    eng = Engine(feats, hooked_profile(plugins, identity_hooks(plugins)), record="selection", exact=True,
+                 device=DEVICE)
+    n_pods = len(feats.pods.keys)
+    eng.schedule(sampling_start=0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = eng.schedule(sampling_start=0)[0].selected
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        got = eng.schedule(sampling_start=0)[0].selected
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t
+    if not np.array_equal(got, want):
+        raise AssertionError("(i)'s traced stretch selected other nodes than its untraced run")
+    names = {"E1": "filter_stage_kernel", "E2": "score_stage_kernel", "E3": "normalize_stage_kernel",
+             "E4 select": "select_stage_kernel"}
+    with tempfile.TemporaryDirectory(prefix="ksim-hooked-trace-") as d:
+        prof.export_chrome_trace(str(Path(d) / "hooked.pt.trace.json"))
+        dev = trace_device(Path(d), names)
+    if dev["launches"]["E1"] < n_pods:
+        raise AssertionError(f"(i)'s trace holds {dev['launches']['E1']} E1 launches for {n_pods} pods")
+    out = {"pods": n_pods, "wall_s": wall, "traced_wall_s": traced, "busy_ms": dev["busy_ms"],
+           "kernel_ms": dev["kernel_ms"], "copy_ms": dev["copy_ms"], "idle_share": 1 - dev["busy_ms"] / (traced * 1e3),
+           "named_ms": dev["named_ms"], "launches": dev["launches"]}
+    print(f"  (i)'s first {n_pods} pods traced (torch.profiler, the card's records): wall {wall * 1e3 / n_pods:.3f} ms "
+          f"a pod untraced, {traced * 1e3 / n_pods:.3f} traced; the card busy {dev['busy_ms']:.2f} ms of the traced "
+          f"{traced * 1e3:.1f} ms (idle {out['idle_share']:.2%}; kernels {dev['kernel_ms']:.2f} ms, copies and sets "
+          f"{dev['copy_ms']:.2f}); by stage {({k: round(v, 3) for k, v in dev['named_ms'].items()})} ms in "
+          f"{dev['launches']} launches {card}", flush=True)
+    return out
+
+
+def staged_timings(check: Check, card: str, legs: dict) -> dict:
+    """Phase 11 (d) (iv), on a card no other process uses: E1 and E2 held
+    against their plain versions at one pod and at STAGE_BLOCK pods, at
+    the cluster the launch picks and at a forced cluster of one block
+    (``cluster_holds``); each of kernel E's stages at the scan's shape
+    (one pod, the whole default profile in one launch): its kernel time
+    from CUPTI's records (E1's and E2's also at a forced cluster of one),
+    its wrapper's host time, its plain version and its bound; the same at
+    the chunk's shape (STAGE_BLOCK pods); the launches per pod and the
+    staged pass's wall beside kernel A's; then (i)'s traced stretch
+    (``hooked_trace``).  ``legs`` is ``staged_legs``' value.  Returns the
     kernels line's entries for E1-E4."""
     td = time.perf_counter()
     e_main, state, aux, carries, n_real = (legs[k] for k in ("e_main", "state", "aux", "carries", "n_real"))
@@ -2136,10 +2246,13 @@ def staged_timings(card: str, legs: dict) -> dict:
     ops = pair_ops(e_main)
     F, S = len(fsub.filters), len(ssub.scores)
     N = state.valid.shape[0]
-    measured = {}
+    measured, ran, cs1_ms = {}, {}, {}
     for B in (1, STAGE_BLOCK):
         pods_b = e_main._pods.rows(0, B)
         view = pods_b.view()
+        ran[B] = cluster_holds(check, (fsub, ssub), state, view, aux, carries)
+        print(f"  (iv) E1 and E2 at {B} x {N} equal their plain versions on the launch's clusters "
+              f"{ran[B][0]} and on forced clusters of one {ran[B][1]} {card}", flush=True)
         ok, _ = unhooked.eval_filters(state, view, aux, carries)
         ok = ok.contiguous()
         raw = chain_stages.score_stage(ssub, state, view, aux, carries, ok)
@@ -2185,9 +2298,19 @@ def staged_timings(card: str, legs: dict) -> dict:
             print(f"  {name} at {B} x {N}: kernel {ms:.4f} ms (CUPTI); wrapper host {host:.4f} ms a call, "
                   f"{call_ms:.4f} ms a call between CUDA events; plain {plain:.3f} ms; bound {bound:.6f} ms by "
                   f"{by} ({work[name][0]} bytes) {card}", flush=True)
+            if B == 1 and name in ("chain_filter", "chain_score"):
+                chain_stages.STAGE_CLUSTER = 1
+                try:
+                    cs1_ms[name] = cupti_ms(lambda: call(chain_stages.STAGES), reps,
+                                            f"{STAGE_KERNELS[name]}_stage_kernel")
+                finally:
+                    chain_stages.STAGE_CLUSTER = 0
+                print(f"  {name} at {B} x {N} on a forced cluster of one block of 256 threads: kernel "
+                      f"{cs1_ms[name]:.4f} ms (CUPTI) {card}", flush=True)
     print(f"  (iv) launches per pod of the scan: {per_pod}; (i)'s wall {walls[ident]:.2f} s = "
           f"{walls[ident] / n_pods * 1e3:.3f} ms per pod, kernel A {a_ms:.3f} ms for the queue; (iv) took "
           f"{time.perf_counter() - td:.1f} s {card}", flush=True)
+    trace = hooked_trace(card, legs)
     entries = {}
     for name, stage in STAGE_KERNELS.items():
         ms, plain, bound, by, host, call_ms = measured[name][1]
@@ -2196,8 +2319,11 @@ def staged_timings(card: str, legs: dict) -> dict:
                 "shape": f"1x{N} (one pod's visit window)" if name == "chain_window"
                 else f"1x{N} (one pod of the scan, the default profile in one launch)",
                 "stage": {"chain_filter": "E1", "chain_score": "E2", "chain_normalize": "E3"}.get(name, "E4")}
+        if name in ("chain_filter", "chain_score"):
+            note.update(ran[1][0][name], ms_cluster_1=cs1_ms[name], chunk_geometry=ran[STAGE_BLOCK][0][name],
+                        **ptxas_usage("chain_stages", f"{STAGE_KERNELS[name]}_stage_kernel"))
         if name == "chain_select":
-            note.update(launches_per_pod=per_pod, staged_wall_s=walls, a_queue_ms=a_ms)
+            note.update(launches_per_pod=per_pod, staged_wall_s=walls, a_queue_ms=a_ms, hooked_trace=trace)
         if STAGE_BLOCK in measured[name]:
             cms, cplain, cbound, cby, chost, ccall = measured[name][STAGE_BLOCK]
             note.update(chunk_ms=cms, chunk_plain_ms=cplain, chunk_bound_ms=cbound, chunk_bound_by=cby,
@@ -3470,7 +3596,7 @@ def main() -> int:
         front = front_run.result()
     phase("11 (d) hooked profiles on kernel E: (i)-(iii) ran beside phase 12, (iv) now; (e) the profiler")
     print("\n".join(staged_lines), flush=True)
-    staged = staged_timings(card, legs)
+    staged = staged_timings(check, card, legs)
     profiler_leg(card)
     phase("13 the job plane: jobs on kernel D through the server, journaled, resumed after SIGKILL "
           "(ran beside phase 12's (b)-(d))")

@@ -31,22 +31,45 @@
 //
 // Every stage is built from plugin_chain.cuh's device functions, the ones
 // kernels A-D run (filter_node, spread_filter_stats, spread_score_stats,
-// interpod_pod, the scores, the normalizes, visit_window, commit_pod), on
-// a team of one thread block per pod row (StageTeam): thread t owns nodes
-// t, t + blockDim.x, ..., the reductions run in the block.  A block takes
-// rows b, b + grid, ... of the launch.
+// interpod_pod, the scores, the normalizes, visit_window, commit_pod).
 //
-// What bounds it: each launch reads the node state and the pod's aux rows
-// and writes [B, rows, N] values, a few operations per pair and row; in
-// the scan B = 1, so a launch is one block on one SM and the launch
-// overhead and the host's hooks between launches bound it, not the card.
-// A simple kernel, not yet redesigned (ROADMAP.md Queue 2).
+// E1 and E2 spread each pod row's node axis over a thread-block cluster
+// of Cs blocks (cluster_scan.cuh's ClusterTeam, the team of kernels A and
+// C): one node slot per thread, chunks of 32 nodes dealt round robin over
+// the ranks, the reductions (PodTopologySpread's statistics) crossing the
+// cluster through distributed shared memory, so every block ends with the
+// same integer values.  A launch is a grid of clusters; cluster c takes
+// rows c, c + clusters, ...  Cs comes from the row count B
+// (stage_cluster): the largest of 16, 8, 4, 2 at which the B clusters
+// take no more blocks than the card has SMs and the occupancy query finds
+// room for all of them at once, else 1.  So one pod of the scan runs on
+// 16 SMs (8 where a 16-block cluster does not fit), and once B exceeds
+// half the SM count each row is a cluster of one block of E_THREADS, the
+// geometry E1 and E2 had before.  E3 and E4 run one block per pod row (StageTeam):
+// thread t owns nodes t, t + blockDim.x, ..., the reductions run in the
+// block, a block takes rows b, b + grid, ...
+//
+// What bounds it: latency.  Each launch reads the node state and the
+// pod's aux rows and writes [B, rows, N] values, a few operations per pair
+// and row: well under a microsecond at the card's memory rate for one
+// pod.  On a cluster a pod row takes about one node's chain of filters
+// (E1) or scores (E2), the cluster barriers of the spread statistics and
+// the launch; in the scan (B = 1) the host's hooks and parameters between
+// the launches set the pace of a pod.  E3 and E4 are simple kernels, not
+// yet redesigned (ROADMAP.md Queue 2): at B = 1 they are one block on one
+// SM, shorter than their wrappers' host time.
 
-#include "plugin_chain.cuh"
+#include <mutex>
+
+#include "cluster_scan.cuh"
 
 namespace ksim {
 
+// Threads per block of E3 and E4, and of E1 and E2 on clusters of one
+// block; E1 and E2 are built for blocks of up to E_MAX_THREADS (128
+// registers a thread).
 constexpr int E_THREADS = 256;
+constexpr int E_MAX_THREADS = 512;
 
 enum Stage : int { E_FILTER = 1, E_SCORE = 2, E_NORMALIZE = 3, E_WINDOW = 4, E_SELECT = 5 };
 
@@ -58,35 +81,27 @@ struct StageParams {
   void* out;  // E1: int32 [B, F, N] codes; E2, E3: int64 [B, S, N]
   const long long* in;  // E3: raw int64 [B, S, N]; E4 select: normalized int64 [B, S, N]
   const int32_t* weights;  // E4 select: [S]
-  uint8_t* node_scratch;  // [grid, N]: E2's per-node flags, E4 window's
+  uint8_t* node_scratch;  // [1, N]: E4 window's per-node flags
   uint8_t* visited;  // E4 window: [N] or null
   int32_t* start;  // E4 window: the rotating start [1], in place
   int32_t* selected;  // E4 select: [B]
   int32_t* total;  // E4 select: [B, N] or null
   void* final_out;  // E4 select: [B, S, N] in final_size bytes, or null
   long long B, S, final_size, commit;
+  long long scratch_rows;  // E1, E2: rows of P.sp_scratch (2 * domain_ints each) when it is used
 };
 
-// One thread block is the team of one pod row (plugin_chain.cuh's team
-// interface, as kernel B's BatchTeam, over plugin_chain.cuh's own
-// predicates).
+// One thread block is the team of one pod row in E3 and E4 (the part of
+// plugin_chain.cuh's team interface that NormExtrema, visit_window and
+// commit_pod use).
 struct StageTeam {
-  static constexpr bool kCluster = false;
   long long T = 0;  // nodes per visit tile (visit_window): the block's threads
 
   __device__ long long slots(const ChainParams& P) const { return P.N; }
   __device__ long long node(long long li) const { return li; }
   __device__ bool owns(long long n) const { return n % blockDim.x == threadIdx.x; }
-  __device__ bool leader() const { return true; }
-  __device__ void mark(int) {}
-  __device__ const int32_t* ipa_total(const ChainParams& P) const { return P.ipa_total; }
-  __device__ uint8_t node_flags(const ChainParams& P, long long j, long long n) const {
-    return ksim::node_flags(P, j, n);
-  }
   __device__ void reduce(int* v, const int* op, int K, Smem& s) { block_reduce(v, op, K, s.red); }
   __device__ unsigned long long max_u64(unsigned long long v, Smem& s) { return block_max_u64(v, s.red64); }
-  __device__ void domains(const ChainParams&, const Spread&, Smem&, unsigned, int, int, int, int) { __syncthreads(); }
-  __device__ void domains_after_reduce(const ChainParams&, const Spread&, Smem&, unsigned, int, int, int) {}
   __device__ void commit_total(const ChainParams& P, const int32_t* db, long long base) {
     if (threadIdx.x == 0)
       for (long long t = 0; t < P.T2; ++t)
@@ -141,15 +156,13 @@ struct StageTeam {
   }
 };
 
-// The block's shared memory (stage_smem_bytes):
-// 8-byte words first (image weights, the 64-bit reduction), then ints (the
-// reduction, the prefix scratch, the visit walk's counts and ballots), the
-// pod's spread constraints and, when it fits, its per-domain scratch (else
-// the block's row of P.sp_scratch).  The per-node flags are the block's
-// row of S.node_scratch.
+// E3 and E4's shared memory per block (stage_smem_bytes): 8-byte words
+// first (image weights, the 64-bit reduction), then ints (the reduction,
+// the prefix scratch, the visit walk's counts and ballots) and the pod's
+// spread constraints.  E4 window's per-node flags are S.node_scratch.
 __host__ __device__ inline long long stage_smem_bytes(const ChainParams& P) {
   return align8(8 * P.I + 8 * 33 + 4 * (33 * RED_MAX + SCAN_INTS + 2 * 32) +
-                static_cast<long long>(sizeof(SpreadCon)) * P.MC + (P.sp_smem ? 4 * domain_ints(P) : 0));
+                static_cast<long long>(sizeof(SpreadCon)) * P.MC);
 }
 
 __device__ inline Smem carve_stage(unsigned char* base, const ChainParams& P, const StageParams& S) {
@@ -161,68 +174,180 @@ __device__ inline Smem carve_stage(unsigned char* base, const ChainParams& P, co
   s.wcnt = s.scan + SCAN_INTS;
   s.wmask = reinterpret_cast<unsigned*>(s.wcnt + 32);
   s.con = reinterpret_cast<SpreadCon*>(s.wmask + 32);
-  s.dom = P.sp_smem ? reinterpret_cast<int*>(s.con + P.MC) : P.sp_scratch + blockIdx.x * domain_ints(P);
-  s.domc = s.dom;
-  s.flags = S.node_scratch != nullptr ? S.node_scratch + blockIdx.x * P.N : nullptr;
+  s.flags = S.node_scratch;
   return s;
 }
 
-// The pod's spread constraints staged and its domain scratch zeroed; the
+// ---- E1 and E2: one pod row on one cluster -------------------------------------
+
+// The largest cluster the rule may take for B pod rows on a card of `sms`
+// SMs: the largest of 16, 8, 4, 2 whose B clusters take no more blocks
+// than the card has SMs, else 1.
+__host__ __device__ inline int stage_cluster_cap(long long B, int sms) {
+  for (int cs = MAX_CLUSTER; cs > 1; cs >>= 1)
+    if (B * cs <= sms) return cs;
+  return 1;
+}
+
+// The cluster size of a launch of B pod rows: the largest cs up to the cap
+// at which the card holds all B clusters at once (fits(cs) >= B, fits the
+// occupancy query's answer), else 1.  At B = 1: 16 where one 16-block
+// cluster fits, else 8.  kernels/chain.py stage_cluster mirrors it.
+template <class Fits>
+inline int stage_cluster(long long B, int sms, Fits fits) {
+  for (int cs = stage_cluster_cap(B, sms); cs > 1; cs >>= 1)
+    if (fits(cs) >= B) return cs;
+  return 1;
+}
+
+// Threads per block: a cluster of one keeps one block of E_THREADS; a
+// larger cluster one node slot per thread for N / cs nodes
+// (cluster_threads), at most E_MAX_THREADS.
+__host__ __device__ inline int stage_threads(long long N, int cs) {
+  if (cs == 1) return E_THREADS;
+  const int t = cluster_threads(N, cs);
+  return t < E_MAX_THREADS ? t : E_MAX_THREADS;
+}
+
+// E1 and E2's shared memory per block (carve_stage_cluster): 8-byte words
+// first (E2's image weights, the 64-bit reduction and its two partials),
+// then ints (the reduction, its two partial slots, the copy of
+// InterPodAffinity's term totals), the pod's spread constraints, when it
+// fits its partial and combined per-domain scratch, and E2's flags, one
+// byte per node slot.
+__host__ __device__ inline long long stage_cluster_smem_bytes(const ChainParams& P, long long slots, bool score) {
+  return (score ? 8 * P.I : 0) + 8 * (33 + 2) + 4 * (33 * RED_MAX + 2 * RED_MAX + P.T2) +
+         static_cast<long long>(sizeof(SpreadCon)) * P.MC + (P.sp_smem ? 2 * 4 * domain_ints(P) : 0) +
+         (score ? slots : 0);
+}
+
+// Where the domains do not fit shared memory, block `rank` of cluster c
+// has row pair c * Cs + rank of P.sp_scratch (ClusterTeam::combine reads
+// its cluster's Cs pairs).
+__device__ inline Smem carve_stage_cluster(unsigned char* base, const ChainParams& P, const ClusterTeam& team,
+                                           long long cluster, bool score) {
+  const long long di = domain_ints(P);
+  Smem s = {};
+  unsigned char* at = base;
+  if (score) {
+    s.imgw = reinterpret_cast<double*>(at);
+    at += 8 * P.I;
+  }
+  s.red64 = reinterpret_cast<unsigned long long*>(at);
+  s.cred64 = s.red64 + 33;
+  s.red = reinterpret_cast<int*>(s.cred64 + 2);
+  s.cred = s.red + 33 * RED_MAX;
+  s.ipa_tot = s.cred + 2 * RED_MAX;
+  s.con = reinterpret_cast<SpreadCon*>(s.ipa_tot + P.T2);
+  int* end = reinterpret_cast<int*>(s.con + P.MC);
+  if (P.sp_smem) {
+    s.dom = end;
+    end += 2 * di;
+  } else {
+    s.dom = P.sp_scratch + (cluster * team.size + team.rank) * 2 * di;
+  }
+  s.domc = s.dom + di;
+  if (score) s.flags = reinterpret_cast<uint8_t*>(end);
+  return s;
+}
+
+// The team of this block's cluster, its shared memory, and the cluster's
+// pod rows (c, c + nc, ...).  Every block keeps its own copy of the term
+// totals, published by the first row's block barrier; the stages only
+// read it.
+struct StageCluster {
+  ClusterTeam team;
+  Smem s;
+  long long c, nc;
+
+  __device__ StageCluster(unsigned char* base, const ChainParams& P, bool score) {
+    team = make_cluster_team(P.N);
+    c = blockIdx.x / team.size;
+    nc = gridDim.x / team.size;
+    s = carve_stage_cluster(base, P, team, c, score);
+    team.tot = s.ipa_tot;
+    if (P.ipa_total != nullptr)
+      for (long long t = threadIdx.x; t < P.T2; t += blockDim.x) s.ipa_tot[t] = P.ipa_total[t];
+  }
+
+  // The end of a pod row.  After a row whose statistics crossed the
+  // cluster, a cluster barrier: no block zeroes its domain partials for the
+  // next row, or leaves the kernel, while another block may still read
+  // them or its reduction slots.  Else a block barrier: the next row
+  // restages the constraints, the image weights and the flags.
+  __device__ void row_end(bool crossed) {
+    if (crossed) team.sync();
+    else __syncthreads();
+  }
+};
+
+// The pod's spread constraints staged and its domain partials zeroed; the
 // caller's barrier publishes them.
-__device__ inline void stage_pod_spread(const ChainParams& P, long long j, Smem& s, bool zero_domains) {
-  if (zero_domains)
-    for (long long i = threadIdx.x; i < domain_ints(P); i += blockDim.x) s.dom[i] = 0;
+__device__ inline void stage_pod_spread(const ChainParams& P, long long j, Smem& s) {
+  for (long long i = threadIdx.x; i < domain_ints(P); i += blockDim.x) s.dom[i] = 0;
   stage_spread(P, j, s.con);
 }
 
 // ---- E1: the filters ---------------------------------------------------------
 
-__global__ void __launch_bounds__(E_THREADS) filter_stage_kernel(const ChainParams P, const StageParams S) {
+__global__ void __launch_bounds__(E_MAX_THREADS, 1) filter_stage_kernel(const ChainParams P, const StageParams S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s = carve_stage(smem_raw, P, S);
-  StageTeam team;
+  StageCluster k(smem_raw, P, false);
+  ClusterTeam& team = k.team;
+  Smem& s = k.s;
   const long long N = P.N;
   const bool use_spread = P.f_row[SPREAD] >= 0;
   const bool use_ipa = P.f_row[INTERPOD] >= 0;
-  for (long long b = blockIdx.x; b < S.B; b += gridDim.x) {
+  for (long long b = k.c; b < S.B; b += k.nc) {
     const long long j = P.pindex[b];
-    if (use_spread) stage_pod_spread(P, j, s, true);
+    if (use_spread) stage_pod_spread(P, j, s);
     __syncthreads();
     const Spread sp = use_spread ? spread_pod(P, j, s.con) : Spread{s.con, false, false, false};
-    const Interpod ip = use_ipa ? interpod_pod(P, j, P.ipa_total) : Interpod{0, false, false, false, false};
+    const Interpod ip = use_ipa ? interpod_pod(P, j, team.ipa_total(P)) : Interpod{0, false, false, false, false};
     const bool sp_filter = use_spread && sp.any_f;
     if (sp_filter) spread_filter_stats(P, sp, j, s, team);
-    for (long long n = threadIdx.x; n < N; n += blockDim.x) {
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= N) continue;
       const uint8_t fl = filter_node(P, b, j, n, s, sp, ip, sp_filter, true, b * P.F * N);
       S.ok_out[b * N + n] = (fl & FL_OK) ? 1 : 0;
     }
-    __syncthreads();  // the next row restages the constraints and the domains
+    k.row_end(sp_filter);
   }
 }
 
 // ---- E2: the raw scores ------------------------------------------------------
 
-__global__ void __launch_bounds__(E_THREADS) score_stage_kernel(const ChainParams P, const StageParams S) {
+__global__ void __launch_bounds__(E_MAX_THREADS, 1) score_stage_kernel(const ChainParams P, const StageParams S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s = carve_stage(smem_raw, P, S);
-  StageTeam team;
+  StageCluster k(smem_raw, P, true);
+  ClusterTeam& team = k.team;
+  Smem& s = k.s;
   const long long N = P.N;
   const bool use_spread = P.s_row[SPREAD] >= 0;
   const bool use_ipa = P.s_row[INTERPOD] >= 0;
   const bool use_samples = P.s_row[NODENUMBER] >= 0 || P.dp_n > 0;
-  for (long long b = blockIdx.x; b < S.B; b += gridDim.x) {
+  for (long long b = k.c; b < S.B; b += k.nc) {
     const long long j = P.pindex[b];
     if (P.s_row[IMAGE] >= 0) image_weights(P, j, s);
-    if (use_spread) stage_pod_spread(P, j, s, true);
-    for (long long n = threadIdx.x; n < N; n += blockDim.x)
-      s.flags[n] = node_flags(P, j, n) | (S.ok_in[b * N + n] ? FL_OK : 0);
+    if (use_spread) stage_pod_spread(P, j, s);
+    // Each slot's flags: the ok given, and (read by PodTopologySpread
+    // alone) the pod's node affinity and taint flags.
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= N) continue;
+      s.flags[li] = (use_spread ? node_flags(P, j, n) : 0) | (S.ok_in[b * N + n] ? FL_OK : 0);
+    }
     __syncthreads();
     const Spread sp = use_spread ? spread_pod(P, j, s.con) : Spread{s.con, false, false, false};
-    const Interpod ip = use_ipa ? interpod_pod(P, j, P.ipa_total) : Interpod{0, false, false, false, false};
-    if (use_spread && sp.has_score) spread_score_stats(P, sp, j, s, team, false);
+    const Interpod ip = use_ipa ? interpod_pod(P, j, team.ipa_total(P)) : Interpod{0, false, false, false, false};
+    const bool stats = use_spread && sp.has_score;
+    if (stats) spread_score_stats(P, sp, j, s, team, false);
     const long long rowS = b * P.S * N;
-    for (long long n = threadIdx.x; n < N; n += blockDim.x) {
-      const uint8_t fl = s.flags[n];
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= N) continue;
+      const uint8_t fl = s.flags[li];
       if (P.s_row[TAINT] >= 0) store_int(P.raw_out, rowS + P.s_row[TAINT] * N + n, taint_prefer_count(P, j, n), 8);
       if (P.s_row[AFFINITY] >= 0)
         store_int(P.raw_out, rowS + P.s_row[AFFINITY] * N + n, affinity_pref_sum(P, j, n), 8);
@@ -233,7 +358,7 @@ __global__ void __launch_bounds__(E_THREADS) score_stage_kernel(const ChainParam
       if (P.s_row[IMAGE] >= 0) store_int(P.raw_out, rowS + P.s_row[IMAGE] * N + n, image_score(P, j, n, s), 8);
       if (use_samples) sample_scores(P, j, n, rowS, true, false);
     }
-    __syncthreads();  // the next row rewrites the flags, weights and domains
+    k.row_end(stats);
   }
 }
 
@@ -248,7 +373,7 @@ __global__ void __launch_bounds__(E_THREADS) normalize_stage_kernel(const ChainP
   long long* out = static_cast<long long*>(S.out);
   for (long long b = blockIdx.x; b < S.B; b += gridDim.x) {
     const long long j = P.pindex[b];
-    if (use_spread) stage_pod_spread(P, j, s, false);
+    if (use_spread) stage_spread(P, j, s.con);
     __syncthreads();
     const Spread sp = use_spread ? spread_pod(P, j, s.con) : Spread{s.con, false, false, false};
     const long long rowS = b * P.S * N;
@@ -357,13 +482,123 @@ inline cudaError_t allow_stage_smem(void (*kernel)(ChainParams, StageParams), in
   return err;
 }
 
+// What E1 and E2's launches ask of the card once and keep, per device:
+// its SM count, that 16-block clusters are allowed, and the occupancy
+// query's answers by stage, cluster size, threads and shared memory.
+class StageCard {
+ public:
+  // The SM count of device `dev`, and the kernel allowed non-portable
+  // cluster sizes there.
+  cudaError_t prepare(void (*kernel)(ChainParams, StageParams), int stage, int dev, int* sms) {
+    std::lock_guard<std::mutex> lock(mu_);
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    cudaError_t err = cudaSuccess;
+    if (sms_[dev] == 0) err = cudaDeviceGetAttribute(&sms_[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess && !nonportable_[dev][stage]) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      nonportable_[dev][stage] = err == cudaSuccess;
+    }
+    *sms = sms_[dev];
+    return err;
+  }
+
+  // The clusters of `cfg` the card holds at once (0 where it refuses the
+  // shape).
+  int fits(void (*kernel)(ChainParams, StageParams), int stage, int dev, const cudaLaunchConfig_t& cfg) {
+    Fit key{dev, stage, static_cast<int>(cfg.attrs[0].val.clusterDim.x), static_cast<int>(cfg.blockDim.x),
+            static_cast<long long>(cfg.dynamicSmemBytes), 0};
+    std::lock_guard<std::mutex> lock(mu_);
+    for (int i = 0; i < used_; ++i)
+      if (fit_[i].same(key)) return fit_[i].clusters;
+    if (cudaOccupancyMaxActiveClusters(&key.clusters, kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();  // a shape the card refuses: no room
+      key.clusters = 0;
+    }
+    if (used_ < MAX_FITS) fit_[used_++] = key;
+    return key.clusters;
+  }
+
+ private:
+  static constexpr int MAX_DEVICES = 64, MAX_FITS = 256;
+  struct Fit {
+    int dev, stage, cs, nt;
+    long long smem;
+    int clusters;
+    bool same(const Fit& o) const {
+      return dev == o.dev && stage == o.stage && cs == o.cs && nt == o.nt && smem == o.smem;
+    }
+  };
+  std::mutex mu_;
+  int sms_[MAX_DEVICES] = {};
+  bool nonportable_[MAX_DEVICES][E_SCORE + 1] = {};
+  Fit fit_[MAX_FITS] = {};
+  int used_ = 0;
+};
+
+inline StageCard& stage_card() {
+  static StageCard card;
+  return card;
+}
+
+// Launches E1 or E2 on `clusters` clusters of `cluster` blocks (0:
+// stage_cluster's size) of stage_threads; info (int64 [3]) receives the
+// cluster size, the threads per block and the shared memory per block.
+// A refused launch is an error, never a smaller launch.
+inline cudaError_t launch_stage_cluster(void (*kernel)(ChainParams, StageParams), int stage, const ChainParams& P,
+                                        const StageParams& S, cudaStream_t stream, long long clusters, int cluster,
+                                        long long* info) {
+  if (cluster < 0 || cluster > MAX_CLUSTER) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = stage_card().prepare(kernel, stage, dev, &sms);
+  if (err != cudaSuccess) return err;
+  const bool score = stage == E_SCORE;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.stream = stream;
+  // The launch at cluster size cs; its shared memory allowed.
+  auto shape = [&](int cs) {
+    const int nt = stage_threads(P.N, cs);
+    const long long smem = stage_cluster_smem_bytes(P, cluster_slots(P.N, cs, nt), score);
+    cfg.gridDim = dim3(static_cast<unsigned>(clusters * cs), 1, 1);
+    cfg.blockDim = dim3(nt, 1, 1);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    return allow_stage_smem(kernel, stage, smem);
+  };
+  int cs = cluster;
+  if (cs == 0) {
+    cs = stage_cluster(S.B, sms, [&](int c) {
+      return shape(c) == cudaSuccess ? stage_card().fits(kernel, stage, dev, cfg) : 0;
+    });
+    cudaGetLastError();  // a size whose shared memory the card refuses was skipped
+  }
+  err = shape(cs);
+  if (err != cudaSuccess) return err;
+  if (!P.sp_smem && domain_ints(P) > 0 && S.scratch_rows < clusters * cs) return cudaErrorInvalidValue;
+  info[0] = cs;
+  info[1] = cfg.blockDim.x;
+  info[2] = static_cast<long long>(cfg.dynamicSmemBytes);
+  err = cudaLaunchKernelEx(&cfg, kernel, P, S);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace ksim
 
-// Launches stage `stage` (ksim::Stage) on `grid` blocks of E_THREADS on the
-// caller's stream (the window and the committing selection on one block).
-// Returns a CUDA error code; a refused launch is an error.
+// Launches stage `stage` (ksim::Stage) on the caller's stream: E1 and E2
+// on `grid` clusters of `cluster` blocks (0: the launch's choice,
+// launch_stage_cluster; info, int64 [3], receives what ran), E3
+// and E4 on `grid` blocks of E_THREADS (the window and the committing
+// selection on one block).  Returns a CUDA error code; a refused launch is
+// an error.
 extern "C" int ksim_chain_stages(int stage, const ksim::ChainParams* params, const ksim::StageParams* sp,
-                                 void* stream, long long grid) {
+                                 void* stream, long long grid, int cluster, long long* info) {
   using namespace ksim;
   void (*kernel)(ChainParams, StageParams) = nullptr;
   switch (stage) {
@@ -376,6 +611,9 @@ extern "C" int ksim_chain_stages(int stage, const ksim::ChainParams* params, con
   }
   if (grid < 1 || ((stage == E_WINDOW || sp->commit) && grid != 1)) return static_cast<int>(cudaErrorInvalidValue);
   if (sp->B == 0) return 0;
+  if (stage == E_FILTER || stage == E_SCORE)
+    return static_cast<int>(launch_stage_cluster(kernel, stage, *params, *sp, static_cast<cudaStream_t>(stream), grid,
+                                                 cluster, info));
   const long long smem = stage_smem_bytes(*params);
   cudaError_t err = allow_stage_smem(kernel, stage, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,6 +1,7 @@
 // The sequential-commit scan on a thread-block cluster, for sm_90a: the
 // body of kernels A (schedule_scan.cu) and C (schedule_sampled.cu), and
-// the team kernel D (replay_segment.cu) evaluates its pods with.
+// the team kernel D (replay_segment.cu) evaluates its pods with and kernel
+// E's filter and score stages (chain_stages.cu) spread a pod row over.
 //
 // The scan is sequential across pods, not across nodes, so one pod's node
 // axis is spread over a cluster of Cs blocks (Cs = 16 where one such
@@ -217,9 +218,11 @@ struct ClusterTeam {
           for (int q = 0; q < MAX_CLUSTER; ++q) {
             if (q < static_cast<int>(size)) {
               // The global scratch is read past L1: its rows were
-              // written on other SMs.
+              // written on other SMs.  Block q's row pair lies q - rank
+              // pairs from this block's (carve_cluster; kernel E's
+              // clusters each have their own run of row pairs).
               const int x = P.sp_smem ? cl.map_shared_rank(s.dom, q)[base + d]
-                                      : __ldcg(P.sp_scratch + q * 2 * di + base + d);
+                                      : __ldcg(s.dom + (q - static_cast<long long>(rank)) * 2 * di + base + d);
               acc = is_max ? max(acc, x) : wrap_add(acc, x);
             }
           }

@@ -31,6 +31,16 @@ against ``ksim_tpu``; tensors on a CUDA device launch the kernel, and each
 wrapper counts its launches on ``<wrapper>.launches``.  A launch's
 ChainParams is made once per sub-profile and snapshot and patched with the
 state, pod and carry pointers of each call.
+
+E1 and E2 spread each pod row's node axis over a thread-block cluster
+(csrc/chain_stages.cu ``stage_cluster``, mirrored by kernels/chain.py
+``stage_cluster``): 16 blocks (8 where such a cluster does not fit) for
+one pod of the scan, smaller clusters as the rows grow, and one block of
+256 threads per row once the rows exceed half the card's SM count.  Their
+wrappers keep what ran on ``<wrapper>.last`` ({"cluster", "threads",
+"smem_bytes"}); ``STAGE_CLUSTER`` forces a cluster size (tests; 0 leaves
+it to the launch).  A refused launch raises: nothing smaller or plain
+runs in its place.  E3 and E4 run one block per pod row.
 """
 
 from __future__ import annotations
@@ -45,9 +55,11 @@ from ksim_tpu_torch.kernels.schedule_sampled import sample_visited
 
 # csrc/chain_stages.cu enum Stage.
 STAGE_IDS = {"filter": 1, "score": 2, "normalize": 3, "window": 4, "select": 5}
-# At most this many blocks per launch (each takes rows b, b + grid, ...):
-# it bounds the per-block scratch.
+# At most this many blocks (E3, E4) or clusters (E1, E2) per launch, each
+# taking rows b, b + grid, ...: it bounds the scratch.
 GRID_MAX = 1024
+# E1's and E2's forced cluster size (0: the launch's choice).
+STAGE_CLUSTER = 0
 _INT32_MIN = torch.iinfo(torch.int32).min
 
 _P = ctypes.c_void_p
@@ -60,7 +72,7 @@ class StageParams(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "ok_in", "ok_out", "out", "inp", "weights", "node_scratch", "visited", "start", "selected", "total",
         "final_out",
-    )] + [(name, _L) for name in ("B", "S", "final_size", "commit")]
+    )] + [(name, _L) for name in ("B", "S", "final_size", "commit", "scratch_rows")]
 
 
 def _load():
@@ -94,26 +106,47 @@ def _params(sub, state, pods, aux, carries) -> chain.ChainParams:
     return prm
 
 
-def _scratch(prm: chain.ChainParams, grid: int, device, node_flags: bool) -> list:
-    """The per-block scratch a launch of ``grid`` blocks reads: the spread
-    domains where they are not in shared memory, the node flags."""
-    keep = []
-    if not prm.sp_smem and prm.MC * prm.DMAX:
-        t = torch.empty((grid, chain.domain_ints(prm)), dtype=torch.int32, device=device)
-        prm.sp_scratch = t.data_ptr()
-        keep.append(t)
-    if node_flags:
-        t = torch.empty((grid, prm.N), dtype=torch.uint8, device=device)
-        keep.append(t)
-    return keep
+_SMS: dict[int, int] = {}
 
 
-def _launch(stage: str, prm: chain.ChainParams, sp: StageParams, grid: int) -> None:
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def _launch(stage: str, prm: chain.ChainParams, sp: StageParams, grid: int, cluster: int = 0) -> dict:
     lib = _load()
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = lib.ksim_chain_stages(STAGE_IDS[stage], ctypes.byref(prm), ctypes.byref(sp), stream, grid)
+    info = (ctypes.c_longlong * 3)()
+    err = lib.ksim_chain_stages(STAGE_IDS[stage], ctypes.byref(prm), ctypes.byref(sp), stream, grid, cluster, info)
     if err != 0:
         raise RuntimeError(f"ksim_chain_stages({stage}): CUDA error {err}: {lib.ksim_error_string(err).decode()}")
+    return {"cluster": info[0], "threads": info[1], "smem_bytes": info[2]}
+
+
+def scratch_rows(B: int, size: int, sms: int) -> int:
+    """Row pairs of E1's and E2's global domain scratch for B pod rows:
+    one per (cluster, rank) of min(B, GRID_MAX) clusters of the forced
+    ``size``, or of the largest the launch may take on a card of ``sms``
+    SMs (kernels/chain.py stage_scratch_row)."""
+    return _grid(B) * (size or chain.stage_cluster_cap(B, sms))
+
+
+def _cluster_launch(stage: str, prm: chain.ChainParams, sp: StageParams, B: int, device) -> dict:
+    """E1 or E2 on min(B, GRID_MAX) clusters; returns what ran."""
+    size = STAGE_CLUSTER
+    chain.check_cluster_shape(size, 0)
+    # The smallest cluster the rule may fall back to holds the most node
+    # slots per block.
+    chain.check_stage_smem(prm, size or 1, score=stage == "score")
+    if not prm.sp_smem and prm.MC * prm.DMAX:
+        rows = scratch_rows(B, size, _sm_count(device))
+        keep = torch.empty((rows, 2 * chain.domain_ints(prm)), dtype=torch.int32, device=device)
+        prm.sp_scratch, sp.scratch_rows = keep.data_ptr(), rows
+    return _launch(stage, prm, sp, _grid(B), size)
 
 
 def _grid(B: int) -> int:
@@ -158,10 +191,8 @@ def filter_stage(sub, state, pods, aux, carries):
     codes = torch.empty((B, prm.F, N), dtype=torch.int32, device=state.valid.device)
     ok = torch.empty((B, N), dtype=torch.bool, device=state.valid.device)
     prm.bits_out, prm.bits_size = codes.data_ptr(), 4
-    grid = _grid(B)
-    _keep = _scratch(prm, grid, state.valid.device, False)
     sp = StageParams(ok_out=ok.data_ptr(), out=codes.data_ptr(), B=B)
-    _launch("filter", prm, sp, grid)
+    filter_stage.last = _cluster_launch("filter", prm, sp, B, state.valid.device)
     filter_stage.launches += 1
     return codes, ok
 
@@ -188,10 +219,8 @@ def score_stage(sub, state, pods, aux, carries, ok):
     prm = _params(sub, state, pods, aux, carries)
     raw = torch.empty((B, prm.S, N), dtype=torch.int64, device=ok.device)
     prm.raw_out, prm.raw_size = raw.data_ptr(), 8
-    grid = _grid(B)
-    keep = _scratch(prm, grid, ok.device, True)
-    sp = StageParams(ok_in=ok.data_ptr(), out=raw.data_ptr(), node_scratch=keep[-1].data_ptr(), B=B)
-    _launch("score", prm, sp, grid)
+    sp = StageParams(ok_in=ok.data_ptr(), out=raw.data_ptr(), B=B)
+    score_stage.last = _cluster_launch("score", prm, sp, B, ok.device)
     score_stage.launches += 1
     return raw
 
@@ -326,6 +355,7 @@ def select_stage(sub, state, pods, aux, carries, norm, weights, ok, out: dict, *
 
 for _wrapper in (filter_stage, score_stage, normalize_stage, window_stage, select_stage):
     _wrapper.launches = 0
+filter_stage.last = score_stage.last = None
 
 
 class Stages(NamedTuple):

@@ -8,7 +8,11 @@ a thread-block cluster: their tests run at cluster sizes 2, 8 and 16
 (kernels/chain.py CLUSTER_SIZE); kernel B's persistent grid at forced
 sizes (kernels/batch_eval.py GRID) and past the old node bound.  The
 score samples' rows (NodeNumber, DataProviderScore) in A, B, C and D, and
-the refusal of a hooked profile on the card.
+the refusal of a hooked profile on the card.  Kernel E's stages, E1 and
+E2 with each pod row on a cluster of 1, 2, 8 or 16 blocks or of the
+launch's choice (kernels/chain_stages.py STAGE_CLUSTER), at 1, 7 and 256
+pod rows, with the domain scratch in shared and in global memory, over
+several tiles of a cluster, and a refused cluster launch raising.
 
 Marked ``gpu``; each test skips when there is no CUDA device.  This file
 imports neither jax nor ksim_tpu, so it runs on a machine with a card
@@ -489,6 +493,107 @@ def test_chain_stages_match_plain(cuda, case, exact):
                                        rtol=0, atol=0)
     after = chain_stages.launches()
     assert all(after[k] > before[k] for k in after), after
+
+
+STAGE_CLUSTERS = [0, 1, 2, 8, 16]
+STAGE_CASES = ["seed0", "images_ports", "spread_affinity", "volumes", "seed1", "random700"]
+
+
+def _stage_inputs(case: str, exact: bool, rows: int, device):
+    """E1's and E2's inputs over the whole default profile (one launch
+    group each): ``rows`` pod rows cycling over the snapshot's pods,
+    padding pods included where the snapshot has them (seed1: 50 pods
+    padded to 64)."""
+    if case.startswith("random"):  # random700: 768 padded nodes; random2100: 4096
+        feats = Featurizer().featurize(*random_cluster(3, int(case[6:]), 64))
+    else:
+        nodes, pods, kw = case_inputs(case)
+        feats = Featurizer().featurize(nodes, pods, **kw)
+    eng = Engine(feats, default_plugins(feats), record="full", exact=exact, device=device)
+    staged = StagedProgram(eng._prog)
+    batch = eng._pods
+    idx = torch.arange(rows, device=device) % batch.valid.shape[0]
+    view = type(batch)(*(x[idx] for x in batch)).view()
+    subs = (staged.filter_groups[0].sub, staged.score_groups[0].sub)
+    return subs, eng._node_state, view, eng._aux, eng._prog.init_carries(eng._aux)
+
+
+def _stages_equal(subs, state, view, aux, carries):
+    """E1 and E2 against their plain versions (tolerance 0), and what each
+    launch ran against kernels/chain.py's mirror of the launch; returns
+    what each ran."""
+    fsub, ssub = subs
+    codes, ok = chain_stages.filter_stage(fsub, state, view, aux, carries)
+    want_codes, want_ok = chain_stages.filter_stage_plain(fsub, state, view, aux, carries)
+    torch.testing.assert_close(codes, want_codes, rtol=0, atol=0)
+    torch.testing.assert_close(ok, want_ok, rtol=0, atol=0)
+    raw = chain_stages.score_stage(ssub, state, view, aux, carries, ok)
+    torch.testing.assert_close(raw, chain_stages.score_stage_plain(ssub, state, view, aux, carries, ok), rtol=0, atol=0)
+    ran = chain_stages.filter_stage.last, chain_stages.score_stage.last
+    for sub, last, score in zip(subs, ran, (False, True)):
+        prm = sub.kernel_tables["stage_params"][1]
+        assert last["threads"] == chain.stage_threads(prm.N, last["cluster"]), last
+        assert last["smem_bytes"] == chain.stage_smem_bytes(prm, last["cluster"], score=score), last
+    return ran
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("rows", [1, 7, 256])
+@pytest.mark.parametrize("case", STAGE_CASES)
+@pytest.mark.parametrize("size", STAGE_CLUSTERS, ids=[f"cs{c}" for c in STAGE_CLUSTERS])
+def test_filter_and_score_stages_on_clusters_match_plain(cuda, size, case, rows, exact, monkeypatch):
+    """E1 and E2 with each pod row on a cluster of 1, 2, 8 or 16 blocks,
+    or of the size the launch chooses (cs0): 16 or 8 for one row, one
+    block of 256 threads once the rows exceed half the card's SMs."""
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", size)
+    ran = _stages_equal(*_stage_inputs(case, exact, rows, cuda))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for last in ran:
+        if size:
+            assert last["cluster"] == size, last
+        else:
+            assert last["cluster"] <= chain.stage_cluster_cap(rows, sms), last
+            assert rows > 1 or last["cluster"] in (8, 16), last
+            assert 2 * rows <= sms or (last["cluster"], last["threads"]) == (1, 256), last
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("rows", [1, 7, 256])
+@pytest.mark.parametrize("size", STAGE_CLUSTERS, ids=[f"cs{c}" for c in STAGE_CLUSTERS])
+def test_filter_and_score_stages_with_global_domain_scratch_match_plain(cuda, size, rows, exact, monkeypatch):
+    """PodTopologySpread's per-domain scratch in global memory: one row
+    pair per (cluster, rank) of the launch."""
+    monkeypatch.setattr(chain, "DOMAIN_SMEM_BYTES", 0)
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", size)
+    subs, state, view, aux, carries = _stage_inputs("spread_affinity", exact, rows, cuda)
+    _stages_equal(subs, state, view, aux, carries)
+    for sub in subs:
+        prm = sub.kernel_tables["stage_params"][1]
+        assert prm.sp_smem == 0 and prm.MC * prm.DMAX > 0
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+def test_filter_and_score_stages_with_several_tiles_per_cluster_match_plain(cuda, exact, monkeypatch):
+    """4096 padded nodes on clusters of two blocks of 512 threads: each
+    thread owns four node slots, one in each of the cluster's tiles."""
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", 2)
+    for last in _stages_equal(*_stage_inputs("random2100", exact, 7, cuda)):
+        assert (last["cluster"], last["threads"]) == (2, 512)
+
+
+def test_refused_stage_cluster_launch_raises(cuda, monkeypatch):
+    """A cluster E1 and E2 do not take is refused and raises; nothing
+    smaller, one-block or plain runs in its place."""
+    monkeypatch.setattr(chain, "MAX_CLUSTER", 32)
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", 32)
+    (fsub, ssub), state, view, aux, carries = _stage_inputs("seed0", True, 1, cuda)
+    before = chain_stages.launches()
+    with pytest.raises(RuntimeError, match=r"ksim_chain_stages\(filter\): CUDA error"):
+        chain_stages.filter_stage(fsub, state, view, aux, carries)
+    ok = torch.ones((1, state.valid.shape[0]), dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match=r"ksim_chain_stages\(score\): CUDA error"):
+        chain_stages.score_stage(ssub, state, view, aux, carries, ok)
+    assert chain_stages.launches() == before
 
 
 def test_lifecycle_markers_stay_on_the_kernels(cuda, tmp_path):

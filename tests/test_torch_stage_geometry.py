@@ -1,0 +1,208 @@
+"""The geometry of kernel E's filter and score stages (E1, E2;
+csrc/chain_stages.cu), on the CPU: the Python mirror in kernels/chain.py of
+the rule the launch follows, over N in {40, 6144, 12288} padded nodes and
+B in {1, 7, 132, 256} pod rows.
+
+- ``stage_cluster``: the cluster size is one of 1, 2, 4, 8, 16, never
+  rises as the rows grow, is 16 for one row where a 16-block cluster fits
+  (else 8), and 1 from the card's SM count on (from half of it, in fact);
+  the occupancy answers are the card's, so a model of the card stands in;
+- ``block_nodes`` at the chosen size and block width: every real node
+  belongs to exactly one (rank, slot) of a cluster;
+- ``stage_scratch_row`` and ``chain_stages.scratch_rows``: where the spread
+  domains do not fit shared memory, each (cluster, rank) of a launch has a
+  row pair of its own, and a block reads its cluster's pairs;
+- ``stage_smem_bytes``: what one block needs fits 232448 bytes at every
+  geometry the rule picks, for this repo's profiles, and for the most the
+  domains may take in shared memory.
+
+The kernels themselves run only on the card (tests/test_torch_gpu.py)."""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from ksim_tpu_torch.engine.core import Engine
+from ksim_tpu_torch.engine.profiles import default_plugins
+from ksim_tpu_torch.engine.staged import StagedProgram
+from ksim_tpu_torch.kernels import chain, chain_stages
+from ksim_tpu_torch.state.featurizer import Featurizer
+from tests.test_torch_clusters import case_inputs
+
+NODES = [40, 6144, 12288]
+ROWS = [1, 7, 132, 256]
+SIZES = {1, 2, 4, 8, 16}
+H100_SMS = 132
+
+
+def h100(cs: int) -> int:
+    """A model of the card's occupancy answers: every SM free, one block
+    per SM."""
+    return H100_SMS // cs
+
+
+def no_16(cs: int) -> int:
+    """A card with no room for a 16-block cluster."""
+    return 0 if cs == 16 else H100_SMS // cs
+
+
+CARDS = {"h100": h100, "no_16": no_16}
+
+
+@pytest.mark.parametrize("card", CARDS)
+@pytest.mark.parametrize("rows", ROWS)
+def test_stage_cluster_size_follows_the_rows(rows, card):
+    fits = CARDS[card]
+    cs = chain.stage_cluster(rows, H100_SMS, fits)
+    assert cs in SIZES
+    assert cs <= chain.stage_cluster_cap(rows, H100_SMS)
+    assert rows * cs <= H100_SMS or cs == 1
+    if rows == 1:
+        assert cs == (16 if card == "h100" else 8)
+    if rows >= H100_SMS:
+        assert cs == 1
+
+
+@pytest.mark.parametrize("card", CARDS)
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+def test_stage_cluster_size_never_rises_as_the_rows_grow(sms, card):
+    fits = CARDS[card]
+    sizes = [chain.stage_cluster(rows, sms, fits) for rows in range(1, 2 * sms)]
+    assert sizes == sorted(sizes, reverse=True)
+    assert all(cs == 1 for cs in sizes[sms // 2:])  # rows above half the SM count
+    assert set(sizes) <= SIZES
+
+
+def test_stage_cluster_takes_the_largest_size_that_holds_every_row():
+    """Seven rows: 16 where seven 16-block clusters are resident at once,
+    8 where only six are."""
+    assert chain.stage_cluster(7, H100_SMS, lambda cs: {16: 7, 8: 16}.get(cs, 33)) == 16
+    assert chain.stage_cluster(7, H100_SMS, lambda cs: {16: 6, 8: 16}.get(cs, 33)) == 8
+    assert chain.stage_cluster(7, H100_SMS, lambda cs: 0) == 1
+
+
+@pytest.mark.parametrize("n_nodes", NODES)
+def test_stage_threads(n_nodes):
+    """One block of 256 threads on a cluster of one (the old geometry); a
+    node slot per thread for N / size nodes, at most 512, on a larger one."""
+    assert chain.stage_threads(n_nodes, 1) == 256
+    for cs in (2, 4, 8, 16):
+        nt = chain.stage_threads(n_nodes, cs)
+        assert nt % 32 == 0 and 32 <= nt <= 512
+        assert nt == min(512, chain.cluster_threads(n_nodes, cs))
+    assert chain.stage_threads(6144, 16) == 384  # one pod of the main path: one slot per thread
+
+
+@pytest.mark.parametrize("card", CARDS)
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("n_nodes", NODES)
+def test_every_real_node_has_exactly_one_slot_of_a_cluster(n_nodes, rows, card):
+    cs = chain.stage_cluster(rows, H100_SMS, CARDS[card])
+    nt = chain.stage_threads(n_nodes, cs)
+    owned = [n for rank in range(cs) for n in chain.block_nodes(n_nodes, cs, nt, rank)]
+    assert sorted(owned) == list(range(n_nodes))
+    slots = chain.cluster_slots(n_nodes, cs, nt)
+    assert slots % nt == 0 and slots * cs >= n_nodes
+
+
+@pytest.mark.parametrize("card", CARDS)
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("forced", [0, 1, 2, 8, 16])
+def test_global_domain_scratch_has_a_row_pair_per_cluster_and_rank(rows, forced, card):
+    """The wrapper sizes the scratch for the largest cluster the launch may
+    take (or the forced one); each (cluster, rank) of the launch's
+    min(rows, GRID_MAX) clusters has a pair of its own, and block `rank`
+    finds block q's pair q - rank pairs from its own (ClusterTeam::combine)."""
+    cs = forced or chain.stage_cluster(rows, H100_SMS, CARDS[card])
+    clusters = min(rows, chain_stages.GRID_MAX)
+    n_rows = chain_stages.scratch_rows(rows, forced, H100_SMS)
+    pairs = [chain.stage_scratch_row(c, rank, cs) for c in range(clusters) for rank in range(cs)]
+    assert len(set(pairs)) == len(pairs) == clusters * cs
+    assert max(pairs) < n_rows
+    for c in range(clusters):
+        for rank in range(cs):
+            for q in range(cs):
+                own = chain.stage_scratch_row(c, rank, cs)
+                assert own + (q - rank) == chain.stage_scratch_row(c, q, cs)
+
+
+def _stage_prm(case: str):
+    """The ChainParams of the default profile's filter and score groups
+    (kernel E's template) over a test cluster, on the CPU."""
+    nodes, pods, kw = case_inputs(case)
+    feats = Featurizer().featurize(nodes, pods, **kw)
+    eng = Engine(feats, default_plugins(feats), record="full", device="cpu")
+    staged = StagedProgram(eng._prog)
+    carries = eng._prog.init_carries(eng._aux)
+    view = eng._pods.view()
+    return [chain_stages._template(g.sub, eng._node_state, view, eng._aux, carries)
+            for g in (staged.filter_groups[0], staged.score_groups[0])]
+
+
+@pytest.mark.parametrize("case", ["spread_affinity", "images_ports", "volumes"])
+@pytest.mark.parametrize("n_nodes", NODES)
+def test_stage_shared_memory_fits_at_every_geometry_the_rule_picks(n_nodes, case):
+    for prm, score in zip(_stage_prm(case), (False, True)):
+        prm.N = n_nodes
+        for rows in ROWS:
+            for fits in CARDS.values():
+                cs = chain.stage_cluster(rows, H100_SMS, fits)
+                need = chain.stage_smem_bytes(prm, cs, score=score)
+                assert need <= chain.MAX_SMEM_BYTES
+                chain.check_stage_smem(prm, cs, score=score)
+
+
+@pytest.mark.parametrize("score", [False, True], ids=["E1", "E2"])
+@pytest.mark.parametrize("n_nodes", NODES)
+def test_stage_shared_memory_with_the_most_domains_in_shared_memory(n_nodes, score):
+    """Wide vocabularies (64 images, 64 inter-pod terms, 8 spread
+    constraints) and the domain scratch at its shared-memory limit: a
+    partial and a combined array of DOMAIN_SMEM_BYTES each."""
+    prm = chain.ChainParams()
+    prm.N, prm.I, prm.T2, prm.MC = n_nodes, 64, 64, 8
+    prm.DMAX = chain.DOMAIN_SMEM_BYTES // (4 * 4 * prm.MC)
+    prm.sp_smem = int(4 * chain.domain_ints(prm) <= chain.DOMAIN_SMEM_BYTES)
+    assert prm.sp_smem == 1
+    fixed = 8 * 35 + 4 * (35 * chain.RED_MAX + prm.T2) + chain.SPREAD_CON_BYTES * prm.MC
+    for cs in sorted(SIZES):
+        nt = chain.stage_threads(n_nodes, cs)
+        slots = chain.cluster_slots(n_nodes, cs, nt)
+        want = fixed + 2 * chain.DOMAIN_SMEM_BYTES + ((8 * prm.I + slots) if score else 0)
+        assert chain.stage_smem_bytes(prm, cs, score=score) == want <= chain.MAX_SMEM_BYTES
+
+
+def test_score_stage_refuses_a_node_axis_past_its_shared_memory():
+    """E2 keeps one flag byte per node slot in shared memory: a block of a
+    cluster of one holds about 225,000 padded nodes, more raise before the
+    launch with the bound named."""
+    prm = chain.ChainParams()
+    prm.I, prm.T2, prm.MC = 8, 8, 2
+    prm.N = 200_000
+    chain.check_stage_smem(prm, 1, score=True)
+    chain.check_stage_smem(prm, 1, score=False)
+    prm.N = 240_000
+    chain.check_stage_smem(prm, 1, score=False)
+    chain.check_stage_smem(prm, 2, score=True)
+    with pytest.raises(ValueError, match=r"N=240000 .* score stage on a 1-block cluster"):
+        chain.check_stage_smem(prm, 1, score=True)
+
+
+def test_stage_wrappers_take_the_plain_versions_on_the_cpu():
+    """On CPU tensors E1 and E2 run their plain versions: no launch, no
+    geometry."""
+    launches = chain_stages.launches()
+    nodes, pods, kw = case_inputs("seed0")
+    feats = Featurizer().featurize(nodes, pods, **kw)
+    eng = Engine(feats, default_plugins(feats), record="full", device="cpu")
+    staged = StagedProgram(eng._prog)
+    carries = eng._prog.init_carries(eng._aux)
+    view = eng._pods.view()
+    fsub, ssub = staged.filter_groups[0].sub, staged.score_groups[0].sub
+    codes, ok = chain_stages.filter_stage(fsub, eng._node_state, view, eng._aux, carries)
+    want = chain_stages.filter_stage_plain(fsub, eng._node_state, view, eng._aux, carries)
+    torch.testing.assert_close(codes, want[0], rtol=0, atol=0)
+    raw = chain_stages.score_stage(ssub, eng._node_state, view, eng._aux, carries, ok)
+    torch.testing.assert_close(raw, chain_stages.score_stage_plain(ssub, eng._node_state, view, eng._aux, carries, ok),
+                               rtol=0, atol=0)
+    assert chain_stages.launches() == launches

@@ -159,13 +159,15 @@ Phases, in order; any failure exits non-zero before the last line:
    and the fused batch (final) over the whole queue, each equal to the
    same profile through kernel E's plain versions, and E1-E4 each against
    its plain version on 256 pods; (iii) one SchedulerService pass with
-   that profile (2000 x 256) equal to its CPU run; (iv) E1 and E2 (each
-   pod row on a thread-block cluster) against their plain versions at
-   one pod of the scan and at 256 pods, at the cluster size the launch
-   picks there and at a forced size of 1, and each stage's kernel time
-   (CUPTI) at one pod and at 256 pods beside its wrapper's host time, its
-   plain version and its bound (the bytes of its own rows' tables), E1's
-   and E2's also at a forced cluster of one block, the launches per pod,
+   that profile (2000 x 256) equal to its CPU run; (iv) E1, E2, E3 and
+   E4's selection (each pod row on a thread-block cluster) against their
+   plain versions at one pod of the scan and at 256 pods, at the cluster
+   size the launch picks there and at a forced size of 1, the committing
+   selection at one pod on a copy of the state, and each stage's kernel
+   time (CUPTI) at one pod and at 256 pods beside its wrapper's host
+   time, its plain version and its bound (the bytes of its own rows'
+   tables), the committing selection's at one pod, the cluster stages'
+   also at a forced cluster of one block, the launches per pod,
    and (i)'s wall beside kernel A's; then a torch.profiler trace of (i)'s
    first TRACE_PODS pods: the card's busy ms and idle share beside the
    wall per pod; (e) a profiled pass whose trace names the pass and kernel A's launch, its profile holding
@@ -381,6 +383,8 @@ KERNELS = {
 # launches()): E1 filter, E2 score, E3 normalize, E4 window and select.
 STAGE_KERNELS = {"chain_filter": "filter", "chain_score": "score", "chain_normalize": "normalize",
                  "chain_window": "window", "chain_select": "select"}
+# Kernel E's stages that run each pod row on a thread-block cluster.
+CLUSTER_STAGES = ("chain_filter", "chain_score", "chain_normalize", "chain_select")
 # Phase 11 (d): the pods of kernel E's stage-by-stage comparison, and the
 # launches per timing of a stage at the scan's shape (one pod).
 STAGE_BLOCK = 256
@@ -1918,24 +1922,27 @@ def cupti_ms(fn, reps: int, kernel: str) -> float:
     """Mean milliseconds of one launch of the CUDA kernel whose name holds
     ``kernel``, from CUPTI's kernel records in a torch.profiler trace of
     ``reps`` calls of ``fn`` (after one untraced call): the card's time
-    alone, without the host's time between launches."""
+    alone, without the host's time between launches.  A session whose
+    trace holds other than ``reps`` records (CUPTI dropped one) is traced
+    again, up to three sessions."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(prefix="ksim-stage-trace-") as d:
-        path = Path(d) / "stage.pt.trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    durs = [float(e["dur"]) for e in events
-            if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in str(e.get("name"))]
-    if len(durs) != reps:
-        raise AssertionError(f"CUPTI recorded {len(durs)} launches of {kernel} in {reps} calls")
-    return sum(durs) / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="ksim-stage-trace-") as d:
+            path = Path(d) / "stage.pt.trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        durs = [float(e["dur"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in str(e.get("name"))]
+        if len(durs) == reps:
+            return sum(durs) / reps / 1e3
+    raise AssertionError(f"CUPTI recorded {len(durs)} launches of {kernel} in {reps} calls, in each of three sessions")
 
 
 def stage_by_stage(check: Check, staged: StagedProgram, state, batch, aux: dict, carries: dict, n_real: int) -> None:
@@ -2127,40 +2134,108 @@ def staged_legs(check: Check, card: str, feats, a_selected, a_ms: float, nodes, 
             "pods": pods}
 
 
-def cluster_holds(check: Check, subs, state, view, aux: dict, carries: dict) -> dict:
-    """E1 and E2 against their plain versions on the pod rows of ``view``,
-    at the cluster size the launch picks for them (key 0) and on a forced
-    cluster of one block (key 1); returns what each launch ran."""
-    fsub, ssub = subs
-    B = view.index.shape[0]
+def cluster_holds(check: Check, subs, state, pods, aux: dict, carries: dict, weights) -> dict:
+    """E1, E2, E3 and E4's selection against their plain versions on the
+    pod rows of ``pods`` (a PodBatch), at the cluster size the launch picks
+    for them (key 0) and on a forced cluster of one block (key 1); with
+    one pod, the committing selection too, on a copy of the state and the
+    carries.  ``subs`` are the filter, score and commit sub-profiles.
+    Returns what each launch ran."""
+    fsub, ssub, csub = subs
+    view = pods.view()
+    B, N = view.index.shape[0], state.valid.shape[0]
     want_codes, want_ok = chain_stages.filter_stage_plain(fsub, state, view, aux, carries)
     want_raw = chain_stages.score_stage_plain(ssub, state, view, aux, carries, want_ok)
+    want_norm = chain_stages.normalize_stage_plain(ssub, state, view, aux, carries, want_raw, want_ok)
+
+    def outs():
+        return {"selected": torch.empty(B, dtype=torch.int32, device=DEVICE),
+                "total": torch.empty((B, N), dtype=torch.int32, device=DEVICE), "final": None}
+
+    want_sel = outs()
+    chain_stages.select_stage_plain(csub, state, pods, aux, carries, want_norm, weights, want_ok, want_sel)
     ran = {}
     for size in (0, 1):
         chain_stages.STAGE_CLUSTER = size
         try:
             codes, ok = chain_stages.filter_stage(fsub, state, view, aux, carries)
             raw = chain_stages.score_stage(ssub, state, view, aux, carries, ok)
+            norm = chain_stages.normalize_stage(ssub, state, view, aux, carries, raw, ok)
+            sel = outs()
+            chain_stages.select_stage(csub, state, pods, aux, carries, norm, weights, ok, sel)
+            ran[size] = {name: dict(getattr(chain_stages, f"{STAGE_KERNELS[name]}_stage").last)
+                         for name in CLUSTER_STAGES}
+            if B == 1:
+                k_state, k_carries = chain.fresh_scan_state(csub, state, carries)
+                p_state, p_carries = chain.fresh_scan_state(csub, state, carries)
+                got_c, want_c = outs(), outs()
+                chain_stages.select_stage(csub, k_state, pods, aux, k_carries, norm, weights, ok, got_c, commit=True)
+                ran[size]["chain_select_commit"] = dict(chain_stages.select_stage.last)
+                chain_stages.select_stage_plain(csub, p_state, pods, aux, p_carries, want_norm, weights, want_ok,
+                                                want_c, commit=True)
         finally:
             chain_stages.STAGE_CLUSTER = 0
-        ran[size] = {"chain_filter": dict(chain_stages.filter_stage.last),
-                     "chain_score": dict(chain_stages.score_stage.last)}
-        on = f"{B} pods, cluster of {ran[size]['chain_filter']['cluster']}"
-        check.equal("chain_filter", f"E1 at {on} codes", codes.cpu().numpy(), want_codes.cpu().numpy())
-        check.equal("chain_filter", f"E1 at {on} ok", ok.cpu().numpy(), want_ok.cpu().numpy())
-        check.equal("chain_score", f"E2 at {B} pods, cluster of {ran[size]['chain_score']['cluster']}",
-                    raw.cpu().numpy(), want_raw.cpu().numpy())
-    if ran[1]["chain_filter"]["cluster"] != 1 or ran[1]["chain_score"]["cluster"] != 1:
-        raise AssertionError(f"E1 and E2 at a forced cluster of one ran {ran[1]}")
+        at = {name: f"{B} pods, cluster of {last['cluster']}" for name, last in ran[size].items()}
+        check.equal("chain_filter", f"E1 at {at['chain_filter']} codes", codes.cpu().numpy(), want_codes.cpu().numpy())
+        check.equal("chain_filter", f"E1 at {at['chain_filter']} ok", ok.cpu().numpy(), want_ok.cpu().numpy())
+        check.equal("chain_score", f"E2 at {at['chain_score']}", raw.cpu().numpy(), want_raw.cpu().numpy())
+        check.equal("chain_normalize", f"E3 at {at['chain_normalize']}", norm.cpu().numpy(), want_norm.cpu().numpy())
+        for key in ("selected", "total"):
+            check.equal("chain_select", f"E4 select at {at['chain_select']} {key}", sel[key].cpu().numpy(),
+                        want_sel[key].cpu().numpy())
+        if B == 1:
+            what = f"E4 committing select at {at['chain_select_commit']}"
+            for key in ("selected", "total"):
+                check.equal("chain_select", f"{what} {key}", got_c[key].cpu().numpy(), want_c[key].cpu().numpy())
+            same_state("chain_select", what, check, host_state(k_state), p_state)
+            for name, want_carry in p_carries.items():
+                got_carry = k_carries[name]
+                for key in (want_carry if isinstance(want_carry, dict) else [None]):
+                    a = got_carry if key is None else got_carry[key]
+                    b = want_carry if key is None else want_carry[key]
+                    check.equal("chain_select", f"{what} carry {name} {key or ''}", a.cpu().numpy(), b.cpu().numpy())
+    if any(last["cluster"] != 1 for last in ran[1].values()):
+        raise AssertionError(f"kernel E's cluster stages at a forced cluster of one ran {ran[1]}")
     # What ran is what kernels/chain.py's mirror of the launch says.
+    stage_subs = {"chain_filter": fsub, "chain_score": ssub, "chain_normalize": ssub, "chain_select": csub,
+                  "chain_select_commit": csub}
     for size in ran:
-        for (name, last), sub in zip(ran[size].items(), subs):
-            prm = sub.kernel_tables["stage_params"][1]
-            mirror = (chain.stage_threads(prm.N, last["cluster"]),
-                      chain.stage_smem_bytes(prm, last["cluster"], score=name == "chain_score"))
+        for name, last in ran[size].items():
+            prm = stage_subs[name].kernel_tables["stage_params"][1]
+            stage = STAGE_KERNELS[name.removesuffix("_commit")]
+            mirror = (chain.stage_threads(prm.N, last["cluster"]), chain.stage_smem_bytes(prm, last["cluster"], stage))
             if (last["threads"], last["smem_bytes"]) != mirror:
                 raise AssertionError(f"{name} ran {last}; kernels/chain.py's mirror says {mirror}")
     return ran
+
+
+def commit_bytes(sub, pods, aux: dict, sel: int) -> int:
+    """The bytes the commit (plugin_chain.cuh commit_pod) of pod 0 of
+    ``pods`` onto node ``sel`` moves beside the selection: the chosen
+    node's rows of the node state and of each carry the sub-profile has,
+    read and written, and the pod's rows; when the pod carries inter-pod
+    terms, InterPodAffinity's domain table whole, the pod's term rows, the
+    term totals read and written, and the three counts of every (node,
+    term) in the chosen node's domain, read and written (this run's data).
+    None when nothing was committed."""
+    if sel < 0:
+        return 0
+    prm = sub.kernel_tables["stage_params"][1]
+    j = int(pods.index[0])
+    node_ints, pod_bytes = 2 * prm.R + 1, 2 * 4 * prm.R
+    for ptr, ints, pod_b in ((prm.port_counts, prm.V, 4 * prm.V), (prm.sp_counts, prm.SS, prm.SS),
+                             (prm.attached, prm.VV, prm.VV), (prm.rwop, prm.RW + 2 * prm.DD, prm.RW + 2 * prm.DD)):
+        if ptr:
+            node_ints += ints
+            pod_bytes += pod_b
+    n = 2 * 4 * node_ints + pod_bytes
+    a = aux["interpod"]
+    if prm.ipa_cnt and bool((a["pod_term_match"][j] | (a["pod_vw"][j] != 0) | (a["pod_eat"][j] != 0)).any()):
+        dom = a["dom_t"]
+        db = dom[sel]
+        matches = int(((dom == db) & (db >= 0)).sum())
+        n += tensor_bytes(dom) + 9 * prm.T2 + 2 * 4 * prm.T2 + 2 * 3 * 4 * matches
+    return n
 
 
 def ptxas_usage(source: str, kernel: str) -> dict:
@@ -2226,13 +2301,15 @@ def hooked_trace(card: str, legs: dict) -> dict:
 
 
 def staged_timings(check: Check, card: str, legs: dict) -> dict:
-    """Phase 11 (d) (iv), on a card no other process uses: E1 and E2 held
-    against their plain versions at one pod and at STAGE_BLOCK pods, at
-    the cluster the launch picks and at a forced cluster of one block
+    """Phase 11 (d) (iv), on a card no other process uses: E1, E2, E3 and
+    E4's selection held against their plain versions at one pod and at
+    STAGE_BLOCK pods, at the cluster the launch picks and at a forced
+    cluster of one block, and the committing selection at one pod
     (``cluster_holds``); each of kernel E's stages at the scan's shape
-    (one pod, the whole default profile in one launch): its kernel time
-    from CUPTI's records (E1's and E2's also at a forced cluster of one),
-    its wrapper's host time, its plain version and its bound; the same at
+    (one pod, the whole default profile in one launch), and the committing
+    selection there on a copy of the state: its kernel time from CUPTI's
+    records (the cluster stages' also at a forced cluster of one), its
+    wrapper's host time, its plain version and its bound; the same at
     the chunk's shape (STAGE_BLOCK pods); the launches per pod and the
     staged pass's wall beside kernel A's; then (i)'s traced stretch
     (``hooked_trace``).  ``legs`` is ``staged_legs``' value.  Returns the
@@ -2242,7 +2319,8 @@ def staged_timings(check: Check, card: str, legs: dict) -> dict:
     launched, walls, ident, n_pods, a_ms, per_pod = (
         legs[k] for k in ("launched", "walls", "ident", "n_pods", "a_ms", "per_pod"))
     unhooked = StagedProgram(sched_prog(e_main), chain_stages.STAGES)
-    fsub, ssub = unhooked.filter_groups[0].sub, unhooked.score_groups[0].sub
+    fsub, ssub, csub = unhooked.filter_groups[0].sub, unhooked.score_groups[0].sub, unhooked.commit_sub
+    w = unhooked._weights_on(state.valid.device)
     ops = pair_ops(e_main)
     F, S = len(fsub.filters), len(ssub.scores)
     N = state.valid.shape[0]
@@ -2250,25 +2328,33 @@ def staged_timings(check: Check, card: str, legs: dict) -> dict:
     for B in (1, STAGE_BLOCK):
         pods_b = e_main._pods.rows(0, B)
         view = pods_b.view()
-        ran[B] = cluster_holds(check, (fsub, ssub), state, view, aux, carries)
-        print(f"  (iv) E1 and E2 at {B} x {N} equal their plain versions on the launch's clusters "
-              f"{ran[B][0]} and on forced clusters of one {ran[B][1]} {card}", flush=True)
+        ran[B] = cluster_holds(check, (fsub, ssub, csub), state, pods_b, aux, carries, w)
+        print(f"  (iv) E1, E2, E3 and E4 select{' (and its commit)' if B == 1 else ''} at {B} x {N} equal their "
+              f"plain versions on the launch's clusters {ran[B][0]} and on forced clusters of one {ran[B][1]} "
+              f"{card}", flush=True)
         ok, _ = unhooked.eval_filters(state, view, aux, carries)
         ok = ok.contiguous()
         raw = chain_stages.score_stage(ssub, state, view, aux, carries, ok)
         norm = chain_stages.normalize_stage(ssub, state, view, aux, carries, raw, ok)
-        w = unhooked._weights_on(ok.device)
         out = {"selected": torch.empty(B, dtype=torch.int32, device=DEVICE),
                "total": torch.empty((B, N), dtype=torch.int32, device=DEVICE), "final": None}
+        chain_stages.select_stage(csub, state, pods_b, aux, carries, norm, w, ok, out)
+        sel = int(out["selected"][0])
         start = torch.zeros(1, dtype=torch.int32, device=DEVICE)
         calls = {
             "chain_filter": lambda st: st.filter(fsub, state, view, aux, carries),
             "chain_score": lambda st: st.score(ssub, state, view, aux, carries, ok),
             "chain_normalize": lambda st: st.normalize(ssub, state, view, aux, carries, raw, ok),
-            "chain_select": lambda st: st.select(unhooked.commit_sub, state, pods_b, aux, carries, norm, w, ok, out),
+            "chain_select": lambda st: st.select(csub, state, pods_b, aux, carries, norm, w, ok, out),
         }
         if B == 1:
             calls["chain_window"] = lambda st: st.window(ok, start.clone(), pods_b.valid, n_real, SAMPLING_K)
+            # The scan's committing selection, each call committing the pod
+            # again into a copy of the state and carries of its own.
+            copies = {st: chain.fresh_scan_state(csub, state, carries)
+                      for st in (chain_stages.STAGES, chain_stages.PLAIN_STAGES)}
+            calls["chain_select_commit"] = lambda st: st.select(csub, copies[st][0], pods_b, aux, copies[st][1], norm,
+                                                                w, ok, out, commit=True)
         pairs = B * n_real
         work = {
             "chain_filter": (stage_bytes(fsub, "filter", state, view, aux, carries, ok) + 4 * B * F * N,
@@ -2278,14 +2364,17 @@ def staged_timings(check: Check, card: str, legs: dict) -> dict:
             "chain_normalize": (stage_bytes(ssub, "normalize", state, view, aux, carries, ok, raw) + 8 * B * S * N,
                                 4 * S * pairs),
             "chain_select": (tensor_bytes([norm, ok, w]) + 4 * B * N + 4 * B, 3 * S * pairs),
+            "chain_select_commit": (tensor_bytes([norm, ok, w]) + 4 * B * N + 4 * B
+                                    + commit_bytes(csub, pods_b, aux, sel), 3 * S * pairs),
             "chain_window": (N + 2 * N + 4, ops["sample"] * n_real),
         }
         for name, call in calls.items():
+            kernel = f"{STAGE_KERNELS[name.removesuffix('_commit')]}_stage_kernel"
             reps = STAGE_REPS if B == 1 else 5
             # The kernel's own time (CUPTI), the wrapper's host time per
             # call, and a call's time between CUDA events (the larger of
             # the two when calls run back to back).
-            ms = cupti_ms(lambda: call(chain_stages.STAGES), reps, f"{STAGE_KERNELS[name]}_stage_kernel")
+            ms = cupti_ms(lambda: call(chain_stages.STAGES), reps, kernel)
             torch.cuda.synchronize()
             t = time.perf_counter()
             for _ in range(reps):
@@ -2298,11 +2387,10 @@ def staged_timings(check: Check, card: str, legs: dict) -> dict:
             print(f"  {name} at {B} x {N}: kernel {ms:.4f} ms (CUPTI); wrapper host {host:.4f} ms a call, "
                   f"{call_ms:.4f} ms a call between CUDA events; plain {plain:.3f} ms; bound {bound:.6f} ms by "
                   f"{by} ({work[name][0]} bytes) {card}", flush=True)
-            if B == 1 and name in ("chain_filter", "chain_score"):
+            if B == 1 and name != "chain_window":
                 chain_stages.STAGE_CLUSTER = 1
                 try:
-                    cs1_ms[name] = cupti_ms(lambda: call(chain_stages.STAGES), reps,
-                                            f"{STAGE_KERNELS[name]}_stage_kernel")
+                    cs1_ms[name] = cupti_ms(lambda: call(chain_stages.STAGES), reps, kernel)
                 finally:
                     chain_stages.STAGE_CLUSTER = 0
                 print(f"  {name} at {B} x {N} on a forced cluster of one block of 256 threads: kernel "
@@ -2319,11 +2407,16 @@ def staged_timings(check: Check, card: str, legs: dict) -> dict:
                 "shape": f"1x{N} (one pod's visit window)" if name == "chain_window"
                 else f"1x{N} (one pod of the scan, the default profile in one launch)",
                 "stage": {"chain_filter": "E1", "chain_score": "E2", "chain_normalize": "E3"}.get(name, "E4")}
-        if name in ("chain_filter", "chain_score"):
+        if name in CLUSTER_STAGES:
             note.update(ran[1][0][name], ms_cluster_1=cs1_ms[name], chunk_geometry=ran[STAGE_BLOCK][0][name],
-                        **ptxas_usage("chain_stages", f"{STAGE_KERNELS[name]}_stage_kernel"))
+                        **ptxas_usage("chain_stages", f"{stage}_stage_kernel"))
         if name == "chain_select":
-            note.update(launches_per_pod=per_pod, staged_wall_s=walls, a_queue_ms=a_ms, hooked_trace=trace)
+            cms, cplain, cbound, cby, chost, ccall = measured["chain_select_commit"][1]
+            note.update(commit_ms=cms, commit_plain_ms=cplain, commit_bound_ms=cbound, commit_bound_by=cby,
+                        commit_wrapper_host_ms=chost, commit_call_ms=ccall,
+                        commit_ms_cluster_1=cs1_ms["chain_select_commit"],
+                        commit_geometry=ran[1][0]["chain_select_commit"], launches_per_pod=per_pod,
+                        staged_wall_s=walls, a_queue_ms=a_ms, hooked_trace=trace)
         if STAGE_BLOCK in measured[name]:
             cms, cplain, cbound, cby, chost, ccall = measured[name][STAGE_BLOCK]
             note.update(chunk_ms=cms, chunk_plain_ms=cplain, chunk_bound_ms=cbound, chunk_bound_by=cby,

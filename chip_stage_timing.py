@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Time kernel E's filter and score stages (E1, E2) on the card at the main
-path's shape.
+"""Time kernel E's cluster stages (E1 filter, E2 score, E3 normalize, E4
+select and the scan's committing select) on the card at the main path's
+shape.
 
     python3 chip_stage_timing.py [--reps 50] [--cluster 0]
 
 Featurizes random_cluster(0, 5000 nodes, 10000 pods, bound_fraction=0)
 (6144 padded nodes, the whole default profile in one launch per stage,
-exact mode, as chip_smoke.py phase 11 (d) (iv)) and times E1 and E2 over
-the first pod (the scan's shape) and over the first 256 pods (a chunk's):
-each stage's kernel time from CUPTI's kernel records in a torch.profiler
-trace of ``--reps`` calls (after one untraced call), without the host's
-time between launches.  Where the tree runs E1 and E2 on thread-block
-clusters, ``--cluster`` forces their size (0: the launch's choice) and the
-line reports what ran.  Prints one JSON line: the card (nvidia-smi name
+exact mode, as chip_smoke.py phase 11 (d) (iv)) and times E1, E2, E3 and
+E4's selection over the first pod (the scan's shape) and over the first
+256 pods (a chunk's), and the committing selection over the first pod (it
+takes one pod; each call commits it again into a copy of the state and
+carries): each stage's kernel time from CUPTI's kernel records in a
+torch.profiler trace of ``--reps`` calls (after one untraced call),
+without the host's time between launches.  Where the tree runs a stage on
+thread-block clusters, ``--cluster`` forces their size (0: the launch's
+choice) and the line reports what ran.  Prints one JSON line: the card (nvidia-smi name
 and power limit), the tree it ran from, and the times.  Run it from the
 root of the tree to time; to compare two trees, run it from each on one
 card, in turns (A, B, B, A)."""
@@ -35,7 +38,7 @@ from helpers import random_cluster  # noqa: E402
 from ksim_tpu_torch.engine.core import Engine  # noqa: E402
 from ksim_tpu_torch.engine.profiles import default_plugins  # noqa: E402
 from ksim_tpu_torch.engine.staged import StagedProgram  # noqa: E402
-from ksim_tpu_torch.kernels import chain_stages  # noqa: E402
+from ksim_tpu_torch.kernels import chain, chain_stages  # noqa: E402
 from ksim_tpu_torch.state.featurizer import Featurizer  # noqa: E402
 
 MAIN = (5000, 10000)
@@ -44,24 +47,27 @@ ROWS = (1, 256)
 
 def cupti_ms(fn, reps: int, kernel: str) -> float:
     """Mean milliseconds of one launch of the kernel whose name holds
-    ``kernel``, from CUPTI's records of ``reps`` calls of ``fn``."""
+    ``kernel``, from CUPTI's records of ``reps`` calls of ``fn``.  A
+    session whose trace holds other than ``reps`` records (CUPTI dropped
+    one) is traced again, up to three sessions."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(prefix="ksim-stage-timing-") as d:
-        path = Path(d) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    durs = [float(e["dur"]) for e in events
-            if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in str(e.get("name"))]
-    if len(durs) != reps:
-        raise AssertionError(f"CUPTI recorded {len(durs)} launches of {kernel} in {reps} calls")
-    return sum(durs) / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="ksim-stage-timing-") as d:
+            path = Path(d) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        durs = [float(e["dur"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in str(e.get("name"))]
+        if len(durs) == reps:
+            return sum(durs) / reps / 1e3
+    raise AssertionError(f"CUPTI recorded {len(durs)} launches of {kernel} in {reps} calls, in each of three sessions")
 
 
 def main() -> int:
@@ -80,17 +86,33 @@ def main() -> int:
     feats = Featurizer().featurize(nodes, pods)
     eng = Engine(feats, default_plugins(feats), record="selection", exact=True, device="cuda")
     staged = StagedProgram(eng._prog)
-    fsub, ssub = staged.filter_groups[0].sub, staged.score_groups[0].sub
+    fsub, ssub, csub = staged.filter_groups[0].sub, staged.score_groups[0].sub, staged.commit_sub
     state, aux = eng._node_state, eng._aux
     carries = eng._prog.init_carries(aux)
-    out = {"card": card, "tree": str(Path.cwd()), "nodes": int(state.valid.shape[0]), "reps": args.reps}
+    N = int(state.valid.shape[0])
+    weights = torch.tensor([sp.weight for sp in eng._prog.scores], dtype=torch.int32, device="cuda")
+    out = {"card": card, "tree": str(Path.cwd()), "nodes": N, "reps": args.reps}
     for B in ROWS:
-        view = eng._pods.rows(0, B).view()
+        pods = eng._pods.rows(0, B)
+        view = pods.view()
         ok = chain_stages.filter_stage(fsub, state, view, aux, carries)[1]
+        raw = chain_stages.score_stage(ssub, state, view, aux, carries, ok)
+        norm = chain_stages.normalize_stage(ssub, state, view, aux, carries, raw, ok)
+        sel = {"selected": torch.empty(B, dtype=torch.int32, device="cuda"),
+               "total": torch.empty((B, N), dtype=torch.int32, device="cuda"), "final": None}
         calls = {"E1": (lambda: chain_stages.filter_stage(fsub, state, view, aux, carries), "filter_stage_kernel",
                         chain_stages.filter_stage),
                  "E2": (lambda: chain_stages.score_stage(ssub, state, view, aux, carries, ok), "score_stage_kernel",
-                        chain_stages.score_stage)}
+                        chain_stages.score_stage),
+                 "E3": (lambda: chain_stages.normalize_stage(ssub, state, view, aux, carries, raw, ok),
+                        "normalize_stage_kernel", chain_stages.normalize_stage),
+                 "E4select": (lambda: chain_stages.select_stage(csub, state, pods, aux, carries, norm, weights, ok,
+                                                                sel), "select_stage_kernel", chain_stages.select_stage)}
+        if B == 1:
+            c_state, c_carries = chain.fresh_scan_state(csub, state, carries)
+            calls["E4commit"] = (lambda: chain_stages.select_stage(csub, c_state, pods, aux, c_carries, norm, weights,
+                                                                   ok, sel, commit=True),
+                                 "select_stage_kernel", chain_stages.select_stage)
         for name, (call, kernel, wrapper) in calls.items():
             out[f"{name}_ms_{B}"] = cupti_ms(call, args.reps if B == 1 else max(1, args.reps // 10), kernel)
             out[f"{name}_ran_{B}"] = getattr(wrapper, "last", None)

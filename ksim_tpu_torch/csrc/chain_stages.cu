@@ -33,31 +33,37 @@
 // kernels A-D run (filter_node, spread_filter_stats, spread_score_stats,
 // interpod_pod, the scores, the normalizes, visit_window, commit_pod).
 //
-// E1 and E2 spread each pod row's node axis over a thread-block cluster
-// of Cs blocks (cluster_scan.cuh's ClusterTeam, the team of kernels A and
-// C): one node slot per thread, chunks of 32 nodes dealt round robin over
-// the ranks, the reductions (PodTopologySpread's statistics) crossing the
-// cluster through distributed shared memory, so every block ends with the
-// same integer values.  A launch is a grid of clusters; cluster c takes
-// rows c, c + clusters, ...  Cs comes from the row count B
-// (stage_cluster): the largest of 16, 8, 4, 2 at which the B clusters
-// take no more blocks than the card has SMs and the occupancy query finds
-// room for all of them at once, else 1.  So one pod of the scan runs on
-// 16 SMs (8 where a 16-block cluster does not fit), and once B exceeds
-// half the SM count each row is a cluster of one block of E_THREADS, the
-// geometry E1 and E2 had before.  E3 and E4 run one block per pod row (StageTeam):
-// thread t owns nodes t, t + blockDim.x, ..., the reductions run in the
-// block, a block takes rows b, b + grid, ...
+// E1, E2, E3 and E4's selection spread each pod row's node axis over a
+// thread-block cluster of Cs blocks (cluster_scan.cuh's ClusterTeam, the
+// team of kernels A and C): one node slot per thread, chunks of 32 nodes
+// dealt round robin over the ranks, the reductions (PodTopologySpread's
+// statistics, the normalizes' extrema, the selection's key maximum)
+// crossing the cluster through distributed shared memory, so every block
+// ends with the same integer values.  A launch is a grid of clusters;
+// cluster c takes rows c, c + clusters, ...  Cs comes from the row count B
+// (stage_cluster), one rule for the four stages: the largest of 16, 8, 4,
+// 2 at which the B clusters take no more blocks than the card has SMs and
+// the occupancy query finds room for all of them at once, else 1.  So one
+// pod of the scan runs on 16 SMs (8 where a 16-block cluster does not
+// fit), and once B exceeds half the SM count each row is a cluster of one
+// block of E_THREADS.  The committing selection is one row on one
+// cluster: the owner of the chosen node commits its rows, every thread
+// updates InterPodAffinity's counts on its own nodes, every block its copy
+// of the term totals, and rank 0 writes that copy back at the end.  E4's
+// visit window is one block for one pod (StageTeam): thread t holds nodes
+// t, t + blockDim.x, ... of a tile, a tile at a time.
 //
 // What bounds it: latency.  Each launch reads the node state and the
 // pod's aux rows and writes [B, rows, N] values, a few operations per pair
 // and row: well under a microsecond at the card's memory rate for one
 // pod.  On a cluster a pod row takes about one node's chain of filters
-// (E1) or scores (E2), the cluster barriers of the spread statistics and
-// the launch; in the scan (B = 1) the host's hooks and parameters between
-// the launches set the pace of a pod.  E3 and E4 are simple kernels, not
-// yet redesigned (ROADMAP.md Queue 2): at B = 1 they are one block on one
-// SM, shorter than their wrappers' host time.
+// (E1) or scores (E2), or one node's loads and stores (E3, E4), the
+// cluster barriers of its reductions and the launch; in the scan (B = 1)
+// the host's hooks and parameters between the launches set the pace of a
+// pod.  At B = 256 (one block per row) E3 and E4's selection stream their
+// rows: E3 reads each raw value once where a thread keeps its node slots'
+// raw values in registers (the first E3_KEEP of them), and re-reads those
+// of further slots after the extrema reduce.
 
 #include <mutex>
 
@@ -65,8 +71,8 @@
 
 namespace ksim {
 
-// Threads per block of E3 and E4, and of E1 and E2 on clusters of one
-// block; E1 and E2 are built for blocks of up to E_MAX_THREADS (128
+// Threads per block of E4's window, and of the cluster stages on clusters
+// of one block; those are built for blocks of up to E_MAX_THREADS (128
 // registers a thread).
 constexpr int E_THREADS = 256;
 constexpr int E_MAX_THREADS = 512;
@@ -91,22 +97,12 @@ struct StageParams {
   long long scratch_rows;  // E1, E2: rows of P.sp_scratch (2 * domain_ints each) when it is used
 };
 
-// One thread block is the team of one pod row in E3 and E4 (the part of
-// plugin_chain.cuh's team interface that NormExtrema, visit_window and
-// commit_pod use).
+// One thread block is the team of E4's visit window (the part of
+// plugin_chain.cuh's team interface that visit_window uses).
 struct StageTeam {
-  long long T = 0;  // nodes per visit tile (visit_window): the block's threads
+  long long T = 0;  // nodes per visit tile: the block's threads
 
-  __device__ long long slots(const ChainParams& P) const { return P.N; }
   __device__ long long node(long long li) const { return li; }
-  __device__ bool owns(long long n) const { return n % blockDim.x == threadIdx.x; }
-  __device__ void reduce(int* v, const int* op, int K, Smem& s) { block_reduce(v, op, K, s.red); }
-  __device__ unsigned long long max_u64(unsigned long long v, Smem& s) { return block_max_u64(v, s.red64); }
-  __device__ void commit_total(const ChainParams& P, const int32_t* db, long long base) {
-    if (threadIdx.x == 0)
-      for (long long t = 0; t < P.T2; ++t)
-        if (db[t] >= 0) P.ipa_total[t] += P.ipa_qm[base + t];
-  }
 
   // One step of the visit walk (plugin_chain.cuh visit_window) in tile
   // `tile` (blockDim.x nodes of index order, thread t holding node
@@ -156,29 +152,21 @@ struct StageTeam {
   }
 };
 
-// E3 and E4's shared memory per block (stage_smem_bytes): 8-byte words
-// first (image weights, the 64-bit reduction), then ints (the reduction,
-// the prefix scratch, the visit walk's counts and ballots) and the pod's
-// spread constraints.  E4 window's per-node flags are S.node_scratch.
-__host__ __device__ inline long long stage_smem_bytes(const ChainParams& P) {
-  return align8(8 * P.I + 8 * 33 + 4 * (33 * RED_MAX + SCAN_INTS + 2 * 32) +
-                static_cast<long long>(sizeof(SpreadCon)) * P.MC);
-}
+// E4 window's shared memory per block (stage_smem_bytes): the prefix
+// scratch and the visit walk's counts and ballots.  Its per-node flags are
+// S.node_scratch.
+__host__ __device__ inline long long stage_smem_bytes() { return 4 * (SCAN_INTS + 2 * 32); }
 
-__device__ inline Smem carve_stage(unsigned char* base, const ChainParams& P, const StageParams& S) {
+__device__ inline Smem carve_stage(unsigned char* base, const StageParams& S) {
   Smem s = {};
-  s.imgw = reinterpret_cast<double*>(base);
-  s.red64 = reinterpret_cast<unsigned long long*>(s.imgw + P.I);
-  s.red = reinterpret_cast<int*>(s.red64 + 33);
-  s.scan = s.red + 33 * RED_MAX;
+  s.scan = reinterpret_cast<int*>(base);
   s.wcnt = s.scan + SCAN_INTS;
   s.wmask = reinterpret_cast<unsigned*>(s.wcnt + 32);
-  s.con = reinterpret_cast<SpreadCon*>(s.wmask + 32);
   s.flags = S.node_scratch;
   return s;
 }
 
-// ---- E1 and E2: one pod row on one cluster -------------------------------------
+// ---- E1, E2, E3 and E4's selection: one pod row on one cluster ----------------
 
 // The largest cluster the rule may take for B pod rows on a card of `sms`
 // SMs: the largest of 16, 8, 4, 2 whose B clusters take no more blocks
@@ -209,68 +197,98 @@ __host__ __device__ inline int stage_threads(long long N, int cs) {
   return t < E_MAX_THREADS ? t : E_MAX_THREADS;
 }
 
-// E1 and E2's shared memory per block (carve_stage_cluster): 8-byte words
-// first (E2's image weights, the 64-bit reduction and its two partials),
-// then ints (the reduction, its two partial slots, the copy of
-// InterPodAffinity's term totals), the pod's spread constraints, when it
-// fits its partial and combined per-domain scratch, and E2's flags, one
-// byte per node slot.
-__host__ __device__ inline long long stage_cluster_smem_bytes(const ChainParams& P, long long slots, bool score) {
-  return (score ? 8 * P.I : 0) + 8 * (33 + 2) + 4 * (33 * RED_MAX + 2 * RED_MAX + P.T2) +
-         static_cast<long long>(sizeof(SpreadCon)) * P.MC + (P.sp_smem ? 2 * 4 * domain_ints(P) : 0) +
-         (score ? slots : 0);
+// The parts of the cluster layout each stage carves: E2's image weights;
+// the 64-bit reduction and its two partials (E1, E2, E4 select); the int
+// reduction and its two partial slots (E1, E2, E3); the copy of
+// InterPodAffinity's term totals (E1, E2, E4 select); the pod's spread
+// constraints (E1, E2, E3); when it fits, the partial and combined
+// per-domain scratch (E1, E2); E2's flags, one byte per node slot.
+// kernels/chain.py STAGE_PARTS mirrors it.
+struct StageParts {
+  bool imgw, red64, red, tot, con, dom, flags;
+};
+
+__host__ __device__ inline StageParts stage_parts(int stage) {
+  const bool fs = stage == E_FILTER || stage == E_SCORE;
+  return {stage == E_SCORE, fs || stage == E_SELECT, fs || stage == E_NORMALIZE, fs || stage == E_SELECT,
+          fs || stage == E_NORMALIZE, fs, stage == E_SCORE};
+}
+
+// A cluster stage's shared memory per block (carve_stage_cluster): 8-byte
+// words first, then ints, the spread constraints, the domain scratch and
+// the flags.
+__host__ __device__ inline long long stage_cluster_smem_bytes(const ChainParams& P, long long slots, int stage) {
+  const StageParts k = stage_parts(stage);
+  return (k.imgw ? 8 * P.I : 0) + (k.red64 ? 8 * (33 + 2) : 0) + (k.red ? 4 * (33 * RED_MAX + 2 * RED_MAX) : 0) +
+         (k.tot ? 4 * P.T2 : 0) + (k.con ? static_cast<long long>(sizeof(SpreadCon)) * P.MC : 0) +
+         (k.dom && P.sp_smem ? 2 * 4 * domain_ints(P) : 0) + (k.flags ? slots : 0);
 }
 
 // Where the domains do not fit shared memory, block `rank` of cluster c
 // has row pair c * Cs + rank of P.sp_scratch (ClusterTeam::combine reads
 // its cluster's Cs pairs).
 __device__ inline Smem carve_stage_cluster(unsigned char* base, const ChainParams& P, const ClusterTeam& team,
-                                           long long cluster, bool score) {
+                                           long long cluster, int stage) {
+  const StageParts k = stage_parts(stage);
   const long long di = domain_ints(P);
   Smem s = {};
   unsigned char* at = base;
-  if (score) {
+  if (k.imgw) {
     s.imgw = reinterpret_cast<double*>(at);
     at += 8 * P.I;
   }
-  s.red64 = reinterpret_cast<unsigned long long*>(at);
-  s.cred64 = s.red64 + 33;
-  s.red = reinterpret_cast<int*>(s.cred64 + 2);
-  s.cred = s.red + 33 * RED_MAX;
-  s.ipa_tot = s.cred + 2 * RED_MAX;
-  s.con = reinterpret_cast<SpreadCon*>(s.ipa_tot + P.T2);
-  int* end = reinterpret_cast<int*>(s.con + P.MC);
-  if (P.sp_smem) {
-    s.dom = end;
-    end += 2 * di;
-  } else {
-    s.dom = P.sp_scratch + (cluster * team.size + team.rank) * 2 * di;
+  if (k.red64) {
+    s.red64 = reinterpret_cast<unsigned long long*>(at);
+    s.cred64 = s.red64 + 33;
+    at += 8 * (33 + 2);
   }
-  s.domc = s.dom + di;
-  if (score) s.flags = reinterpret_cast<uint8_t*>(end);
+  if (k.red) {
+    s.red = reinterpret_cast<int*>(at);
+    s.cred = s.red + 33 * RED_MAX;
+    at += 4 * (33 * RED_MAX + 2 * RED_MAX);
+  }
+  if (k.tot) {
+    s.ipa_tot = reinterpret_cast<int32_t*>(at);
+    at += 4 * P.T2;
+  }
+  if (k.con) {
+    s.con = reinterpret_cast<SpreadCon*>(at);
+    at += sizeof(SpreadCon) * P.MC;
+  }
+  if (k.dom) {
+    if (P.sp_smem) {
+      s.dom = reinterpret_cast<int*>(at);
+      at += 2 * 4 * di;
+    } else {
+      s.dom = P.sp_scratch + (cluster * team.size + team.rank) * 2 * di;
+    }
+    s.domc = s.dom + di;
+  }
+  if (k.flags) s.flags = at;
   return s;
 }
 
 // The team of this block's cluster, its shared memory, and the cluster's
-// pod rows (c, c + nc, ...).  Every block keeps its own copy of the term
-// totals, published by the first row's block barrier; the stages only
-// read it.
+// pod rows (c, c + nc, ...).  Where the stage carves it, every block
+// keeps its own copy of the term totals, published by the first row's
+// block barrier; E1 and E2 only read it, the committing selection adds
+// the pod's terms to it.
 struct StageCluster {
   ClusterTeam team;
   Smem s;
   long long c, nc;
 
-  __device__ StageCluster(unsigned char* base, const ChainParams& P, bool score) {
+  __device__ StageCluster(unsigned char* base, const ChainParams& P, int stage) {
     team = make_cluster_team(P.N);
     c = blockIdx.x / team.size;
     nc = gridDim.x / team.size;
-    s = carve_stage_cluster(base, P, team, c, score);
+    s = carve_stage_cluster(base, P, team, c, stage);
     team.tot = s.ipa_tot;
-    if (P.ipa_total != nullptr)
+    if (s.ipa_tot != nullptr && P.ipa_total != nullptr)
       for (long long t = threadIdx.x; t < P.T2; t += blockDim.x) s.ipa_tot[t] = P.ipa_total[t];
   }
 
-  // The end of a pod row.  After a row whose statistics crossed the
+  // The end of a pod row.  After a row whose reductions crossed the
   // cluster, a cluster barrier: no block zeroes its domain partials for the
   // next row, or leaves the kernel, while another block may still read
   // them or its reduction slots.  Else a block barrier: the next row
@@ -292,7 +310,7 @@ __device__ inline void stage_pod_spread(const ChainParams& P, long long j, Smem&
 
 __global__ void __launch_bounds__(E_MAX_THREADS, 1) filter_stage_kernel(const ChainParams P, const StageParams S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  StageCluster k(smem_raw, P, false);
+  StageCluster k(smem_raw, P, E_FILTER);
   ClusterTeam& team = k.team;
   Smem& s = k.s;
   const long long N = P.N;
@@ -320,7 +338,7 @@ __global__ void __launch_bounds__(E_MAX_THREADS, 1) filter_stage_kernel(const Ch
 
 __global__ void __launch_bounds__(E_MAX_THREADS, 1) score_stage_kernel(const ChainParams P, const StageParams S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  StageCluster k(smem_raw, P, true);
+  StageCluster k(smem_raw, P, E_SCORE);
   ClusterTeam& team = k.team;
   Smem& s = k.s;
   const long long N = P.N;
@@ -364,50 +382,117 @@ __global__ void __launch_bounds__(E_MAX_THREADS, 1) score_stage_kernel(const Cha
 
 // ---- E3: the normalizes ------------------------------------------------------
 
-__global__ void __launch_bounds__(E_THREADS) normalize_stage_kernel(const ChainParams P, const StageParams S) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s = carve_stage(smem_raw, P, S);
-  StageTeam team;
+// The node slots per thread whose raw values E3 keeps in registers from the
+// extrema fold to the normalize (one at one pod of the main path: 16
+// blocks of 384 threads over 6144 nodes); a thread re-reads those of
+// further slots after the reduce.
+constexpr int E3_KEEP = 4;
+
+// What the normalizes read at one node: the raw values of the rows with a
+// normalize (at most four, whatever the stage's row count), the node's ok
+// and PodTopologySpread's scoreable flag.  n < 0: no node.
+struct NormSlot {
+  long long n = -1;
+  long long affinity = 0;
+  int taint = 0, spread = 0, interpod = 0;
+  bool ok = false, scoreable = false;
+};
+
+// Reads slot n's values (rows of `in`, the pod row's raw scores).
+__device__ inline NormSlot norm_slot(const ChainParams& P, const Spread& sp, const long long* in, const uint8_t* ok,
+                                     long long n, bool use_spread) {
   const long long N = P.N;
+  NormSlot v;
+  v.n = n;
+  v.ok = ok[n] != 0;
+  if (P.s_row[TAINT] >= 0) v.taint = static_cast<int>(in[P.s_row[TAINT] * N + n]);
+  if (P.s_row[AFFINITY] >= 0) v.affinity = in[P.s_row[AFFINITY] * N + n];
+  if (use_spread) {
+    v.spread = static_cast<int>(in[P.s_row[SPREAD] * N + n]);
+    v.scoreable = spread_scoreable(P, sp, n);
+  }
+  if (P.s_row[INTERPOD] >= 0) v.interpod = static_cast<int>(in[P.s_row[INTERPOD] * N + n]);
+  return v;
+}
+
+__device__ inline void fold_slot(const ChainParams& P, const NormSlot& v, NormExtrema& ex, bool use_spread) {
+  if (P.s_row[TAINT] >= 0) ex.taint(v.taint, v.ok);
+  if (P.s_row[AFFINITY] >= 0) ex.affinity(static_cast<int>(v.affinity), v.ok);
+  if (use_spread) ex.spread(v.spread, v.ok && v.scoreable);
+  if (P.s_row[INTERPOD] >= 0) ex.interpod(v.interpod, v.ok);
+}
+
+// The rows without a normalize pass through; each is read and written once.
+__device__ inline void pass_rows(const ChainParams& P, const long long* in, long long* out, long long n) {
+  const long long N = P.N;
+  for (long long r = 0; r < P.S; ++r)
+    if (r != P.s_row[TAINT] && r != P.s_row[AFFINITY] && r != P.s_row[SPREAD] && r != P.s_row[INTERPOD])
+      out[r * N + n] = in[r * N + n];
+}
+
+__device__ inline void write_norms(const ChainParams& P, const NormSlot& v, const NormExtrema& ex, long long* out,
+                                   bool use_spread) {
+  const long long N = P.N, n = v.n;
+  if (P.s_row[TAINT] >= 0) out[P.s_row[TAINT] * N + n] = ex.taint_norm(v.taint);
+  if (P.s_row[AFFINITY] >= 0) out[P.s_row[AFFINITY] * N + n] = ex.affinity_norm(v.affinity);
+  if (use_spread) out[P.s_row[SPREAD] * N + n] = ex.spread_norm_flag(v.scoreable, v.spread);
+  if (P.s_row[INTERPOD] >= 0) out[P.s_row[INTERPOD] * N + n] = ex.interpod_norm(P, v.ok, [&] { return v.interpod; });
+}
+
+// Per pod row: each thread reads its slots' raw values, copies the rows
+// without a normalize and folds the extrema (eval_pod_team's, over the
+// given raw scores); the cluster reduces them; each thread writes its
+// slots' normalized rows, from registers for its first E3_KEEP slots.  A
+// row with no normalize needs no reduce.
+__global__ void __launch_bounds__(E_MAX_THREADS, 1) normalize_stage_kernel(const ChainParams P, const StageParams S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StageCluster k(smem_raw, P, E_NORMALIZE);
+  ClusterTeam& team = k.team;
+  Smem& s = k.s;
+  const long long N = P.N, L = team.slots(P);
   const bool use_spread = P.s_row[SPREAD] >= 0;
-  long long* out = static_cast<long long*>(S.out);
-  for (long long b = blockIdx.x; b < S.B; b += gridDim.x) {
+  const bool normalizes = P.s_row[TAINT] >= 0 || P.s_row[AFFINITY] >= 0 || use_spread || P.s_row[INTERPOD] >= 0;
+  for (long long b = k.c; b < S.B; b += k.nc) {
     const long long j = P.pindex[b];
-    if (use_spread) stage_spread(P, j, s.con);
-    __syncthreads();
+    if (use_spread) {
+      stage_spread(P, j, s.con);
+      __syncthreads();
+    }
     const Spread sp = use_spread ? spread_pod(P, j, s.con) : Spread{s.con, false, false, false};
-    const long long rowS = b * P.S * N;
-    const long long* in = S.in + rowS;
-    NormExtrema ex;  // eval_pod_team's, over the given raw scores
-    for (long long n = threadIdx.x; n < N; n += blockDim.x) {
-      const bool ok = S.ok_in[b * N + n] != 0;
-      if (P.s_row[TAINT] >= 0) ex.taint(static_cast<int>(in[P.s_row[TAINT] * N + n]), ok);
-      if (P.s_row[AFFINITY] >= 0) ex.affinity(static_cast<int>(in[P.s_row[AFFINITY] * N + n]), ok);
-      if (use_spread) ex.spread(static_cast<int>(in[P.s_row[SPREAD] * N + n]), ok && spread_scoreable(P, sp, n));
-      if (P.s_row[INTERPOD] >= 0) ex.interpod(static_cast<int>(in[P.s_row[INTERPOD] * N + n]), ok);
+    const long long* in = S.in + b * P.S * N;
+    long long* out = static_cast<long long*>(S.out) + b * P.S * N;
+    const uint8_t* ok = S.ok_in + b * N;
+    NormExtrema ex;
+    NormSlot kept[E3_KEEP];
+#pragma unroll
+    for (int q = 0; q < E3_KEEP; ++q) {
+      const long long li = threadIdx.x + static_cast<long long>(q) * blockDim.x;
+      const long long n = li < L ? team.node(li) : N;
+      if (n >= N) continue;
+      kept[q] = norm_slot(P, sp, in, ok, n, use_spread);
+      fold_slot(P, kept[q], ex, use_spread);
+      pass_rows(P, in, out, n);
+    }
+    for (long long li = threadIdx.x + static_cast<long long>(E3_KEEP) * blockDim.x; li < L; li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= N) continue;
+      fold_slot(P, norm_slot(P, sp, in, ok, n, use_spread), ex, use_spread);
+      pass_rows(P, in, out, n);
+    }
+    if (!normalizes) {
+      k.row_end(false);
+      continue;
     }
     ex.reduce(team, s);
-    for (long long n = threadIdx.x; n < N; n += blockDim.x) {
-      const bool ok = S.ok_in[b * N + n] != 0;
-      for (long long r = 0; r < P.S; ++r) out[rowS + r * N + n] = in[r * N + n];  // no normalize
-      if (P.s_row[TAINT] >= 0) {
-        const long long i = P.s_row[TAINT] * N + n;
-        out[rowS + i] = ex.taint_norm(static_cast<int>(in[i]));
-      }
-      if (P.s_row[AFFINITY] >= 0) {
-        const long long i = P.s_row[AFFINITY] * N + n;
-        out[rowS + i] = ex.affinity_norm(in[i]);
-      }
-      if (use_spread) {
-        const long long i = P.s_row[SPREAD] * N + n;
-        out[rowS + i] = ex.spread_norm(P, sp, n, [&] { return static_cast<int>(in[i]); });
-      }
-      if (P.s_row[INTERPOD] >= 0) {
-        const long long i = P.s_row[INTERPOD] * N + n;
-        out[rowS + i] = ex.interpod_norm(P, ok, [&] { return static_cast<int>(in[i]); });
-      }
+#pragma unroll
+    for (int q = 0; q < E3_KEEP; ++q)
+      if (kept[q].n >= 0) write_norms(P, kept[q], ex, out, use_spread);
+    for (long long li = threadIdx.x + static_cast<long long>(E3_KEEP) * blockDim.x; li < L; li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= N) continue;
+      write_norms(P, norm_slot(P, sp, in, ok, n, use_spread), ex, out, use_spread);
     }
-    __syncthreads();  // the next row restages the constraints
+    k.row_end(true);
   }
 }
 
@@ -416,7 +501,7 @@ __global__ void __launch_bounds__(E_THREADS) normalize_stage_kernel(const ChainP
 // One pod, one block: the visit window of plugin_chain.cuh over ok_in.
 __global__ void __launch_bounds__(E_THREADS) window_stage_kernel(const ChainParams P, const StageParams S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s = carve_stage(smem_raw, P, S);
+  Smem s = carve_stage(smem_raw, S);
   StageTeam team;
   team.T = blockDim.x;
   const long long N = P.N;
@@ -438,15 +523,21 @@ __global__ void __launch_bounds__(E_THREADS) window_stage_kernel(const ChainPara
   if (threadIdx.x == 0 && P.pvalid[0]) *S.start = static_cast<int32_t>(floormod(start + thr + 1, nr));
 }
 
-__global__ void __launch_bounds__(E_THREADS) select_stage_kernel(const ChainParams P, const StageParams S) {
+// Per pod row: weight x normalized and the int32 total at each of the
+// thread's nodes, the cluster's key maximum, and with `commit` (one row on
+// one cluster) the pod committed onto the chosen node.
+__global__ void __launch_bounds__(E_MAX_THREADS, 1) select_stage_kernel(const ChainParams P, const StageParams S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s = carve_stage(smem_raw, P, S);
-  StageTeam team;
+  StageCluster k(smem_raw, P, E_SELECT);
+  ClusterTeam& team = k.team;
+  Smem& s = k.s;
   const long long N = P.N;
-  for (long long b = blockIdx.x; b < S.B; b += gridDim.x) {
+  for (long long b = k.c; b < S.B; b += k.nc) {
     const long long rowS = b * S.S * N;
     unsigned long long best = 0ULL;
-    for (long long n = threadIdx.x; n < N; n += blockDim.x) {
+    for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
+      const long long n = team.node(li);
+      if (n >= N) continue;
       unsigned total = 0;  // WRAP: the reference's int32 sum of the finals
       for (long long r = 0; r < S.S; ++r) {
         const long long fin = S.in[rowS + r * N + n] * static_cast<long long>(S.weights[r]);
@@ -461,10 +552,14 @@ __global__ void __launch_bounds__(E_THREADS) select_stage_kernel(const ChainPara
     }
     best = team.max_u64(best, s);
     const int sel = P.pvalid[b] ? key_node(best) : -1;
-    if (threadIdx.x == 0) S.selected[b] = sel;
+    if (team.leader() && threadIdx.x == 0) S.selected[b] = sel;
     if (S.commit && sel >= 0) commit_pod(P, b, sel, team);
-    __syncthreads();  // the next row reuses the reduction slots
+    k.row_end(true);
   }
+  // The committing selection: after the barrier above (every block has
+  // copied the totals and committed), rank 0 writes its copy back.
+  if (S.commit && P.ipa_total != nullptr && team.leader())
+    for (long long t = threadIdx.x; t < P.T2; t += blockDim.x) P.ipa_total[t] = s.ipa_tot[t];
 }
 
 // Raise a stage kernel's dynamic shared memory cap to `smem` where it is
@@ -482,9 +577,10 @@ inline cudaError_t allow_stage_smem(void (*kernel)(ChainParams, StageParams), in
   return err;
 }
 
-// What E1 and E2's launches ask of the card once and keep, per device:
-// its SM count, that 16-block clusters are allowed, and the occupancy
-// query's answers by stage, cluster size, threads and shared memory.
+// What the cluster stages' launches ask of the card once and keep, per
+// device: its SM count, that 16-block clusters are allowed, and the
+// occupancy query's answers by stage, cluster size, threads and shared
+// memory.
 class StageCard {
  public:
   // The SM count of device `dev`, and the kernel allowed non-portable
@@ -530,7 +626,7 @@ class StageCard {
   };
   std::mutex mu_;
   int sms_[MAX_DEVICES] = {};
-  bool nonportable_[MAX_DEVICES][E_SCORE + 1] = {};
+  bool nonportable_[MAX_DEVICES][E_SELECT + 1] = {};
   Fit fit_[MAX_FITS] = {};
   int used_ = 0;
 };
@@ -540,10 +636,11 @@ inline StageCard& stage_card() {
   return card;
 }
 
-// Launches E1 or E2 on `clusters` clusters of `cluster` blocks (0:
-// stage_cluster's size) of stage_threads; info (int64 [3]) receives the
-// cluster size, the threads per block and the shared memory per block.
-// A refused launch is an error, never a smaller launch.
+// Launches a cluster stage (E1, E2, E3, E4 select) on `clusters` clusters
+// of `cluster` blocks (0: stage_cluster's size) of stage_threads; info
+// (int64 [3]) receives the cluster size, the threads per block and the
+// shared memory per block.  A refused launch is an error, never a smaller
+// launch.
 inline cudaError_t launch_stage_cluster(void (*kernel)(ChainParams, StageParams), int stage, const ChainParams& P,
                                         const StageParams& S, cudaStream_t stream, long long clusters, int cluster,
                                         long long* info) {
@@ -552,7 +649,6 @@ inline cudaError_t launch_stage_cluster(void (*kernel)(ChainParams, StageParams)
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = stage_card().prepare(kernel, stage, dev, &sms);
   if (err != cudaSuccess) return err;
-  const bool score = stage == E_SCORE;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -562,7 +658,7 @@ inline cudaError_t launch_stage_cluster(void (*kernel)(ChainParams, StageParams)
   // The launch at cluster size cs; its shared memory allowed.
   auto shape = [&](int cs) {
     const int nt = stage_threads(P.N, cs);
-    const long long smem = stage_cluster_smem_bytes(P, cluster_slots(P.N, cs, nt), score);
+    const long long smem = stage_cluster_smem_bytes(P, cluster_slots(P.N, cs, nt), stage);
     cfg.gridDim = dim3(static_cast<unsigned>(clusters * cs), 1, 1);
     cfg.blockDim = dim3(nt, 1, 1);
     cfg.dynamicSmemBytes = static_cast<size_t>(smem);
@@ -580,7 +676,8 @@ inline cudaError_t launch_stage_cluster(void (*kernel)(ChainParams, StageParams)
   }
   err = shape(cs);
   if (err != cudaSuccess) return err;
-  if (!P.sp_smem && domain_ints(P) > 0 && S.scratch_rows < clusters * cs) return cudaErrorInvalidValue;
+  if (stage_parts(stage).dom && !P.sp_smem && domain_ints(P) > 0 && S.scratch_rows < clusters * cs)
+    return cudaErrorInvalidValue;
   info[0] = cs;
   info[1] = cfg.blockDim.x;
   info[2] = static_cast<long long>(cfg.dynamicSmemBytes);
@@ -591,12 +688,11 @@ inline cudaError_t launch_stage_cluster(void (*kernel)(ChainParams, StageParams)
 
 }  // namespace ksim
 
-// Launches stage `stage` (ksim::Stage) on the caller's stream: E1 and E2
-// on `grid` clusters of `cluster` blocks (0: the launch's choice,
-// launch_stage_cluster; info, int64 [3], receives what ran), E3
-// and E4 on `grid` blocks of E_THREADS (the window and the committing
-// selection on one block).  Returns a CUDA error code; a refused launch is
-// an error.
+// Launches stage `stage` (ksim::Stage) on the caller's stream: E1, E2, E3
+// and E4's selection on `grid` clusters of `cluster` blocks (0: the
+// launch's choice, launch_stage_cluster; info, int64 [3], receives what
+// ran), the committing selection on one cluster, E4's window on one block
+// of E_THREADS.  Returns a CUDA error code; a refused launch is an error.
 extern "C" int ksim_chain_stages(int stage, const ksim::ChainParams* params, const ksim::StageParams* sp,
                                  void* stream, long long grid, int cluster, long long* info) {
   using namespace ksim;
@@ -611,13 +707,10 @@ extern "C" int ksim_chain_stages(int stage, const ksim::ChainParams* params, con
   }
   if (grid < 1 || ((stage == E_WINDOW || sp->commit) && grid != 1)) return static_cast<int>(cudaErrorInvalidValue);
   if (sp->B == 0) return 0;
-  if (stage == E_FILTER || stage == E_SCORE)
+  if (stage != E_WINDOW)
     return static_cast<int>(launch_stage_cluster(kernel, stage, *params, *sp, static_cast<cudaStream_t>(stream), grid,
                                                  cluster, info));
-  const long long smem = stage_smem_bytes(*params);
-  cudaError_t err = allow_stage_smem(kernel, stage, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(grid), E_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*params, *sp);
+  kernel<<<1, E_THREADS, stage_smem_bytes(), static_cast<cudaStream_t>(stream)>>>(*params, *sp);
   return static_cast<int>(cudaGetLastError());
 }
 

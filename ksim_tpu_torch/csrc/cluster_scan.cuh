@@ -1,7 +1,7 @@
 // The sequential-commit scan on a thread-block cluster, for sm_90a: the
 // body of kernels A (schedule_scan.cu) and C (schedule_sampled.cu), and
 // the team kernel D (replay_segment.cu) evaluates its pods with and kernel
-// E's filter and score stages (chain_stages.cu) spread a pod row over.
+// E's cluster stages (chain_stages.cu) spread a pod row over.
 //
 // The scan is sequential across pods, not across nodes, so one pod's node
 // axis is spread over a cluster of Cs blocks (Cs = 16 where one such

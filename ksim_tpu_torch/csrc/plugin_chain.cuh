@@ -1190,6 +1190,11 @@ struct NormExtrema {
   __device__ int spread_norm(const ChainParams& P, const Spread& sp, long long n, Raw raw) const {
     return spread_scoreable(P, sp, n) ? ksim::spread_norm(raw(), v[4] ? v[2] : 0, v[4] ? v[3] : 0) : 0;
   }
+  // spread_norm at a node whose scoreable flag the caller holds (kernel E's
+  // normalize stage).
+  __device__ int spread_norm_flag(bool scoreable, int raw) const {
+    return scoreable ? ksim::spread_norm(raw, v[4] ? v[2] : 0, v[4] ? v[3] : 0) : 0;
+  }
   template <class Raw>
   __device__ int interpod_norm(const ChainParams& P, bool ok, Raw raw) const {
     return (v[8] && ok) ? ksim::interpod_norm(P, raw(), v[7] ? v[6] : 0, v[7] ? v[5] : 0) : 0;

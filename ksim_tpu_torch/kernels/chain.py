@@ -52,11 +52,23 @@ CLUSTER_SIZE = 0
 CLUSTER_THREADS = 0
 MAX_CLUSTER = 16
 MAX_THREADS = 1024
-# Kernel E's filter and score stages (csrc/chain_stages.cu) run each pod
-# row on a cluster too: one block of STAGE_BLOCK_THREADS on a cluster of
-# one, at most STAGE_MAX_THREADS per block on a larger one.
+# Kernel E's cluster stages (csrc/chain_stages.cu: E1 filter, E2 score,
+# E3 normalize, E4 select) run each pod row on a cluster too: one block of
+# STAGE_BLOCK_THREADS on a cluster of one, at most STAGE_MAX_THREADS per
+# block on a larger one.
 STAGE_BLOCK_THREADS = 256
 STAGE_MAX_THREADS = 512
+# The parts of a cluster stage's shared memory (csrc/chain_stages.cu
+# stage_parts): E2's image weights, the 64-bit reduction and its partials,
+# the int reduction and its partials, the copy of InterPodAffinity's term
+# totals, the pod's spread constraints, the per-domain scratch when it
+# fits, E2's flag byte per node slot.
+STAGE_PARTS = {
+    "filter": ("red64", "red", "tot", "con", "dom"),
+    "score": ("imgw", "red64", "red", "tot", "con", "dom", "flags"),
+    "normalize": ("red", "con"),
+    "select": ("red64", "tot"),
+}
 # The phases the cluster kernels time (plugin_chain.cuh Phase), in the
 # order of their cycle counts in ``launch_cluster``'s stats: those of a
 # pod, then (kernel D) those of a replay step around its pods.
@@ -606,8 +618,8 @@ def cluster_smem_bytes(prm: ChainParams, size: int, threads: int = 0) -> int:
 
 
 def stage_cluster_cap(n_rows: int, sms: int) -> int:
-    """The largest cluster kernel E's filter and score stages may take
-    for ``n_rows`` pod rows on a card of ``sms`` SMs (csrc/chain_stages.cu
+    """The largest cluster kernel E's cluster stages may take for
+    ``n_rows`` pod rows on a card of ``sms`` SMs (csrc/chain_stages.cu
     ``stage_cluster_cap``): the largest of 16, 8, 4, 2 whose n_rows
     clusters take no more blocks than the card has SMs, else 1."""
     cs = MAX_CLUSTER
@@ -634,35 +646,39 @@ def stage_threads(n_nodes: int, size: int) -> int:
     return STAGE_BLOCK_THREADS if size == 1 else min(STAGE_MAX_THREADS, cluster_threads(n_nodes, size))
 
 
-def stage_smem_bytes(prm: ChainParams, size: int, *, score: bool) -> int:
-    """The dynamic shared memory of one block of such a launch
-    (``stage_cluster_smem_bytes``): the reduction scratch and its partials,
-    the term totals' copy, the pod's spread constraints, when it fits a
-    partial and a combined PodTopologySpread domain scratch, and for the
-    score stage the image weights and one flag byte per node slot."""
-    slots = cluster_slots(prm.N, size, stage_threads(prm.N, size)) if score else 0
-    dom = 2 * 4 * 4 * prm.MC * prm.DMAX if prm.sp_smem else 0
-    return ((8 * prm.I if score else 0) + 8 * (33 + 2) + 4 * (33 * RED_MAX + 2 * RED_MAX + prm.T2)
-            + SPREAD_CON_BYTES * prm.MC + dom + slots)
+def stage_smem_bytes(prm: ChainParams, size: int, stage: str) -> int:
+    """The dynamic shared memory of one block of a launch of ``stage``
+    ("filter", "score", "normalize" or "select") on ``size``-block
+    clusters (``stage_cluster_smem_bytes``): the parts of STAGE_PARTS."""
+    sizes = {
+        "imgw": 8 * prm.I,
+        "red64": 8 * (33 + 2),
+        "red": 4 * (33 * RED_MAX + 2 * RED_MAX),
+        "tot": 4 * prm.T2,
+        "con": SPREAD_CON_BYTES * prm.MC,
+        "dom": 2 * 4 * 4 * prm.MC * prm.DMAX if prm.sp_smem else 0,
+        "flags": cluster_slots(prm.N, size, stage_threads(prm.N, size)),
+    }
+    return sum(sizes[part] for part in STAGE_PARTS[stage])
 
 
 def stage_scratch_row(cluster: int, rank: int, size: int) -> int:
     """The row pair of the global domain scratch (``2 * domain_ints`` ints:
-    partial, combined) that block ``rank`` of cluster ``cluster`` of such a
-    launch takes where the domains do not fit shared memory
+    partial, combined) that block ``rank`` of cluster ``cluster`` of an E1
+    or E2 launch takes where the domains do not fit shared memory
     (``carve_stage_cluster``)."""
     return cluster * size + rank
 
 
-def check_stage_smem(prm: ChainParams, size: int, *, score: bool) -> None:
-    """Raise ValueError when one block of such a launch at cluster
+def check_stage_smem(prm: ChainParams, size: int, stage: str) -> None:
+    """Raise ValueError when one block of a launch of ``stage`` at cluster
     ``size`` needs more shared memory than one block may take: the score
     stage holds one flag byte per node slot, about N / size of them."""
-    need = stage_smem_bytes(prm, size, score=score)
+    need = stage_smem_bytes(prm, size, stage)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"padded node axis N={prm.N} needs {need} bytes of shared memory per block of kernel E's "
-            f"{'score' if score else 'filter'} stage on a {size}-block cluster, over the {MAX_SMEM_BYTES} "
+            f"{stage} stage on a {size}-block cluster, over the {MAX_SMEM_BYTES} "
             f"bytes one block may take on sm_90")
 
 

@@ -32,15 +32,16 @@ wrapper counts its launches on ``<wrapper>.launches``.  A launch's
 ChainParams is made once per sub-profile and snapshot and patched with the
 state, pod and carry pointers of each call.
 
-E1 and E2 spread each pod row's node axis over a thread-block cluster
-(csrc/chain_stages.cu ``stage_cluster``, mirrored by kernels/chain.py
-``stage_cluster``): 16 blocks (8 where such a cluster does not fit) for
-one pod of the scan, smaller clusters as the rows grow, and one block of
-256 threads per row once the rows exceed half the card's SM count.  Their
+E1, E2, E3 and E4's selection spread each pod row's node axis over a
+thread-block cluster (csrc/chain_stages.cu ``stage_cluster``, mirrored by
+kernels/chain.py ``stage_cluster``): 16 blocks (8 where such a cluster
+does not fit) for one pod of the scan, smaller clusters as the rows grow,
+and one block of 256 threads per row once the rows exceed half the card's
+SM count.  The committing selection is one pod on one cluster.  Their
 wrappers keep what ran on ``<wrapper>.last`` ({"cluster", "threads",
 "smem_bytes"}); ``STAGE_CLUSTER`` forces a cluster size (tests; 0 leaves
 it to the launch).  A refused launch raises: nothing smaller or plain
-runs in its place.  E3 and E4 run one block per pod row.
+runs in its place.  E4's window runs one block for its pod.
 """
 
 from __future__ import annotations
@@ -55,10 +56,10 @@ from ksim_tpu_torch.kernels.schedule_sampled import sample_visited
 
 # csrc/chain_stages.cu enum Stage.
 STAGE_IDS = {"filter": 1, "score": 2, "normalize": 3, "window": 4, "select": 5}
-# At most this many blocks (E3, E4) or clusters (E1, E2) per launch, each
-# taking rows b, b + grid, ...: it bounds the scratch.
+# At most this many clusters per launch, each taking rows b, b + grid,
+# ...: it bounds the scratch.
 GRID_MAX = 1024
-# E1's and E2's forced cluster size (0: the launch's choice).
+# The cluster stages' forced cluster size (0: the launch's choice).
 STAGE_CLUSTER = 0
 _INT32_MIN = torch.iinfo(torch.int32).min
 
@@ -135,18 +136,19 @@ def scratch_rows(B: int, size: int, sms: int) -> int:
     return _grid(B) * (size or chain.stage_cluster_cap(B, sms))
 
 
-def _cluster_launch(stage: str, prm: chain.ChainParams, sp: StageParams, B: int, device) -> dict:
-    """E1 or E2 on min(B, GRID_MAX) clusters; returns what ran."""
+def _cluster_launch(stage: str, prm: chain.ChainParams, sp: StageParams, B: int, device, grid: int = 0) -> dict:
+    """A cluster stage on ``grid`` clusters (0: min(B, GRID_MAX)); returns
+    what ran."""
     size = STAGE_CLUSTER
     chain.check_cluster_shape(size, 0)
     # The smallest cluster the rule may fall back to holds the most node
     # slots per block.
-    chain.check_stage_smem(prm, size or 1, score=stage == "score")
-    if not prm.sp_smem and prm.MC * prm.DMAX:
+    chain.check_stage_smem(prm, size or 1, stage)
+    if "dom" in chain.STAGE_PARTS[stage] and not prm.sp_smem and prm.MC * prm.DMAX:
         rows = scratch_rows(B, size, _sm_count(device))
         keep = torch.empty((rows, 2 * chain.domain_ints(prm)), dtype=torch.int32, device=device)
         prm.sp_scratch, sp.scratch_rows = keep.data_ptr(), rows
-    return _launch(stage, prm, sp, _grid(B), size)
+    return _launch(stage, prm, sp, grid or _grid(B), size)
 
 
 def _grid(B: int) -> int:
@@ -250,9 +252,8 @@ def normalize_stage(sub, state, pods, aux, carries, raw, ok):
     if tuple(raw.shape) != (B, prm.S, N):
         raise ValueError(f"raw scores of shape {tuple(raw.shape)}, the stage takes {(B, prm.S, N)}")
     norm = torch.empty_like(raw)
-    grid = _grid(B)
     sp = StageParams(ok_in=ok.data_ptr(), out=norm.data_ptr(), inp=raw.data_ptr(), B=B)
-    _launch("normalize", prm, sp, grid)
+    normalize_stage.last = _cluster_launch("normalize", prm, sp, B, ok.device)
     normalize_stage.launches += 1
     return norm
 
@@ -349,13 +350,14 @@ def select_stage(sub, state, pods, aux, carries, norm, weights, ok, out: dict, *
     sp = StageParams(ok_in=ok.data_ptr(), inp=norm.data_ptr(), weights=weights.data_ptr(),
                      selected=out["selected"].data_ptr(), total=_ptr(out.get("total")), final_out=_ptr(final),
                      B=B, S=S, final_size=final.element_size() if final is not None else 0, commit=int(commit))
-    _launch("select", prm, sp, 1 if commit else _grid(B))
+    # The committing selection: one pod on one cluster.
+    select_stage.last = _cluster_launch("select", prm, sp, B, ok.device, 1 if commit else 0)
     select_stage.launches += 1
 
 
 for _wrapper in (filter_stage, score_stage, normalize_stage, window_stage, select_stage):
     _wrapper.launches = 0
-filter_stage.last = score_stage.last = None
+filter_stage.last = score_stage.last = normalize_stage.last = select_stage.last = None
 
 
 class Stages(NamedTuple):

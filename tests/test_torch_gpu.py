@@ -8,11 +8,14 @@ a thread-block cluster: their tests run at cluster sizes 2, 8 and 16
 (kernels/chain.py CLUSTER_SIZE); kernel B's persistent grid at forced
 sizes (kernels/batch_eval.py GRID) and past the old node bound.  The
 score samples' rows (NodeNumber, DataProviderScore) in A, B, C and D, and
-the refusal of a hooked profile on the card.  Kernel E's stages, E1 and
-E2 with each pod row on a cluster of 1, 2, 8 or 16 blocks or of the
-launch's choice (kernels/chain_stages.py STAGE_CLUSTER), at 1, 7 and 256
-pod rows, with the domain scratch in shared and in global memory, over
-several tiles of a cluster, and a refused cluster launch raising.
+the refusal of a hooked profile on the card.  Kernel E's stages: E1, E2, E3
+and E4's selection with each pod row on a cluster of 1, 2, 8 or 16
+blocks or of the launch's choice (kernels/chain_stages.py
+STAGE_CLUSTER), at 1, 7 and 256 pod rows (E1 and E2 with the domain
+scratch in shared and in global memory, over several tiles of a
+cluster; E3 and E4's selection with padding pods and a row with no
+feasible node), the committing selection on one cluster of each size
+over eight pods in a row, and a refused cluster launch raising.
 
 Marked ``gpu``; each test skips when there is no CUDA device.  This file
 imports neither jax nor ksim_tpu, so it runs on a machine with a card
@@ -499,16 +502,20 @@ STAGE_CLUSTERS = [0, 1, 2, 8, 16]
 STAGE_CASES = ["seed0", "images_ports", "spread_affinity", "volumes", "seed1", "random700"]
 
 
+def _stage_feats(case: str):
+    """The featurized snapshot of a stage test case."""
+    if case.startswith("random"):  # random700: 1024 padded nodes; random2100: 4096
+        return Featurizer().featurize(*random_cluster(3, int(case[6:]), 64))
+    nodes, pods, kw = case_inputs(case)
+    return Featurizer().featurize(nodes, pods, **kw)
+
+
 def _stage_inputs(case: str, exact: bool, rows: int, device):
     """E1's and E2's inputs over the whole default profile (one launch
     group each): ``rows`` pod rows cycling over the snapshot's pods,
     padding pods included where the snapshot has them (seed1: 50 pods
     padded to 64)."""
-    if case.startswith("random"):  # random700: 768 padded nodes; random2100: 4096
-        feats = Featurizer().featurize(*random_cluster(3, int(case[6:]), 64))
-    else:
-        nodes, pods, kw = case_inputs(case)
-        feats = Featurizer().featurize(nodes, pods, **kw)
+    feats = _stage_feats(case)
     eng = Engine(feats, default_plugins(feats), record="full", exact=exact, device=device)
     staged = StagedProgram(eng._prog)
     batch = eng._pods
@@ -530,11 +537,29 @@ def _stages_equal(subs, state, view, aux, carries):
     raw = chain_stages.score_stage(ssub, state, view, aux, carries, ok)
     torch.testing.assert_close(raw, chain_stages.score_stage_plain(ssub, state, view, aux, carries, ok), rtol=0, atol=0)
     ran = chain_stages.filter_stage.last, chain_stages.score_stage.last
-    for sub, last, score in zip(subs, ran, (False, True)):
-        prm = sub.kernel_tables["stage_params"][1]
-        assert last["threads"] == chain.stage_threads(prm.N, last["cluster"]), last
-        assert last["smem_bytes"] == chain.stage_smem_bytes(prm, last["cluster"], score=score), last
+    for sub, last, stage in zip(subs, ran, ("filter", "score")):
+        _ran_as_mirrored(sub, last, stage)
     return ran
+
+
+def _ran_as_mirrored(sub, last: dict, stage: str) -> None:
+    """What a cluster stage's launch ran is what kernels/chain.py's mirror
+    of the launch says."""
+    prm = sub.kernel_tables["stage_params"][1]
+    assert last["threads"] == chain.stage_threads(prm.N, last["cluster"]), last
+    assert last["smem_bytes"] == chain.stage_smem_bytes(prm, last["cluster"], stage), last
+
+
+def _geometry_as_asked(last: dict, size: int, rows: int) -> None:
+    """A forced size ran as forced; the launch's choice is 16 or 8 for one
+    row and one block of 256 threads once the rows exceed half the SMs."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if size:
+        assert last["cluster"] == size, last
+    else:
+        assert last["cluster"] <= chain.stage_cluster_cap(rows, sms), last
+        assert rows > 1 or last["cluster"] in (8, 16), last
+        assert 2 * rows <= sms or (last["cluster"], last["threads"]) == (1, 256), last
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
@@ -546,15 +571,8 @@ def test_filter_and_score_stages_on_clusters_match_plain(cuda, size, case, rows,
     or of the size the launch chooses (cs0): 16 or 8 for one row, one
     block of 256 threads once the rows exceed half the card's SMs."""
     monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", size)
-    ran = _stages_equal(*_stage_inputs(case, exact, rows, cuda))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for last in ran:
-        if size:
-            assert last["cluster"] == size, last
-        else:
-            assert last["cluster"] <= chain.stage_cluster_cap(rows, sms), last
-            assert rows > 1 or last["cluster"] in (8, 16), last
-            assert 2 * rows <= sms or (last["cluster"], last["threads"]) == (1, 256), last
+    for last in _stages_equal(*_stage_inputs(case, exact, rows, cuda)):
+        _geometry_as_asked(last, size, rows)
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
@@ -593,6 +611,114 @@ def test_refused_stage_cluster_launch_raises(cuda, monkeypatch):
     ok = torch.ones((1, state.valid.shape[0]), dtype=torch.bool, device=cuda)
     with pytest.raises(RuntimeError, match=r"ksim_chain_stages\(score\): CUDA error"):
         chain_stages.score_stage(ssub, state, view, aux, carries, ok)
+    assert chain_stages.launches() == before
+
+
+def _e34_inputs(case: str, exact: bool, rows: int, device):
+    """E3's and E4 select's inputs over the whole default profile:
+    ``rows`` pod rows cycling over the snapshot's pods (a PodBatch), the
+    feasible set and the raw and normalized scores from the plain
+    versions, the weights and the recorded final dtype."""
+    feats = _stage_feats(case)
+    eng = Engine(feats, default_plugins(feats), record="full", exact=exact, device=device)
+    staged = StagedProgram(eng._prog)
+    idx = torch.arange(rows, device=device) % eng._pods.valid.shape[0]
+    batch = type(eng._pods)(*(x[idx] for x in eng._pods))
+    state, aux = eng._node_state, eng._aux
+    carries = eng._prog.init_carries(aux)
+    fsub, ssub = staged.filter_groups[0].sub, staged.score_groups[0].sub
+    ok = chain_stages.filter_stage_plain(fsub, state, batch.view(), aux, carries)[1]
+    raw = chain_stages.score_stage_plain(ssub, state, batch.view(), aux, carries, ok)
+    norm = chain_stages.normalize_stage_plain(ssub, state, batch.view(), aux, carries, raw, ok)
+    weights = torch.tensor([sp.weight for sp in eng._prog.scores], dtype=torch.int32, device=device)
+    return staged, state, batch, aux, carries, ok, raw, norm, weights, eng._prog.dtypes[1]
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("rows", [1, 7, 256])
+@pytest.mark.parametrize("case", STAGE_CASES)
+@pytest.mark.parametrize("size", STAGE_CLUSTERS, ids=[f"cs{c}" for c in STAGE_CLUSTERS])
+def test_normalize_and_select_stages_on_clusters_match_plain(cuda, size, case, rows, exact, monkeypatch):
+    """E3 and E4's selection with each pod row on a cluster of 1, 2, 8 or
+    16 blocks, or of the size the launch chooses (cs0), against their
+    plain versions with tolerance 0: the normalized rows, the selection,
+    the totals and the finals.  Padding pods come in where the snapshot
+    has them (seed1 at 256 rows); with more than one row the last has no
+    feasible node (it selects -1)."""
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", size)
+    staged, state, batch, aux, carries, ok, raw, _, weights, final_dtype = _e34_inputs(case, exact, rows, cuda)
+    if rows > 1:
+        ok = ok.clone()
+        ok[-1] = False
+    ssub, view = staged.score_groups[0].sub, batch.view()
+    norm = chain_stages.normalize_stage(ssub, state, view, aux, carries, raw, ok)
+    want_norm = chain_stages.normalize_stage_plain(ssub, state, view, aux, carries, raw, ok)
+    torch.testing.assert_close(norm, want_norm, rtol=0, atol=0)
+    _ran_as_mirrored(ssub, chain_stages.normalize_stage.last, "normalize")
+    _geometry_as_asked(chain_stages.normalize_stage.last, size, rows)
+    N = ok.shape[1]
+    got, want = ({"selected": torch.empty(rows, dtype=torch.int32, device=cuda),
+                  "total": torch.empty((rows, N), dtype=torch.int32, device=cuda),
+                  "final": torch.empty((rows, norm.shape[1], N), dtype=final_dtype, device=cuda)} for _ in range(2))
+    chain_stages.select_stage(staged.commit_sub, state, batch, aux, carries, want_norm, weights, ok, got)
+    chain_stages.select_stage_plain(staged.commit_sub, state, batch, aux, carries, want_norm, weights, ok, want)
+    for key in got:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+    if rows > 1:
+        assert int(got["selected"][-1]) == -1
+    _ran_as_mirrored(staged.commit_sub, chain_stages.select_stage.last, "select")
+    _geometry_as_asked(chain_stages.select_stage.last, size, rows)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("case", STAGE_CASES)
+@pytest.mark.parametrize("size", STAGE_CLUSTERS, ids=[f"cs{c}" for c in STAGE_CLUSTERS])
+def test_committing_selection_on_clusters_matches_plain(cuda, size, case, exact, monkeypatch):
+    """The scan's committing selection on one cluster of each size, eight
+    pods in a row (each commit reads the last one's state), against
+    select_stage_plain(commit=True): the selections, the node state, every
+    carry and InterPodAffinity's term totals, which every case but
+    "volumes" changes."""
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", size)
+    staged, state, batch, aux, carries, ok, _, norm, weights, _ = _e34_inputs(case, exact, 8, cuda)
+    k_state, k_carries = chain.fresh_scan_state(staged.prog, state, carries)
+    p_state, p_carries = chain.fresh_scan_state(staged.prog, state, carries)
+    total0 = p_carries["InterPodAffinity"]["total"].clone()
+    for i in range(8):
+        pod = batch.rows(i, i + 1)
+        got, want = ({"selected": torch.empty(1, dtype=torch.int32, device=cuda)} for _ in range(2))
+        chain_stages.select_stage(staged.commit_sub, k_state, pod, aux, k_carries, norm[i:i + 1], weights,
+                                  ok[i:i + 1], got, commit=True)
+        chain_stages.select_stage_plain(staged.commit_sub, p_state, pod, aux, p_carries, norm[i:i + 1], weights,
+                                        ok[i:i + 1], want, commit=True)
+        torch.testing.assert_close(got["selected"], want["selected"], rtol=0, atol=0)
+        _ran_as_mirrored(staged.commit_sub, chain_stages.select_stage.last, "select")
+        _geometry_as_asked(chain_stages.select_stage.last, size, 1)
+    for name in k_state._fields:
+        torch.testing.assert_close(getattr(k_state, name), getattr(p_state, name), rtol=0, atol=0)
+    for name, want_c in p_carries.items():
+        got_c = k_carries[name]
+        for key in (want_c if isinstance(want_c, dict) else [None]):
+            torch.testing.assert_close(got_c if key is None else got_c[key], want_c if key is None else want_c[key],
+                                       rtol=0, atol=0)
+    assert case == "volumes" or not torch.equal(p_carries["InterPodAffinity"]["total"], total0)
+
+
+def test_refused_normalize_and_select_cluster_launch_raises(cuda, monkeypatch):
+    """A cluster E3 and E4's selection do not take is refused and raises,
+    the committing selection's too; nothing smaller, one-block or plain
+    runs in its place."""
+    monkeypatch.setattr(chain, "MAX_CLUSTER", 32)
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", 32)
+    staged, state, batch, aux, carries, ok, raw, norm, weights, _ = _e34_inputs("seed0", True, 1, cuda)
+    before = chain_stages.launches()
+    with pytest.raises(RuntimeError, match=r"ksim_chain_stages\(normalize\): CUDA error"):
+        chain_stages.normalize_stage(staged.score_groups[0].sub, state, batch.view(), aux, carries, raw, ok)
+    for commit in (False, True):
+        out = {"selected": torch.empty(1, dtype=torch.int32, device=cuda)}
+        with pytest.raises(RuntimeError, match=r"ksim_chain_stages\(select\): CUDA error"):
+            chain_stages.select_stage(staged.commit_sub, state, batch, aux, carries, norm, weights, ok, out,
+                                      commit=commit)
     assert chain_stages.launches() == before
 
 

@@ -1,7 +1,7 @@
-"""The geometry of kernel E's filter and score stages (E1, E2;
-csrc/chain_stages.cu), on the CPU: the Python mirror in kernels/chain.py of
-the rule the launch follows, over N in {40, 6144, 12288} padded nodes and
-B in {1, 7, 132, 256} pod rows.
+"""The geometry of kernel E's cluster stages (E1 filter, E2 score, E3
+normalize, E4 select; csrc/chain_stages.cu), on the CPU: the Python mirror
+in kernels/chain.py of the rule the launch follows, over N in {40, 6144,
+12288} padded nodes and B in {1, 7, 132, 256} pod rows.
 
 - ``stage_cluster``: the cluster size is one of 1, 2, 4, 8, 16, never
   rises as the rows grow, is 16 for one row where a 16-block cluster fits
@@ -12,9 +12,13 @@ B in {1, 7, 132, 256} pod rows.
 - ``stage_scratch_row`` and ``chain_stages.scratch_rows``: where the spread
   domains do not fit shared memory, each (cluster, rank) of a launch has a
   row pair of its own, and a block reads its cluster's pairs;
-- ``stage_smem_bytes``: what one block needs fits 232448 bytes at every
-  geometry the rule picks, for this repo's profiles, and for the most the
-  domains may take in shared memory.
+- ``stage_smem_bytes``: what one block of each stage needs fits 232448
+  bytes at every geometry the rule picks, for this repo's profiles, and
+  for the most the domains may take in shared memory; it equals the bytes
+  each stage's carve (``carve_stage_cluster``) lays out;
+- the wrappers' launches (the launch itself faked): E3 and E4's selection
+  on min(B, GRID_MAX) clusters of the forced or chosen size, the
+  committing selection on one cluster, one pod only.
 
 The kernels themselves run only on the card (tests/test_torch_gpu.py)."""
 
@@ -127,30 +131,36 @@ def test_global_domain_scratch_has_a_row_pair_per_cluster_and_rank(rows, forced,
                 assert own + (q - rank) == chain.stage_scratch_row(c, q, cs)
 
 
-def _stage_prm(case: str):
-    """The ChainParams of the default profile's filter and score groups
-    (kernel E's template) over a test cluster, on the CPU."""
+def _stage_prm(case: str) -> dict:
+    """The ChainParams each cluster stage launches with over a test
+    cluster (kernel E's template), on the CPU: the default profile's
+    filter group (E1), its score group (E2 and E3: one object), and the
+    sub-profile the selection commits with (E4 select)."""
     nodes, pods, kw = case_inputs(case)
     feats = Featurizer().featurize(nodes, pods, **kw)
     eng = Engine(feats, default_plugins(feats), record="full", device="cpu")
     staged = StagedProgram(eng._prog)
     carries = eng._prog.init_carries(eng._aux)
     view = eng._pods.view()
-    return [chain_stages._template(g.sub, eng._node_state, view, eng._aux, carries)
-            for g in (staged.filter_groups[0], staged.score_groups[0])]
+    subs = {"filter": staged.filter_groups[0].sub, "score": staged.score_groups[0].sub,
+            "normalize": staged.score_groups[0].sub, "select": staged.commit_sub}
+    return {stage: chain_stages._template(sub, eng._node_state, view, eng._aux, carries)
+            for stage, sub in subs.items()}
 
 
 @pytest.mark.parametrize("case", ["spread_affinity", "images_ports", "volumes"])
 @pytest.mark.parametrize("n_nodes", NODES)
 def test_stage_shared_memory_fits_at_every_geometry_the_rule_picks(n_nodes, case):
-    for prm, score in zip(_stage_prm(case), (False, True)):
+    prms = _stage_prm(case)
+    for stage in ("filter", "score"):
+        prm = prms[stage]
         prm.N = n_nodes
         for rows in ROWS:
             for fits in CARDS.values():
                 cs = chain.stage_cluster(rows, H100_SMS, fits)
-                need = chain.stage_smem_bytes(prm, cs, score=score)
+                need = chain.stage_smem_bytes(prm, cs, stage)
                 assert need <= chain.MAX_SMEM_BYTES
-                chain.check_stage_smem(prm, cs, score=score)
+                chain.check_stage_smem(prm, cs, stage)
 
 
 @pytest.mark.parametrize("score", [False, True], ids=["E1", "E2"])
@@ -169,7 +179,7 @@ def test_stage_shared_memory_with_the_most_domains_in_shared_memory(n_nodes, sco
         nt = chain.stage_threads(n_nodes, cs)
         slots = chain.cluster_slots(n_nodes, cs, nt)
         want = fixed + 2 * chain.DOMAIN_SMEM_BYTES + ((8 * prm.I + slots) if score else 0)
-        assert chain.stage_smem_bytes(prm, cs, score=score) == want <= chain.MAX_SMEM_BYTES
+        assert chain.stage_smem_bytes(prm, cs, "score" if score else "filter") == want <= chain.MAX_SMEM_BYTES
 
 
 def test_score_stage_refuses_a_node_axis_past_its_shared_memory():
@@ -179,13 +189,13 @@ def test_score_stage_refuses_a_node_axis_past_its_shared_memory():
     prm = chain.ChainParams()
     prm.I, prm.T2, prm.MC = 8, 8, 2
     prm.N = 200_000
-    chain.check_stage_smem(prm, 1, score=True)
-    chain.check_stage_smem(prm, 1, score=False)
+    chain.check_stage_smem(prm, 1, "score")
+    chain.check_stage_smem(prm, 1, "filter")
     prm.N = 240_000
-    chain.check_stage_smem(prm, 1, score=False)
-    chain.check_stage_smem(prm, 2, score=True)
+    chain.check_stage_smem(prm, 1, "filter")
+    chain.check_stage_smem(prm, 2, "score")
     with pytest.raises(ValueError, match=r"N=240000 .* score stage on a 1-block cluster"):
-        chain.check_stage_smem(prm, 1, score=True)
+        chain.check_stage_smem(prm, 1, "score")
 
 
 def test_stage_wrappers_take_the_plain_versions_on_the_cpu():
@@ -205,4 +215,145 @@ def test_stage_wrappers_take_the_plain_versions_on_the_cpu():
     raw = chain_stages.score_stage(ssub, eng._node_state, view, eng._aux, carries, ok)
     torch.testing.assert_close(raw, chain_stages.score_stage_plain(ssub, eng._node_state, view, eng._aux, carries, ok),
                                rtol=0, atol=0)
+    assert chain_stages.launches() == launches
+
+
+# ---- E3 (normalize) and E4's selection ----------------------------------------
+
+@pytest.mark.parametrize("card", CARDS)
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("n_nodes", NODES)
+def test_normalize_and_select_shared_memory_fits_at_every_geometry_the_rule_picks(n_nodes, rows, card):
+    """E3 holds the reduction slots and the spread constraints, E4's
+    selection the 64-bit reduction and the term totals' copy: neither
+    grows with the node axis, and both fit at every size the rule picks
+    for this repo's profiles."""
+    cs = chain.stage_cluster(rows, H100_SMS, CARDS[card])
+    for case in ("spread_affinity", "images_ports", "volumes"):
+        prms = _stage_prm(case)
+        for stage in ("normalize", "select"):
+            prm = prms[stage]
+            prm.N = n_nodes
+            need = chain.stage_smem_bytes(prm, cs, stage)
+            assert need == chain.stage_smem_bytes(prm, 1, stage) <= chain.MAX_SMEM_BYTES
+            chain.check_stage_smem(prm, cs, stage)
+
+
+def _carve_bytes(prm, size: int, stage: str) -> int:
+    """The bytes carve_stage_cluster lays out for ``stage``, written out
+    from csrc/chain_stages.cu field by field (8-byte words first): the
+    image weights (E2), red64 [33] and cred64 [2] (E1, E2, E4 select), red
+    [33 * RED_MAX] and cred [2 * RED_MAX] (E1, E2, E3), the term totals
+    [T2] (E1, E2, E4 select), the spread constraints [MC] (E1, E2, E3),
+    the domains' partial and combined arrays when they fit (E1, E2), one
+    flag byte per node slot (E2)."""
+    slots = chain.cluster_slots(prm.N, size, chain.stage_threads(prm.N, size))
+    dom = 2 * 4 * chain.domain_ints(prm) if prm.sp_smem else 0
+    red64, red = 8 * 33 + 8 * 2, 4 * 33 * chain.RED_MAX + 4 * 2 * chain.RED_MAX
+    tot, con = 4 * prm.T2, chain.SPREAD_CON_BYTES * prm.MC
+    return {"filter": red64 + red + tot + con + dom,
+            "score": 8 * prm.I + red64 + red + tot + con + dom + slots,
+            "normalize": red + con,
+            "select": red64 + tot}[stage]
+
+
+@pytest.mark.parametrize("stage", ["filter", "score", "normalize", "select"])
+@pytest.mark.parametrize("n_nodes", NODES)
+def test_stage_smem_mirror_equals_each_carve(n_nodes, stage):
+    """kernels/chain.py stage_smem_bytes equals the carve's bytes, for the
+    widest vocabularies the tests use and for a profile with no spread,
+    inter-pod or image rows, at every cluster size."""
+    for I, T2, MC, DMAX in ((64, 64, 8, 32), (0, 0, 0, 0), (3, 5, 2, 7)):
+        prm = chain.ChainParams()
+        prm.N, prm.I, prm.T2, prm.MC, prm.DMAX = n_nodes, I, T2, MC, DMAX
+        prm.sp_smem = int(0 < 4 * chain.domain_ints(prm) <= chain.DOMAIN_SMEM_BYTES)
+        for cs in sorted(SIZES):
+            assert chain.stage_smem_bytes(prm, cs, stage) == _carve_bytes(prm, cs, stage)
+
+
+def _launch_recorder(monkeypatch) -> list:
+    """Fake the card: the wrappers take their launch path on CPU tensors,
+    and each launch is recorded (stage, grid, forced cluster), not run."""
+    calls = []
+
+    def launch(stage, prm, sp, grid, cluster=0):
+        calls.append((stage, grid, cluster, sp.commit))
+        size = cluster or 16
+        return {"cluster": size, "threads": 32, "smem_bytes": chain.stage_smem_bytes(prm, size, stage)}
+
+    monkeypatch.setattr(chain_stages, "_device", lambda state: torch.device("cuda"))
+    monkeypatch.setattr(chain_stages, "_launch", launch)
+    return calls
+
+
+def _e34_inputs(rows: int):
+    nodes, pods, kw = case_inputs("spread_affinity")
+    feats = Featurizer().featurize(nodes, pods, **kw)
+    eng = Engine(feats, default_plugins(feats), record="full", device="cpu")
+    staged = StagedProgram(eng._prog)
+    batch = eng._pods
+    idx = torch.arange(rows) % batch.valid.shape[0]
+    batch = type(batch)(*(x[idx] for x in batch))
+    state, aux = eng._node_state, eng._aux
+    carries = eng._prog.init_carries(aux)
+    ssub = staged.score_groups[0].sub
+    ok = chain_stages.filter_stage_plain(staged.filter_groups[0].sub, state, batch.view(), aux, carries)[1]
+    raw = chain_stages.score_stage_plain(ssub, state, batch.view(), aux, carries, ok)
+    norm = chain_stages.normalize_stage_plain(ssub, state, batch.view(), aux, carries, raw, ok)
+    weights = torch.tensor([sp.weight for sp in eng._prog.scores], dtype=torch.int32)
+    return staged, state, batch, aux, carries, raw, norm, ok, weights
+
+
+@pytest.mark.parametrize("forced", [0, 1, 2, 8, 16])
+@pytest.mark.parametrize("rows", ROWS)
+def test_normalize_and_select_launch_a_cluster_per_row(rows, forced, monkeypatch):
+    """E3 and E4's selection launch on min(B, GRID_MAX) clusters of the
+    forced size (0: the launch's choice), through the cluster launch, and
+    keep what ran on ``.last``."""
+    calls = _launch_recorder(monkeypatch)
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", forced)
+    staged, state, batch, aux, carries, raw, norm, ok, weights = _e34_inputs(rows)
+    ssub = staged.score_groups[0].sub
+    chain_stages.normalize_stage(ssub, state, batch.view(), aux, carries, raw, ok)
+    N = ok.shape[1]
+    out = {"selected": torch.empty(rows, dtype=torch.int32), "total": torch.empty((rows, N), dtype=torch.int32)}
+    chain_stages.select_stage(staged.commit_sub, state, batch, aux, carries, norm, weights, ok, out)
+    grid = min(rows, chain_stages.GRID_MAX)
+    assert calls == [("normalize", grid, forced, 0), ("select", grid, forced, 0)]
+    assert chain_stages.normalize_stage.last["cluster"] == chain_stages.select_stage.last["cluster"] == (forced or 16)
+
+
+@pytest.mark.parametrize("forced", [0, 1, 2, 8, 16])
+def test_committing_selection_is_one_cluster(forced, monkeypatch):
+    """The committing selection (one pod of the scan) is one cluster, at
+    any forced size; more than one pod is refused before any launch."""
+    calls = _launch_recorder(monkeypatch)
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", forced)
+    staged, state, batch, aux, carries, raw, norm, ok, weights = _e34_inputs(7)
+    N = ok.shape[1]
+    one = {"selected": torch.empty(1, dtype=torch.int32), "total": None}
+    chain_stages.select_stage(staged.commit_sub, state, batch.rows(0, 1), aux, carries, norm[:1], weights, ok[:1], one,
+                              commit=True)
+    assert calls == [("select", 1, forced, 1)]
+    seven = {"selected": torch.empty(7, dtype=torch.int32), "total": torch.empty((7, N), dtype=torch.int32)}
+    with pytest.raises(ValueError, match="a committing selection takes one pod, not 7"):
+        chain_stages.select_stage(staged.commit_sub, state, batch, aux, carries, norm, weights, ok, seven, commit=True)
+    assert len(calls) == 1
+
+
+def test_normalize_and_select_wrappers_take_the_plain_versions_on_the_cpu():
+    """On CPU tensors E3 and E4's selection run their plain versions: no
+    launch, no geometry."""
+    launches = chain_stages.launches()
+    staged, state, batch, aux, carries, raw, norm, ok, weights = _e34_inputs(7)
+    ssub = staged.score_groups[0].sub
+    got = chain_stages.normalize_stage(ssub, state, batch.view(), aux, carries, raw, ok)
+    torch.testing.assert_close(got, norm, rtol=0, atol=0)
+    N = ok.shape[1]
+    outs = [{"selected": torch.empty(7, dtype=torch.int32), "total": torch.empty((7, N), dtype=torch.int32)}
+            for _ in range(2)]
+    chain_stages.select_stage(staged.commit_sub, state, batch, aux, carries, norm, weights, ok, outs[0])
+    chain_stages.select_stage_plain(staged.commit_sub, state, batch, aux, carries, norm, weights, ok, outs[1])
+    for key in outs[0]:
+        torch.testing.assert_close(outs[0][key], outs[1][key], rtol=0, atol=0)
     assert chain_stages.launches() == launches

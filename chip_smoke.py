@@ -380,11 +380,10 @@ KERNELS = {
     "chain_select": ("ksim_tpu_torch/csrc/chain_stages.cu", "ksim_tpu/engine/core.py:790", (1, 2, 3, 4, 5)),
 }
 # Kernel E's entries in the kernels line, by stage (kernels/chain_stages.py
-# launches()): E1 filter, E2 score, E3 normalize, E4 window and select.
+# launches()): E1 filter, E2 score, E3 normalize, E4 window and select,
+# each running a pod row on a thread-block cluster.
 STAGE_KERNELS = {"chain_filter": "filter", "chain_score": "score", "chain_normalize": "normalize",
                  "chain_window": "window", "chain_select": "select"}
-# Kernel E's stages that run each pod row on a thread-block cluster.
-CLUSTER_STAGES = ("chain_filter", "chain_score", "chain_normalize", "chain_select")
 # Phase 11 (d): the pods of kernel E's stage-by-stage comparison, and the
 # launches per timing of a stage at the scan's shape (one pod).
 STAGE_BLOCK = 256
@@ -2134,13 +2133,15 @@ def staged_legs(check: Check, card: str, feats, a_selected, a_ms: float, nodes, 
             "pods": pods}
 
 
-def cluster_holds(check: Check, subs, state, pods, aux: dict, carries: dict, weights) -> dict:
+def cluster_holds(check: Check, subs, state, pods, aux: dict, carries: dict, weights, n_real: int) -> dict:
     """E1, E2, E3 and E4's selection against their plain versions on the
     pod rows of ``pods`` (a PodBatch), at the cluster size the launch picks
     for them (key 0) and on a forced cluster of one block (key 1); with
     one pod, the committing selection too, on a copy of the state and the
-    carries.  ``subs`` are the filter, score and commit sub-profiles.
-    Returns what each launch ran."""
+    carries, and E4's window from the rotating start n_real - 3 (on a
+    cluster of one the walk crosses every tile and wraps).  ``subs`` are
+    the filter, score and commit sub-profiles.  Returns what each launch
+    ran."""
     fsub, ssub, csub = subs
     view = pods.view()
     B, N = view.index.shape[0], state.valid.shape[0]
@@ -2154,6 +2155,9 @@ def cluster_holds(check: Check, subs, state, pods, aux: dict, carries: dict, wei
 
     want_sel = outs()
     chain_stages.select_stage_plain(csub, state, pods, aux, carries, want_norm, weights, want_ok, want_sel)
+    win_start = torch.tensor([n_real - 3], dtype=torch.int32, device=DEVICE)
+    if B == 1:
+        want_win = chain_stages.window_stage_plain(want_ok, win_start.clone(), pods.valid, n_real, SAMPLING_K)
     ran = {}
     for size in (0, 1):
         chain_stages.STAGE_CLUSTER = size
@@ -2164,8 +2168,10 @@ def cluster_holds(check: Check, subs, state, pods, aux: dict, carries: dict, wei
             sel = outs()
             chain_stages.select_stage(csub, state, pods, aux, carries, norm, weights, ok, sel)
             ran[size] = {name: dict(getattr(chain_stages, f"{STAGE_KERNELS[name]}_stage").last)
-                         for name in CLUSTER_STAGES}
+                         for name in STAGE_KERNELS if name != "chain_window"}
             if B == 1:
+                win = chain_stages.window_stage(ok, win_start.clone(), pods.valid, n_real, SAMPLING_K)
+                ran[size]["chain_window"] = dict(chain_stages.window_stage.last)
                 k_state, k_carries = chain.fresh_scan_state(csub, state, carries)
                 p_state, p_carries = chain.fresh_scan_state(csub, state, carries)
                 got_c, want_c = outs(), outs()
@@ -2184,6 +2190,9 @@ def cluster_holds(check: Check, subs, state, pods, aux: dict, carries: dict, wei
             check.equal("chain_select", f"E4 select at {at['chain_select']} {key}", sel[key].cpu().numpy(),
                         want_sel[key].cpu().numpy())
         if B == 1:
+            for part, a, b in zip(("sample", "visited", "next start"), win, want_win):
+                check.equal("chain_window", f"E4 window at {at['chain_window']} {part}", a.cpu().numpy(),
+                            b.cpu().numpy())
             what = f"E4 committing select at {at['chain_select_commit']}"
             for key in ("selected", "total"):
                 check.equal("chain_select", f"{what} {key}", got_c[key].cpu().numpy(), want_c[key].cpu().numpy())
@@ -2199,9 +2208,11 @@ def cluster_holds(check: Check, subs, state, pods, aux: dict, carries: dict, wei
     # What ran is what kernels/chain.py's mirror of the launch says.
     stage_subs = {"chain_filter": fsub, "chain_score": ssub, "chain_normalize": ssub, "chain_select": csub,
                   "chain_select_commit": csub}
+    window_prm = chain.ChainParams()
+    window_prm.N = N
     for size in ran:
         for name, last in ran[size].items():
-            prm = stage_subs[name].kernel_tables["stage_params"][1]
+            prm = window_prm if name == "chain_window" else stage_subs[name].kernel_tables["stage_params"][1]
             stage = STAGE_KERNELS[name.removesuffix("_commit")]
             mirror = (chain.stage_threads(prm.N, last["cluster"]), chain.stage_smem_bytes(prm, last["cluster"], stage))
             if (last["threads"], last["smem_bytes"]) != mirror:
@@ -2304,8 +2315,8 @@ def staged_timings(check: Check, card: str, legs: dict) -> dict:
     """Phase 11 (d) (iv), on a card no other process uses: E1, E2, E3 and
     E4's selection held against their plain versions at one pod and at
     STAGE_BLOCK pods, at the cluster the launch picks and at a forced
-    cluster of one block, and the committing selection at one pod
-    (``cluster_holds``); each of kernel E's stages at the scan's shape
+    cluster of one block, and the committing selection and E4's window at
+    one pod (``cluster_holds``); each of kernel E's stages at the scan's shape
     (one pod, the whole default profile in one launch), and the committing
     selection there on a copy of the state: its kernel time from CUPTI's
     records (the cluster stages' also at a forced cluster of one), its
@@ -2328,10 +2339,10 @@ def staged_timings(check: Check, card: str, legs: dict) -> dict:
     for B in (1, STAGE_BLOCK):
         pods_b = e_main._pods.rows(0, B)
         view = pods_b.view()
-        ran[B] = cluster_holds(check, (fsub, ssub, csub), state, pods_b, aux, carries, w)
-        print(f"  (iv) E1, E2, E3 and E4 select{' (and its commit)' if B == 1 else ''} at {B} x {N} equal their "
-              f"plain versions on the launch's clusters {ran[B][0]} and on forced clusters of one {ran[B][1]} "
-              f"{card}", flush=True)
+        ran[B] = cluster_holds(check, (fsub, ssub, csub), state, pods_b, aux, carries, w, n_real)
+        print(f"  (iv) E1, E2, E3 and E4 select{' (and its commit, and E4 window)' if B == 1 else ''} at {B} x {N} "
+              f"equal their plain versions on the launch's clusters {ran[B][0]} and on forced clusters of one "
+              f"{ran[B][1]} {card}", flush=True)
         ok, _ = unhooked.eval_filters(state, view, aux, carries)
         ok = ok.contiguous()
         raw = chain_stages.score_stage(ssub, state, view, aux, carries, ok)
@@ -2387,7 +2398,7 @@ def staged_timings(check: Check, card: str, legs: dict) -> dict:
             print(f"  {name} at {B} x {N}: kernel {ms:.4f} ms (CUPTI); wrapper host {host:.4f} ms a call, "
                   f"{call_ms:.4f} ms a call between CUDA events; plain {plain:.3f} ms; bound {bound:.6f} ms by "
                   f"{by} ({work[name][0]} bytes) {card}", flush=True)
-            if B == 1 and name != "chain_window":
+            if B == 1:
                 chain_stages.STAGE_CLUSTER = 1
                 try:
                     cs1_ms[name] = cupti_ms(lambda: call(chain_stages.STAGES), reps, kernel)
@@ -2407,9 +2418,8 @@ def staged_timings(check: Check, card: str, legs: dict) -> dict:
                 "shape": f"1x{N} (one pod's visit window)" if name == "chain_window"
                 else f"1x{N} (one pod of the scan, the default profile in one launch)",
                 "stage": {"chain_filter": "E1", "chain_score": "E2", "chain_normalize": "E3"}.get(name, "E4")}
-        if name in CLUSTER_STAGES:
-            note.update(ran[1][0][name], ms_cluster_1=cs1_ms[name], chunk_geometry=ran[STAGE_BLOCK][0][name],
-                        **ptxas_usage("chain_stages", f"{stage}_stage_kernel"))
+        note.update(ran[1][0][name], ms_cluster_1=cs1_ms[name], chunk_geometry=ran[STAGE_BLOCK][0].get(name),
+                    **ptxas_usage("chain_stages", f"{stage}_stage_kernel"))
         if name == "chain_select":
             cms, cplain, cbound, cby, chost, ccall = measured["chain_select_commit"][1]
             note.update(commit_ms=cms, commit_plain_ms=cplain, commit_bound_ms=cbound, commit_bound_by=cby,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernel E's cluster stages (E1 filter, E2 score, E3 normalize, E4
-select and the scan's committing select) on the card at the main path's
-shape.
+"""Time kernel E's stages (E1 filter, E2 score, E3 normalize, E4 select,
+the scan's committing select and E4's visit window) on the card at the
+main path's shape.
 
     python3 chip_stage_timing.py [--reps 50] [--cluster 0]
 
@@ -9,11 +9,14 @@ Featurizes random_cluster(0, 5000 nodes, 10000 pods, bound_fraction=0)
 (6144 padded nodes, the whole default profile in one launch per stage,
 exact mode, as chip_smoke.py phase 11 (d) (iv)) and times E1, E2, E3 and
 E4's selection over the first pod (the scan's shape) and over the first
-256 pods (a chunk's), and the committing selection over the first pod (it
+256 pods (a chunk's), the committing selection over the first pod (it
 takes one pod; each call commits it again into a copy of the state and
-carries): each stage's kernel time from CUPTI's kernel records in a
+carries) and the visit window over the first pod's feasible set
+(sampling_k 500, the start carried from call to call): each stage's kernel time from CUPTI's kernel records in a
 torch.profiler trace of ``--reps`` calls (after one untraced call),
-without the host's time between launches.  Where the tree runs a stage on
+without the host's time between launches, and its wrapper's host time
+per call (calls back to back, from a synchronized card, not waiting for
+the last).  Where the tree runs a stage on
 thread-block clusters, ``--cluster`` forces their size (0: the launch's
 choice) and the line reports what ran.  Prints one JSON line: the card (nvidia-smi name
 and power limit), the tree it ran from, and the times.  Run it from the
@@ -27,6 +30,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -43,6 +47,7 @@ from ksim_tpu_torch.state.featurizer import Featurizer  # noqa: E402
 
 MAIN = (5000, 10000)
 ROWS = (1, 256)
+SAMPLING_K = 500
 
 
 def cupti_ms(fn, reps: int, kernel: str) -> float:
@@ -70,6 +75,18 @@ def cupti_ms(fn, reps: int, kernel: str) -> float:
     raise AssertionError(f"CUPTI recorded {len(durs)} launches of {kernel} in {reps} calls, in each of three sessions")
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds of one call of ``fn`` over ``reps`` calls back
+    to back (chip_smoke.py's wrapper host time)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=50)
@@ -90,6 +107,7 @@ def main() -> int:
     state, aux = eng._node_state, eng._aux
     carries = eng._prog.init_carries(aux)
     N = int(state.valid.shape[0])
+    n_real = len(feats.nodes.names)
     weights = torch.tensor([sp.weight for sp in eng._prog.scores], dtype=torch.int32, device="cuda")
     out = {"card": card, "tree": str(Path.cwd()), "nodes": N, "reps": args.reps}
     for B in ROWS:
@@ -113,8 +131,13 @@ def main() -> int:
             calls["E4commit"] = (lambda: chain_stages.select_stage(csub, c_state, pods, aux, c_carries, norm, weights,
                                                                    ok, sel, commit=True),
                                  "select_stage_kernel", chain_stages.select_stage)
+            start = torch.zeros(1, dtype=torch.int32, device="cuda")
+            calls["E4window"] = (lambda: chain_stages.window_stage(ok, start, pods.valid, n_real, SAMPLING_K),
+                                 "window_stage_kernel", chain_stages.window_stage)
         for name, (call, kernel, wrapper) in calls.items():
-            out[f"{name}_ms_{B}"] = cupti_ms(call, args.reps if B == 1 else max(1, args.reps // 10), kernel)
+            reps = args.reps if B == 1 else max(1, args.reps // 10)
+            out[f"{name}_ms_{B}"] = cupti_ms(call, reps, kernel)
+            out[f"{name}_host_ms_{B}"] = host_ms(call, reps)
             out[f"{name}_ran_{B}"] = getattr(wrapper, "last", None)
     print(json.dumps(out), flush=True)
     return 0

@@ -33,25 +33,28 @@
 // kernels A-D run (filter_node, spread_filter_stats, spread_score_stats,
 // interpod_pod, the scores, the normalizes, visit_window, commit_pod).
 //
-// E1, E2, E3 and E4's selection spread each pod row's node axis over a
-// thread-block cluster of Cs blocks (cluster_scan.cuh's ClusterTeam, the
-// team of kernels A and C): one node slot per thread, chunks of 32 nodes
-// dealt round robin over the ranks, the reductions (PodTopologySpread's
-// statistics, the normalizes' extrema, the selection's key maximum)
-// crossing the cluster through distributed shared memory, so every block
-// ends with the same integer values.  A launch is a grid of clusters;
+// Every stage spreads each pod row's node axis over a thread-block
+// cluster of Cs blocks (cluster_scan.cuh's ClusterTeam, the team of
+// kernels A and C): one node slot per thread, chunks of 32 nodes dealt
+// round robin over the ranks, the reductions (PodTopologySpread's
+// statistics, the normalizes' extrema, the selection's key maximum, the
+// window's visit walk) crossing the cluster through distributed shared
+// memory, so every block ends with the same integer values.  A launch is a grid of clusters;
 // cluster c takes rows c, c + clusters, ...  Cs comes from the row count B
-// (stage_cluster), one rule for the four stages: the largest of 16, 8, 4,
+// (stage_cluster), one rule for the five stages: the largest of 16, 8, 4,
 // 2 at which the B clusters take no more blocks than the card has SMs and
 // the occupancy query finds room for all of them at once, else 1.  So one
 // pod of the scan runs on 16 SMs (8 where a 16-block cluster does not
 // fit), and once B exceeds half the SM count each row is a cluster of one
-// block of E_THREADS.  The committing selection is one row on one
-// cluster: the owner of the chosen node commits its rows, every thread
-// updates InterPodAffinity's counts on its own nodes, every block its copy
-// of the term totals, and rank 0 writes that copy back at the end.  E4's
-// visit window is one block for one pod (StageTeam): thread t holds nodes
-// t, t + blockDim.x, ... of a tile, a tile at a time.
+// block of E_THREADS, launched without the cluster attribute and closing
+// its barriers on the block alone.  The committing selection is one row
+// on one cluster: the owner of the chosen node commits its rows, every
+// thread updates InterPodAffinity's counts on its own nodes, every block
+// its copy of the term totals, and rank 0 writes that copy back at the
+// end.  E4's visit window is one pod on one cluster too: kernel C's walk
+// (plugin_chain.cuh visit_window, ClusterTeam::piece_find) over the flags
+// of the block's node slots in shared memory, one exchange per cluster
+// tile (one in all where a tile holds every real node).
 //
 // What bounds it: latency.  Each launch reads the node state and the
 // pod's aux rows and writes [B, rows, N] values, a few operations per pair
@@ -71,9 +74,8 @@
 
 namespace ksim {
 
-// Threads per block of E4's window, and of the cluster stages on clusters
-// of one block; those are built for blocks of up to E_MAX_THREADS (128
-// registers a thread).
+// Threads per block of the stages on clusters of one block; they are
+// built for blocks of up to E_MAX_THREADS (128 registers a thread).
 constexpr int E_THREADS = 256;
 constexpr int E_MAX_THREADS = 512;
 
@@ -87,7 +89,6 @@ struct StageParams {
   void* out;  // E1: int32 [B, F, N] codes; E2, E3: int64 [B, S, N]
   const long long* in;  // E3: raw int64 [B, S, N]; E4 select: normalized int64 [B, S, N]
   const int32_t* weights;  // E4 select: [S]
-  uint8_t* node_scratch;  // [1, N]: E4 window's per-node flags
   uint8_t* visited;  // E4 window: [N] or null
   int32_t* start;  // E4 window: the rotating start [1], in place
   int32_t* selected;  // E4 select: [B]
@@ -97,76 +98,7 @@ struct StageParams {
   long long scratch_rows;  // E1, E2: rows of P.sp_scratch (2 * domain_ints each) when it is used
 };
 
-// One thread block is the team of E4's visit window (the part of
-// plugin_chain.cuh's team interface that visit_window uses).
-struct StageTeam {
-  long long T = 0;  // nodes per visit tile: the block's threads
-
-  __device__ long long node(long long li) const { return li; }
-
-  // One step of the visit walk (plugin_chain.cuh visit_window) in tile
-  // `tile` (blockDim.x nodes of index order, thread t holding node
-  // tile * blockDim.x + t): `f` is this thread's node's bit.  Sets `count`
-  // to the bits set in the tile and returns the need-th set bit's node in
-  // visit order when need <= count, else -1.  Visit order is index order,
-  // rotated at node `rot` when rot >= 0 (then one tile holds every real
-  // node).  ClusterTeam::piece_find with one block.
-  __device__ long long piece_find(bool f, long long tile, long long need, Smem& s, long long& count, long long rot) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nw = blockDim.x >> 5;
-    const unsigned m = __ballot_sync(0xffffffffu, f);
-    if (lane == 0) {
-      s.wcnt[warp] = __popc(m);
-      s.wmask[warp] = m;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const int val = lane < nw ? s.wcnt[lane] : 0;
-      int incl = val;  // inclusive scan of the warps' counts, in node order
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      const int total = __shfl_sync(0xffffffffu, incl, 31);
-      long long g = need;  // the wanted bit's rank in index order
-      if (rot >= 0) {
-        const int rc = static_cast<int>((rot >> 5) - tile * nw);  // rot's warp in the tile
-        int before = 0;
-        if (lane == rc) before = incl - val + __popc(s.wmask[lane] & ((1u << (rot & 31)) - 1u));
-        before = __shfl_sync(0xffffffffu, before, rc);
-        const long long after = total - before;
-        g = need <= after ? before + need : need - after;
-      }
-      if (lane < nw && val > 0 && incl - val < g && g <= incl) {
-        unsigned mm = s.wmask[lane];
-        for (long long r = g - (incl - val); r > 1; --r) mm &= mm - 1;  // drop the lower set bits
-        s.scan[0] = static_cast<int>((tile * nw + lane) * 32 + (__ffs(mm) - 1));
-      }
-      if (lane == 0) s.scan[1] = total;
-    }
-    __syncthreads();
-    count = s.scan[1];
-    const long long found = need <= count ? s.scan[0] : -1;
-    __syncthreads();  // the next step rewrites s.scan and s.wcnt
-    return found;
-  }
-};
-
-// E4 window's shared memory per block (stage_smem_bytes): the prefix
-// scratch and the visit walk's counts and ballots.  Its per-node flags are
-// S.node_scratch.
-__host__ __device__ inline long long stage_smem_bytes() { return 4 * (SCAN_INTS + 2 * 32); }
-
-__device__ inline Smem carve_stage(unsigned char* base, const StageParams& S) {
-  Smem s = {};
-  s.scan = reinterpret_cast<int*>(base);
-  s.wcnt = s.scan + SCAN_INTS;
-  s.wmask = reinterpret_cast<unsigned*>(s.wcnt + 32);
-  s.flags = S.node_scratch;
-  return s;
-}
-
-// ---- E1, E2, E3 and E4's selection: one pod row on one cluster ----------------
+// ---- every stage: one pod row on one cluster ---------------------------------
 
 // The largest cluster the rule may take for B pod rows on a card of `sms`
 // SMs: the largest of 16, 8, 4, 2 whose B clusters take no more blocks
@@ -202,26 +134,28 @@ __host__ __device__ inline int stage_threads(long long N, int cs) {
 // reduction and its two partial slots (E1, E2, E3); the copy of
 // InterPodAffinity's term totals (E1, E2, E4 select); the pod's spread
 // constraints (E1, E2, E3); when it fits, the partial and combined
-// per-domain scratch (E1, E2); E2's flags, one byte per node slot.
-// kernels/chain.py STAGE_PARTS mirrors it.
+// per-domain scratch (E1, E2); the visit walk's prefix scratch and its
+// counts and ballots, two of each (E4 window); the flags, one byte per
+// node slot (E2, E4 window).  kernels/chain.py STAGE_PARTS mirrors it.
 struct StageParts {
-  bool imgw, red64, red, tot, con, dom, flags;
+  bool imgw, red64, red, tot, con, dom, walk, flags;
 };
 
 __host__ __device__ inline StageParts stage_parts(int stage) {
   const bool fs = stage == E_FILTER || stage == E_SCORE;
   return {stage == E_SCORE, fs || stage == E_SELECT, fs || stage == E_NORMALIZE, fs || stage == E_SELECT,
-          fs || stage == E_NORMALIZE, fs, stage == E_SCORE};
+          fs || stage == E_NORMALIZE, fs, stage == E_WINDOW, stage == E_SCORE || stage == E_WINDOW};
 }
 
 // A cluster stage's shared memory per block (carve_stage_cluster): 8-byte
-// words first, then ints, the spread constraints, the domain scratch and
-// the flags.
+// words first, then ints, the spread constraints, the domain scratch, the
+// walk's ints and the flags.
 __host__ __device__ inline long long stage_cluster_smem_bytes(const ChainParams& P, long long slots, int stage) {
   const StageParts k = stage_parts(stage);
   return (k.imgw ? 8 * P.I : 0) + (k.red64 ? 8 * (33 + 2) : 0) + (k.red ? 4 * (33 * RED_MAX + 2 * RED_MAX) : 0) +
          (k.tot ? 4 * P.T2 : 0) + (k.con ? static_cast<long long>(sizeof(SpreadCon)) * P.MC : 0) +
-         (k.dom && P.sp_smem ? 2 * 4 * domain_ints(P) : 0) + (k.flags ? slots : 0);
+         (k.dom && P.sp_smem ? 2 * 4 * domain_ints(P) : 0) + (k.walk ? 4 * (SCAN_INTS + 2 * 32 + 2 * 32) : 0) +
+         (k.flags ? slots : 0);
 }
 
 // Where the domains do not fit shared memory, block `rank` of cluster c
@@ -264,6 +198,12 @@ __device__ inline Smem carve_stage_cluster(unsigned char* base, const ChainParam
     }
     s.domc = s.dom + di;
   }
+  if (k.walk) {
+    s.scan = reinterpret_cast<int*>(at);
+    s.wcnt = s.scan + SCAN_INTS;
+    s.wmask = reinterpret_cast<unsigned*>(s.wcnt + 2 * 32);
+    at += 4 * (SCAN_INTS + 2 * 32 + 2 * 32);
+  }
   if (k.flags) s.flags = at;
   return s;
 }
@@ -272,7 +212,9 @@ __device__ inline Smem carve_stage_cluster(unsigned char* base, const ChainParam
 // pod rows (c, c + nc, ...).  Where the stage carves it, every block
 // keeps its own copy of the term totals, published by the first row's
 // block barrier; E1 and E2 only read it, the committing selection adds
-// the pod's terms to it.
+// the pod's terms to it.  On a cluster of one block (a launch without
+// the cluster attribute: the card's implicit cluster of one) the team's
+// barriers are block barriers.
 struct StageCluster {
   ClusterTeam team;
   Smem s;
@@ -280,6 +222,7 @@ struct StageCluster {
 
   __device__ StageCluster(unsigned char* base, const ChainParams& P, int stage) {
     team = make_cluster_team(P.N);
+    team.one_block = team.size == 1;
     c = blockIdx.x / team.size;
     nc = gridDim.x / team.size;
     s = carve_stage_cluster(base, P, team, c, stage);
@@ -289,10 +232,11 @@ struct StageCluster {
   }
 
   // The end of a pod row.  After a row whose reductions crossed the
-  // cluster, a cluster barrier: no block zeroes its domain partials for the
-  // next row, or leaves the kernel, while another block may still read
-  // them or its reduction slots.  Else a block barrier: the next row
-  // restages the constraints, the image weights and the flags.
+  // cluster, the team's barrier: no block zeroes its domain partials for
+  // the next row, or leaves the kernel, while another block may still read
+  // them or its reduction slots.  Else (or on a cluster of one) a block
+  // barrier: the next row restages the constraints, the image weights and
+  // the flags.
   __device__ void row_end(bool crossed) {
     if (crossed) team.sync();
     else __syncthreads();
@@ -498,29 +442,40 @@ __global__ void __launch_bounds__(E_MAX_THREADS, 1) normalize_stage_kernel(const
 
 // ---- E4: the visit window, and the selection with its commit -------------------
 
-// One pod, one block: the visit window of plugin_chain.cuh over ok_in.
-__global__ void __launch_bounds__(E_THREADS) window_stage_kernel(const ChainParams P, const StageParams S) {
+// One pod on one cluster: kernel C's visit window (plugin_chain.cuh
+// visit_window) over ok_in, from the rotating start.  Each thread sets the
+// flags of its node slots, the walk finds the threshold (one exchange per
+// cluster tile it visits), and each thread writes its nodes' sampled ok
+// and visited.  Every block reads the start in place; rank 0 advances it
+// only after the closing barrier, when no block still reads it (nor
+// another's counts and ballots).
+__global__ void __launch_bounds__(E_MAX_THREADS, 1) window_stage_kernel(const ChainParams P, const StageParams S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s = carve_stage(smem_raw, S);
-  StageTeam team;
-  team.T = blockDim.x;
-  const long long N = P.N;
+  StageCluster k(smem_raw, P, E_WINDOW);
+  ClusterTeam& team = k.team;
+  Smem& s = k.s;
+  const long long N = P.N, L = team.slots(P);
   const long long nr = max(P.n_real, 1LL);
   const long long start = *S.start;
   const long long sm = floormod(start, nr);
-  for (long long n = threadIdx.x; n < N; n += blockDim.x) s.flags[n] = S.ok_in[n] ? FL_OK : 0;
+  for (long long li = threadIdx.x; li < L; li += blockDim.x) {
+    const long long n = team.node(li);
+    s.flags[li] = n < N && S.ok_in[n] ? FL_OK : 0;
+  }
   __syncthreads();
   const Spread none_sp{s.con, false, false, false};
   const Interpod none_ip{0, false, false, false, false};
   const long long thr = visit_window<false>(P, 0, 0, s, none_sp, none_ip, false, team, sm);
-  for (long long n = threadIdx.x; n < N; n += blockDim.x) {
+  for (long long li = threadIdx.x; li < L; li += blockDim.x) {
+    const long long n = team.node(li);
+    if (n >= N) continue;
     const bool visited = n < P.n_real && floormod(n - sm, nr) <= thr;
-    S.ok_out[n] = (S.ok_in[n] && visited) ? 1 : 0;
+    S.ok_out[n] = ((s.flags[li] & FL_OK) && visited) ? 1 : 0;
     if (S.visited != nullptr) S.visited[n] = visited;
   }
-  __syncthreads();  // every thread has read the start
+  k.row_end(true);
   // Padding pods never ran a cycle upstream: no rotation.
-  if (threadIdx.x == 0 && P.pvalid[0]) *S.start = static_cast<int32_t>(floormod(start + thr + 1, nr));
+  if (team.leader() && threadIdx.x == 0 && P.pvalid[0]) *S.start = static_cast<int32_t>(floormod(start + thr + 1, nr));
 }
 
 // Per pod row: weight x normalized and the int32 total at each of the
@@ -636,8 +591,9 @@ inline StageCard& stage_card() {
   return card;
 }
 
-// Launches a cluster stage (E1, E2, E3, E4 select) on `clusters` clusters
-// of `cluster` blocks (0: stage_cluster's size) of stage_threads; info
+// Launches a stage on `clusters` clusters of `cluster` blocks (0:
+// stage_cluster's size) of stage_threads; a size of one launches without
+// the cluster attribute (the card's implicit cluster of one block).  info
 // (int64 [3]) receives the cluster size, the threads per block and the
 // shared memory per block.  A refused launch is an error, never a smaller
 // launch.
@@ -665,6 +621,7 @@ inline cudaError_t launch_stage_cluster(void (*kernel)(ChainParams, StageParams)
     attr[0].val.clusterDim.x = cs;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
+    cfg.numAttrs = cs > 1 ? 1 : 0;
     return allow_stage_smem(kernel, stage, smem);
   };
   int cs = cluster;
@@ -688,11 +645,11 @@ inline cudaError_t launch_stage_cluster(void (*kernel)(ChainParams, StageParams)
 
 }  // namespace ksim
 
-// Launches stage `stage` (ksim::Stage) on the caller's stream: E1, E2, E3
-// and E4's selection on `grid` clusters of `cluster` blocks (0: the
-// launch's choice, launch_stage_cluster; info, int64 [3], receives what
-// ran), the committing selection on one cluster, E4's window on one block
-// of E_THREADS.  Returns a CUDA error code; a refused launch is an error.
+// Launches stage `stage` (ksim::Stage) on the caller's stream on `grid`
+// clusters of `cluster` blocks (0: the launch's choice,
+// launch_stage_cluster; info, int64 [3], receives what ran); E4's window
+// and the committing selection take one pod on one cluster.  Returns a
+// CUDA error code; a refused launch is an error.
 extern "C" int ksim_chain_stages(int stage, const ksim::ChainParams* params, const ksim::StageParams* sp,
                                  void* stream, long long grid, int cluster, long long* info) {
   using namespace ksim;
@@ -707,11 +664,8 @@ extern "C" int ksim_chain_stages(int stage, const ksim::ChainParams* params, con
   }
   if (grid < 1 || ((stage == E_WINDOW || sp->commit) && grid != 1)) return static_cast<int>(cudaErrorInvalidValue);
   if (sp->B == 0) return 0;
-  if (stage != E_WINDOW)
-    return static_cast<int>(launch_stage_cluster(kernel, stage, *params, *sp, static_cast<cudaStream_t>(stream), grid,
-                                                 cluster, info));
-  kernel<<<1, E_THREADS, stage_smem_bytes(), static_cast<cudaStream_t>(stream)>>>(*params, *sp);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_stage_cluster(kernel, stage, *params, *sp, static_cast<cudaStream_t>(stream), grid, cluster, info));
 }
 
 extern "C" long long ksim_params_size() { return sizeof(ksim::ChainParams); }

@@ -105,6 +105,9 @@ struct ClusterTeam {
   long long start = 0;  // kernel C's rotating start
   long long barriers = 0;  // cluster barriers so far
   int32_t* tot = nullptr;  // this block's copy of the term totals
+  // Kernel E's rows on a cluster of one block: the barriers are block
+  // barriers (kernels A, C and D leave it false).
+  bool one_block = false;
   // Block 0's thread 0 times the phases of each pod (clock64 cycles).
   bool timer = false;
   int phase = PH_COMMIT;
@@ -136,7 +139,8 @@ struct ClusterTeam {
   }
 
   __device__ void sync() {
-    cg::this_cluster().sync();
+    if (one_block) __syncthreads();
+    else cg::this_cluster().sync();
     ++barriers;
   }
 

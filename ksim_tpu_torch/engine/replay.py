@@ -82,7 +82,9 @@ The executor around the launch is the reference's double-buffered one:
 - **Compile-once gate** (engine/compilecache.py): the first launch of
   every shape rung is serialized and counted.
 
-Not ported: the tp mesh.
+Not ported: the tp mesh.  ``KSIM_REPLAY_TP`` above 1 is refused with
+NotImplementedError where a replay driver is built (solo and fleet lanes
+alike); 1, 0 or unset keep the single-device layout.
 """
 
 from __future__ import annotations
@@ -172,6 +174,14 @@ def _watchdog_seconds() -> float:
 
 def _breaker_threshold() -> int:
     return int(os.environ.get("KSIM_REPLAY_BREAKER_N", str(BREAKER_DEFAULT_N)))
+
+
+def _replay_tp() -> int:
+    """``KSIM_REPLAY_TP``: the width of the node mesh the reference lays
+    the segment program over, read as the reference reads it (1, the
+    default, is the single-device layout; 0 counts as 1).  Read when a
+    replay driver is built."""
+    return max(int(os.environ.get("KSIM_REPLAY_TP", "1")), 1)
 
 
 def _breaker_cooldown_s() -> float:
@@ -807,6 +817,11 @@ class ReplayDriver:
         lane_faults=None,
         ingest_hook=None,
     ) -> None:
+        if _replay_tp() > 1:
+            raise NotImplementedError(
+                "KSIM_REPLAY_TP (the replay's node mesh over devices) is not ported to "
+                "ksim_tpu_torch (it comes with the port of engine/sharding.py)"
+            )
         self.store = store
         self.service = service
         self.k = max(int(k), 1)

@@ -48,8 +48,8 @@ ARGTYPES = {
     "replay_segment": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p) + _CLUSTER,
     # Kernel B: (params, summary params, stream, grid).
     "batch_eval": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong),
-    # Kernel E: (stage, params, stage params, stream, grid, then E1's and
-    # E2's cluster size and info).
+    # Kernel E: (stage, params, stage params, stream, grid, then the
+    # stage's cluster size and info).
     "chain_stages": (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                      ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)),
 }

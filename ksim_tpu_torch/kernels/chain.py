@@ -52,21 +52,23 @@ CLUSTER_SIZE = 0
 CLUSTER_THREADS = 0
 MAX_CLUSTER = 16
 MAX_THREADS = 1024
-# Kernel E's cluster stages (csrc/chain_stages.cu: E1 filter, E2 score,
-# E3 normalize, E4 select) run each pod row on a cluster too: one block of
-# STAGE_BLOCK_THREADS on a cluster of one, at most STAGE_MAX_THREADS per
-# block on a larger one.
+# Kernel E's stages (csrc/chain_stages.cu: E1 filter, E2 score, E3
+# normalize, E4 window and select) run each pod row on a cluster too: one
+# block of STAGE_BLOCK_THREADS on a cluster of one, at most
+# STAGE_MAX_THREADS per block on a larger one.
 STAGE_BLOCK_THREADS = 256
 STAGE_MAX_THREADS = 512
-# The parts of a cluster stage's shared memory (csrc/chain_stages.cu
+# The parts of a stage's shared memory (csrc/chain_stages.cu
 # stage_parts): E2's image weights, the 64-bit reduction and its partials,
 # the int reduction and its partials, the copy of InterPodAffinity's term
 # totals, the pod's spread constraints, the per-domain scratch when it
-# fits, E2's flag byte per node slot.
+# fits, the window's visit walk (its prefix scratch, two counts and two
+# ballots a warp), a flag byte per node slot (E2, the window).
 STAGE_PARTS = {
     "filter": ("red64", "red", "tot", "con", "dom"),
     "score": ("imgw", "red64", "red", "tot", "con", "dom", "flags"),
     "normalize": ("red", "con"),
+    "window": ("walk", "flags"),
     "select": ("red64", "tot"),
 }
 # The phases the cluster kernels time (plugin_chain.cuh Phase), in the
@@ -648,8 +650,9 @@ def stage_threads(n_nodes: int, size: int) -> int:
 
 def stage_smem_bytes(prm: ChainParams, size: int, stage: str) -> int:
     """The dynamic shared memory of one block of a launch of ``stage``
-    ("filter", "score", "normalize" or "select") on ``size``-block
-    clusters (``stage_cluster_smem_bytes``): the parts of STAGE_PARTS."""
+    ("filter", "score", "normalize", "window" or "select") on
+    ``size``-block clusters (``stage_cluster_smem_bytes``): the parts of
+    STAGE_PARTS."""
     sizes = {
         "imgw": 8 * prm.I,
         "red64": 8 * (33 + 2),
@@ -657,6 +660,7 @@ def stage_smem_bytes(prm: ChainParams, size: int, stage: str) -> int:
         "tot": 4 * prm.T2,
         "con": SPREAD_CON_BYTES * prm.MC,
         "dom": 2 * 4 * 4 * prm.MC * prm.DMAX if prm.sp_smem else 0,
+        "walk": 4 * (SCAN_INTS + 2 * 32 + 2 * 32),
         "flags": cluster_slots(prm.N, size, stage_threads(prm.N, size)),
     }
     return sum(sizes[part] for part in STAGE_PARTS[stage])
@@ -673,7 +677,8 @@ def stage_scratch_row(cluster: int, rank: int, size: int) -> int:
 def check_stage_smem(prm: ChainParams, size: int, stage: str) -> None:
     """Raise ValueError when one block of a launch of ``stage`` at cluster
     ``size`` needs more shared memory than one block may take: the score
-    stage holds one flag byte per node slot, about N / size of them."""
+    and window stages hold one flag byte per node slot, about N / size of
+    them."""
     need = stage_smem_bytes(prm, size, stage)
     if need > MAX_SMEM_BYTES:
         raise ValueError(

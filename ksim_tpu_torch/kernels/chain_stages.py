@@ -32,16 +32,17 @@ wrapper counts its launches on ``<wrapper>.launches``.  A launch's
 ChainParams is made once per sub-profile and snapshot and patched with the
 state, pod and carry pointers of each call.
 
-E1, E2, E3 and E4's selection spread each pod row's node axis over a
-thread-block cluster (csrc/chain_stages.cu ``stage_cluster``, mirrored by
-kernels/chain.py ``stage_cluster``): 16 blocks (8 where such a cluster
-does not fit) for one pod of the scan, smaller clusters as the rows grow,
-and one block of 256 threads per row once the rows exceed half the card's
-SM count.  The committing selection is one pod on one cluster.  Their
-wrappers keep what ran on ``<wrapper>.last`` ({"cluster", "threads",
-"smem_bytes"}); ``STAGE_CLUSTER`` forces a cluster size (tests; 0 leaves
-it to the launch).  A refused launch raises: nothing smaller or plain
-runs in its place.  E4's window runs one block for its pod.
+Every stage spreads each pod row's node axis over a thread-block cluster
+(csrc/chain_stages.cu ``stage_cluster``, mirrored by kernels/chain.py
+``stage_cluster``): 16 blocks (8 where such a cluster does not fit) for
+one pod of the scan, smaller clusters as the rows grow, and one block of
+256 threads per row, launched without the cluster attribute, once the
+rows exceed half the card's SM count.  E4's window and the committing
+selection are one pod on one cluster.  The wrappers keep what ran on
+``<wrapper>.last`` ({"cluster", "threads", "smem_bytes"});
+``STAGE_CLUSTER`` forces a cluster size (tests; 0 leaves it to the
+launch).  A refused launch raises: nothing smaller or plain runs in its
+place.
 """
 
 from __future__ import annotations
@@ -71,8 +72,7 @@ class StageParams(ctypes.Structure):
     """The ctypes mirror of ``struct StageParams`` in csrc/chain_stages.cu."""
 
     _fields_ = [(name, _P) for name in (
-        "ok_in", "ok_out", "out", "inp", "weights", "node_scratch", "visited", "start", "selected", "total",
-        "final_out",
+        "ok_in", "ok_out", "out", "inp", "weights", "visited", "start", "selected", "total", "final_out",
     )] + [(name, _L) for name in ("B", "S", "final_size", "commit", "scratch_rows")]
 
 
@@ -137,8 +137,8 @@ def scratch_rows(B: int, size: int, sms: int) -> int:
 
 
 def _cluster_launch(stage: str, prm: chain.ChainParams, sp: StageParams, B: int, device, grid: int = 0) -> dict:
-    """A cluster stage on ``grid`` clusters (0: min(B, GRID_MAX)); returns
-    what ran."""
+    """A stage on ``grid`` clusters (0: min(B, GRID_MAX)); returns what
+    ran."""
     size = STAGE_CLUSTER
     chain.check_cluster_shape(size, 0)
     # The smallest cluster the rule may fall back to holds the most node
@@ -166,10 +166,13 @@ def _contiguous(view):
 
 
 def _device(state) -> torch.device:
-    device = state.valid.device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"kernel E runs on cpu or cuda, not {device}")
-    return device
+    return _tensor_device(state.valid)
+
+
+def _tensor_device(t: torch.Tensor) -> torch.device:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"kernel E runs on cpu or cuda, not {t.device}")
+    return t.device
 
 
 # ---- E1 ---------------------------------------------------------------------
@@ -271,24 +274,24 @@ def window_stage_plain(ok, start, valid, n_real: int, k: int):
 def window_stage(ok, start, valid, n_real: int, k: int):
     """``start`` is an int32 [1] tensor; on the card the kernel advances
     it in place and returns it."""
-    device = ok.device
-    if device.type == "cpu":
+    if _tensor_device(ok).type == "cpu":
         return window_stage_plain(ok, start, valid, n_real, k)
-    if device.type != "cuda":
-        raise ValueError(f"kernel E runs on cpu or cuda, not {device}")
+    device = ok.device
     if k < 1:
         raise ValueError(f"sampling k={k}: the visit stops at the k-th feasible node, k >= 1")
     N = ok.shape[-1]
+    if ok.numel() != N:
+        raise ValueError(f"the visit window takes one pod, not {ok.numel() // max(N, 1)}")
     ok = ok.reshape(1, N).contiguous()
     prm = chain.ChainParams()
     prm.N, prm.n_real, prm.samp_k = N, n_real, k
     prm.pvalid = chain._ptr(valid, torch.bool, (1,), device)
     sample = torch.empty((1, N), dtype=torch.bool, device=device)
     visited = torch.empty((1, N), dtype=torch.bool, device=device)
-    flags = torch.empty((1, N), dtype=torch.uint8, device=device)
     sp = StageParams(ok_in=ok.data_ptr(), ok_out=sample.data_ptr(), visited=visited.data_ptr(),
-                     node_scratch=flags.data_ptr(), start=chain._ptr(start, torch.int32, (1,), device), B=1)
-    _launch("window", prm, sp, 1)
+                     start=chain._ptr(start, torch.int32, (1,), device), B=1)
+    # One pod on one cluster.
+    window_stage.last = _cluster_launch("window", prm, sp, 1, device, 1)
     window_stage.launches += 1
     return sample, visited, start
 
@@ -357,7 +360,7 @@ def select_stage(sub, state, pods, aux, carries, norm, weights, ok, out: dict, *
 
 for _wrapper in (filter_stage, score_stage, normalize_stage, window_stage, select_stage):
     _wrapper.launches = 0
-filter_stage.last = score_stage.last = normalize_stage.last = select_stage.last = None
+filter_stage.last = score_stage.last = normalize_stage.last = window_stage.last = select_stage.last = None
 
 
 class Stages(NamedTuple):

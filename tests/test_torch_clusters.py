@@ -654,6 +654,51 @@ def case_inputs(case: str):
     return CLUSTERS_KW[case]()
 
 
+# Kernel E's visit window (E4 window): padded nodes -> real nodes, and the
+# sweep of rotating starts and k the window is held over.
+WINDOW_NODES = {40: 37, 6144: 5000}
+WINDOW_STARTS = ("zero", "tile", "last", "past")
+WINDOW_KS = ("one", "seven", "k500", "over")
+WINDOW_CASES = tuple((n, start, k) for n in WINDOW_NODES for start in WINDOW_STARTS for k in WINDOW_KS
+                     if not (k == "k500" and n < 500))
+
+
+def window_ok(n_nodes: int, seed: int = 0) -> np.ndarray:
+    """One pod's filter result over ``n_nodes`` padded nodes: about a third
+    of the real nodes feasible, and the padding slots' ok true (the window
+    must never visit them)."""
+    n_real = WINDOW_NODES[n_nodes]
+    ok = np.random.default_rng(1000 * seed + n_nodes).random(n_nodes) < 0.3
+    ok[n_real:] = True
+    return ok
+
+
+def window_case(n_nodes: int, start: str, k: str, seed: int = 0):
+    """(ok [N] bool, start, n_real, k) of one pod's visit window.  start:
+    0; a tile boundary (4096 at 6144 nodes: a multiple of the 256-, 1024-
+    and 4096-node tiles of clusters of 1, 2 and 8 blocks; a 32-node chunk
+    at 40); the last real node; past the real nodes (taken modulo their
+    count).  k: 1, 7, 500, or one more than the feasible count (every real
+    node visited).  k never exceeds N: the reference's top_k refuses it."""
+    ok = window_ok(n_nodes, seed)
+    n_real = WINDOW_NODES[n_nodes]
+    feasible = int(ok[:n_real].sum())
+    s = {"zero": 0, "tile": 4096 if n_nodes > 4096 else 32, "last": n_real - 1, "past": n_real + 3}[start]
+    kk = {"one": 1, "seven": 7, "k500": 500, "over": feasible + 1}[k]
+    return ok, s, n_real, kk
+
+
+def test_window_cases_cover_the_sweep():
+    """The starts fall where they are meant to, and "over" asks for more
+    nodes than are feasible."""
+    for n, start, k in WINDOW_CASES:
+        ok, s, n_real, kk = window_case(n, start, k)
+        assert ok[n_real:].all() and 0 < ok[:n_real].sum() < n_real
+        assert kk <= n and (k != "over" or kk > ok[:n_real].sum())
+        assert (start == "past") == (s >= n_real)
+    assert len(WINDOW_CASES) == 28
+
+
 def test_images_ports_cluster_has_images_and_host_ports():
     nodes, pods = images_ports_cluster(3)
     assert sum(len(n["status"]["images"]) for n in nodes) > len(nodes)

@@ -6,7 +6,8 @@
   shared window lowered once (on the cohort leader);
 - ``replay_segment_fleet_plain`` (rows 10-11's plain version) against
   ksim_tpu's ``_fleet_segment_fn`` on one lowered window, lane by lane;
-- the refusals (bad configurations, ``KSIM_FLEET_DP``), a cancel at a
+- the refusals (bad configurations, ``KSIM_FLEET_DP``,
+  ``KSIM_REPLAY_TP``), a cancel at a
   dispatch boundary, a ``lane_ops`` lane on the solo path and a
   ``fleet_faults`` spec that degrades one lane.
 
@@ -178,6 +179,15 @@ def test_fleet_rejects_bad_config(monkeypatch):
     monkeypatch.setenv("KSIM_FLEET_DP", "2")
     with pytest.raises(NotImplementedError, match="KSIM_FLEET_DP"):
         ScenarioRunner(device_replay=True, fleet=2, device="cpu").run(iter(()))
+
+
+def test_fleet_refuses_the_replay_tp_mesh(monkeypatch):
+    """``KSIM_REPLAY_TP`` above 1 is refused for a fleet run too: its
+    lanes build their replay drivers through the same path as a solo
+    run."""
+    monkeypatch.setenv("KSIM_REPLAY_TP", "2")
+    with pytest.raises(NotImplementedError, match="KSIM_REPLAY_TP"):
+        _port(fleet=2).run(list(churn_scenario(0, **SMALL)))
 
 
 def test_fleet_cancel_lands_at_dispatch_boundary():

@@ -15,7 +15,11 @@ STAGE_CLUSTER), at 1, 7 and 256 pod rows (E1 and E2 with the domain
 scratch in shared and in global memory, over several tiles of a
 cluster; E3 and E4's selection with padding pods and a row with no
 feasible node), the committing selection on one cluster of each size
-over eight pods in a row, and a refused cluster launch raising.
+over eight pods in a row, E4's visit window on one cluster of each size
+(40 and 6144 nodes, the starts and k of the CPU sweep, six pods in a row
+with the start carried; walks over several cluster tiles on clusters of
+1, 2 and 8 blocks) and over E1's feasible sets, and a refused cluster
+launch raising.
 
 Marked ``gpu``; each test skips when there is no CUDA device.  This file
 imports neither jax nor ksim_tpu, so it runs on a machine with a card
@@ -44,7 +48,16 @@ from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled, schedule_s
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan, schedule_scan_plain
 from ksim_tpu_torch.state.featurizer import Featurizer
 from helpers import random_cluster
-from test_torch_clusters import case_inputs, hooked_profile, torch_hooks, wide_cluster, wide_profile
+from test_torch_clusters import (
+    WINDOW_CASES,
+    case_inputs,
+    hooked_profile,
+    torch_hooks,
+    wide_cluster,
+    wide_profile,
+    window_case,
+    window_ok,
+)
 from test_torch_gpu_replay import _assert_plain_equal, _capture, _steps, wide_runner, wide_stream
 
 pytestmark = pytest.mark.gpu
@@ -704,10 +717,67 @@ def test_committing_selection_on_clusters_matches_plain(cuda, size, case, exact,
     assert case == "volumes" or not torch.equal(p_carries["InterPodAffinity"]["total"], total0)
 
 
+def _window_as_asked(last: dict, n_nodes: int, size: int) -> None:
+    """The window ran one cluster of the forced size (or the launch's 16
+    or 8 for one pod), as kernels/chain.py's mirror of the launch says."""
+    prm = chain.ChainParams()
+    prm.N = n_nodes
+    assert last["threads"] == chain.stage_threads(n_nodes, last["cluster"]), last
+    assert last["smem_bytes"] == chain.stage_smem_bytes(prm, last["cluster"], "window"), last
+    _geometry_as_asked(last, size, 1)
+
+
+def _windows_equal(oks, start: int, valid, n_real: int, k: int, cuda) -> None:
+    """The window kernel against window_stage_plain over the pods of
+    ``oks`` in a row, each from the start the last one left: sample,
+    visited and the next start, exactly."""
+    start_k = torch.tensor([start], dtype=torch.int32, device=cuda)
+    start_p = start_k.clone()
+    for i, ok in enumerate(oks):
+        v = torch.tensor([valid[i]], device=cuda)
+        got = chain_stages.window_stage(ok, start_k, v, n_real, k)
+        want = chain_stages.window_stage_plain(ok, start_p, v, n_real, k)
+        for part, a, b in zip(("sample", "visited", "next start"), got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=lambda m: f"pod {i} {part}: {m}")
+        start_k, start_p = got[2], want[2]
+
+
+@pytest.mark.parametrize("n_nodes, start, k", WINDOW_CASES, ids=[f"{n}-{s}-{k}" for n, s, k in WINDOW_CASES])
+@pytest.mark.parametrize("size", STAGE_CLUSTERS, ids=[f"cs{c}" for c in STAGE_CLUSTERS])
+def test_window_stage_on_clusters_matches_plain(cuda, size, n_nodes, start, k, monkeypatch):
+    """E4's visit window on one cluster of 1, 2, 8 or 16 blocks, or of the
+    launch's size (cs0), against window_stage_plain: the case's filter
+    result and start, then five more pods with filter results of their
+    own (pod 2 is padding: no rotation), the start carried on the card.
+    At 6144 nodes the walk crosses 20, 5 and 2 cluster tiles on clusters
+    of 1, 2 and 8 blocks, one on 16."""
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", size)
+    ok0, s, n_real, kk = window_case(n_nodes, start, k)
+    oks = [torch.from_numpy(ok0 if i == 0 else window_ok(n_nodes, seed=i))[None].to(cuda) for i in range(6)]
+    before = chain_stages.window_stage.launches
+    _windows_equal(oks, s, [i != 2 for i in range(6)], n_real, kk, cuda)
+    assert chain_stages.window_stage.launches == before + 6
+    _window_as_asked(chain_stages.window_stage.last, n_nodes, size)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("size", STAGE_CLUSTERS, ids=[f"cs{c}" for c in STAGE_CLUSTERS])
+def test_window_stage_over_filter_results_matches_plain(cuda, size, exact, monkeypatch):
+    """The window over E1's feasible sets of random700 (1024 padded nodes,
+    700 real), eight pods in a row from the last real node, at k 3 and 50."""
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", size)
+    (fsub, _), state, view, aux, carries = _stage_inputs("random700", exact, 8, cuda)
+    ok = chain_stages.filter_stage(fsub, state, view, aux, carries)[1]
+    n_real = int(_stage_feats("random700").nodes.count)
+    for k in (3, 50):
+        _windows_equal([ok[i:i + 1] for i in range(8)], n_real - 1, [True] * 8, n_real, k, cuda)
+    _window_as_asked(chain_stages.window_stage.last, ok.shape[1], size)
+
+
 def test_refused_normalize_and_select_cluster_launch_raises(cuda, monkeypatch):
     """A cluster E3 and E4's selection do not take is refused and raises,
-    the committing selection's too; nothing smaller, one-block or plain
-    runs in its place."""
+    the committing selection's and the window's too; nothing smaller,
+    one-block or plain runs in its place."""
     monkeypatch.setattr(chain, "MAX_CLUSTER", 32)
     monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", 32)
     staged, state, batch, aux, carries, ok, raw, norm, weights, _ = _e34_inputs("seed0", True, 1, cuda)
@@ -719,6 +789,9 @@ def test_refused_normalize_and_select_cluster_launch_raises(cuda, monkeypatch):
         with pytest.raises(RuntimeError, match=r"ksim_chain_stages\(select\): CUDA error"):
             chain_stages.select_stage(staged.commit_sub, state, batch, aux, carries, norm, weights, ok, out,
                                       commit=commit)
+    start = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match=r"ksim_chain_stages\(window\): CUDA error"):
+        chain_stages.window_stage(ok[:1], start, batch.valid[:1], int(ok.shape[1]), 3)
     assert chain_stages.launches() == before
 
 

@@ -11,7 +11,9 @@
   step by step;
 - the unsupported-window fallbacks, each under its named reason;
 - row 6's key layout (``derive_layout``), the kernel's view of the
-  lowered node domains.
+  lowered node domains;
+- ``KSIM_REPLAY_TP``: above 1 refused where the driver is built, 1 and 0
+  the same replay as unset.
 
 Tolerance 0 everywhere: every output is an integer or a bool.  ksim_tpu
 runs with x64 on for exact mode and off for f32 mode."""
@@ -495,3 +497,42 @@ def test_node_axis_over_the_shared_memory_bound_raises_before_launch():
     prm.N = 131072
     with pytest.raises(ValueError, match="N=131072"):
         chain.check_smem(prm, cluster=8, extra=32768)  # kernel D's domain scratch on top
+
+def _placements(runner) -> dict:
+    return {f"{p['metadata'].get('namespace', '')}/{p['metadata']['name']}": p.get("spec", {}).get("nodeName")
+            for p in runner.store.list("pods")}
+
+
+def test_replay_tp_mesh_is_refused_where_the_driver_is_built(monkeypatch):
+    """``KSIM_REPLAY_TP`` above 1 (the reference's node mesh over devices,
+    not ported) raises NotImplementedError naming the knob when a solo
+    replay builds its driver, never runs as if unset; a value that is not
+    an integer raises int()'s ValueError, as in the reference."""
+    monkeypatch.setenv("KSIM_REPLAY_TP", "2")
+    with pytest.raises(NotImplementedError, match="KSIM_REPLAY_TP"):
+        ScenarioRunner(**RUNNER, device_replay=True, device="cpu").run(iter(()))
+    tr = ScenarioRunner(**RUNNER, device="cpu")
+    with pytest.raises(NotImplementedError, match="KSIM_REPLAY_TP .*engine/sharding.py"):
+        ReplayDriver(tr.store, tr.service)
+    monkeypatch.setenv("KSIM_REPLAY_TP", "two")
+    with pytest.raises(ValueError, match="invalid literal for int"):
+        ReplayDriver(tr.store, tr.service)
+
+
+@pytest.mark.parametrize("width", ["1", "0"])
+def test_replay_tp_width_one_replays_as_unset(width, monkeypatch):
+    """``KSIM_REPLAY_TP`` of 1 or 0 is the single-device layout: the churn
+    replays to the same steps, placements and device steps as with the
+    knob unset."""
+    ops = list(churn_scenario(0, n_nodes=40, n_events=300, ops_per_step=30))
+    runs = {}
+    for value in (None, width):
+        if value is None:
+            monkeypatch.delenv("KSIM_REPLAY_TP", raising=False)
+        else:
+            monkeypatch.setenv("KSIM_REPLAY_TP", value)
+        run = ScenarioRunner(**RUNNER, device_replay=True, device_segment_steps=8, exact=False, device="cpu")
+        res = run.run(list(ops))
+        runs[value] = (_steps(res), _placements(run), run.replay_driver.device_steps)
+    assert runs[width] == runs[None]
+    assert runs[None][2] > 0 and any(node for node in runs[None][1].values())

@@ -1,5 +1,5 @@
 """The geometry of kernel E's cluster stages (E1 filter, E2 score, E3
-normalize, E4 select; csrc/chain_stages.cu), on the CPU: the Python mirror
+normalize, E4 window and select; csrc/chain_stages.cu), on the CPU: the Python mirror
 in kernels/chain.py of the rule the launch follows, over N in {40, 6144,
 12288} padded nodes and B in {1, 7, 132, 256} pod rows.
 
@@ -18,7 +18,11 @@ in kernels/chain.py of the rule the launch follows, over N in {40, 6144,
   each stage's carve (``carve_stage_cluster``) lays out;
 - the wrappers' launches (the launch itself faked): E3 and E4's selection
   on min(B, GRID_MAX) clusters of the forced or chosen size, the
-  committing selection on one cluster, one pod only.
+  committing selection and the visit window on one cluster, one pod
+  only;
+- the window's visit walk (ClusterTeam::piece_find): every block width
+  the rule picks holds a thread for each (warp, rank) of its cluster
+  tile.
 
 The kernels themselves run only on the card (tests/test_torch_gpu.py)."""
 
@@ -245,19 +249,22 @@ def _carve_bytes(prm, size: int, stage: str) -> int:
     image weights (E2), red64 [33] and cred64 [2] (E1, E2, E4 select), red
     [33 * RED_MAX] and cred [2 * RED_MAX] (E1, E2, E3), the term totals
     [T2] (E1, E2, E4 select), the spread constraints [MC] (E1, E2, E3),
-    the domains' partial and combined arrays when they fit (E1, E2), one
-    flag byte per node slot (E2)."""
+    the domains' partial and combined arrays when they fit (E1, E2), the
+    visit walk's scan [SCAN_INTS], counts [2 * 32] and ballots [2 * 32]
+    (E4 window), one flag byte per node slot (E2, E4 window)."""
     slots = chain.cluster_slots(prm.N, size, chain.stage_threads(prm.N, size))
     dom = 2 * 4 * chain.domain_ints(prm) if prm.sp_smem else 0
     red64, red = 8 * 33 + 8 * 2, 4 * 33 * chain.RED_MAX + 4 * 2 * chain.RED_MAX
     tot, con = 4 * prm.T2, chain.SPREAD_CON_BYTES * prm.MC
+    walk = 4 * chain.SCAN_INTS + 4 * 2 * 32 + 4 * 2 * 32
     return {"filter": red64 + red + tot + con + dom,
             "score": 8 * prm.I + red64 + red + tot + con + dom + slots,
             "normalize": red + con,
+            "window": walk + slots,
             "select": red64 + tot}[stage]
 
 
-@pytest.mark.parametrize("stage", ["filter", "score", "normalize", "select"])
+@pytest.mark.parametrize("stage", ["filter", "score", "normalize", "select", "window"])
 @pytest.mark.parametrize("n_nodes", NODES)
 def test_stage_smem_mirror_equals_each_carve(n_nodes, stage):
     """kernels/chain.py stage_smem_bytes equals the carve's bytes, for the
@@ -282,6 +289,7 @@ def _launch_recorder(monkeypatch) -> list:
         return {"cluster": size, "threads": 32, "smem_bytes": chain.stage_smem_bytes(prm, size, stage)}
 
     monkeypatch.setattr(chain_stages, "_device", lambda state: torch.device("cuda"))
+    monkeypatch.setattr(chain_stages, "_tensor_device", lambda t: torch.device("cuda"))
     monkeypatch.setattr(chain_stages, "_launch", launch)
     return calls
 
@@ -356,4 +364,80 @@ def test_normalize_and_select_wrappers_take_the_plain_versions_on_the_cpu():
     chain_stages.select_stage_plain(staged.commit_sub, state, batch, aux, carries, norm, weights, ok, outs[1])
     for key in outs[0]:
         torch.testing.assert_close(outs[0][key], outs[1][key], rtol=0, atol=0)
+    assert chain_stages.launches() == launches
+
+
+# ---- E4's window ------------------------------------------------------------------
+
+def _window_prm(n_nodes: int) -> chain.ChainParams:
+    """The window's ChainParams: the node axis alone (the wrapper sets no
+    profile table)."""
+    prm = chain.ChainParams()
+    prm.N = n_nodes
+    return prm
+
+
+@pytest.mark.parametrize("n_nodes", NODES)
+def test_window_shared_memory_fits_at_every_geometry_the_rule_picks(n_nodes):
+    """The window holds the visit walk's scratch (768 bytes) and one flag
+    byte per node slot: it fits one block at the size the rule picks for
+    one row on either card and at every forced size, and equals the carve."""
+    prm = _window_prm(n_nodes)
+    sizes = {chain.stage_cluster(1, H100_SMS, fits) for fits in CARDS.values()} | SIZES
+    assert {8, 16} <= sizes
+    for cs in sorted(sizes):
+        need = chain.stage_smem_bytes(prm, cs, "window")
+        assert need == _carve_bytes(prm, cs, "window") <= chain.MAX_SMEM_BYTES
+        assert need == 768 + chain.cluster_slots(n_nodes, cs, chain.stage_threads(n_nodes, cs))
+        chain.check_stage_smem(prm, cs, "window")
+
+
+@pytest.mark.parametrize("n_nodes", NODES)
+@pytest.mark.parametrize("cs", sorted(SIZES))
+def test_visit_walk_has_a_thread_for_each_warp_and_rank(cs, n_nodes):
+    """ClusterTeam::piece_find deals the cluster tile's chunks, warp-major
+    and rank-minor, one to a thread: nw * size <= threads at every block
+    width the rule picks; the block's warp totals fit the scan scratch
+    below its two answer slots (ints 40 and 41)."""
+    nt = chain.stage_threads(n_nodes, cs)
+    nw = nt // 32
+    assert nt % 32 == 0 and nw * cs <= nt
+    assert nw <= 40 and chain.SCAN_INTS >= 42
+    # The tiles the walk crosses: one where a tile holds every real node.
+    tile = cs * nt
+    assert chain.cluster_slots(n_nodes, cs, nt) // nt == -(-n_nodes // tile)
+
+
+def _window_inputs(n_nodes: int = 6144):
+    ok = torch.zeros((1, n_nodes), dtype=torch.bool)
+    ok[0, ::3] = True
+    return ok, torch.tensor([7], dtype=torch.int32), torch.tensor([True]), n_nodes - 100, 5
+
+
+@pytest.mark.parametrize("forced", [0, 1, 2, 8, 16])
+def test_window_is_one_cluster(forced, monkeypatch):
+    """The window launches one pod on one cluster of the forced size (0:
+    the launch's choice), through the cluster launch, and keeps what ran
+    on ``.last``; more than one pod row is refused before any launch."""
+    calls = _launch_recorder(monkeypatch)
+    monkeypatch.setattr(chain_stages, "STAGE_CLUSTER", forced)
+    ok, start, valid, n_real, k = _window_inputs()
+    chain_stages.window_stage(ok, start, valid, n_real, k)
+    assert calls == [("window", 1, forced, 0)]
+    last = chain_stages.window_stage.last
+    assert last["cluster"] == (forced or 16)
+    assert last["smem_bytes"] == chain.stage_smem_bytes(_window_prm(ok.shape[1]), forced or 16, "window")
+    with pytest.raises(ValueError, match="the visit window takes one pod, not 2"):
+        chain_stages.window_stage(ok.expand(2, -1), start, valid, n_real, k)
+    assert len(calls) == 1
+
+
+def test_window_wrapper_takes_the_plain_version_on_the_cpu():
+    """On CPU tensors the window runs its plain version: no launch."""
+    launches = chain_stages.launches()
+    ok, start, valid, n_real, k = _window_inputs()
+    got = chain_stages.window_stage(ok, start.clone(), valid, n_real, k)
+    want = chain_stages.window_stage_plain(ok, start.clone(), valid, n_real, k)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert chain_stages.launches() == launches

@@ -9,6 +9,11 @@ against ksim_tpu, tolerance 0 in exact and f32 modes.
 - Every device hook (tests/test_torch_hooks.py's profile: each alone on a
   plugin, all six on PodTopologySpread) through the scan, the sampled
   scan, ``evaluate_batch_chunks`` and ``evaluate_batch_fused``.
+- E4's window against ``_sample_visited`` over a sweep of node counts
+  (40, 6144, with padding slots whose ok is true), rotating starts (0, a
+  tile boundary, the last real node, past the real nodes) and k (1, 7,
+  500, more than the feasible count), a padding pod among them, and
+  over consecutive pods with the start carried.
 - A filter and score plugin with no kernel code, written once in jnp and
   once in torch.
 - A hooked SchedulerService pass, and a per-pass ScenarioRunner churn with
@@ -19,6 +24,8 @@ card."""
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +33,7 @@ import pytest
 import torch
 
 from ksim_tpu.engine.core import Engine as JaxEngine
+from ksim_tpu.engine.core import _Program as JaxProgram
 from ksim_tpu.engine.core import PluginExtender as JaxPluginExtender
 from ksim_tpu.engine.core import ScoredPlugin as JaxScoredPlugin
 from ksim_tpu.engine.profiles import default_plugins as jax_default_plugins
@@ -53,6 +61,7 @@ from ksim_tpu_torch.scheduler.service import SchedulerService
 from ksim_tpu_torch.state.cluster import ClusterStore
 from ksim_tpu_torch.state.featurizer import snapshot_from_arrays
 from tests.helpers import random_cluster
+from tests.test_torch_clusters import WINDOW_CASES, window_case, window_ok
 from tests.test_torch_engine import assert_results_equal, assert_states_equal, engines, x64
 from tests.test_torch_hooks import HOOKS, _hooked
 
@@ -81,6 +90,51 @@ def _jax_pod(pb) -> JaxPodView:
     return JaxPodView(requests=pb.requests, nonzero_requests=pb.nonzero_requests,
                       tolerates_unschedulable=pb.tolerates_unschedulable, has_requests=pb.has_requests,
                       index=pb.index)
+
+
+def _reference_window(ok: np.ndarray, start: int, n_real: int, k: int):
+    """ksim_tpu's _sample_visited (it reads only ``sampling_k`` off its
+    program): (visited, sample, next start) as numpy."""
+    visited, sample, nxt = JaxProgram._sample_visited(SimpleNamespace(sampling_k=k), jnp.asarray(ok),
+                                                      jnp.int32(start), n_real)
+    return np.asarray(visited), np.asarray(sample), int(nxt)
+
+
+@pytest.mark.parametrize("valid", [True, False], ids=["pod", "padding"])
+@pytest.mark.parametrize("n_nodes, start, k", WINDOW_CASES, ids=[f"{n}-{s}-{k}" for n, s, k in WINDOW_CASES])
+def test_window_plain_matches_sample_visited(n_nodes, start, k, valid):
+    """window_stage_plain (E4's window) against _sample_visited, exactly:
+    the visited mask, the sample and the next start; a padding pod keeps
+    its start (the reference's scan does not rotate for it)."""
+    ok, s, n_real, kk = window_case(n_nodes, start, k)
+    visited_r, sample_r, next_r = _reference_window(ok, s, n_real, kk)
+    sample, visited, nxt = window_stage_plain(torch.from_numpy(ok)[None], torch.tensor([s], dtype=torch.int32),
+                                              torch.tensor([valid]), n_real, kk)
+    _equal(visited[0], visited_r, "E4 window visited")
+    _equal(sample[0], sample_r, "E4 window sample")
+    _equal(nxt, [next_r if valid else s], "E4 window next start")
+    assert not visited_r[n_real:].any() and sample_r.sum() == min(kk, ok[:n_real].sum())
+
+
+@pytest.mark.parametrize("n_nodes", [40, 6144])
+def test_window_plain_carries_the_start_like_the_reference(n_nodes):
+    """Eight pods in a row, each with its own filter result, the start
+    carried from one to the next as the reference's sampled scan carries
+    it (pod 3 is padding: no rotation), at k 7 and 500."""
+    n_real = n_nodes - 3 if n_nodes == 40 else 5000
+    for k in (7, 500) if n_nodes > 500 else (7,):
+        start_r = start_p = n_real - 2
+        start_t = torch.tensor([start_p], dtype=torch.int32)
+        for i in range(8):
+            ok = window_ok(n_nodes, seed=i + 1)
+            valid = i != 3
+            visited_r, sample_r, next_r = _reference_window(ok, start_r, n_real, k)
+            start_r = next_r if valid else start_r
+            sample, visited, start_t = window_stage_plain(torch.from_numpy(ok)[None], start_t, torch.tensor([valid]),
+                                                          n_real, k)
+            _equal(visited[0], visited_r, f"pod {i} visited")
+            _equal(sample[0], sample_r, f"pod {i} sample")
+            _equal(start_t, [start_r], f"pod {i} next start")
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])

@@ -211,11 +211,25 @@ Phases, in order; any failure exits non-zero before the last line:
    replayed, on kernel D) to the same lock, and serves (a)'s result as
    the first server did (equal in canonical JSON: the journal stores
    sorted keys) and byte for byte as the second did.  Phase 13 runs at
-   the same time as phase 12's (b)-(d), each leg on two cores of its own.
+   the same time as phase 12's (b)-(d), each leg on two cores of its own;
+14. the device mesh (engine/sharding.py), node shards co-resident on the
+   card (make_mesh(n, devices=[the card] * n)), each held byte for byte
+   against the unsharded kernel's phase-4 result: (a) kernel A through
+   Engine.shard at tp 2 and 4 on the whole queue (selections and final
+   node state); (b) kernel C, k=500, at tp 2 and 4 from start 0 and a
+   shard boundary (selections, next starts) and the 2048-pod full record
+   (visited sets); (c) kernel B fused at dp 2 x tp 2 (every result
+   tensor); (d) the 6k churn per pass through SchedulerService(shard_mesh=)
+   on 4 shards, to the lock; (e) the 8-lane 6k fleet with KSIM_FLEET_DP=2
+   over two lane groups on the card (each group's lanes held against the
+   solo kernel D) and on the card's one device (the reference's warning,
+   the lock on every lane); (f) a shard that never publishes: the launch
+   raises within its bound and the script goes on.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, errors, times and bounds (each with
-its phase-11 numbers, all measured in this run, under "phase_11").
+its phase-11 numbers, all measured in this run, under "phase_11", and
+the sharded launches of rows 1, 3-4 and 5 under "phase_14").
 """
 
 from __future__ import annotations
@@ -247,6 +261,9 @@ import ksim_tpu_torch.engine.replay as replay_mod
 import ksim_tpu_torch.kernels.replay_segment as segment_mod
 from ksim_tpu_torch.engine.annotations import ALL_RESULT_KEYS, RESULT_HISTORY_KEY, RenderCtx, render_pod_results
 from ksim_tpu_torch.engine.core import Engine
+from ksim_tpu_torch.engine import fleet as fleet_mod
+from ksim_tpu_torch.engine.sharding import gather_tree, make_mesh
+from ksim_tpu_torch.kernels import sharded
 from ksim_tpu_torch.engine.profiles import default_plugins
 from ksim_tpu_torch.engine.staged import StagedProgram
 from ksim_tpu_torch.kernels import build, chain, chain_stages
@@ -436,6 +453,13 @@ FRONT_PNTS = {"KSIM_PNTS_EMULATION": "1"}
 # Phase 13: kernel D's two entries by their names in a CUDA trace.
 JOB_KERNELS = {"D": "replay_segment_kernel", "D lanes": "replay_segment_lanes_kernel"}
 JOB_WAIT_S = 240
+# Phase 14: the node shards co-resident on the one card: kernels A and C
+# at these tp, kernel B at dp x tp, the per-pass churn at MESH_CHURN_TP
+# shards, the fleet's lanes over MESH_FLEET_GROUPS groups.
+MESH_TPS = (2, 4)
+MESH_B = (2, 2)
+MESH_CHURN_TP = 4
+MESH_FLEET_GROUPS = 2
 
 
 class PlainEngine(Engine):
@@ -3090,14 +3114,20 @@ class JobServer(FrontProcess):
     routes answer."""
 
     def __init__(self, label: str, work: Path, env: dict, profile: bool, cores: "set[int] | None") -> None:
-        self.port = _free_port()
-        cfg_path = work / f"{label}-config.yaml"
-        cfg_path.write_text(json.dumps({"port": self.port}))
-        self.prof_dir = work / f"{label}-profile" if profile else None
-        args = ["ksim_tpu_torch.cmd.simulator", "--config", str(cfg_path)]
-        if profile:
-            args += ["--profile-dir", str(self.prof_dir)]
-        super().__init__(label, args, work, env, cores)
+        # A port _free_port found free may be taken by another process (the
+        # phase's other servers start at the same time) before the server
+        # binds it: a server that exits on that starts again on a new port.
+        for attempt in range(3):
+            self.port = _free_port()
+            cfg_path = work / f"{label}-config.yaml"
+            cfg_path.write_text(json.dumps({"port": self.port}))
+            self.prof_dir = work / f"{label}-profile" if profile else None
+            args = ["ksim_tpu_torch.cmd.simulator", "--config", str(cfg_path)]
+            if profile:
+                args += ["--profile-dir", str(self.prof_dir)]
+            super().__init__(label, args, work, env, cores)
+            if not self._lost_port():
+                break
         while time.perf_counter() - self.t0 < JOB_WAIT_S:
             if self.proc.poll() is not None:
                 raise AssertionError(f"{label}: the simulator exited {self.proc.returncode}:\n{self.tail()}")
@@ -3110,6 +3140,21 @@ class JobServer(FrontProcess):
         else:
             raise AssertionError(f"{label}: no answer in {JOB_WAIT_S} s:\n{self.tail()}")
         self.ready_s = time.perf_counter() - self.t0
+
+    def _lost_port(self) -> bool:
+        """True when the server exited because its port was taken (it is
+        waited for until it answers, exits or JOB_WAIT_S passes)."""
+        while time.perf_counter() - self.t0 < JOB_WAIT_S and self.proc.poll() is None:
+            try:
+                if _http(self.port, "GET", "/api/v1/jobs", timeout=10)[0] == 200:
+                    return False
+            except OSError:
+                pass
+            time.sleep(0.1)
+        if self.proc.poll() is None:
+            return False
+        self._log.close()
+        return "Address already in use" in self.tail()
 
     def run_job(self, doc: dict) -> tuple[str, dict, float, list]:
         """POST ``doc``, follow its SSE stream to the end, GET its result:
@@ -3279,6 +3324,238 @@ def job_plane_phase(card: str, cores: "set[int] | None" = None, log=print) -> di
     out["phase_s"] = time.perf_counter() - t13
     log(f"  phase 13 took {out['phase_s']:.1f} s {card}")
     return out
+
+
+def card_device() -> torch.device:
+    return torch.device(DEVICE, torch.cuda.current_device()) if DEVICE == "cuda" else torch.device(DEVICE)
+
+
+def card_mesh(n: int, dp: int = 1):
+    """A mesh of n node shards co-resident on the one card."""
+    return make_mesh(n, dp=dp, devices=[card_device()] * n)
+
+
+def held_equal(kernel: str, what: str, got: np.ndarray, want: np.ndarray) -> int:
+    """A sharded launch's result against the unsharded kernel's, byte for
+    byte; returns the largest absolute difference (0) for the notes."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{kernel} {what}: {got.dtype}{got.shape} vs {want.dtype}{want.shape}")
+    err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max(initial=0))
+    if err:
+        raise AssertionError(f"{kernel} {what}: the sharded launch differs from the unsharded kernel "
+                             f"(max |diff| {err})")
+    return err
+
+
+def held_results(kernel: str, what: str, got, want) -> int:
+    err = 0
+    for name in RESULT_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        if (a is None) != (b is None):
+            raise AssertionError(f"{kernel} {what}.{name}: recorded by one side only")
+        if a is not None:
+            err = max(err, held_equal(kernel, f"{what}.{name}", a, b))
+    if got.sampling_next_start != want.sampling_next_start:
+        raise AssertionError(f"{kernel} {what}: next start {got.sampling_next_start} vs {want.sampling_next_start}")
+    return err
+
+
+def mesh_phase(card: str, m: dict) -> dict:
+    """Phase 14: kernels A, B and C over node shards co-resident on the one
+    card, through Engine.shard, each held byte for byte against the
+    unsharded kernel's results of phase 4 (which the run holds against the
+    plain versions); the 6k per-pass churn through
+    SchedulerService(shard_mesh=...) to its lock; the fleet's lanes over a
+    fleet mesh of MESH_FLEET_GROUPS groups on the card, and KSIM_FLEET_DP=2
+    with the card's one device; a shard that never publishes.  Returns the
+    kernels line's notes for rows 1, 3-4 and 5."""
+    t14 = time.perf_counter()
+    feats, plugins = m["feats"], m["plugins"]
+    N = int(feats.nodes.valid.shape[0])
+    P = int(feats.pods.valid.shape[0])
+    notes: dict = {"schedule_scan": {}, "schedule_sampled": {}, "batch_eval": {}}
+
+    def ran(name: str) -> dict:
+        last = sharded.LAST[name]
+        keep = ("tp", "dp", "cluster", "threads", "smem_bytes", "clusters_resident", "grid", "blocks_per_sm")
+        return {k: last[k] for k in keep if k in last}
+
+    # (a) Kernel A: the whole queue, record="selection", exact.
+    for tp in MESH_TPS:
+        eng = Engine(feats, plugins, record="selection", exact=True, device=DEVICE).shard(card_mesh(tp))
+        runs = []
+        for _ in range(2):
+            got, state = eng.schedule()
+            err = held_equal("schedule_scan", f"tp={tp} selected", got.selected, m["res"].selected)
+            for f in state._fields:
+                err = max(err, held_equal("schedule_scan", f"tp={tp} state.{f}", getattr(state, f),
+                                          getattr(m["state"], f)))
+            runs.append(sharded.LAST["schedule_scan"]["kernel_ms"])
+        notes["schedule_scan"][f"sharded_tp{tp}"] = {
+            **ran("schedule_scan"), "shape": f"{P}x{N} selection, exact", "ms": runs[-1], "first_ms": runs[0],
+            "unsharded_ms": m["ms_a"], "max_abs_err": err, "against": "the unsharded kernel A (phase 4)"}
+        print(f"  (a) kernel A on {tp} co-resident shards ({ran('schedule_scan')}), {P} x {N} selection: "
+              f"{runs[-1]:.3f} ms (first {runs[0]:.3f}); unsharded {m['ms_a']:.3f} ms; selections and final "
+              f"state equal the unsharded kernel's {card}", flush=True)
+        del eng
+
+    # (b) Kernel C: the whole queue at k=SAMPLING_K from 0 and from a shard
+    # boundary, and the 2048-pod full record (visited sets) from 0.
+    unsharded = {0: m["res_samp"]}
+    for tp in MESH_TPS:
+        eng = Engine(feats, plugins, record="selection", exact=True, device=DEVICE,
+                     sampling_k=SAMPLING_K).shard(card_mesh(tp))
+        entry = {}
+        for start in (0, N // tp):
+            if start not in unsharded:
+                unsharded[start] = m["sampled"].schedule(sampling_start=start)[0]
+            got, _ = eng.schedule(sampling_start=start)
+            err = held_equal("schedule_sampled", f"tp={tp} start={start} selected", got.selected,
+                             unsharded[start].selected)
+            if got.sampling_next_start != unsharded[start].sampling_next_start:
+                raise AssertionError(f"schedule_sampled tp={tp} start={start}: next start "
+                                     f"{got.sampling_next_start} vs {unsharded[start].sampling_next_start}")
+            entry[f"start_{start}_ms"] = sharded.LAST["schedule_sampled"]["kernel_ms"]
+        full = Engine(m["feats_2k"], m["plugins_2k"], record="full", exact=True, device=DEVICE,
+                      sampling_k=SAMPLING_K).shard(card_mesh(tp))
+        got, _ = full.schedule(sampling_start=0)
+        err = max(err, held_results("schedule_sampled", f"tp={tp} {PREFIX}-pod full", got, m["res_samp_2k"]))
+        notes["schedule_sampled"][f"sharded_tp{tp}"] = {
+            **ran("schedule_sampled"), "shape": f"{P}x{N} selection, k={SAMPLING_K}",
+            "ms": entry["start_0_ms"], **entry, "unsharded_queue_ms": m["ms_c_queue"],
+            "max_abs_err": err, "against": "the unsharded kernel C (phase 4), with the visited sets of its "
+                                           f"{PREFIX}-pod full record"}
+        print(f"  (b) kernel C on {tp} co-resident shards, {P} x {N} selection, k={SAMPLING_K}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in entry.items())
+              + f" ms; unsharded {m['ms_c_queue']:.3f} ms; selections, next starts and the {PREFIX}-pod "
+                f"visited sets equal the unsharded kernel's {card}", flush=True)
+        del eng, full
+
+    # (c) Kernel B fused at dp x tp, record="final".
+    dp, tp = MESH_B
+    eng = Engine(feats, plugins, record="final", exact=True, device=DEVICE).shard(card_mesh(dp * tp, dp=dp))
+    runs = []
+    for _ in range(2):
+        got = eng.evaluate_batch_fused()
+        err = held_results("batch_eval", f"dp={dp} tp={tp} fused", got, m["res_fused"])
+        runs.append(sharded.LAST["batch_eval"]["kernel_ms"])
+    notes["batch_eval"][f"sharded_dp{dp}_tp{tp}"] = {
+        **ran("batch_eval"), "shape": f"{P}x{N} final, exact", "ms": runs[-1], "first_ms": runs[0],
+        "unsharded_ms": m["ms_b"], "max_abs_err": err, "against": "the unsharded kernel B fused (phase 4)"}
+    print(f"  (c) kernel B fused on {dp} x {tp} co-resident shards ({ran('batch_eval')}), {P} x {N} final: "
+          f"{runs[-1]:.3f} ms (first {runs[0]:.3f}); unsharded {m['ms_b']:.3f} ms; every result tensor equals "
+          f"the unsharded kernel's {card}", flush=True)
+    del eng, got
+
+    # (d) The 6k churn per pass through the service's shard_mesh.
+    before = dict(sharded.LAUNCHES)
+    store = ClusterStore()
+    svc = SchedulerService(store, record="selection", preemption=False, max_pods_per_pass=1024,
+                           pod_bucket_min=128, exact=True, device=DEVICE, shard_mesh=card_mesh(MESH_CHURN_TP))
+    t = time.perf_counter()
+    res = ScenarioRunner(store, svc).run(churn_scenario(0, n_nodes=CHURN_NODES, n_events=6000, ops_per_step=100))
+    wall = time.perf_counter() - t
+    got = (res.events_applied, res.pods_scheduled, res.unschedulable_attempts)
+    if got != CHURN_LOCKS[6000]:
+        raise AssertionError(f"6k per-pass churn on {MESH_CHURN_TP} shards: {got} against {CHURN_LOCKS[6000]}")
+    passes = sharded.LAUNCHES["schedule_scan"] - before["schedule_scan"]
+    if passes < 1:
+        raise AssertionError("the sharded per-pass churn launched no sharded kernel A")
+    notes["schedule_scan"]["sharded_churn_6k"] = {"tp": MESH_CHURN_TP, "launches": passes, "wall_s": wall,
+                                                  "lock": list(got)}
+    print(f"  (d) 6k churn per pass through SchedulerService(shard_mesh) on {MESH_CHURN_TP} co-resident shards: "
+          f"{got[0]} events, {got[1]} scheduled, {got[2]} unschedulable (the lock); {passes} sharded launches "
+          f"of kernel A; wall {wall:.2f} s {card}", flush=True)
+
+    # (e) The fleet: 8 lanes over two groups on the card, each group one
+    # lane-stacked launch, each lane held against the solo kernel D; then
+    # KSIM_FLEET_DP=2 with the card's one device.
+    ops = list(churn_scenario(0, n_nodes=CHURN_NODES, n_events=6000, ops_per_step=100))
+    fleet_kernel = replay_mod.replay_segment_fleet
+    captured = []
+
+    def capture(st, prog, const, ev, state0):
+        held = {k: v.clone() for k, v in state0.items()}
+        final, outs = fleet_kernel(st, prog, const, ev, state0)
+        captured.append((st, prog, const, ev, held, final, outs))
+        return final, outs
+
+    fleet_notes = {}
+    card_dev = card_device()
+    for leg, devices in (("two groups on the card", [card_dev] * MESH_FLEET_GROUPS), ("the card's one device", None)):
+        os.environ["KSIM_FLEET_DP"] = str(MESH_FLEET_GROUPS)
+        fleet_mod.FLEET_DEVICES = devices
+        replay_mod.replay_segment_fleet = capture
+        captured.clear()
+        try:
+            runner = ScenarioRunner(max_pods_per_pass=1024, pod_bucket_min=128, device_replay=True,
+                                    device_segment_steps=SEGMENT_K, preemption=True, exact=False,
+                                    device=DEVICE, fleet=FLEET_LANES)
+            t = time.perf_counter()
+            runner.run(ops)
+            wall = time.perf_counter() - t
+        finally:
+            replay_mod.replay_segment_fleet = fleet_kernel
+            fleet_mod.FLEET_DEVICES = None
+            os.environ.pop("KSIM_FLEET_DP", None)
+        fd = runner.fleet_driver
+        for ln in runner.fleet_lanes:
+            r = ln.result
+            if (r.events_applied, r.pods_scheduled, r.unschedulable_attempts) != CHURN_LOCKS[6000]:
+                raise AssertionError(f"fleet over {leg}: lane {ln.idx} {r.pods_scheduled}/{r.unschedulable_attempts}")
+            if step_triples(r) != m["solo_steps"]:
+                raise AssertionError(f"fleet over {leg}: lane {ln.idx}'s steps differ from the solo device run")
+        with fd._mesh_lock:
+            built, failed = bool(fd._mesh), fd._mesh_failed
+        if devices is not None and (not built or failed):
+            raise AssertionError(f"fleet over {leg}: the mesh was not built")
+        if devices is None and not failed:
+            raise AssertionError(f"fleet over {leg}: KSIM_FLEET_DP=2 on one device did not degrade")
+        stats = fd.stats()
+        if stats["lanes_on_device"] != 1.0 or stats["cohort_mode"] != "vmap":
+            raise AssertionError(f"fleet over {leg}: {stats}")
+        groups = [c for c in captured if next(iter(c[4].values())).shape[0] < FLEET_LANES] if devices else []
+        if devices is not None:
+            if not groups:
+                raise AssertionError(f"fleet over {leg}: no launch held a group of the lanes")
+            st, prog, const, ev, state0, final, outs = max(
+                groups, key=lambda c: int((c[6]["idx"][0] < c[2]["pods"]["requests"].shape[0]).sum()))
+            solo_final, solo_outs = replay_segment(st, prog, const, ev, {k: v[0] for k, v in state0.items()})
+            for i in range(next(iter(state0.values())).shape[0]):
+                for key, v in outs.items():
+                    held_equal("replay_segment_fleet", f"group lane {i} {key}", v[i].cpu().numpy(),
+                               solo_outs[key].cpu().numpy())
+                for key, v in final.items():
+                    held_equal("replay_segment_fleet", f"group lane {i} final {key}", v[i].cpu().numpy(),
+                               solo_final[key].cpu().numpy())
+        fleet_notes[leg] = {"wall_s": wall, "group_launches": len(captured), "mesh_built": built,
+                            "mesh_failed": failed, "kernel_ms": stats["kernel_ms"]}
+        print(f"  (e) fleet {FLEET_LANES} x 6k, KSIM_FLEET_DP={MESH_FLEET_GROUPS} over {leg}: every lane "
+              f"{CHURN_LOCKS[6000][1]}/{CHURN_LOCKS[6000][2]} with the solo run's steps; mesh built {built}, "
+              f"failed {failed}; {len(captured)} lane-stacked launches"
+              + ("; one group's lanes equal the solo kernel D" if devices else "")
+              + f"; wall {wall:.2f} s {card}", flush=True)
+
+    # (f) No hang: shard 1 never publishes.
+    eng = Engine(feats, plugins, record="selection", exact=True, device=DEVICE).shard(card_mesh(2))
+    sharded.SILENT_SHARD = 1
+    t = time.perf_counter()
+    try:
+        eng.schedule()
+    except RuntimeError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("a silent shard's launch returned")
+    finally:
+        sharded.SILENT_SHARD = -1
+    cut = time.perf_counter() - t
+    if "never published" not in raised or cut > 10 * sharded.SPIN_SECONDS + 5:
+        raise AssertionError(f"a silent shard: {raised!r} after {cut:.1f} s")
+    print(f"  (f) a silent shard: the launch raised after {cut:.2f} s: {raised}", flush=True)
+    notes["schedule_scan"]["silent_shard"] = {"raised_after_s": cut, "spin_bound_s": sharded.SPIN_SECONDS}
+    notes["schedule_scan"]["fleet_mesh"] = fleet_notes
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s {card}", flush=True)
+    return notes
 
 
 def main() -> int:
@@ -3706,6 +3983,12 @@ def main() -> int:
     print("\n".join(job_lines), flush=True)
     jobs = front["beside"]
 
+    phase(f"14 the device mesh: kernels A, B and C over node shards co-resident on the card")
+    mesh = mesh_phase(card, {"feats": feats, "plugins": plugins, "res": res, "state": state, "ms_a": ms_a,
+                             "sampled": sampled, "res_samp": res_samp, "ms_c_queue": ms_c_queue,
+                             "feats_2k": feats_2k, "plugins_2k": plugins_2k, "res_samp_2k": res_samp_2k,
+                             "res_fused": res_fused, "ms_b": ms_b, "solo_steps": churn["solo_steps"]})
+
     # Kernel A's whole queue against its plain version on the CPU (started
     # after phase 2), and the bound from the pairs that run counted.
     pq = plain_queue.result()
@@ -3773,6 +4056,8 @@ def main() -> int:
         notes.setdefault(name, {})["phase_11"] = note
     for name, note in staged.items():
         notes[name] = note
+    for name, note in mesh.items():
+        notes.setdefault(name, {})["phase_14"] = note
     # Phase 12's launches ran in the servers' processes: their count is
     # the card's kernel records in each server's torch.profiler trace.
     for name, leg, key in (("schedule_scan", "b", "A"), ("schedule_sampled", "c", "C"), ("batch_eval", "d", "B")):

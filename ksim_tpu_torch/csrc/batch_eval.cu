@@ -55,10 +55,21 @@
 // grow with the node axis and the node axis has no bound of its own.
 // __launch_bounds__(256, MIN_BLOCKS) caps the registers at 64.
 //
+// Node shards (engine/sharding.py).  Under a mesh with tp > 1 each shard
+// holds the global nodes [node_base, node_base + NL) and its own node
+// summary, and one launch runs every co-resident shard's persistent grid
+// of G blocks (batch_eval_sharded_kernel): pod p runs on block p mod G of
+// every shard of its mesh row, so the shards' exchanges pair up.  Each
+// block reduction of the chain then takes one more step across the shards
+// (shard_exchange.cuh): the block publishes its value, thread 0 waits for
+// every shard's, the block barrier hands the verdict on, and the shards'
+// values combine in shard order.  Pods split over the mesh rows (dp).
+//
 // What bounds it: P x N pairs of integer / float64 operations and, in the
 // recording modes, the outputs ([P, S, N] finals, [P, F, N] reason codes).
 
 #include "plugin_chain.cuh"
+#include "shard_exchange.cuh"
 
 namespace ksim {
 
@@ -89,11 +100,13 @@ constexpr uint8_t NS_ADDED_OK = 1;  // the added required node-affinity terms ad
 
 // Every field is 8 bytes wide, as ChainParams (the ctypes mirror is
 // kernels/batch_eval.py SummaryParams).
+// Its node arrays hold the shard's NL nodes (all N unsharded), passed less
+// node_base columns, so that global node indices address them.
 struct SummaryParams {
-  unsigned long long* words;  // [off[NODE_GROUPS], N]
-  int32_t* room;  // [NK, N] attach room per pool (null without NodeVolumeLimits)
-  int32_t* aff_added;  // [N] sum of added_pref over the node's terms
-  uint8_t* nflags;  // [N] NS_*
+  unsigned long long* words;  // [off[NODE_GROUPS], NL]
+  int32_t* room;  // [NK, NL] attach room per pool (null without NodeVolumeLimits)
+  int32_t* aff_added;  // [NL] sum of added_pref over the node's terms
+  uint8_t* nflags;  // [NL] NS_*
   uint8_t* node_scratch;  // [grid, node_stride]: each block's partial [N] int32, flags [N]
   long long* stats;  // [2 + NPHASES] or null: block 0's pods, 0, its cycles per Phase
   long long off[NGROUPS + 1];  // first word of each group; off[NGROUPS] = the pod's words
@@ -121,14 +134,15 @@ __device__ inline bool node_bit(const ChainParams& P, int g, long long n, long l
 }
 
 __global__ void node_summary_kernel(const ChainParams P, const SummaryParams S) {
-  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= P.N) return;
+  const long long li = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (li >= P.NL) return;
+  const long long n = P.node_base + li;
   for (int g = 0; g < NODE_GROUPS; ++g) {
     for (long long w = 0; w < nwords(S, g); ++w) {
       unsigned long long word = 0;
       for (long long b = 0; b < 64 && w * 64 + b < S.size[g]; ++b)
         if (node_bit(P, g, n, w * 64 + b)) word |= 1ULL << b;
-      S.words[(S.off[g] + w) * P.N + n] = word;
+      S.words[(S.off[g] + w) * P.NL + n] = word;
     }
   }
   if (S.room != nullptr) {
@@ -136,7 +150,7 @@ __global__ void node_summary_kernel(const ChainParams P, const SummaryParams S) 
       int used = 0;
       for (long long v = 0; v < P.VV; ++v) used += (P.vol_key[v] == k && P.attached[n * P.VV + v] > 0) ? 1 : 0;
       const int limit = P.vol_limits[n * P.NK + k];
-      S.room[k * P.N + n] = limit >= 0 ? limit - used : INT_MAX;
+      S.room[k * P.NL + n] = limit >= 0 ? limit - used : INT_MAX;
     }
   }
   int added = 0;
@@ -224,7 +238,7 @@ __device__ inline void stage_pod(const ChainParams& P, const SummaryParams& S, l
 // ---- per-pair predicates from the words ------------------------------------------
 
 __device__ inline unsigned long long nword(const SummaryParams& S, const ChainParams& P, long long w, long long n) {
-  return S.words[w * P.N + n];
+  return S.words[w * P.NL + n];
 }
 
 __device__ inline bool any_and(const ChainParams& P, const SummaryParams& S, const PodStage& ps, int g, long long n) {
@@ -340,21 +354,31 @@ __device__ inline int interpod_raw_words(const ChainParams& P, const SummaryPara
 // t owns nodes t, t + blockDim.x, ..., so the records a warp writes are
 // contiguous), the reductions are block_reduce / block_max_u64, and the
 // per-domain atomics are read where they landed after a block barrier.
+// SHARDED: one node shard's block (the sharded kernel only); the unsharded
+// team compiles none of the shard level.
+template <bool SHARDED>
 struct BatchTeam {
   static constexpr bool kCluster = false;
+  static constexpr bool kSharded = SHARDED;
   const SummaryParams* S;
   const PodStage* ps;
   int sel;  // the pod's selector term
   bool has_required;
+  long long base = 0;  // the shard's first node (node shards)
+  ShardLink xl;  // the link to the other shards (node shards)
   // Block 0's thread 0 times the phases of each pod (clock64 cycles).
   bool timer = false;
   int phase = PH_COMMIT;
   long long t_last = 0;
   long long cycles[NPHASES] = {};
 
-  __device__ long long slots(const ChainParams& P) const { return P.N; }
-  __device__ long long node(long long li) const { return li; }
-  __device__ bool leader() const { return true; }
+  __device__ long long slots(const ChainParams& P) const { return SHARDED ? P.NL : P.N; }
+  __device__ long long node(long long li) const { return SHARDED ? base + li : li; }
+  // Shard 0 adds the per-domain statistics once.
+  __device__ bool leader() const {
+    if constexpr (SHARDED) return xl.x->shard == 0;
+    else return true;
+  }
   __device__ void mark(int next) {
     if (!timer) return;
     const long long now = clock64();
@@ -366,16 +390,105 @@ struct BatchTeam {
     return (aff_match(P, *S, *ps, sel, has_required, n) ? FL_AFF : 0) |
            (any_and(P, *S, *ps, G_TFORB, n) ? 0 : FL_TNT);
   }
-  __device__ void reduce(int* v, const int* op, int K, Smem& s) { block_reduce(v, op, K, s.red); }
-  __device__ unsigned long long max_u64(unsigned long long v, Smem& s) { return block_max_u64(v, s.red64); }
-  __device__ void domains(const ChainParams&, const Spread&, Smem&, unsigned, int, int, int, int) { __syncthreads(); }
-  __device__ void domains_after_reduce(const ChainParams&, const Spread&, Smem&, unsigned, int, int, int) {}
+  __device__ void reduce(int* v, const int* op, int K, Smem& s) {
+    block_reduce(v, op, K, s.red);
+    if constexpr (!SHARDED) return;
+    if (!xl.on()) return;
+    int* row = s.red + 32 * RED_MAX;  // block_reduce's results
+    if (!exchange(reinterpret_cast<const unsigned*>(row), K, XS_REDUCE, s)) return;
+    if (static_cast<int>(threadIdx.x) < K) {
+      const int k = threadIdx.x;
+      int x = static_cast<int>(xl.word(0, k));
+      for (long long q = 1; q < xl.x->nshards; ++q) x = red_op(x, static_cast<int>(xl.word(q, k)), op[k]);
+      row[k] = x;
+    }
+    ++xl.seq;
+    __syncthreads();
+    for (int k = 0; k < K; ++k) v[k] = row[k];
+  }
+  __device__ unsigned long long max_u64(unsigned long long v, Smem& s) {
+    v = block_max_u64(v, s.red64);
+    if constexpr (!SHARDED) return v;
+    unsigned* stage = reinterpret_cast<unsigned*>(s.scan + 52);
+    if (threadIdx.x == 0) {
+      stage[0] = static_cast<unsigned>(v);
+      stage[1] = static_cast<unsigned>(v >> 32);
+    }
+    __syncthreads();
+    if (!exchange(stage, 2, XS_SELECT, s)) return 0ULL;  // a dead team selects no node
+    unsigned long long best = 0ULL;
+    for (long long q = 0; q < xl.x->nshards; ++q) {
+      const unsigned long long k =
+          static_cast<unsigned long long>(xl.word(q, 0)) | (static_cast<unsigned long long>(xl.word(q, 1)) << 32);
+      best = k > best ? k : best;
+    }
+    ++xl.seq;
+    return best;
+  }
+  __device__ void domains(const ChainParams& P, const Spread& sp, Smem& s, unsigned kind, int first, int nparts,
+                          int c0, int c1) {
+    __syncthreads();
+    if constexpr (SHARDED) {
+      if (xl.on()) cross_domains(P, sp, s, kind, first, nparts, c0, c1);
+    }
+  }
+  // The atomics are read where they landed after the reduction's barriers.
+  __device__ void domains_after_reduce(const ChainParams& P, const Spread& sp, Smem& s, unsigned kind, int part,
+                                       int c0, int c1) {
+    if constexpr (SHARDED) {
+      if (xl.on()) cross_domains(P, sp, s, kind, part, 1, c0, c1);
+    }
+  }
+
+  // ---- across the node shards (shard_exchange.cuh) ----
+
+  // The block publishes n words of src and thread 0 waits for every
+  // shard's; the block barrier hands the verdict on.  False, and the team
+  // dead, when the wait gave up.
+  __device__ bool exchange(const unsigned* src, long long n, int kind, Smem& s) {
+    if (!xl.on()) return false;
+    int* verdict = s.scan + 48 + (xl.seq & 1);
+    xl.publish(src, n);
+    if (threadIdx.x == 0) *verdict = xl.wait(kind) ? 1 : 0;
+    __syncthreads();
+    const bool ok = *verdict != 0;
+    if (!ok) xl.dead = true;
+    return ok;
+  }
+
+  // The per-domain parts [first, first + nparts) of the non-singleton
+  // constraints in [c0, c1) with flag `kind` summed (presence and
+  // registration: maximum) over the shards, in place (dom == domc here).
+  __device__ void cross_domains(const ChainParams& P, const Spread& sp, Smem& s, unsigned kind, int first,
+                                int nparts, int c0, int c1) {
+    const long long span = P.MC * P.DMAX;
+    if (!exchange(reinterpret_cast<const unsigned*>(s.domc + first * span), nparts * span, XS_DOMAINS, s)) return;
+    for (int c = c0; c < c1; ++c) {
+      const SpreadCon& con = sp.con[c];
+      if (!(con.flags & kind) || (con.flags & CF_SINGLE)) continue;
+      for (int part = first; part < first + nparts; ++part) {
+        const bool is_max = part == F_PRES || part == S_REG;
+        const long long off = (part - first) * span + c * P.DMAX;
+        for (long long d = threadIdx.x; d < con.dsize; d += blockDim.x) {
+          int acc = 0;
+          for (long long q = 0; q < xl.x->nshards; ++q) {
+            const int x = static_cast<int>(xl.word(q, off + d));
+            acc = is_max ? max(acc, x) : wrap_add(acc, x);
+          }
+          s.domc[(part * P.MC + c) * P.DMAX + d] = acc;
+        }
+      }
+    }
+    ++xl.seq;
+    __syncthreads();
+  }
 };
 
 // Every filter for chunk row p (pod j) at node n, from the words where the
 // pod's flags allow (filter_node's order and codes).
+template <class Team>
 __device__ inline uint8_t batch_filter(const ChainParams& P, const SummaryParams& S, const PodStage& ps,
-                                       const BatchTeam& team, long long p, long long j, long long n, const Smem& s,
+                                       const Team& team, long long p, long long j, long long n, const Smem& s,
                                        const Spread& sp, const Interpod& ip, bool sp_filter, bool record_bits,
                                        long long rowF) {
   const long long N = P.N;
@@ -437,7 +550,7 @@ __device__ inline uint8_t batch_filter(const ChainParams& P, const SummaryParams
     if (pf & PF_VOL) {
       over = volume_limits_over(P, q, j, n);
     } else {  // the pod adds nothing: a pool already over its limit
-      for (long long i = P.nvl_pool_off[q]; i < P.nvl_pool_off[q + 1]; ++i) over = over || S.room[P.nvl_pools[i] * N + n] < 0;
+      for (long long i = P.nvl_pool_off[q]; i < P.nvl_pool_off[q + 1]; ++i) over = over || S.room[P.nvl_pools[i] * P.NL + n] < 0;
     }
     ok = ok && !over;
     if (record_bits) store_int(P.bits_out, rowF + P.nvl_row[q] * N + n, over, P.bits_size);
@@ -469,8 +582,9 @@ __device__ inline uint8_t batch_filter(const ChainParams& P, const SummaryParams
 // block's words): writes the records of P.record and returns the
 // selected node (-1 when none is feasible or the pod is padding) to every
 // thread.
+template <bool SHARDED>
 __device__ inline int eval_pod_batch(const ChainParams& P, const SummaryParams& S, long long p, Smem& s,
-                                     const PodStage& ps, BatchTeam& team) {
+                                     const PodStage& ps, BatchTeam<SHARDED>& team) {
   const long long N = P.N;
   const long long j = P.pindex[p];
   const bool full = P.record == 2;
@@ -502,8 +616,12 @@ __device__ inline int eval_pod_batch(const ChainParams& P, const SummaryParams& 
 
   // -- phase 2: filters --
   team.mark(PH_FILTER);
-  for (long long n = threadIdx.x; n < N; n += blockDim.x)
-    s.flags[n] = (sparse && !P.nvalid[n]) ? 0 : batch_filter(P, S, ps, team, p, j, n, s, sp, ip, sp_filter, full, rowF);
+  // The nodes [base, base + NL): this shard's (all of them unsharded).
+  const long long base = SHARDED ? P.node_base : 0, NL = SHARDED ? P.NL : N;
+  for (long long li = threadIdx.x; li < NL; li += blockDim.x) {
+    const long long n = base + li;
+    s.flags[li] = (sparse && !P.nvalid[n]) ? 0 : batch_filter(P, S, ps, team, p, j, n, s, sp, ip, sp_filter, full, rowF);
+  }
   __syncthreads();
 
   // -- phase 3: PodTopologySpread's score statistics --
@@ -514,8 +632,9 @@ __device__ inline int eval_pod_batch(const ChainParams& P, const SummaryParams& 
   team.mark(PH_SCORE);
   int ex[9] = {0, 0, INT_MIN, INT_MAX, 0, INT_MIN, INT_MAX, 0, 0};
   const int ex_op[9] = {RMAX, RMAX, RMAX, RMIN, RMAX, RMAX, RMIN, RMAX, RMAX};
-  for (long long n = threadIdx.x; n < N; n += blockDim.x) {
-    const uint8_t fl = s.flags[n];
+  for (long long li = threadIdx.x; li < NL; li += blockDim.x) {
+    const long long n = base + li;
+    const uint8_t fl = s.flags[li];
     const bool ok = fl & FL_OK;
     if (sparse && !ok) {
       if (P.s_row[INTERPOD] >= 0 && interpod_raw_words(P, S, ps, ip, n) != 0) ex[8] = 1;
@@ -573,7 +692,7 @@ __device__ inline int eval_pod_batch(const ChainParams& P, const SummaryParams& 
       if (finals) store_int(P.final_out, rowS + P.s_row[IMAGE] * N + n, fin, P.final_size);
     }
     if (use_samples) partial = wrap_add(partial, sample_scores(P, j, n, rowS, full, finals));
-    s.partial[n] = partial;
+    s.partial[li] = partial;
   }
   team.mark(PH_EX_REDUCE);
   team.reduce(ex, ex_op, 9, s);
@@ -586,10 +705,11 @@ __device__ inline int eval_pod_batch(const ChainParams& P, const SummaryParams& 
   //    scores recomputed), total, selectHost --
   team.mark(PH_NORMALIZE);
   unsigned long long best = 0ULL;
-  for (long long n = threadIdx.x; n < N; n += blockDim.x) {
-    const uint8_t fl = s.flags[n];
+  for (long long li = threadIdx.x; li < NL; li += blockDim.x) {
+    const long long n = base + li;
+    const uint8_t fl = s.flags[li];
     if (sparse && !(fl & FL_OK)) continue;
-    int total = s.partial[n];
+    int total = s.partial[li];
     if (P.s_row[TAINT] >= 0) {
       // Reverse DefaultNormalizeScore; DIVISION: raw >= 0, max > 0.
       const int raw = taint_raw(P, S, ps, n);
@@ -660,7 +780,7 @@ __host__ __device__ inline long long batch_smem_bytes(const ChainParams& P, cons
 }
 
 __device__ inline Smem carve_batch(unsigned char* base, const ChainParams& P, const SummaryParams& S,
-                                   PodStage& ps) {
+                                   PodStage& ps, long long g) {
   Smem s = {};
   ps.words = reinterpret_cast<unsigned long long*>(base);
   s.imgw = reinterpret_cast<double*>(ps.words + S.off[NGROUPS]);
@@ -673,32 +793,36 @@ __device__ inline Smem carve_batch(unsigned char* base, const ChainParams& P, co
     s.dom = after;
     after += domain_ints(P);
   } else {
-    s.dom = P.sp_scratch + blockIdx.x * domain_ints(P);
+    s.dom = P.sp_scratch + g * domain_ints(P);
   }
   s.domc = s.dom;
   ps.pref = after;
   ps.pflags = reinterpret_cast<unsigned*>(after + P.T);
-  unsigned char* nodes = S.node_scratch + blockIdx.x * S.node_stride;
+  unsigned char* nodes = S.node_scratch + g * S.node_stride;
   s.partial = reinterpret_cast<int32_t*>(nodes);
-  s.flags = nodes + 4 * P.N;
+  s.flags = nodes + 4 * P.NL;
   return s;
 }
 
 // ---- the kernel -------------------------------------------------------------------
 
-__global__ void __launch_bounds__(B_THREADS, MIN_BLOCKS) batch_eval_kernel(const ChainParams P,
-                                                                           const SummaryParams S) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// Block g of a grid of G: pods g, g + G, ...
+template <bool SHARDED>
+__device__ inline void batch_pods(const ChainParams& P, const SummaryParams& S, long long g, long long G,
+                                  unsigned char* smem_raw, const ShardExchange* xs) {
   PodStage ps;
-  Smem s = carve_batch(smem_raw, P, S, ps);
-  BatchTeam team;
+  Smem s = carve_batch(smem_raw, P, S, ps, g);
+  BatchTeam<SHARDED> team;
   team.S = &S;
   team.ps = &ps;
-  team.timer = S.stats != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+  team.base = P.node_base;
+  team.xl.x = xs;
+  team.xl.g = g;
+  team.timer = S.stats != nullptr && g == 0 && threadIdx.x == 0;
   if (team.timer) team.t_last = clock64();
   const bool selection = P.record == 0;
   long long evaluated = 0;
-  for (long long p = blockIdx.x; p < P.Pc; p += gridDim.x) {
+  for (long long p = g; p < P.Pc; p += G) {
     if (selection && !P.pvalid[p]) {  // records only the selection: -1
       if (threadIdx.x == 0) P.selected[p] = -1;
       continue;
@@ -706,6 +830,9 @@ __global__ void __launch_bounds__(B_THREADS, MIN_BLOCKS) batch_eval_kernel(const
     const int best = eval_pod_batch(P, S, p, s, ps, team);
     ++evaluated;
     if (threadIdx.x == 0) P.selected[p] = best;
+    if constexpr (SHARDED) {
+      if (team.xl.dead) break;  // a shard went silent: the launch raises
+    }
   }
   if (team.timer) {
     S.stats[0] = evaluated;
@@ -715,17 +842,50 @@ __global__ void __launch_bounds__(B_THREADS, MIN_BLOCKS) batch_eval_kernel(const
   }
 }
 
+__global__ void __launch_bounds__(B_THREADS, MIN_BLOCKS) batch_eval_kernel(const ChainParams P,
+                                                                           const SummaryParams S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  batch_pods<false>(P, S, blockIdx.x, gridDim.x, smem_raw, nullptr);
+}
+
+// Every co-resident shard's persistent grid of G blocks in one launch:
+// blocks [c G, (c + 1) G) are shard c's, their programs and summaries
+// copied to shared memory from the launch's device arrays.
+__global__ void __launch_bounds__(B_THREADS, MIN_BLOCKS) batch_eval_sharded_kernel(const ChainParams* shards,
+                                                                                   const SummaryParams* summaries,
+                                                                                   long long G) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ ChainParams Ps;
+  __shared__ SummaryParams Ss;
+  const long long c = blockIdx.x / G, g = blockIdx.x % G;
+  {
+    const long long* src = reinterpret_cast<const long long*>(shards + c);
+    long long* dst = reinterpret_cast<long long*>(&Ps);
+    for (long long i = threadIdx.x; i < static_cast<long long>(sizeof(ChainParams) / 8); i += blockDim.x) dst[i] = src[i];
+    src = reinterpret_cast<const long long*>(summaries + c);
+    dst = reinterpret_cast<long long*>(&Ss);
+    for (long long i = threadIdx.x; i < static_cast<long long>(sizeof(SummaryParams) / 8); i += blockDim.x)
+      dst[i] = src[i];
+  }
+  __syncthreads();
+  batch_pods<true>(Ps, Ss, g, G, smem_raw, static_cast<const ShardExchange*>(Ps.xs));
+}
+
 // Raise kernel B's dynamic shared memory cap to `smem` where the current
 // device's cap is below it (set once per size and device, not per launch).
-inline cudaError_t allow_smem(long long smem) {
+inline cudaError_t allow_smem(long long smem, bool sharded = false) {
   constexpr int MAX_DEVICES = 64;
-  static long long allowed[MAX_DEVICES] = {};
+  static long long allowed[2][MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && smem <= allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(batch_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = smem;
+  if (dev < MAX_DEVICES && smem <= allowed[sharded][dev]) return cudaSuccess;
+  if (sharded)
+    err = cudaFuncSetAttribute(batch_eval_sharded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  else
+    err = cudaFuncSetAttribute(batch_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess && dev < MAX_DEVICES) allowed[sharded][dev] = smem;
   return err;
 }
 
@@ -737,18 +897,26 @@ inline cudaError_t allow_smem(long long smem) {
 extern "C" int ksim_batch_eval_occupancy(const ksim::ChainParams* params, const ksim::SummaryParams* summary,
                                          long long* info) {
   const long long smem = ksim::batch_smem_bytes(*params, *summary);
-  cudaError_t err = ksim::allow_smem(smem);
+  const bool sharded = params->xs != nullptr;  // the node-shard kernel's answer
+  cudaError_t err = ksim::allow_smem(smem, sharded);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ksim::batch_eval_kernel, ksim::B_THREADS,
-                                                      static_cast<size_t>(smem));
+  if (sharded)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ksim::batch_eval_sharded_kernel, ksim::B_THREADS,
+                                                        static_cast<size_t>(smem));
+  else
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ksim::batch_eval_kernel, ksim::B_THREADS,
+                                                        static_cast<size_t>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, ksim::batch_eval_kernel);
+  if (sharded)
+    err = cudaFuncGetAttributes(&attr, ksim::batch_eval_sharded_kernel);
+  else
+    err = cudaFuncGetAttributes(&attr, ksim::batch_eval_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = per_sm;
   info[1] = sms;
@@ -759,8 +927,8 @@ extern "C" int ksim_batch_eval_occupancy(const ksim::ChainParams* params, const 
 }
 
 extern "C" int ksim_node_summary(const ksim::ChainParams* params, const ksim::SummaryParams* summary, void* stream) {
-  if (params->N == 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((params->N + 255) / 256);
+  if (params->NL == 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((params->NL + 255) / 256);
   ksim::node_summary_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(*params, *summary);
   return static_cast<int>(cudaGetLastError());
 }
@@ -777,6 +945,27 @@ extern "C" int ksim_batch_eval(const ksim::ChainParams* params, const ksim::Summ
       *params, *summary);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Every co-resident shard's grid of G blocks (at most the resident ones,
+// which the caller checked) in one launch: the programs and summaries in
+// the device arrays `shards` and `summaries`, shard 0's also on the host.
+extern "C" int ksim_batch_eval_sharded(const ksim::ChainParams* host0, const ksim::SummaryParams* summary0,
+                                       const ksim::ChainParams* shards, const ksim::SummaryParams* summaries,
+                                       int nsh, void* stream, long long G) {
+  if (host0->Pc == 0) return 0;
+  const long long smem = ksim::batch_smem_bytes(*host0, *summary0);
+  cudaError_t err = ksim::allow_smem(smem, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ksim::batch_eval_sharded_kernel<<<static_cast<unsigned>(G * nsh), ksim::B_THREADS, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(shards, summaries, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ksim_enable_peer_access(int peer) { return ksim::enable_peer_access(peer); }
+
+extern "C" int ksim_clock_khz() { return ksim::clock_khz(); }
+
+extern "C" long long ksim_shard_exchange_size() { return sizeof(ksim::ShardExchange); }
 
 extern "C" long long ksim_params_size() { return sizeof(ksim::ChainParams); }
 

@@ -235,6 +235,9 @@ struct ChainParams {
   const int32_t* nn_pod;  // [P]
   // DataProviderScore: each instance's provided score, in dp_row order.
   const int32_t* dp_score;  // [dp_n, N]
+  // The node shards' exchange (csrc/shard_exchange.cuh ShardExchange; null
+  // unsharded).
+  const void* xs;
   // Shapes.
   long long N, R, W, T, V, I, Pc, F, S;
   long long record;  // 0 = selection, 1 = final, 2 = full
@@ -245,6 +248,11 @@ struct ChainParams {
   long long T2, TKI;
   long long n_real, samp_k;
   long long nn_reverse, dp_n;
+  // This shard's nodes: global indices [node_base, node_base + NL) (0 and
+  // N unsharded).  Node indices are global everywhere: a node-axis array
+  // the launch splits is passed as its shard's pointer less node_base
+  // rows, a whole one as it is.
+  long long node_base, NL;
   // Per plugin id: its row in bits (-1 = filter off; NodeVolumeLimits'
   // instances have theirs in nvl_row), its row in raw/final (-1 = score
   // off), its weight.
@@ -333,6 +341,9 @@ struct Smem {
   int* wcnt;  // [2 * 32]
   unsigned* wmask;  // [2 * 32]
   int32_t* ipa_tot;  // [T2]
+  // Node shards only (null otherwise): the chosen node's InterPodAffinity
+  // domains, from the selection's exchange.
+  int32_t* xdb;  // [T2]
 };
 
 __host__ __device__ inline long long align8(long long x) { return (x + 7) & ~7LL; }
@@ -1403,8 +1414,14 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
   //    kernel C's visit window --
   team.mark(PH_FILTER);
   long long thr = 0, start = 0;
-  if constexpr (SAMPLED) start = team.start;
-  if (SAMPLED && sparse) {
+  // Node shards (kernel C): every shard filters all its nodes, and the
+  // walk crosses the shards on the counts (ClusterTeam::sharded_window).
+  bool lazy = SAMPLED && sparse;
+  if constexpr (SAMPLED) {
+    start = team.start;
+    lazy = lazy && !Team::kSharded;
+  }
+  if (lazy) {
     for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) s.flags[li] = 0;
   } else {
     for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
@@ -1418,10 +1435,11 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
     team.mark(PH_WINDOW);
     const long long nr = max(P.n_real, 1LL);
     const long long sm = floormod(start, nr);
-    if (sparse) {
+    if (lazy) {
       thr = visit_window<true>(P, p, j, s, sp, ip, sp_filter, team, sm);
     } else {
-      thr = visit_window<false>(P, p, j, s, sp, ip, sp_filter, team, sm);
+      if constexpr (Team::kSharded) thr = team.sharded_window(P, s, sm);
+      else thr = visit_window<false>(P, p, j, s, sp, ip, sp_filter, team, sm);
       for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
         const long long n = team.node(li);
         if (n >= N) continue;
@@ -1435,7 +1453,7 @@ __device__ inline int eval_pod_team(const ChainParams& P, long long p, Smem& s, 
 
   // -- phase 3: PodTopologySpread's score statistics --
   team.mark(PH_SPREAD_S);
-  if (P.s_row[SPREAD] >= 0 && sp.has_score) spread_score_stats(P, sp, j, s, team, SAMPLED && sparse);
+  if (P.s_row[SPREAD] >= 0 && sp.has_score) spread_score_stats(P, sp, j, s, team, lazy);
 
   // -- phase 4: scores and the normalizes' extrema; the unnormalized
   //    finals are summed right away --
@@ -1605,7 +1623,7 @@ __device__ inline void commit_pod(const ChainParams& P, long long p, int best, T
     for (long long t = 0; t < P.T2; ++t)
       any = any || P.ipa_qm[base + t] || P.ipa_vw[base + t] != 0 || P.ipa_eat[base + t] != 0;
     if (!any) return;
-    const int32_t* db = P.ipa_dom + best * P.T2;
+    const int32_t* db = team.best_dom(P, best);
     for (long long li = threadIdx.x; li < team.slots(P); li += blockDim.x) {
       const long long n = team.node(li);
       if (n >= P.N) continue;

@@ -33,6 +33,19 @@ extern "C" int ksim_schedule_sampled(const ksim::ChainParams* params, void* stre
   return ksim::launch_cluster_scan<true>(params, stream, cluster, threads, stats, info);
 }
 
+// The scan over node shards (one cluster per co-resident shard; the
+// programs in the device array `shards`, shard 0's also on the host).
+extern "C" int ksim_schedule_sampled_sharded(const ksim::ChainParams* host0, const ksim::ChainParams* shards, int nsh,
+                                  void* stream, int cluster, int threads, long long* stats, long long* info) {
+  return ksim::launch_cluster_scan_sharded<true>(host0, shards, nsh, stream, cluster, threads, stats, info);
+}
+
+extern "C" int ksim_enable_peer_access(int peer) { return ksim::enable_peer_access(peer); }
+
+extern "C" int ksim_clock_khz() { return ksim::clock_khz(); }
+
+extern "C" long long ksim_shard_exchange_size() { return sizeof(ksim::ShardExchange); }
+
 extern "C" long long ksim_params_size() { return sizeof(ksim::ChainParams); }
 
 extern "C" const char* ksim_error_string(int err) {

@@ -44,7 +44,9 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ksim_tpu_torch.engine import sharding as shlib
 from ksim_tpu_torch.engine.staged import StagedProgram
+from ksim_tpu_torch.kernels import sharded
 from ksim_tpu_torch.kernels.batch_eval import batch_eval
 from ksim_tpu_torch.kernels.chain import check_chain, has_kernel_code
 from ksim_tpu_torch.kernels.chain_stages import STAGES
@@ -246,6 +248,36 @@ def device_aux(aux: dict, n_padded: int, device: torch.device) -> dict:
     out["spread"]["log_w64"] = _to_device(w64, device)
     out["spread"]["log_w32"] = _to_device(w32, device)
     return out
+
+
+def aux_axes(aux: dict, dev_aux: dict) -> dict:
+    """The leading-axis kind of every device aux tensor ("node", "pod" or
+    None), from each featurizer dataclass's AXES class variable, as
+    ``ksim_tpu``'s ``_aux_host`` reads them; the derived term-match product
+    is node-leading (as the node_req_match it derives from), the rest of
+    what ``device_aux`` adds is replicated."""
+    out = {}
+    for key, fields in dev_aux.items():
+        declared = getattr(aux.get(key), "AXES", {}) if dataclasses.is_dataclass(aux.get(key)) else {}
+        out[key] = {name: declared.get(name) for name in fields}
+    out["affinity"]["term_ok"] = "node"
+    return out
+
+
+def shard_carries(carries: dict, mesh) -> dict:
+    """The plugins' carries over a mesh: every carried [N, ...] table's
+    node axis over "tp"; InterPodAffinity's term totals, which every shard
+    updates alike, replicated."""
+
+    def lay(name, field, t):
+        if (name, field) == ("InterPodAffinity", "total"):
+            return shlib.put(t, shlib.replicated_sharding(mesh, t.ndim))
+        return shlib.put(t, shlib.node_leading_sharding(mesh, t.ndim))
+
+    return {
+        k: {f: lay(k, f, t) for f, t in v.items()} if isinstance(v, dict) else lay(k, None, v)
+        for k, v in carries.items()
+    }
 
 
 def aux_arrays(family: Any) -> list[tuple[str, np.ndarray]]:
@@ -521,6 +553,45 @@ class Engine:
             index=_to_device(p.index, dev),
         )
         self._aux = device_aux(feats.aux, int(n.valid.shape[0]), dev)
+        # The device mesh (``shard``) and the carries laid out over it.
+        self._mesh = None
+        self._carries0 = None
+
+    def shard(self, mesh) -> "Engine":
+        """Lay the engine's tensors out over a device mesh
+        (engine/sharding.py): node axis over "tp", pod batch over "dp", the
+        aux families by their AXES; returns the engine.
+
+        ``schedule`` (kernels A and C) runs the sequential scan on the
+        mesh's first row, its node axis over that row's tp shards (the pod
+        rows whole: the scan consumes them in order), so a dp > 1 mesh
+        schedules as its first row does.  ``evaluate_batch``,
+        ``evaluate_batch_chunks`` and ``evaluate_batch_fused`` (kernel B)
+        split each pod chunk over the dp rows, and each row's tp shards
+        evaluate its pods.  Raises ValueError when tp does not divide the
+        padded node axis (or dp the pod axis), and NotImplementedError for
+        the staged route under tp > 1: kernel E's stages under a node mesh
+        are not ported (under tp == 1 they stay on the engine's device)."""
+        if self.route == "staged":
+            if mesh.tp > 1:
+                raise NotImplementedError(
+                    "the staged route (kernel E's stages: a hooked or kernel-less profile) under a node mesh "
+                    "(tp > 1) is not ported to ksim_tpu_torch; it comes after kernel D's node shards"
+                )
+            return self  # a mesh of one node shard: kernel E's stages on the engine's device
+        N = int(self._node_state.valid.shape[0])
+        if N % mesh.tp:
+            raise ValueError(f"padded node axis N={N} does not divide over tp={mesh.tp}")
+        self._carries0 = shard_carries(self._prog.init_carries(self._aux), mesh)
+        self._node_state = shlib.shard_node_state(self._node_state, mesh)
+        self._pods = shlib.shard_pod_batch(self._pods, mesh)
+        self._aux = shlib.shard_aux(self._aux, aux_axes(self._feats.aux, self._aux), mesh)
+        self._mesh = mesh
+        return self
+
+    def _whole_pods(self) -> PodBatch:
+        """The pod batch whole on the mesh's first device."""
+        return PodBatch(*(x.full(self._mesh.device(0, 0)) for x in self._pods))
 
     @property
     def _plugins(self) -> tuple[ScoredPlugin, ...]:
@@ -558,14 +629,23 @@ class Engine:
         feeds the next pass."""
         P = int(self._pods.valid.shape[0])
         chunk = min(P, chunk or self._default_schedule_chunk())
-        state, carries = self._node_state, self._prog.init_carries(self._aux)
+        mesh = self._mesh
+        if mesh is None:
+            state, carries, all_pods = self._node_state, self._prog.init_carries(self._aux), self._pods
+        else:
+            state, carries, all_pods = self._node_state, self._carries0, self._whole_pods()
         sampled = self.sampling_k is not None
         start = torch.tensor(sampling_start, dtype=torch.int32, device=self.device)
         n_real = int(self._feats.nodes.count)
         outs = []
         for s in range(0, P, chunk):
-            pods = self._pods.rows(s, s + chunk)
-            if self._staged is not None:
+            pods = all_pods.rows(s, s + chunk)
+            if mesh is not None:
+                sampling = (start, n_real, self.sampling_k) if sampled else None
+                state, carries, *rest = sharded.schedule_scan(self._prog, mesh, state, pods, self._aux,
+                                                              carries, sampling)
+                start, out = rest if sampled else (start, rest[0])
+            elif self._staged is not None:
                 sampling = (start, n_real, self.sampling_k) if sampled else None
                 state, carries, *rest = self._staged.scan(state, pods, self._aux, carries, sampling)
                 start, out = rest if sampled else (start, rest[0])
@@ -577,6 +657,8 @@ class Engine:
                 state, carries, out = self._scan_fn(self._prog, state, pods, self._aux, carries)
             outs.append(_pull_tree_to_host(out))
         merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+        if mesh is not None:
+            state = shlib.gather_tree(state, mesh.device(0, 0))
         final_state = (
             NodeStateView(**_pull_tree_to_host(state._asdict())) if pull_state else None
         )
@@ -605,6 +687,9 @@ class Engine:
         self._refuse_sampling()
         P = int(self._pods.valid.shape[0])
         chunk = min(P, chunk or self._default_batch_chunk())
+        if self._mesh is not None:
+            yield from self._sharded_batch_chunks(P, chunk, partition)
+            return
         carries = self._prog.init_carries(self._aux)
         for s in range(0, P, chunk):
             pods = self._pods.rows(s, s + chunk)
@@ -612,6 +697,18 @@ class Engine:
                 out = self._staged.batch(self._node_state, pods, self._aux, carries)
             else:
                 out = self._batch_fn(self._prog, self._node_state, pods, self._aux, carries)
+            yield (np.arange(s, min(s + chunk, P), dtype=np.int64) if partition else s), out
+
+    def _sharded_batch_chunks(self, P: int, chunk: int, partition: bool):
+        """``evaluate_batch_chunks`` over the mesh: each chunk's pods laid
+        over the dp rows (kernel B over node shards)."""
+        mesh = self._mesh
+        pods = self._whole_pods()
+        chunk = max(chunk // mesh.dp, 1) * mesh.dp  # whole rows (P divides over dp)
+        for s in range(0, P, chunk):
+            rows = pods.rows(s, s + chunk)
+            laid = shlib.shard_pod_batch(rows, mesh)
+            out = sharded.batch_eval(self._prog, mesh, self._node_state, laid, self._aux, self._carries0)
             yield (np.arange(s, min(s + chunk, P), dtype=np.int64) if partition else s), out
 
     def evaluate_batch(self, *, chunk: int | None = None, partition: bool = False) -> EngineResult:
@@ -638,6 +735,10 @@ class Engine:
         block = max(1, min(block, P))
         while P % block:
             block //= 2
+        if self._mesh is not None:
+            out = sharded.batch_eval(self._prog, self._mesh, self._node_state, self._pods, self._aux,
+                                     self._carries0, block=block)
+            return self._to_result(_pull_tree_to_host(out))
         carries = self._prog.init_carries(self._aux)
         if self._staged is not None:
             # Kernel E's stages, ``block`` pods a launch.

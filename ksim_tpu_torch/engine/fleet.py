@@ -36,24 +36,35 @@ lowering and S times the launch.  This module multiplexes them:
   Only the plan's owner, the cohort leader, adopts the reused device
   buffers.
 
-Not ported: ``KSIM_FLEET_DP`` (the lane axis over a device mesh, which
-comes with the port of ``engine/sharding.py``) raises
-NotImplementedError.
+- ``KSIM_FLEET_DP=dp`` lays the lane-stacked launch's lanes over ``dp``
+  devices (engine/sharding.py ``fleet_mesh(dp, 1)``; it implies the
+  lane-stacked mode): each group of lanes launches on its own device with
+  the universe constants copied there (``engine/replay.py _fleet_exec``).
+  A host with fewer devices logs one warning and dispatches on one device,
+  as the reference does.  Lanes whose node axis also shards (the 2-D
+  fleet, tp > 1) are not ported: they come with kernel D's node shards.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 from dataclasses import dataclass, field
 from typing import Any
 
 from ksim_tpu_torch.engine.replay import ReplayParityError, _fleet_exec
+from ksim_tpu_torch.engine.sharding import fleet_mesh
 from ksim_tpu_torch.errors import DeviceUnavailableError, ReplayFallback, SimulatorError
 from ksim_tpu_torch.faults import FaultPlane
 from ksim_tpu_torch.obs import TRACE
 
 logger = logging.getLogger(__name__)
+
+# The devices a KSIM_FLEET_DP mesh lays the lanes over (None: the visible
+# GPUs, or the CPU shards without a card).  A list may name one card more
+# than once: its lane groups then launch one after the other on it.
+FLEET_DEVICES: "list | None" = None
 
 
 def parse_fleet_faults(spec: str, n_lanes: int) -> dict[int, FaultPlane]:
@@ -113,15 +124,19 @@ class FleetDriver:
     cohort through shared lowerings and group dispatches."""
 
     def __init__(self, lanes: list[FleetLane]) -> None:
-        if os.environ.get("KSIM_FLEET_DP"):
-            raise NotImplementedError(
-                "KSIM_FLEET_DP (fleet lanes over a device mesh) is not ported to "
-                "ksim_tpu_torch (it comes with the port of engine/sharding.py)"
-            )
         self.lanes = lanes
+        _dp = os.environ.get("KSIM_FLEET_DP")
+        self.dp: "int | None" = int(_dp) if _dp else None
         # Cohort dispatch mode (module docstring): the lane-stacked
-        # kernel-D launch, or the leader's solo launch fanned out.
-        self.vmap_cohort = os.environ.get("KSIM_FLEET_VMAP") == "1"
+        # kernel-D launch, or the leader's solo launch fanned out.  A
+        # KSIM_FLEET_DP mesh implies the lane-stacked launch (the dedupe
+        # launch has no lane axis to lay over dp).
+        self.vmap_cohort = os.environ.get("KSIM_FLEET_VMAP") == "1" or self.dp is not None
+        # The mesh is built on the dispatch worker and read by later
+        # workers, so it takes a real lock.
+        self._mesh_lock = threading.Lock()
+        self._mesh: dict = {}  # (dp, tp) -> Mesh; guarded-by: _mesh_lock
+        self._mesh_failed = False  # guarded-by: _mesh_lock
         self.shared_lowerings = 0
         self.group_dispatches = 0
         self.lane_fallbacks = 0
@@ -197,6 +212,36 @@ class FleetDriver:
             ln.i += len(seg.steps)
             return
         self._per_pass_head(ln)
+
+    def _worker_mesh(self, tp: int = 1):
+        """The KSIM_FLEET_DP (dp, tp) fleet mesh, built lazily on the
+        dispatch worker and kept per width.  A mesh the host cannot build
+        (fewer devices than dp) degrades to single-device fleet dispatch:
+        once, with a warning.  Lanes with node shards (tp > 1) raise."""
+        if self.dp is None:
+            return None
+        if tp > 1:
+            raise NotImplementedError(
+                "fleet lanes with node shards (a KSIM_FLEET_DP mesh with tp > 1, the 2-D fleet) are not ported "
+                "to ksim_tpu_torch (they come with kernel D's node shards)"
+            )
+        with self._mesh_lock:
+            if self._mesh_failed:
+                return None
+            mesh = self._mesh.get((self.dp, tp))
+            if mesh is None:
+                try:
+                    mesh = fleet_mesh(self.dp, tp, devices=FLEET_DEVICES)
+                    self._mesh[(self.dp, tp)] = mesh
+                except (ValueError, RuntimeError) as e:
+                    self._mesh_failed = True
+                    logger.warning(
+                        "KSIM_FLEET_DP=%d x tp=%d mesh unavailable (%s: %s); "
+                        "fleet dispatch stays single-device",
+                        self.dp, tp, type(e).__name__, e,
+                    )
+                    return None
+            return mesh
 
     def _per_pass_head(self, ln: FleetLane) -> None:
         """Run the lane's head step on the per-pass host path (the window
@@ -363,7 +408,8 @@ class FleetDriver:
             with TRACE.span("replay.exec", segment=plan.segment, steps=plan.n_steps, lanes=len(ready)):
                 if stacked:
                     wait_s = drv.watchdog_s if drv.watchdog_s > 0 else 300.0
-                    return _fleet_exec(plan, len(ready), drv.service._device, wait_s=wait_s)
+                    return _fleet_exec(plan, len(ready), drv.service._device, wait_s=wait_s,
+                                       mesh=self._worker_mesh())
                 # Dedupe: the leader's solo launch (the same reuse); its
                 # outputs ARE every cohort lane's.
                 return drv._device_exec(plan)

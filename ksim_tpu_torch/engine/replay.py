@@ -184,6 +184,15 @@ def _replay_tp() -> int:
     return max(int(os.environ.get("KSIM_REPLAY_TP", "1")), 1)
 
 
+def _mesh_axes(mesh) -> dict:
+    """A shard mesh's axis sizes ({} for none, or for an object without
+    mesh axes)."""
+    if mesh is None:
+        return {}
+    shape = getattr(mesh, "shape", None)
+    return dict(shape) if isinstance(shape, dict) else {}
+
+
 def _breaker_cooldown_s() -> float:
     """``KSIM_REPLAY_BREAKER_COOLDOWN_S``: 0 (the default) keeps the
     breaker sticky; > 0 arms half-open recovery (after the cooldown an
@@ -751,7 +760,16 @@ def _pull_outputs(final: dict, outs: dict) -> tuple[dict, dict]:
     return {k: pulled.pop(("state", k)) for k in _PULLED_STATE}, pulled
 
 
-def _fleet_exec(plan: "_SegmentPlan", lanes: int, device, *, wait_s: float = 300.0):
+def _lane_groups(mesh, lanes: int) -> list[tuple[torch.device, int]]:
+    """The lane axis over a fleet mesh's dp rows (engine/sharding.py
+    ``shard_lane_axis``): contiguous groups of near-equal size, group i on
+    the row's device, the empty ones dropped."""
+    dp = mesh.dp
+    sizes = [lanes // dp + (1 if i < lanes % dp else 0) for i in range(dp)]
+    return [(mesh.device(i, 0), n) for i, n in enumerate(sizes) if n]
+
+
+def _fleet_exec(plan: "_SegmentPlan", lanes: int, device, *, wait_s: float = 300.0, mesh=None):
     """One fleet launch advancing ``lanes`` trajectories by the plan's K
     steps (engine/fleet.py's group dispatch; ``_fleet_exec`` of the
     reference).  The cohort's lanes are identical by its convergence
@@ -760,21 +778,36 @@ def _fleet_exec(plan: "_SegmentPlan", lanes: int, device, *, wait_s: float = 300
     Runs on the fleet's dispatch worker: side-effect free on every driver
     (the transfer evidence rides on the plan).  Returns ``(pulled_state,
     pulled, info)``: the pulled trees carry the lane axis on every leaf;
-    ``info`` holds the kernel milliseconds and the launch notes."""
+    ``info`` holds the kernel milliseconds and the launch notes.
+
+    With a fleet ``mesh`` (``KSIM_FLEET_DP``, engine/fleet.py
+    ``_worker_mesh``) the lanes lay over its dp rows: each group of lanes
+    launches on its row's device with the universe constants copied there,
+    and the pulled outputs join along the lane axis."""
     FAULTS.check("replay.dispatch")
-    device = torch.device(device)
-    packed = _pack_plan(plan, device, lanes=lanes)
-    clock = _KernelClock(device)
-    final, outs = COMPILE_CACHE.run(
-        _compile_cache_key("lanes", plan, packed),
-        lambda: replay_segment_fleet(plan.statics, plan.prog, packed.const, packed.ev, packed.state),
-        wait_s=wait_s,
-        owner=TRACE.scope_tags().get("job"),
-    )
-    clock.stop()
-    launch = segment_kernels.take_launch_notes()
-    pulled_state, pulled = _pull_outputs(final, outs)
-    return pulled_state, pulled, {"kernel_ms": clock.ms(), "launch": launch}
+    groups = [(torch.device(device), lanes)] if mesh is None else _lane_groups(mesh, lanes)
+    states, outputs, ms, launch = [], [], 0.0, []
+    for dev, n in groups:
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            packed = _pack_plan(plan, dev, lanes=n)
+            clock = _KernelClock(dev)
+            final, outs = COMPILE_CACHE.run(
+                _compile_cache_key("lanes", plan, packed),
+                lambda: replay_segment_fleet(plan.statics, plan.prog, packed.const, packed.ev, packed.state),
+                wait_s=wait_s,
+                owner=TRACE.scope_tags().get("job"),
+            )
+            clock.stop()
+            launch.append(segment_kernels.take_launch_notes())
+            pulled_state, pulled = _pull_outputs(final, outs)
+            ms += clock.ms()
+        states.append(pulled_state)
+        outputs.append(pulled)
+    if len(groups) == 1:
+        return states[0], outputs[0], {"kernel_ms": ms, "launch": launch[0]}
+    pulled_state = {k: np.concatenate([st[k] for st in states]) for k in states[0]}
+    pulled = {k: np.concatenate([o[k] for o in outputs]) for k in outputs[0]}
+    return pulled_state, pulled, {"kernel_ms": ms, "launch": launch[-1], "lane_groups": [n for _, n in groups]}
 
 
 class _Unsupported(ReplayFallback):
@@ -819,8 +852,14 @@ class ReplayDriver:
     ) -> None:
         if _replay_tp() > 1:
             raise NotImplementedError(
-                "KSIM_REPLAY_TP (the replay's node mesh over devices) is not ported to "
-                "ksim_tpu_torch (it comes with the port of engine/sharding.py)"
+                "KSIM_REPLAY_TP (the replay's node mesh over devices, the rest of ksim_tpu's "
+                "engine/sharding.py) is not ported to ksim_tpu_torch (it comes with kernel D's node shards)"
+            )
+        mesh = getattr(service, "_shard_mesh", None)
+        if _mesh_axes(mesh).get("dp", 1) == 1 and _mesh_axes(mesh).get("tp", 1) > 1:
+            raise NotImplementedError(
+                "a service shard_mesh with tp > 1 reaching a replay driver (the replay's node mesh) is not "
+                "ported to ksim_tpu_torch (it comes with kernel D's node shards)"
             )
         self.store = store
         self.service = service
@@ -964,6 +1003,15 @@ class ReplayDriver:
         if svc._pnts_emulation:
             self._reject("pnts_emulation")
             return False
+        mesh = getattr(svc, "_shard_mesh", None)
+        if mesh is not None:
+            # The reference runs a dp == 1 mesh with a tp axis sharded on
+            # the device (refused at construction here: kernel D's node
+            # shards are not ported); any other shape falls back per pass.
+            axes = _mesh_axes(mesh)
+            if axes.get("dp", 1) != 1 or "tp" not in axes:
+                self._reject("shard_mesh")
+                return False
         if svc._featurizer_override is not None:
             self._reject("featurizer_override")
             return False

@@ -103,6 +103,7 @@ _POINTERS = (
     "samp_start", "visited_out",
     "selected", "total", "final_out", "bits_out", "raw_out",
     "nn_node", "nn_pod", "dp_score",
+    "xs",
 )
 _SHAPES = (
     "N", "R", "W", "T", "V", "I", "Pc", "F", "S",
@@ -112,6 +113,7 @@ _SHAPES = (
     "T2", "TKI",
     "n_real", "samp_k",
     "nn_reverse", "dp_n",
+    "node_base", "NL",
 )
 
 
@@ -276,6 +278,23 @@ def _ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple, device) -> in
     return t.data_ptr()
 
 
+def _axis_ptr(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple, device, whole: int, part: int,
+              base: int) -> int | None:
+    """Pointer of an array whose leading axis a mesh may split: the whole
+    array (``whole`` rows, ``shape``), or a shard of ``part`` rows starting
+    at global row ``base``, passed less ``base`` rows so that the kernels
+    index it by global row (csrc/plugin_chain.cuh ChainParams)."""
+    if t is None or part == whole or t.shape[0] != part:
+        return _ptr(t, dtype, shape, device)
+    ptr = _ptr(t, dtype, (part,) + tuple(shape[1:]), device)
+    return ptr - base * (t.numel() // part) * t.element_size()
+
+
+def _node_ptr(prm: ChainParams, t, dtype, shape, device) -> int | None:
+    """A node-axis array: whole, or this shard's NL rows (node_base on)."""
+    return _axis_ptr(t, dtype, shape, device, prm.N, prm.NL, prm.node_base)
+
+
 def put_state(prm: ChainParams, state) -> None:
     """The node state's pointers (the state a stage kernel reads, or the
     one a scan kernel commits into)."""
@@ -288,7 +307,7 @@ def put_state(prm: ChainParams, state) -> None:
         ("requested", state.requested, i32, (N, R)), ("nz_requested", state.nonzero_requested, i32, (N, R)),
         ("pod_count", state.pod_count, i32, (N,)),
     ):
-        setattr(prm, field, _ptr(t, dtype, shape, dev))
+        setattr(prm, field, _node_ptr(prm, t, dtype, shape, dev))
 
 
 def put_pods(prm: ChainParams, pods, valid=None) -> None:
@@ -316,7 +335,7 @@ def put_carries(prm: ChainParams, prog, carries: dict, device) -> None:
     N = prm.N
 
     def put(field, t, shape):
-        setattr(prm, field, _ptr(t, torch.int32, shape, device))
+        setattr(prm, field, _node_ptr(prm, t, torch.int32, shape, device))
 
     if "NodePorts" in names:
         put("port_counts", carries["NodePorts"], (N, prm.V))
@@ -334,11 +353,12 @@ def put_carries(prm: ChainParams, prog, carries: dict, device) -> None:
         c = carries["InterPodAffinity"]
         for field in ("cnt", "ecnt", "ew"):
             put("ipa_" + field, c[field], (N, prm.T2))
-        put("ipa_total", c["total"], (prm.T2,))
+        prm.ipa_total = _ptr(c["total"], torch.int32, (prm.T2,), device)
 
 
 def chain_params(prog, state, pods, aux, carries, out: "dict | None", *, cluster: bool = False,
-                 sampling: tuple | None = None, rows: int | None = None) -> ChainParams:
+                 sampling: tuple | None = None, rows: int | None = None,
+                 shard: "tuple[int, int, int, int] | None" = None) -> ChainParams:
     """Fill ChainParams for ``prog`` (engine/core.py _Program) over the
     pod chunk ``pods``.  ``state`` and the carries are the tensors the
     scan kernels update in place; ``out`` holds the output tensors of the
@@ -352,14 +372,23 @@ def chain_params(prog, state, pods, aux, carries, out: "dict | None", *, cluster
     ``rows`` is the records' row count when it is not the chunk's (kernel
     D records per attempt), and ``out["total"]`` may then be None (no
     total kept).  The tensors the kernel reads but the caller does not
-    hold (the scratch) are kept alive on the returned object."""
+    hold (the scratch) are kept alive on the returned object.
+
+    ``shard`` = (node_base, N, pod_base, P) makes the program one node
+    shard's (kernels/sharded.py): N and P are the global node and pod
+    counts; the state, the carries and any node-axis aux array may hold
+    only the shard's rows from node_base on, any pod-axis aux array only
+    the rows from pod_base on, the rest whole; the outputs keep the global
+    node axis."""
     i32, f32, f64, b = torch.int32, torch.float32, torch.float64, torch.bool
     dev = state.valid.device
-    N, R = state.allocatable.shape
+    NL, R = state.allocatable.shape
     Pc = pods.index.shape[0]
-    P_all = aux["nodename"]["pod_req_node"].shape[0]
+    P_loc = aux["nodename"]["pod_req_node"].shape[0]
+    node_base, N, pod_base, P_all = (0, NL, 0, P_loc) if shard is None else shard
     prm = ChainParams()
     prm.N, prm.R = N, R
+    prm.NL, prm.node_base = NL, node_base
     prm.F = len(prog.filters)
     prm.S = len(prog.scores)
     prm.record = RECORD_IDS[prog.record]
@@ -371,6 +400,12 @@ def chain_params(prog, state, pods, aux, carries, out: "dict | None", *, cluster
 
     def put(field, t, dtype, shape):
         setattr(prm, field, _ptr(t, dtype, shape, dev))
+
+    def nput(field, t, dtype, shape):
+        setattr(prm, field, _node_ptr(prm, t, dtype, shape, dev))
+
+    def pput(field, t, dtype, shape):
+        setattr(prm, field, _axis_ptr(t, dtype, shape, dev, P_all, P_loc, pod_base))
 
     put_state(prm, state)
     put_pods(prm, pods)
@@ -391,8 +426,8 @@ def chain_params(prog, state, pods, aux, carries, out: "dict | None", *, cluster
     # The score samples: the node and pod digits, the provided scores.
     if kr["nn_reverse"] is not None:
         a = aux["nodenumber"]
-        put("nn_node", a["node_digit"], i32, (N,))
-        put("nn_pod", a["pod_digit"], i32, (P_all,))
+        nput("nn_node", a["node_digit"], i32, (N,))
+        pput("nn_pod", a["pod_digit"], i32, (P_all,))
         prm.nn_reverse = kr["nn_reverse"]
     if prm.dp_n:
         dp = provider_scores(prog, aux)
@@ -402,36 +437,36 @@ def chain_params(prog, state, pods, aux, carries, out: "dict | None", *, cluster
     # Every aux family goes in whole: PodTopologySpread reads the
     # NodeAffinity and TaintToleration tables whether or not those
     # plugins are in the profile.
-    put("pod_req_node", aux["nodename"]["pod_req_node"], i32, (P_all,))
+    pput("pod_req_node", aux["nodename"]["pod_req_node"], i32, (P_all,))
     a = aux["taints"]
     W = prm.W = a["forbidding"].shape[0]
-    put("taint_order", a["node_taint_order"], i32, (N, W))
+    nput("taint_order", a["node_taint_order"], i32, (N, W))
     put("forbidding", a["forbidding"], b, (W,))
     put("prefer", a["prefer"], b, (W,))
-    put("pod_tolerated", a["pod_tolerated"], b, (P_all, W))
-    put("pod_tolerated_prefer", a["pod_tolerated_prefer"], b, (P_all, W))
+    pput("pod_tolerated", a["pod_tolerated"], b, (P_all, W))
+    pput("pod_tolerated_prefer", a["pod_tolerated_prefer"], b, (P_all, W))
     a = aux["affinity"]
     T = prm.T = a["term_size"].shape[0]
-    put("term_ok", a["term_ok"], b, (N, T))
-    put("selector_term", a["selector_term"], i32, (P_all,))
-    put("has_required", a["has_required"], b, (P_all,))
-    put("required_terms", a["required_terms"], b, (P_all, T))
-    put("preferred_weights", a["preferred_weights"], i32, (P_all, T))
+    nput("term_ok", a["term_ok"], b, (N, T))
+    pput("selector_term", a["selector_term"], i32, (P_all,))
+    pput("has_required", a["has_required"], b, (P_all,))
+    pput("required_terms", a["required_terms"], b, (P_all, T))
+    pput("preferred_weights", a["preferred_weights"], i32, (P_all, T))
     put("added_terms", a["added_terms"], b, (T,))
     put("has_added", a["has_added"], b, (1,))
     put("added_pref", a["added_pref"], i32, (T,))
     a = aux["nodeports"]
     V = prm.V = a["pod_wants"].shape[1]
-    put("pod_wants", a["pod_wants"], b, (P_all, V))
-    put("pod_adds", a["pod_adds"], i32, (P_all, V))
+    pput("pod_wants", a["pod_wants"], b, (P_all, V))
+    pput("pod_adds", a["pod_adds"], i32, (P_all, V))
     a = aux["imagelocality"]
     I = prm.I = a["image_size"].shape[0]
-    put("node_has_image", a["node_has_image"], b, (N, I))
+    nput("node_has_image", a["node_has_image"], b, (N, I))
     put("image_size", a["image_size"], f64, (I,))
     put("image_num_nodes", a["image_num_nodes"], i32, (I,))
     put("total_nodes_f", a["total_nodes_f"], f64, ())
-    put("pod_image_count", a["pod_image_count"], i32, (P_all, I))
-    put("pod_num_containers", a["pod_num_containers"], i32, (P_all,))
+    pput("pod_image_count", a["pod_image_count"], i32, (P_all, I))
+    pput("pod_num_containers", a["pod_num_containers"], i32, (P_all,))
     if "NodeResourcesFit" in names:
         fit = names["NodeResourcesFit"]
         prm.fit_base_count = fit._base_count
@@ -452,29 +487,29 @@ def chain_params(prog, state, pods, aux, carries, out: "dict | None", *, cluster
     put("pv_zone_ok", a["pv_zone_ok"], b, (NPV, N))
     put("pvc_cand_ok", a["pvc_cand_ok"], b, (NC, N))
     put("pvc_provisionable", a["pvc_provisionable"], b, (NC,))
-    put("pod_pv", a["pod_pv"], b, (P_all, NPV))
-    put("pod_wffc", a["pod_wffc"], b, (P_all, NC))
-    put("pod_fail", a["pod_fail"], i32, (P_all,))
-    put("vol_limits", a["limits"], i32, (N, NK))
+    pput("pod_pv", a["pod_pv"], b, (P_all, NPV))
+    pput("pod_wffc", a["pod_wffc"], b, (P_all, NC))
+    pput("pod_fail", a["pod_fail"], i32, (P_all,))
+    nput("vol_limits", a["limits"], i32, (N, NK))
     put("vol_key", a["vol_key"], i32, (VV,))
-    put("pod_vol", a["pod_vol"], b, (P_all, VV))
-    put("pod_rwop", a["pod_rwop"], b, (P_all, RW))
-    put("pod_disk_any", a["pod_disk_any"], b, (P_all, DD))
-    put("pod_disk_rw", a["pod_disk_rw"], b, (P_all, DD))
+    pput("pod_vol", a["pod_vol"], b, (P_all, VV))
+    pput("pod_rwop", a["pod_rwop"], b, (P_all, RW))
+    pput("pod_disk_any", a["pod_disk_any"], b, (P_all, DD))
+    pput("pod_disk_rw", a["pod_disk_rw"], b, (P_all, DD))
     put("disk_shareable", a["disk_ro_shareable"], b, (DD,))
 
     a = aux["spread"]
     TK = prm.TK = a["node_ldom"].shape[1]
     SS = prm.SS = a["pod_sel_match"].shape[1]
     MC = prm.MC = a["con_valid"].shape[1]
-    put("sp_ldom", a["node_ldom"], i32, (N, TK))
-    put("sp_sel_match", a["pod_sel_match"], b, (P_all, SS))
+    nput("sp_ldom", a["node_ldom"], i32, (N, TK))
+    pput("sp_sel_match", a["pod_sel_match"], b, (P_all, SS))
     for field, dtype in (
         ("valid", b), ("mode", i32), ("sel", i32), ("tk", i32), ("max_skew", i32),
         ("min_domains", i32), ("self", b), ("honor_aff", b), ("honor_taints", b),
     ):
-        put("con_" + field, a["con_" + field], dtype, (P_all, MC))
-    put("has_score_con", a["has_score_con"], b, (P_all,))
+        pput("con_" + field, a["con_" + field], dtype, (P_all, MC))
+    pput("has_score_con", a["has_score_con"], b, (P_all,))
     if "PodTopologySpread" in names:
         sp = names["PodTopologySpread"]
         prm.DMAX = max((size for size, single in zip(sp.tk_sizes, sp.tk_singleton) if not single), default=0)
@@ -491,14 +526,14 @@ def chain_params(prog, state, pods, aux, carries, out: "dict | None", *, cluster
     a = aux["interpod"]
     T2 = prm.T2 = a["dom_t"].shape[1]
     prm.TKI = a["node_dom"].shape[1]
-    put("ipa_dom", a["dom_t"], i32, (N, T2))
+    nput("ipa_dom", a["dom_t"], i32, (N, T2))
     put("ipa_term_tk", a["term_tk"], i32, (T2,))
     for field, src, dtype in (
         ("ipa_qm", "pod_term_match", b), ("ipa_raff", "req_aff", b), ("ipa_ranti", "req_anti", b),
         ("ipa_pref_w", "pref_w", i32), ("ipa_vw", "pod_vw", i32), ("ipa_eat", "pod_eat", i32),
     ):
-        put(field, a[src], dtype, (P_all, T2))
-    put("ipa_self_aff", a["self_aff"], b, (P_all,))
+        pput(field, a[src], dtype, (P_all, T2))
+    pput("ipa_self_aff", a["self_aff"], b, (P_all,))
     put_carries(prm, prog, carries, dev)
 
     if sampling is not None:
@@ -613,9 +648,10 @@ def cluster_smem_bytes(prm: ChainParams, size: int, threads: int = 0) -> int:
     prefix-count scratch, the term totals' copy, the pod's spread
     constraints and, when it fits, a partial and a combined
     PodTopologySpread domain scratch."""
-    slots = cluster_slots(prm.N, size, threads or cluster_threads(prm.N, size))
+    n = prm.NL or prm.N  # this shard's nodes (all of them unsharded)
+    slots = cluster_slots(n, size, threads or cluster_threads(n, size))
     dom = 2 * 4 * 4 * prm.MC * prm.DMAX if prm.sp_smem else 0
-    ints = 33 * RED_MAX + SCAN_INTS + 2 * RED_MAX + 2 * 32 + 2 * 32 + prm.T2
+    ints = 33 * RED_MAX + SCAN_INTS + 2 * RED_MAX + 2 * 32 + 2 * 32 + prm.T2 + (prm.T2 + 2 if prm.xs else 0)
     return ((13 * slots + 7) & ~7) + 8 * prm.I + 8 * 33 + 8 * 2 + 4 * ints + SPREAD_CON_BYTES * prm.MC + dom
 
 
@@ -695,8 +731,9 @@ def check_smem(prm: ChainParams, *, cluster: int, extra: int = 0, threads: int =
     each, so the bound is about ``cluster`` times one block's."""
     need = cluster_smem_bytes(prm, cluster, threads) + extra
     if need > MAX_SMEM_BYTES:
-        nt = threads or cluster_threads(prm.N, cluster)
-        fixed = need - 13 * cluster_slots(prm.N, cluster, nt)
+        n = prm.NL or prm.N
+        nt = threads or cluster_threads(n, cluster)
+        fixed = need - 13 * cluster_slots(n, cluster, nt)
         slots = (MAX_SMEM_BYTES - fixed - 7) // 13 // nt * nt  # whole tiles
         raise ValueError(
             f"padded node axis N={prm.N} needs {need} bytes of shared memory per block of a "

@@ -23,8 +23,9 @@ and ``device`` for its default backend: the engines run on CUDA unless
 the caller passes ``device="cpu"`` (the plain PyTorch versions).  A
 profile with scheduler extenders is evaluated pod by pod through kernel B
 (``_schedule_queue_with_extenders``); the device profiler is
-``torch.profiler`` (``start_profiling`` / ``stop_profiling``).  Not
-ported, refused with NotImplementedError: ``shard_mesh``.
+``torch.profiler`` (``start_profiling`` / ``stop_profiling``).
+``shard_mesh`` (engine/sharding.py ``make_mesh``) lays every per-pass
+engine out over a device mesh (``Engine.shard``).
 
 Self-triggering guard: our own pod updates emit MODIFIED events; the run
 loop skips events whose resourceVersion we just wrote, so an unschedulable
@@ -129,10 +130,13 @@ class SchedulerService:
         exact: bool = True,
         device: "str | torch.device | None" = None,
     ) -> None:
-        if shard_mesh is not None:
-            raise NotImplementedError(
-                "shard_mesh: the node-axis mesh is not ported to ksim_tpu_torch"
-            )
+        # Optional engine/sharding.py Mesh: every per-pass engine this
+        # service builds is laid out over it (node axis over "tp").  The
+        # sequential scan runs on the mesh's first row, so a dp == 1 mesh
+        # (make_mesh(n, dp=1)) is the scheduling path's.  The device replay
+        # falls back per pass under a dp > 1 mesh, as the reference does,
+        # and refuses a dp == 1 mesh with tp > 1 (engine/replay.py).
+        self._shard_mesh = shard_mesh
         self._device = torch.device("cuda" if device is None else device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -656,6 +660,8 @@ class SchedulerService:
                     exact=self._exact,
                     device=self._device,
                 )
+                if self._shard_mesh is not None:
+                    eng.shard(self._shard_mesh)
                 res, _ = eng.schedule(
                     pull_state=False,
                     sampling_start=self._pnts_start.get(sched_name, 0),

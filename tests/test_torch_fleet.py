@@ -6,8 +6,8 @@
   shared window lowered once (on the cohort leader);
 - ``replay_segment_fleet_plain`` (rows 10-11's plain version) against
   ksim_tpu's ``_fleet_segment_fn`` on one lowered window, lane by lane;
-- the refusals (bad configurations, ``KSIM_FLEET_DP``,
-  ``KSIM_REPLAY_TP``), a cancel at a
+- the refusals (bad configurations, ``KSIM_REPLAY_TP``), ``KSIM_FLEET_DP``
+  taking the lane-stacked launch, a cancel at a
   dispatch boundary, a ``lane_ops`` lane on the solo path and a
   ``fleet_faults`` spec that degrades one lane.
 
@@ -175,10 +175,15 @@ def test_fleet_rejects_bad_config(monkeypatch):
         ScenarioRunner(device_replay=True, fleet=4, device="cpu").run(iter(()), lane_ops={4: iter(())})
     with pytest.raises(ValueError, match="fleet_faults requires fleet"):
         ScenarioRunner(device_replay=True, fleet_faults="0:replay.lower=always", device="cpu")
-    # The dp lane mesh is not ported: refused, never silently ignored.
-    monkeypatch.setenv("KSIM_FLEET_DP", "2")
-    with pytest.raises(NotImplementedError, match="KSIM_FLEET_DP"):
+    # The dp lane mesh is ported: a malformed KSIM_FLEET_DP is an error,
+    # a good one takes the lane-stacked launch over a dp-row mesh.
+    monkeypatch.setenv("KSIM_FLEET_DP", "two")
+    with pytest.raises(ValueError, match="two"):
         ScenarioRunner(device_replay=True, fleet=2, device="cpu").run(iter(()))
+    monkeypatch.setenv("KSIM_FLEET_DP", "2")
+    runner = ScenarioRunner(device_replay=True, fleet=2, device="cpu")
+    runner.run(iter(()))
+    assert runner.fleet_driver.dp == 2 and runner.fleet_driver.stats()["cohort_mode"] == "vmap"
 
 
 def test_fleet_refuses_the_replay_tp_mesh(monkeypatch):

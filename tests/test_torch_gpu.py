@@ -19,7 +19,12 @@ over eight pods in a row, E4's visit window on one cluster of each size
 (40 and 6144 nodes, the starts and k of the CPU sweep, six pods in a row
 with the start carried; walks over several cluster tiles on clusters of
 1, 2 and 8 blocks) and over E1's feasible sets, and a refused cluster
-launch raising.
+launch raising.  Kernels A, B and C over node shards co-resident on the
+card (kernels/sharded.py) against the unsharded kernels: tp 2 and 4 on
+clusters of 2 and 8 blocks, the chosen node on each shard, sampled starts
+on a shard boundary and past the last real node, B at dp x tp, a silent
+shard raising within its bound, and a launch that cannot be co-resident
+refused before it starts.
 
 Marked ``gpu``; each test skips when there is no CUDA device.  This file
 imports neither jax nor ksim_tpu, so it runs on a machine with a card
@@ -47,7 +52,7 @@ from ksim_tpu_torch.kernels.batch_eval import batch_eval, batch_eval_plain, node
 from ksim_tpu_torch.kernels.schedule_sampled import schedule_sampled, schedule_sampled_plain
 from ksim_tpu_torch.kernels.schedule_scan import schedule_scan, schedule_scan_plain
 from ksim_tpu_torch.state.featurizer import Featurizer
-from helpers import random_cluster
+from helpers import make_node, make_pod, random_cluster
 from test_torch_clusters import (
     WINDOW_CASES,
     case_inputs,
@@ -857,3 +862,208 @@ def test_job_on_the_card_matches_the_cpu(cuda, tmp_path):
         seen[device] = (result["result"], result["replay"]["device_steps"], result["replay"]["unsupported"], cks)
     assert seen["cuda"] == seen["cpu"]
     assert len(seen["cuda"][3]) == 3 and seen["cuda"][3][-1]["result"]["steps"]
+
+
+# ---- node shards (kernels/sharded.py, csrc/shard_exchange.cuh) --------------------
+#
+# Kernels A, B and C over a mesh of co-resident shards on the one card
+# (make_mesh(devices=[the card] * n)), each held against the unsharded
+# kernel (which the tests above hold against its plain version), byte for
+# byte.
+
+from ksim_tpu_torch.engine.sharding import make_mesh  # noqa: E402
+from ksim_tpu_torch.kernels import sharded  # noqa: E402
+
+SHARD_TPS = [2, 4]
+SHARD_CLUSTERS = [2, 8]
+
+
+@pytest.fixture(params=SHARD_CLUSTERS, ids=[f"xs{c}" for c in SHARD_CLUSTERS])
+def shard_cluster(request, monkeypatch):
+    """The sharded scans on clusters of this many blocks."""
+    monkeypatch.setattr(chain, "CLUSTER_SIZE", request.param)
+    return request.param
+
+
+def _card_mesh(tp: int, dp: int = 1):
+    card = torch.device("cuda", torch.cuda.current_device())
+    return make_mesh(dp * tp, dp=dp, devices=[card] * (dp * tp))
+
+
+def _meshed(inputs, record, exact, tp, dp=1, sampling_k=None):
+    """(the unsharded kernels' engine, the same engine over dp x tp
+    co-resident shards) on one snapshot."""
+    nodes, pods, kw = inputs
+    feats = Featurizer().featurize(nodes, pods, **kw)
+    plugins = default_plugins(feats)
+    kw = dict(record=record, exact=exact, device="cuda", sampling_k=sampling_k)
+    return Engine(feats, plugins, **kw), Engine(feats, plugins, **kw).shard(_card_mesh(tp, dp))
+
+
+def _assert_scan_equal(one, many, **kw):
+    before = dict(sharded.LAUNCHES)
+    got, state = many.schedule(**kw)
+    name = "schedule_sampled" if many.sampling_k is not None else "schedule_scan"
+    assert sharded.LAUNCHES[name] > before[name]
+    want, want_state = one.schedule(**kw)
+    _assert_equal(got, want)
+    for field in state._fields:
+        np.testing.assert_array_equal(getattr(state, field), getattr(want_state, field), err_msg=field)
+    return got
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("tp", SHARD_TPS)
+@pytest.mark.parametrize("record", ["full", "selection"])
+@pytest.mark.parametrize("case", ["seed0", "spread_affinity", "volumes", "images_ports"])
+def test_sharded_scan_matches_unsharded_kernel(cuda, shard_cluster, case, record, tp, exact):
+    one, many = _meshed(case_inputs(case), record, exact, tp)
+    _assert_scan_equal(one, many, chunk=16)
+    last = sharded.LAST["schedule_scan"]
+    assert (last["tp"], last["cluster"]) == (tp, shard_cluster) and last["clusters_resident"] >= tp
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("tp", SHARD_TPS)
+@pytest.mark.parametrize("record", ["full", "selection"])
+@pytest.mark.parametrize("start", ["zero", "boundary", "last_real", "past_last_real", "k_above_feasible"])
+def test_sharded_sampled_scan_matches_unsharded_kernel(cuda, shard_cluster, start, record, tp, exact):
+    """Kernel C's visit walk across the shards, from a start at 0, on a
+    shard boundary, at the last real node and past it (seed0: 40 real
+    nodes of 64 padded, so shard 3 of 4 holds none), and with k above the
+    feasible count."""
+    n_pad, n_real = 64, 40
+    s = {"zero": 0, "boundary": n_pad // tp, "last_real": n_real - 1, "past_last_real": n_pad - 8,
+         "k_above_feasible": n_pad // tp}[start]
+    k = n_real if start == "k_above_feasible" else 7
+    one, many = _meshed(case_inputs("seed0"), record, exact, tp, sampling_k=k)
+    _assert_scan_equal(one, many, chunk=16, sampling_start=s)
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["A", "C"])
+def test_sharded_scan_on_a_dp_mesh_runs_its_first_row(cuda, sampled):
+    """A dp x tp mesh schedules as its first row's tp shards, with the pod
+    rows (laid over dp) gathered whole for the scan."""
+    one, many = _meshed(case_inputs("spread_affinity"), "full", True, 2, dp=2, sampling_k=5 if sampled else None)
+    _assert_scan_equal(one, many, chunk=16, sampling_start=3 if sampled else 0)
+    assert sharded.LAST["schedule_sampled" if sampled else "schedule_scan"]["dp"] == 2
+
+
+def _each_shard_inputs():
+    """16 nodes in two zones; pods pinned by nodeName to the first and last
+    node of each of four shards (and carrying a label an anti-affinity
+    term counts), a pod that fits nowhere, then pods that prefer the
+    labelled pods' zone and spread over the zones: their choice reads the
+    carries every shard committed."""
+    nodes = [make_node(f"n{i:02d}", labels={"zone": f"z{i % 2}", "kubernetes.io/hostname": f"n{i:02d}"})
+             for i in range(16)]
+    pods = [make_pod(f"pin{i:02d}", node_name=f"n{i:02d}", labels={"app": "pinned"}) for i in (0, 3, 4, 7, 8, 11, 12, 15)]
+    pods.append(make_pod("huge", cpu="1000"))
+    term = {"labelSelector": {"matchLabels": {"app": "pinned"}}, "topologyKey": "zone"}
+    for i in range(8):
+        pods.append(make_pod(
+            f"free{i}", labels={"app": "free"},
+            affinity={"podAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [
+                {"weight": 10, "podAffinityTerm": term}]}},
+            topology_spread_constraints=[{"maxSkew": 1, "topologyKey": "zone", "whenUnsatisfiable": "DoNotSchedule",
+                                          "labelSelector": {"matchLabels": {"app": "free"}}}],
+        ))
+    return nodes, [], {"queue_pods": pods}
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("tp", SHARD_TPS)
+def test_sharded_scan_commits_on_each_shard(cuda, shard_cluster, tp, exact):
+    """The chosen node on each shard in turn, and a pod that fits nowhere:
+    only the owner commits its node rows, every shard the domain-indexed
+    carries."""
+    one, many = _meshed(_each_shard_inputs(), "full", exact, tp)
+    got = _assert_scan_equal(one, many)
+    names = many._feats.nodes.names
+    assert [names[i] for i in got.selected[:8]] == [f"n{i:02d}" for i in (0, 3, 4, 7, 8, 11, 12, 15)]
+    assert got.selected[8] == -1
+    assert (got.selected[9:17] >= 0).all()
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "f32"])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (1, 4), (2, 4)], ids=["1x2", "2x2", "1x4", "2x4"])
+@pytest.mark.parametrize("case", ["seed1", "spread_affinity2", "volumes2", "images_ports"])
+def test_sharded_batch_eval_matches_unsharded_kernel(cuda, case, mesh, exact):
+    dp, tp = mesh
+    for record in ("full", "final"):
+        one, many = _meshed(case_inputs(case), record, exact, tp, dp=dp)
+        before = sharded.LAUNCHES["batch_eval"]
+        _assert_equal(many.evaluate_batch(chunk=32), one.evaluate_batch(chunk=32))
+        assert sharded.LAUNCHES["batch_eval"] > before
+        assert (sharded.LAST["batch_eval"]["tp"], sharded.LAST["batch_eval"]["dp"]) == (tp, dp)
+        if record == "final":
+            _assert_equal(many.evaluate_batch_fused(), one.evaluate_batch_fused())
+
+
+@pytest.mark.parametrize("grid", [1, 7])
+def test_sharded_batch_eval_forced_grid_matches(cuda, grid, monkeypatch):
+    monkeypatch.setattr(batch_mod, "GRID", grid)
+    one, many = _meshed(case_inputs("spread_affinity2"), "final", False, 2, dp=2)
+    _assert_equal(many.evaluate_batch_fused(), one.evaluate_batch_fused())
+    assert sharded.LAST["batch_eval"]["grid"] == grid
+
+
+@pytest.mark.parametrize("kernel", ["A", "B", "C"])
+def test_silent_shard_makes_the_launch_raise_within_its_bound(cuda, kernel, monkeypatch):
+    """A shard that never publishes: every shard gives up after its spin
+    bound, the launch ends, and the wrapper raises naming the shard and
+    the reduction; the next launch runs clean."""
+    import time
+
+    monkeypatch.setattr(sharded, "SILENT_SHARD", 1)
+    monkeypatch.setattr(sharded, "SPIN_SECONDS", 0.2)
+    one, many = _meshed(case_inputs("seed0"), "selection" if kernel != "B" else "final", True, 2,
+                        sampling_k=7 if kernel == "C" else None)
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match=r"node shard 1 never published its .* partial"):
+        many.evaluate_batch_fused() if kernel == "B" else many.schedule()
+    assert time.perf_counter() - t0 < 30
+    monkeypatch.setattr(sharded, "SILENT_SHARD", -1)
+    if kernel == "B":
+        _assert_equal(many.evaluate_batch_fused(), one.evaluate_batch_fused())
+    else:
+        _assert_scan_equal(one, many)
+
+
+def test_co_resident_launch_that_does_not_fit_raises_before_launch(cuda, monkeypatch):
+    """More co-resident clusters, or grid blocks, than the card holds at
+    once would wait forever: the wrappers raise before any launch."""
+    monkeypatch.setattr(chain, "CLUSTER_SIZE", 16)
+    monkeypatch.setattr(chain, "CLUSTER_THREADS", 1024)
+    _, many = _meshed(case_inputs("seed0"), "selection", True, 16)
+    before = dict(sharded.LAUNCHES)
+    with pytest.raises(RuntimeError, match="co-resident node shards: a launch would never finish"):
+        many.schedule()
+    monkeypatch.setattr(batch_mod, "GRID", 100000)
+    _, many = _meshed(case_inputs("seed0"), "final", True, 2)
+    with pytest.raises(RuntimeError, match="a launch would never finish"):
+        many.evaluate_batch_fused()
+    assert sharded.LAUNCHES == before
+
+
+@pytest.mark.parametrize("tp", SHARD_TPS)
+def test_sharded_kernels_across_distinct_gpus(cuda, tp):
+    """Shards on distinct GPUs: one launch a device, peer access enabled,
+    the exchange over the devices' links; A, C and B (2 x tp/2 for B's
+    rows) against the unsharded kernels on the first card."""
+    if torch.cuda.device_count() < tp:
+        pytest.skip(f"needs {tp} visible GPUs: shards on distinct cards")
+    nodes, pods, kw = case_inputs("spread_affinity")
+    feats = Featurizer().featurize(nodes, pods, **kw)
+    plugins = default_plugins(feats)
+    for sampling_k in (None, 5):
+        one = Engine(feats, plugins, record="full", exact=True, device="cuda", sampling_k=sampling_k)
+        many = Engine(feats, plugins, record="full", exact=True, device="cuda", sampling_k=sampling_k)
+        many.shard(make_mesh(tp, dp=1))
+        _assert_scan_equal(one, many, chunk=16, sampling_start=3 if sampling_k else 0)
+        name = "schedule_sampled" if sampling_k else "schedule_scan"
+        assert len(set(sharded.LAST[name]["devices"])) == tp
+    one = Engine(feats, plugins, record="final", exact=False, device="cuda")
+    many = Engine(feats, plugins, record="final", exact=False, device="cuda").shard(make_mesh(tp, dp=1))
+    _assert_equal(many.evaluate_batch_fused(), one.evaluate_batch_fused())
+    _assert_equal(many.evaluate_batch(chunk=16), one.evaluate_batch(chunk=16))

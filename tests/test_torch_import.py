@@ -115,6 +115,9 @@ SLICE_MODULES = (
     "ksim_tpu_torch.jobs.manager",
     "ksim_tpu_torch.jobs.fleet",
     "ksim_tpu_torch.jobs.__main__",
+    # The device mesh and the node shards' wrappers.
+    "ksim_tpu_torch.engine.sharding",
+    "ksim_tpu_torch.kernels.sharded",
 )
 
 
@@ -323,8 +326,17 @@ def test_unported_surfaces_refuse(monkeypatch, tmp_path):
     from ksim_tpu_torch.state.cluster import ClusterStore
 
     store = ClusterStore()
-    with pytest.raises(NotImplementedError, match="shard_mesh"):
-        SchedulerService(store, shard_mesh=object(), device="cpu")
+    # The service's shard_mesh is ported: its per-pass engines lay out over
+    # the mesh (engine/sharding.py), and a pass schedules as unsharded.
+    from ksim_tpu_torch.engine.sharding import make_mesh
+
+    meshed = ClusterStore()
+    for i in range(4):
+        meshed.create("nodes", make_node(f"n{i}"))
+    meshed.create("pods", make_pod("p0"))
+    svc = SchedulerService(meshed, shard_mesh=make_mesh(4, dp=1), device="cpu")
+    assert svc._shard_mesh.tp == 4
+    assert svc.schedule_pending() == {"default/p0": "n0"}
     # Scheduler extenders and the profiler are ported: a config with
     # extenders compiles, and a profiled pass writes a Chrome trace
     # holding its "scheduling-pass" range.
@@ -338,10 +350,13 @@ def test_unported_surfaces_refuse(monkeypatch, tmp_path):
     path = svc.stop_profiling()
     assert svc.stop_profiling() is None
     assert path is not None and str(tmp_path) in path and "scheduling-pass" in open(path).read()
-    # Fleet replay is ported; its lane mesh (KSIM_FLEET_DP) is not.
+    # Fleet replay is ported, and so is its lane mesh (KSIM_FLEET_DP): the
+    # fleet driver takes the lane-stacked launch and a dp-row mesh.
     monkeypatch.setenv("KSIM_FLEET_DP", "2")
-    with pytest.raises(NotImplementedError, match="KSIM_FLEET_DP"):
-        ScenarioRunner(device="cpu", device_replay=True, fleet=2).run(iter(()))
+    runner = ScenarioRunner(device="cpu", device_replay=True, fleet=2)
+    runner.run(iter(()))
+    assert runner.fleet_driver.dp == 2 and runner.fleet_driver.vmap_cohort
+    assert runner.fleet_driver._worker_mesh().dp == 2
     monkeypatch.delenv("KSIM_FLEET_DP")
     # A legacy per-pool volume-limit plugin compiles and schedules beside
     # NodeVolumeLimits, as in ksim_tpu: an EBS volume per pod on nodes
